@@ -1,0 +1,74 @@
+"""Model and audio configuration (inference fields).
+
+Same field names and defaults as `early_exit_tpu/configs.py`
+(ModelConfig, AudioConfig); the dtype properties return torch dtypes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _dt(name: str | None) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    model_type: str = "early_conformer"
+    d_model: int = 256
+    n_heads: int = 8
+    d_feed_forward: int = 2048
+    n_enc_exits: int = 6
+    n_enc_layers_per_exit: int = 2
+    n_dec_layers: int = 6
+    depthwise_kernel_size: int = 31
+    drop_prob: float = 0.1
+    max_len: int = 2000
+    n_mels: int = 80
+
+    vocab_size: int = 256
+    blank_id: int = 0
+    pad_id: int = 126
+    bos_id: int = 1
+    eos_id: int = 2
+
+    compute_dtype: str = "bfloat16"       # matmul dtype
+    conv_norm: str = "batch"              # conformer conv-module norm
+    length_mode: str = "reference"        # "reference": clamp(len/4); "true": conv arithmetic
+    remat: bool = False                   # training only; no effect here
+    attention_impl: str = "xla"           # only "xla" is ported
+    residual_dtype: str | None = None     # None = compute_dtype
+    attn_softmax_dtype: str = "float32"
+    fused_block: bool = False             # route inference through the block kernel
+    quantize: str = "none"                # only "none" is ported
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _dt(self.compute_dtype)
+
+    @property
+    def rdtype(self) -> torch.dtype:
+        return _dt(self.residual_dtype or self.compute_dtype)
+
+    @property
+    def sm_dtype(self) -> torch.dtype:
+        return _dt(self.attn_softmax_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioConfig:
+    sample_rate: int = 16000
+    n_fft: int = 512          # the actual FFT size is n_fft*2 (reference quirk)
+    win_length: int = 320
+    hop_length: int = 160
+    n_mels: int = 80
+    mel_method: str = "fft"
+
+
+def inference_profile(fused_block: bool = True) -> ModelConfig:
+    """The CLI's inference profile: bf16 compute and residual stream,
+    bf16 attention softmax (early_exit_tpu/cli.py get_args, mode="infer")."""
+    return ModelConfig(attn_softmax_dtype="bfloat16", fused_block=fused_block)

@@ -1,0 +1,507 @@
+// One inference Conformer block in the bf16 profile, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel early_exit_tpu/ops/pallas/conformer_block.py
+// (fused_block_apply -> _block_kernel). That kernel keeps a whole block
+// of two items resident in VMEM; a block's shared memory (227 KB) holds
+// nothing of that size, so here one C entry launches a sequence of
+// kernels on the caller's stream, with the intermediates in device
+// memory:
+//
+//   LN -> GEMM(W1)+SiLU -> GEMM(W2) x + 0.5*y      macaron half-FFN
+//   LN -> GEMM(Wqkv) -> attention -> GEMM(Wo) x + y   MHSA
+//   LN -> GEMM(PW1) -> conv module -> GEMM(PW2) x + y
+//   LN -> GEMM(W1)+SiLU -> GEMM(W2) x + 0.5*y      second half-FFN
+//   final LN, padded rows zeroed
+//
+// Numerics follow the TPU kernel: LayerNorm with one-pass float32
+// statistics, max(E[x^2] - mu^2, 0); every product in bf16 with float32
+// accumulation, rounded to bf16 before the bf16 bias add; a bf16
+// residual stream; bf16 SiLU/GLU op by op; depthwise conv accumulated in
+// float32 tap by tap and rounded once; scores either bf16 (rounded,
+// scaled in bf16, masked to -30000) or float32 (masked to -1e9).
+//
+// Bound on an H100 SXM at the main-path shape (B=128, T'=249, 31,872
+// rows): ~5.38 MFLOP per row, ~171.5 GFLOP per block, ~0.17 ms at 989
+// TFLOP/s dense bf16 -- compute-bound; the FFN intermediate (31,872 x
+// 2048 bf16, ~130 MB written and read) adds ~0.08 ms of traffic at 3.35
+// TB/s if it goes through device memory, as it does here.
+//
+// What this simple design leaves on the table: the GEMMs use WMMA
+// (mma.sync) with register-staged double buffering, not wgmma with TMA
+// and a warp-specialised pipeline; the FFN and QKV intermediates go
+// through device memory; LayerNorm runs as its own pass instead of in
+// the next GEMM's prologue; attention computes its scores three times
+// to keep the TPU kernel's rounding points.
+
+#include "common.cuh"
+
+// ---------------------------------------------------------------- GEMM
+// out[M, N] = epilogue(bf16(A[M, K] @ W[K, N]) + bias[N])
+constexpr int GBM = 128, GBN = 128, GBK = 32, GTHREADS = 256;
+constexpr int AS_LD = GBK + 8;
+constexpr int BS_LD = GBN + 8;
+
+enum { EPI_BIAS = 0, EPI_SILU = 1, EPI_RES = 2, EPI_RES_HALF = 3 };
+
+template <int EPI>
+__global__ void __launch_bounds__(GTHREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                 const bf16* __restrict__ bias, const bf16* res, bf16* out,
+                 int M, int N, int K) {
+  __shared__ __align__(128) bf16 As[2][GBM * AS_LD];
+  __shared__ __align__(128) bf16 Bs[2][GBK * BS_LD];
+  __shared__ __align__(128) float stage[GTHREADS / 32][16 * 16];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 1;  // 32-row slab of the 128-row tile
+  const int wn = warp & 1;   // 64-column slab of the 128-column tile
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  uint4 ra[2], rb[2];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * GTHREADS;
+      const int r = idx >> 2, cv = idx & 3;  // A: 128 rows x 4 x 8 bf16
+      const int gm = m0 + r;
+      ra[i] = gm < M ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + k0 + cv * 8)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      const int rr = idx >> 4, cb = idx & 15;  // W: 32 rows x 16 x 8 bf16
+      rb[i] = *reinterpret_cast<const uint4*>(W + (size_t)(k0 + rr) * N + n0 + cb * 8);
+    }
+  };
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * GTHREADS;
+      *reinterpret_cast<uint4*>(&As[buf][(idx >> 2) * AS_LD + (idx & 3) * 8]) = ra[i];
+      *reinterpret_cast<uint4*>(&Bs[buf][(idx >> 4) * BS_LD + (idx & 15) * 8]) = rb[i];
+    }
+  };
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < GBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], &As[buf][(wm * 32 + i * 16) * AS_LD + kk], AS_LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(fb[j], &Bs[buf][kk * BS_LD + wn * 64 + j * 16], BS_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+  };
+
+  const int KT = K / GBK;
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < KT) load_tile((kt + 1) * GBK);
+    compute(cur);
+    if (kt + 1 < KT) store_tile(cur ^ 1);
+    __syncthreads();
+  }
+
+  float* st = stage[warp];
+  const int r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int gm = m0 + wm * 32 + i * 16 + r;
+      const int gn = n0 + wn * 64 + j * 16 + c0;
+      if (gm < M) {
+        const uint4 bv = *reinterpret_cast<const uint4*>(bias + gn);
+        const bf16* bb = reinterpret_cast<const bf16*>(&bv);
+        uint4 rv = make_uint4(0u, 0u, 0u, 0u);
+        if (EPI == EPI_RES || EPI == EPI_RES_HALF)
+          rv = *reinterpret_cast<const uint4*>(res + (size_t)gm * N + gn);
+        const bf16* rr = reinterpret_cast<const bf16*>(&rv);
+        uint4 ov;
+        bf16* oo = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          float v = bf16r(st[r * 16 + c0 + q]);
+          v = bf16r(v + bf2f(bb[q]));
+          if (EPI == EPI_SILU) v = silu_bf16(v);
+          if (EPI == EPI_RES) v = bf2f(rr[q]) + v;
+          if (EPI == EPI_RES_HALF) v = bf2f(rr[q]) + 0.5f * v;
+          oo[q] = f2bf(v);
+        }
+        *reinterpret_cast<uint4*>(out + (size_t)gm * N + gn) = ov;
+      }
+      __syncwarp();
+    }
+  }
+}
+
+static cudaError_t gemm(int epi, const bf16* A, const bf16* W, const bf16* bias,
+                        const bf16* res, bf16* out, int M, int N, int K, cudaStream_t s) {
+  const dim3 grid(N / GBN, (M + GBM - 1) / GBM);
+  switch (epi) {
+    case EPI_BIAS: gemm_bf16_kernel<EPI_BIAS><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_SILU: gemm_bf16_kernel<EPI_SILU><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_RES: gemm_bf16_kernel<EPI_RES><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    default: gemm_bf16_kernel<EPI_RES_HALF><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+  }
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- LayerNorm
+// One warp per row, one-pass float32 statistics. With `lengths`, rows
+// t >= lengths[b] are written as zeros. x and y may alias.
+constexpr int LN_THREADS = 256;
+
+__global__ void __launch_bounds__(LN_THREADS)
+layer_norm_kernel(const bf16* x, bf16* y, const float* __restrict__ g,
+                  const float* __restrict__ b, int rows, int D, float eps,
+                  const int* __restrict__ lengths, int T) {
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const bf16* xr = x + (size_t)row * D;
+  bf16* yr = y + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int v = lane; v < D / 8; v += 32) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + v * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float f = bf2f(e[q]);
+      s += f;
+      ss += f * f;
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = s / D;
+  const float rstd = rsqrtf(fmaxf(ss / D - mu * mu, 0.f) + eps);
+  const bool zero = lengths != nullptr && (row % T) >= lengths[row / T];
+  for (int v = lane; v < D / 8; v += 32) {
+    const uint4 u = *reinterpret_cast<const uint4*>(xr + v * 8);
+    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    uint4 o;
+    bf16* oo = reinterpret_cast<bf16*>(&o);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int c = v * 8 + q;
+      oo[q] = zero ? f2bf(0.f) : f2bf((bf2f(e[q]) - mu) * rstd * g[c] + b[c]);
+    }
+    *reinterpret_cast<uint4*>(yr + v * 8) = o;
+  }
+}
+
+static cudaError_t layer_norm(const bf16* x, bf16* y, const float* g, const float* b,
+                              int rows, int D, float eps, const int* lengths, int T,
+                              cudaStream_t s) {
+  const int per_block = LN_THREADS / 32;
+  layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
+      x, y, g, b, rows, D, eps, lengths, T);
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- attention
+// One block per (64-query tile, head, item); each warp owns 16 query
+// rows and keeps everything of them in registers, as mma.sync m16n8k16
+// fragments (row g = lane/4 and g+8, columns 2*(lane%4) and +1 of each
+// 8-wide tile). K (Tp x DH) and V transposed (DH x Tp) of the (item,
+// head) sit in shared memory; Tp is T rounded up to 16, its extra keys
+// are zeros and, like every key t >= lengths[b], masked.
+//
+// The softmax is the TPU kernel's, not an online one: the scores are
+// recomputed in three passes -- row max, then the sum of bf16(exp(s - m)),
+// then p = bf16(e / z) into P V -- so every rounding point stays where
+// the TPU kernel has it.
+constexpr int ATT_WARPS = 4;
+constexpr size_t SMEM_LIMIT = 232448;
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DH>
+struct AttLayout {
+  static constexpr int KLD = DH + 8;  // K row stride (bf16), conflict-free pair loads
+  __host__ __device__ static int vld(int Tp) { return Tp + 8; }
+  __host__ __device__ static size_t bytes(int Tp) {
+    return ((size_t)Tp * KLD + (size_t)DH * vld(Tp)) * sizeof(bf16);
+  }
+};
+
+template <int DH>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
+                 bf16* __restrict__ out, int T, int D, int Tp, float scale, int sm_bf16) {
+  using L = AttLayout<DH>;
+  constexpr int KLD = L::KLD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vt = Ks + (size_t)Tp * KLD;
+  const int VLD = L::vld(Tp);
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int q0 = (blockIdx.x * ATT_WARPS + warp) * 16;
+  const int len = lengths[b];
+  const size_t row3 = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * T * row3 + h * DH;
+
+  constexpr int VPR = DH / 8;  // 16-byte vectors per head row
+  for (int idx = threadIdx.x; idx < Tp * VPR; idx += blockDim.x) {
+    const int tk = idx / VPR, v = idx % VPR;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (tk < T) {
+      kv = *reinterpret_cast<const uint4*>(base + tk * row3 + D + v * 8);
+      vv = *reinterpret_cast<const uint4*>(base + tk * row3 + 2 * D + v * 8);
+    }
+    *reinterpret_cast<uint4*>(Ks + tk * KLD + v * 8) = kv;
+    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) Vt[(v * 8 + q) * VLD + tk] = ve[q];
+  }
+  __syncthreads();
+  if (q0 >= T) return;
+
+  // Q as A fragments: rows r0 = q0+g and r1 = q0+g+8
+  const int r0 = q0 + g, r1 = r0 + 8;
+  uint32_t qa[DH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int c = kk * 16 + t2;
+    qa[kk][0] = r0 < T ? ld_pair(base + r0 * row3 + c) : 0u;
+    qa[kk][1] = r1 < T ? ld_pair(base + r1 * row3 + c) : 0u;
+    qa[kk][2] = r0 < T ? ld_pair(base + r0 * row3 + c + 8) : 0u;
+    qa[kk][3] = r1 < T ? ld_pair(base + r1 * row3 + c + 8) : 0u;
+  }
+
+  const float neg = sm_bf16 ? bf16r(-30000.f) : -1e9f;
+  // scaled, masked scores of keys n0 .. n0+7: s[0..1] row r0, s[2..3] row r1
+  auto scores = [&](int n0, float (&s)[4]) {
+    s[0] = s[1] = s[2] = s[3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const bf16* kr = Ks + (n0 + g) * KLD + kk * 16 + t2;
+      mma_16816(s, qa[kk], ld_pair(kr), ld_pair(kr + 8));
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = sm_bf16 ? bf16r(bf16r(s[i]) * scale) : s[i] * scale;
+      s[i] = n0 + t2 + (i & 1) < len ? v : neg;
+    }
+  };
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+
+  float m0 = -INFINITY, m1 = -INFINITY;
+  for (int n0 = 0; n0 < Tp; n0 += 8) {
+    float s[4];
+    scores(n0, s);
+    m0 = fmaxf(m0, fmaxf(s[0], s[1]));
+    m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  auto ex = [&](float v, float m) {
+    return sm_bf16 ? bf16r(expf(bf16r(v - m))) : expf(v - m);
+  };
+
+  float z0 = 0.f, z1 = 0.f;
+  for (int n0 = 0; n0 < Tp; n0 += 8) {
+    float s[4];
+    scores(n0, s);
+    z0 += ex(s[0], m0) + ex(s[1], m0);
+    z1 += ex(s[2], m1) + ex(s[3], m1);
+  }
+  z0 = quad_sum(z0);
+  z1 = quad_sum(z1);
+  if (sm_bf16) {
+    z0 = bf16r(z0);
+    z1 = bf16r(z1);
+  }
+
+  float o[DH / 8][4] = {};
+  for (int n0 = 0; n0 < Tp; n0 += 16) {
+    float sa[4], sb[4];
+    scores(n0, sa);
+    scores(n0 + 8, sb);
+    const uint32_t pa[4] = {
+        pack_pair(ex(sa[0], m0) / z0, ex(sa[1], m0) / z0),
+        pack_pair(ex(sa[2], m1) / z1, ex(sa[3], m1) / z1),
+        pack_pair(ex(sb[0], m0) / z0, ex(sb[1], m0) / z0),
+        pack_pair(ex(sb[2], m1) / z1, ex(sb[3], m1) / z1)};
+#pragma unroll
+    for (int nt = 0; nt < DH / 8; ++nt) {
+      const bf16* vr = Vt + (nt * 8 + g) * VLD + n0 + t2;
+      mma_16816(o[nt], pa, ld_pair(vr), ld_pair(vr + 8));
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) {
+    const int c = h * DH + nt * 8 + t2;
+    if (r0 < T)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)b * T + r0) * D + c) = pack_pair(o[nt][0], o[nt][1]);
+    if (r1 < T)
+      *reinterpret_cast<uint32_t*>(out + ((size_t)b * T + r1) * D + c) = pack_pair(o[nt][2], o[nt][3]);
+  }
+}
+
+static cudaError_t attention(const bf16* qkv, const int* lengths, bf16* out, int B, int T,
+                             int D, int H, float scale, int sm_bf16, cudaStream_t s) {
+  const int Tp = (T + 15) / 16 * 16;
+  const size_t bytes = AttLayout<32>::bytes(Tp);
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  EET_TRY(cudaFuncSetAttribute(attention_kernel<32>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+  const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
+  attention_kernel<32><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp, scale,
+                                                           sm_bf16);
+  return cudaGetLastError();
+}
+
+// --------------------------------------------------------- conv module
+// GLU over the PW1 output (rows, 2D) -> zero rows t >= len -> depthwise
+// 'SAME' conv over time (float32 accumulation, one bf16 rounding) ->
+// + bias -> folded BatchNorm -> SiLU (float32) -> bf16. One block per
+// (time tile, item); the GLU tile with its halo sits in shared memory.
+constexpr int CONV_TT = 32, CONV_THREADS = 256;
+
+__global__ void __launch_bounds__(CONV_THREADS)
+conv_module_kernel(const bf16* __restrict__ g, const int* __restrict__ lengths,
+                   const bf16* __restrict__ dw, const float* __restrict__ dw_b,
+                   const float* __restrict__ bn_scale, const float* __restrict__ bn_shift,
+                   bf16* __restrict__ out, int T, int D, int ksize) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* tile = reinterpret_cast<bf16*>(smem);
+  const int b = blockIdx.y, t0 = blockIdx.x * CONV_TT;
+  const int len = lengths[b], padl = (ksize - 1) / 2;
+  const int rows = CONV_TT + ksize - 1;
+  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D, t = t0 - padl + r;
+    float v = 0.f;
+    if (t >= 0 && t < len) {
+      const bf16* gr = g + ((size_t)b * T + t) * 2 * D;
+      v = bf16r(bf2f(gr[c]) * sigmoid_bf16(bf2f(gr[D + c])));
+    }
+    tile[idx] = f2bf(v);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < CONV_TT * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D, t = t0 + r;
+    if (t >= T) continue;
+    float acc = 0.f;
+    for (int j = 0; j < ksize; ++j) acc += bf2f(tile[(r + j) * D + c]) * bf2f(dw[j * D + c]);
+    float y = bf16r(acc) + dw_b[c];
+    y = y * bn_scale[c] + bn_shift[c];
+    y = y / (1.f + expf(-y));
+    out[((size_t)b * T + t) * D + c] = f2bf(y);
+  }
+}
+
+static cudaError_t conv_module(const bf16* g, const int* lengths, const bf16* dw,
+                               const float* dw_b, const float* bn_scale, const float* bn_shift,
+                               bf16* out, int B, int T, int D, int ksize, cudaStream_t s) {
+  const size_t bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(bf16);
+  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  EET_TRY(cudaFuncSetAttribute(conv_module_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+  const dim3 grid((T + CONV_TT - 1) / CONV_TT, B);
+  conv_module_kernel<<<grid, CONV_THREADS, bytes, s>>>(g, lengths, dw, dw_b, bn_scale,
+                                                       bn_shift, out, T, D, ksize);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ C entry
+// Weight order (the wrapper's PARAM_ORDER):
+enum {
+  W_FFN1_LN_G, W_FFN1_LN_B, W_FFN1_W1, W_FFN1_B1, W_FFN1_W2, W_FFN1_B2,
+  W_ATTN_LN_G, W_ATTN_LN_B, W_QKV, W_BQKV, W_O, W_BO,
+  W_CONV_LN_G, W_CONV_LN_B, W_PW1, W_BPW1, W_DW, W_DW_B, W_BN_SCALE, W_BN_SHIFT, W_PW2, W_BPW2,
+  W_FFN2_LN_G, W_FFN2_LN_B, W_FFN2_W1, W_FFN2_B1, W_FFN2_W2, W_FFN2_B2,
+  W_FINAL_LN_G, W_FINAL_LN_B, W_COUNT
+};
+
+// x, y: (B*T, D) bf16 (may not alias); lengths: (B,) int32;
+// scratch: s_ln (B*T, D), s_big (B*T, max(F, 3D)), s_att (B*T, D), bf16.
+extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* lengths_,
+                                        int B, int T, int D, int H, int F, int ksize,
+                                        int sm_bf16, float scale, float eps,
+                                        const void* const* w, void* s_ln_, void* s_big_,
+                                        void* s_att_, void* stream_) {
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* y = static_cast<bf16*>(y_);
+  const int* lengths = static_cast<const int*>(lengths_);
+  bf16* s_ln = static_cast<bf16*>(s_ln_);
+  bf16* s_big = static_cast<bf16*>(s_big_);
+  bf16* s_att = static_cast<bf16*>(s_att_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  const int R = B * T;
+
+  // macaron half-FFN: y = x + 0.5 * FFN(LN(x))
+  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN1_W1), bw(W_FFN1_B1), nullptr, s_big, R, F, D, s));
+  EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN1_W2), bw(W_FFN1_B2), x, y, R, D, F, s));
+  // MHSA
+  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * D, D, s));
+  EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s));
+  EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, D, s));
+  // convolution module
+  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
+  EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
+                      s_att, B, T, D, ksize, s));
+  EET_TRY(gemm(EPI_RES, s_att, bw(W_PW2), bw(W_BPW2), y, y, R, D, D, s));
+  // second half-FFN, final LayerNorm with padded rows zeroed
+  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN2_W1), bw(W_FFN2_B1), nullptr, s_big, R, F, D, s));
+  EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN2_W2), bw(W_FFN2_B2), y, y, R, D, F, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  return 0;
+}
+
+extern "C" int eet_conformer_block_param_count() { return W_COUNT; }
+
+// The longest T the kernel takes: attention keeps K and V^T of T rounded
+// up to 16 frames in shared memory (T = 1600 at dh = 32). The TPU
+// kernel's T' <= 512 is its VMEM budget, not this kernel's.
+extern "C" int eet_conformer_block_max_t() {
+  int t = 16;
+  while (AttLayout<32>::bytes(t + 16) <= SMEM_LIMIT) t += 16;
+  return t;
+}

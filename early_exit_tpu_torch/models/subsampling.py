@@ -1,0 +1,35 @@
+"""Conv1d subsampling x4 (counterpart of `early_exit_tpu/models/subsampling.py`)."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+
+from early_exit_tpu_torch.nn import core
+
+
+def conv_subsample_apply(convs: List[Tuple[torch.Tensor, torch.Tensor]],
+                         x: torch.Tensor, *,
+                         compute_dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
+    """(B, T, C) -> (B, T', d_model): stride-2 VALID k=3 convs, no
+    activation. convs: [(w (3, c_in, c_out), b (c_out,)), ...]."""
+    for w, b in convs:
+        x = core.conv1d(x, w, b, stride=2, padding="VALID",
+                        compute_dtype=compute_dtype)
+    return x
+
+
+def subsampled_length(lengths: torch.Tensor, n_convs: int = 2) -> torch.Tensor:
+    """True frame count after VALID k=3 s=2 convs."""
+    out = lengths
+    for _ in range(n_convs):
+        out = torch.div(out - 3, 2, rounding_mode="floor") + 1
+    return out.clamp(min=0)
+
+
+def reference_subsampled_length(lengths: torch.Tensor, factor: int,
+                                max_t: int) -> torch.Tensor:
+    """The reference's rule: float division, truncation, then at most T'."""
+    return (lengths.float() / factor).to(torch.int32).clamp(max=max_t)

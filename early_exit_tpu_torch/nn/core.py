@@ -1,0 +1,157 @@
+"""Functional neural-net primitives, inference subset.
+
+Counterparts of `early_exit_tpu/nn/core.py` with the same rounding
+points, on (B, T, C) tensors and the JAX package's weight layouts:
+linear `w` is (d_in, d_out), conv `w` is (k, c_in, c_out), depthwise
+`w` is (k, 1, C).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# finite large negative for masked logits: a fully masked row gives a
+# uniform distribution instead of NaN
+NEG_INF = -1e9
+# the bf16 score mask; -30000 is representable in bf16
+NEG_BF16 = -30000.0
+
+
+def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           *, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """y = x @ w + b, all in `compute_dtype`: the product is rounded to the
+    compute dtype, then the bias is added in that dtype."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    y = torch.matmul(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _time_pad(k: int, padding) -> Tuple[int, int]:
+    if isinstance(padding, int):
+        return padding, padding
+    if padding == "SAME":
+        return (k - 1) // 2, k // 2
+    return 0, 0
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           *, stride: int = 1, padding="VALID",
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """1-D conv over time of (B, T, C); w (k, c_in, c_out). The conv runs
+    in the compute dtype, its output is cast to float32, then the float32
+    bias is added."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    xt = F.pad(x.transpose(1, 2), _time_pad(w.shape[0], padding))
+    y = F.conv1d(xt, w.permute(2, 1, 0), stride=stride)
+    y = y.transpose(1, 2).float()
+    if b is not None:
+        y = y + b.float()
+    return y
+
+
+def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
+                     b: Optional[torch.Tensor] = None, *,
+                     compute_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """Depthwise 'SAME' conv over time of (B, T, C); w (k, 1, C). Float32
+    accumulation, one rounding to the compute dtype, then the float32
+    bias."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    k, _, C = w.shape
+    xt = F.pad(x.float().transpose(1, 2), _time_pad(k, "SAME"))
+    y = F.conv1d(xt, w.float().permute(2, 1, 0), groups=C)
+    y = y.transpose(1, 2).to(x.dtype).float()
+    if b is not None:
+        y = y + b.float()
+    return y
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Two-pass float32 LayerNorm over the last axis."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = (x32 - mean).square().mean(-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * g.float() + b.float()
+
+
+def masked_batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                      mean: torch.Tensor, var: torch.Tensor, *,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm in eval mode: the running statistics, in float32."""
+    return ((x.float() - mean.float()) * torch.rsqrt(var.float() + eps)
+            * g.float() + b.float())
+
+
+def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:
+    """Softmax with every elementwise op in the scores' own dtype."""
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    return e / e.sum(-1, keepdim=True)
+
+
+def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
+        kv_in: torch.Tensor, n_heads: int, *,
+        key_mask: Optional[torch.Tensor] = None,
+        compute_dtype: Optional[torch.dtype] = None,
+        softmax_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Multi-head attention on (B, Tq, D) / (B, Tk, D).
+
+    p maps "q", "k", "v", "o" to (w, b). key_mask: (B, Tk) bool, True
+    where the key is valid. With a bf16 softmax dtype the scores stay in
+    bf16: scaled in bf16 and masked to -30000."""
+    B, Tq, D = q_in.shape
+    Tk = kv_in.shape[1]
+    dh = D // n_heads
+    q = linear(q_in, *p["q"], compute_dtype=compute_dtype)
+    k = linear(kv_in, *p["k"], compute_dtype=compute_dtype)
+    v = linear(kv_in, *p["v"], compute_dtype=compute_dtype)
+    q = q.reshape(B, Tq, n_heads, dh).transpose(1, 2)
+    k = k.reshape(B, Tk, n_heads, dh).transpose(1, 2)
+    v = v.reshape(B, Tk, n_heads, dh).transpose(1, 2)
+
+    lowp = softmax_dtype == torch.bfloat16
+    if lowp:
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+        neg = NEG_BF16
+    else:
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = scores / math.sqrt(dh)
+        neg = NEG_INF
+    if key_mask is not None:
+        scores = scores.masked_fill(~key_mask[:, None, None, :], neg)
+    if lowp:
+        out = torch.matmul(_softmax_lowp(scores), v)
+    else:
+        attn = torch.softmax(scores.float(), dim=-1)
+        if compute_dtype is not None:
+            attn = attn.to(compute_dtype)
+            v = v.to(compute_dtype)
+        out = torch.matmul(attn.float(), v.float())
+    out = out.transpose(1, 2).reshape(B, Tq, D)
+    return linear(out, *p["o"], compute_dtype=compute_dtype)
+
+
+def sinusoidal_pe(max_len: int, d_model: int, *,
+                  device=None) -> torch.Tensor:
+    """(max_len, d_model) float32 sinusoidal table."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / d_model))
+    pe = torch.zeros(max_len, d_model, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -1,0 +1,35 @@
+"""Greedy CTC decoding (counterpart of `early_exit_tpu/ops/ctc.py`)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def greedy_decode(log_probs: torch.Tensor, lengths: torch.Tensor, *,
+                  blank: int = 0):
+    """Best path: argmax -> collapse repeats -> drop blanks.
+
+    log_probs: (B, T, V) log-probs or raw logits (the argmax is
+    softmax-invariant); lengths: (B,). Returns (tokens (B, T) padded
+    with `blank`, n_tokens (B,))."""
+    best = torch.argmax(log_probs, dim=-1)
+    return greedy_decode_ids(best, lengths, blank=blank)
+
+
+def greedy_decode_ids(best: torch.Tensor, lengths: torch.Tensor, *,
+                      blank: int = 0):
+    """greedy_decode from per-frame argmax ids (B, T); only frames
+    t < lengths count. A stable compaction by scatter."""
+    B, T = best.shape
+    t_idx = torch.arange(T, device=best.device)[None, :]
+    valid = t_idx < lengths.to(best.device)[:, None]
+    prev = torch.cat([torch.full((B, 1), -1, dtype=best.dtype,
+                                 device=best.device), best[:, :-1]], dim=1)
+    keep = (best != blank) & (best != prev) & valid
+    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    n_tokens = keep.sum(dim=1)
+    # discarded frames land in a spare column T, cut off below
+    dest = torch.where(keep, pos, torch.full_like(pos, T))
+    out = torch.full((B, T + 1), blank, dtype=best.dtype, device=best.device)
+    out.scatter_(1, dest, torch.where(keep, best, torch.full_like(best, blank)))
+    return out[:, :T], n_tokens

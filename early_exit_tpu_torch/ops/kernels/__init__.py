@@ -1,0 +1,8 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+A wrapper takes the plain version only for tensors on the CPU; for a
+CUDA tensor it launches its kernel or raises. Each wrapper counts its
+launches in a plain int (`launches`).
+"""
+
+KERNEL_SOURCES = ("conformer_block", "head_argmax")
