@@ -3,14 +3,19 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, with no result line):
-  1. build both CUDA kernels from `early_exit_tpu_torch/csrc` with nvcc
+  1. build the CUDA kernels from `early_exit_tpu_torch/csrc` with nvcc
      (sm_90a, one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at
      the flagship's weights and main-path shapes (B=8, T'=249, ragged
      lengths with one short and one empty item), and the block kernel
      again past the TPU kernel's T' <= 512 (B=2, 60 s and 45 s, T'=1499);
      the block kernel with the other softmax dtype must fall outside the
-     tolerance, which shows the tolerance sees a moved rounding point;
+     tolerance, which shows the tolerance sees a moved rounding point.
+     Likewise the attention kernel (bf16 and float32 inputs, 1e-5 of
+     max|v|), the float32 block entry (5e-5 absolute) and the W8A8 block
+     entry (the bf16 block's tolerance; held against the unquantized
+     plain version it must fall outside); a row's result must not depend
+     on its batch;
   3. the main path end to end: `Recognizer.from_flagship("cuda")` on 128
      in-distribution ~10 s requests, launch counts read around that run;
      its greedy tokens against the same path built from the kernels'
@@ -26,15 +31,33 @@ Phases (any failure exits non-zero, with no result line):
      no-kernel pair's rates are printed beside it;
   4. times at B=128 x 10 s (T'=249): each kernel, its plain version, a
      library yardstick (the block composed of torch ops with cuBLAS,
-     SDPA and cuDNN; the heads as torch.matmul + argmax) and its bound;
-     the end-to-end forward in audio-seconds per second;
+     SDPA and cuDNN, in bf16 and in float32; the heads as torch.matmul +
+     argmax; attention as SDPA on float32 inputs; none for W8A8) and its
+     bound; the end-to-end forward in audio-seconds per second;
   5. torch.profiler over a few end-to-end forwards of phase 4: device
-     time per kernel and the device-busy share.
+     time per kernel and the device-busy share (and the same over the
+     cascade pass of phase 6);
+  6. gated cascade serving, `Recognizer.transcribe_gated`, on the same 128
+     requests under the committed calibration, with bf16 blocks (path A)
+     and with W8A8 blocks (path B): launch counts (4 block launches in
+     phase A, 8 for the packed phase-B batch), chosen exits equal to the
+     while-loop gate's on every row and within 1% of rows of the same
+     cascade built from the plain versions, gated WER beside the dense
+     final-exit WER, and the time of one cascade pass with the mask fetch
+     and the host packing in it. Each is run again with exit 2's threshold
+     moved to the batch's median confidence, so that phase B runs at width
+     (there the plain-version cascade may differ on 5% of rows: the
+     threshold sits where the confidences are densest);
+  7. the all-exit path on 16 requests in float32 through the float32 block
+     entry (path C) and unfused with `attention_impl="pallas"` through the
+     attention kernel (path D), 12 launches each, tokens held to phase 3's
+     contract against the unfused path of the same configuration.
 
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -43,6 +66,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_INT8 = 1979e12     # H100 SXM dense int8 OP/s, tensor cores
+PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SANE_DENSE_WER = 30.0   # bench.py's in-distribution sanity bound
 # bf16 tolerance of the block kernel against its plain version, in bf16
@@ -56,6 +81,20 @@ SANE_DENSE_WER = 30.0   # bench.py's in-distribution sanity bound
 BLOCK_MAX_ULPS = 4
 BLOCK_DIFFERING = 0.05
 TOKEN_DISAGREE = 0.01
+# float32 kernels against their plain versions: both sides are float32
+# throughout and differ in the order of their sums (32 and 249 terms in
+# attention, whose outputs have the scale of v, so its tolerance is
+# relative to max|v|; 256 and 2048 in the block's products, whose outputs
+# are LayerNormed to unit scale, so its tolerance is absolute). The JAX
+# package holds its float32 kernels to 1e-5 and 2e-5 on the CPU at small
+# width and unit-scale inputs.
+ATT_RTOL = 1e-5
+F32_BLOCK_ATOL = 5e-5
+ROWS_DIFFER = 0.01      # chosen exits, kernel cascade vs plain-version cascade
+# the same with exit 2's threshold at the batch's median confidence, where
+# the confidences lie closest together: the two rows next to the threshold
+# are ~1e-4 apart, within what two bf16 schedules move a confidence by
+ROWS_DIFFER_AT_MEDIAN = 0.05
 
 
 def fail(msg: str) -> None:
@@ -111,6 +150,24 @@ def disagreement(tok_a, n_a, tok_b, n_b):
     return out
 
 
+@contextlib.contextmanager
+def plain_versions(kcb, katt):
+    """Within the block, the port's wrappers run the kernels' plain
+    versions on the card: the same path with no kernel in it."""
+    def block(f, x, lengths, *, out=None, **kw):
+        y = kcb.conformer_block_plain(f, x, lengths, **kw)
+        if out is None:
+            return y
+        out.copy_(y)
+        return out
+    saved = kcb.conformer_block, katt.fused_attention
+    kcb.conformer_block, katt.fused_attention = block, katt.fused_attention_plain
+    try:
+        yield
+    finally:
+        kcb.conformer_block, katt.fused_attention = saved
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "early_exit_tpu_torch")):
         fail("early_exit_tpu_torch/ not found beside chip_smoke.py; run it "
@@ -124,7 +181,11 @@ def main() -> None:
     from early_exit_tpu_torch import checkpoint, runtime
     from early_exit_tpu_torch.data.synthetic import synth_batch
     from early_exit_tpu_torch.ops import ctc, frontend
+    from early_exit_tpu_torch.models.early_exit_gate import gated_apply
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.nn import core
     from early_exit_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
+    from early_exit_tpu_torch.ops.kernels import attention as katt
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     from early_exit_tpu_torch.ops.kernels import head_argmax as kha
     from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
@@ -136,6 +197,28 @@ def main() -> None:
           f"{sys.version.split()[0]}")
     runtime.exact_float32()
     dev = torch.device("cuda")
+
+    def reset_counts():
+        kcb.conformer_block.launches = 0
+        for entry in kcb.conformer_block.entry_launches:
+            kcb.conformer_block.entry_launches[entry] = 0
+        kha.head_argmax.launches = 0
+        katt.fused_attention.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {**{"conformer_block_" + e: n for e, n in
+                   kcb.conformer_block.entry_launches.items()},
+                "head_argmax": kha.head_argmax.launches,
+                "attention": katt.fused_attention.launches}
+
+    def expect_counts(what, **want):
+        got = read_counts()
+        full = {k: want.get(k, 0) for k in got}
+        print(f"{what} launches: {got}")
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return got
 
     # ---- 1. build
     t0 = time.perf_counter()
@@ -242,6 +325,100 @@ def main() -> None:
         if n_nontie:
             fail("head_argmax kernel id differs from the plain version at a non-tie")
 
+        # the attention kernel on block 1's q, k, v, bf16 and float32
+        blk0 = rec_u.model.stack.blocks[0]
+        mask8 = torch.arange(x8.shape[1], device=dev)[None, :] < len8[:, None]
+        H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+
+        def qkv_of(x, dt):
+            y = core.layer_norm(x, blk0.attn.ln_g, blk0.attn.ln_b)
+            return [core.linear(y, getattr(blk0.attn, "w" + n),
+                                getattr(blk0.attn, "b" + n), compute_dtype=dt)
+                    .reshape(x.shape[0], x.shape[1], H, dh).transpose(1, 2)
+                    .contiguous() for n in "qkv"]
+
+        att_err = 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            q, k, v = qkv_of(x8, dt)
+            o_k = katt.fused_attention(q, k, v, mask8)
+            o_p = katt.fused_attention_plain(q, k, v, mask8)
+            torch.cuda.synchronize()
+            err = float((o_k - o_p).abs().max())
+            empty = float((o_k[-2] - v[-2].float().mean(1, keepdim=True)).abs().max())
+            # an output is a convex combination of the rows of v: the
+            # tolerance is relative to the largest |v|
+            tol = ATT_RTOL * max(1.0, float(v.float().abs().max()))
+            print(f"attention vs plain, {dt} inputs (B=8, H={H}, T'={x8.shape[1]}, "
+                  f"dh={dh}): max|d| {err} (tolerance {tol:.3e} = {ATT_RTOL} x "
+                  f"max|v|); empty item vs the mean of v: {empty}")
+            if not torch.isfinite(o_k).all() or err > tol or empty > tol:
+                fail(f"attention kernel disagrees with its plain version ({dt})")
+            att_err = max(att_err, err)
+
+        # the float32 and W8A8 entries of the block kernel
+        sd0 = blk0.state_dict()
+        f32_0 = kcb.fold_block_params(sd0, compute_dtype=torch.float32)
+        kw32 = dict(kw, compute_dtype=torch.float32, residual_dtype=torch.float32,
+                    attn_softmax_dtype=torch.float32)
+        y32 = kcb.conformer_block(f32_0, x8.float(), len8, **kw32)
+        y32_p = kcb.conformer_block_plain(f32_0, x8.float(), len8, **kw32)
+        torch.cuda.synchronize()
+        f32_err = float((y32 - y32_p).abs().max())
+        print(f"conformer_block float32 entry vs plain (B=8, T'={x8.shape[1]}): "
+              f"max|d| {f32_err} mean|d| {float((y32 - y32_p).abs().mean())} "
+              f"(tolerance {F32_BLOCK_ATOL})")
+        if (not torch.isfinite(y32).all() or f32_err > F32_BLOCK_ATOL
+                or (y32[len8 == 0] != 0).any()):
+            fail("conformer_block float32 entry disagrees with its plain version")
+
+        q8_0 = kcb.fold_block_params(sd0, quantize="int8")
+        w8_err = 0.0
+        for sm in (cfg.sm_dtype, other):
+            kwq = dict(kw, attn_softmax_dtype=sm)
+            y_q = kcb.conformer_block(q8_0, x8, len8, quantize="int8", **kwq)
+            y_qp = kcb.conformer_block_plain(q8_0, x8, len8, quantize="int8", **kwq)
+            y_fp = kcb.conformer_block_plain(folded[0], x8, len8, **kwq)
+            torch.cuda.synchronize()
+            res = []
+            for what, ref in (("its plain version", y_qp),
+                              ("the unquantized plain version", y_fp)):
+                d = (y_q.float() - ref.float()).abs()
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    ref.float().abs().clamp_min(1.0))) - 7)
+                ulps, frac = float((d / ulp).max()), float((d > 0).float().mean())
+                print(f"conformer_block W8A8 entry ({sm} softmax) vs {what}: "
+                      f"max|d| {float(d.max())} mean|d| {float(d.mean())} max ulps "
+                      f"{ulps} values differing {frac} (tolerance "
+                      f"{BLOCK_MAX_ULPS} ulps, {BLOCK_DIFFERING})")
+                res.append((float(d.max()), ulps <= BLOCK_MAX_ULPS
+                            and frac <= BLOCK_DIFFERING))
+            if (not torch.isfinite(y_q.float()).all() or not res[0][1]
+                    or (y_q[len8 == 0] != 0).any()):
+                fail("conformer_block W8A8 entry disagrees with its plain version")
+            if res[1][1]:
+                fail("the block tolerance cannot tell W8A8 from the unquantized block")
+            w8_err = max(w8_err, res[0][0])
+
+        # a row's result must not depend on the rows beside it
+        y_b = kcb.conformer_block(folded[0], x8, len8, **kw)
+        y_q = kcb.conformer_block(q8_0, x8, len8, quantize="int8", **kw)
+        part = slice(2, 5)
+        for what, whole, alone in (
+                ("bf16", y_b, kcb.conformer_block(
+                    folded[0], x8[part].contiguous(), len8[part].contiguous(), **kw)),
+                ("W8A8", y_q, kcb.conformer_block(
+                    q8_0, x8[part].contiguous(), len8[part].contiguous(),
+                    quantize="int8", **kw)),
+                ("float32", y32, kcb.conformer_block(
+                    f32_0, x8[part].float().contiguous(), len8[part].contiguous(),
+                    **kw32))):
+            torch.cuda.synchronize()
+            same = torch.equal(whole[part], alone)
+            print(f"conformer_block {what} entry: rows 2..4 alone equal to the "
+                  f"same rows in the batch of 8: {same}")
+            if not same:
+                fail(f"the {what} block kernel's rows depend on their batch")
+
     # ---- 3. the main path end to end, launch counts around it
     def plain_path_ids(w, c):
         """The kernel path rebuilt from the kernels' plain versions."""
@@ -259,15 +436,10 @@ def main() -> None:
         return t.reshape(E, Bn, T).cpu(), n.reshape(E, Bn).cpu()
 
     with torch.no_grad():
-        kcb.conformer_block.launches = 0
-        kha.head_argmax.launches = 0
+        reset_counts()
         out_k = rec_k.transcribe(wav, counts)
-        torch.cuda.synchronize()
-        launches = {"conformer_block": kcb.conformer_block.launches,
-                    "head_argmax": kha.head_argmax.launches}
-        print(f"main path launches: {launches}")
-        if launches["conformer_block"] != len(folded) or launches["head_argmax"] != 1:
-            fail(f"the main path did not run through both kernels: {launches}")
+        launches = expect_counts("all-exit path", conformer_block_bf16=len(folded),
+                                 head_argmax=1)
         out_u = rec_u.transcribe(wav, counts)
         tok_p, n_p = greedy(*plain_path_ids(wav, counts))
     ladder = [round(wer_pct(refs, t), 2) for t in out_k.texts]
@@ -328,6 +500,40 @@ def main() -> None:
                 torch.matmul(hid, heads_w[:, None]) + heads_b[:, None, None], -1)),
             bound=(head_flops / PEAK_BF16, head_bytes / PEAK_BYTES))
 
+        # the float32 and W8A8 entries and the attention kernel, same shape
+        x32 = x.float()
+        w32_bytes = sum(t.numel() * t.element_size() for t in f32_0.values())
+        f32 = dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(f32_0, x32, lengths, **kw32), 10, 2),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(
+                f32_0, x32, lengths, **kw32), 5, 1),
+            library_ms=cuda_ms(lambda: block_library(f32_0, x32, lengths, H), 10, 2),
+            bound=(blk_flops / PEAK_F32, (2 * R * D * 4 + w32_bytes + B * 4) / PEAK_BYTES))
+        gemm_ops = 2 * R * D * (4 * Fd + 3 * D + D + 2 * D + D)
+        wq_bytes = sum(q8_0[n].numel() * q8_0[n].element_size()
+                       for n in kcb.PARAM_ORDER_INT8)
+        w8 = dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(q8_0, x, lengths,
+                                                   quantize="int8", **kw)),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(
+                q8_0, x, lengths, quantize="int8", **kw), 5, 1),
+            library_ms=None,      # no one PyTorch call computes a W8A8 block
+            # the 10 products at the int8 rate, scores, P V and the conv at bf16's
+            bound=(gemm_ops / PEAK_INT8 + (blk_flops - gemm_ops) / PEAK_BF16,
+                   (2 * R * D * 2 + wq_bytes + B * 4) / PEAK_BYTES))
+        maskf = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+        qb, kb_, vb = qkv_of(x, torch.bfloat16)        # path (D) hands it bf16
+        qf, kf, vf = qb.float(), kb_.float(), vb.float()
+        att_flops = 4 * B * H * T * T * (D // H)
+        att = dict(
+            ms=cuda_ms(lambda: katt.fused_attention(qb, kb_, vb, maskf)),
+            ms_f32_in=cuda_ms(lambda: katt.fused_attention(qf, kf, vf, maskf)),
+            plain_ms=cuda_ms(lambda: katt.fused_attention_plain(qb, kb_, vb, maskf)),
+            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qf, kf, vf, attn_mask=maskf[:, None, None, :])),
+            bound=(att_flops / PEAK_F32,
+                   (3 * qb.numel() * 2 + qb.numel() * 4 + maskf.numel()) / PEAK_BYTES))
+
         def forward(rec):
             ids, sub_len = rec.exit_ids(wav, full)
             E_, B_, T_ = ids.shape
@@ -337,27 +543,190 @@ def main() -> None:
         e2e_u_ms = cuda_ms(lambda: forward(rec_u), 10, 2)
     audio_s = B * N / acfg.sample_rate
     print(f"times on {card} (B={B}, T'={T}, CUDA events):")
-    for name, t in (("conformer_block", blk), ("head_argmax", head)):
+    for name, t in (("conformer_block", blk), ("conformer_block float32", f32),
+                    ("conformer_block W8A8", w8), ("head_argmax", head),
+                    ("attention (bf16 q, k, v)", att)):
         by = "operations" if t["bound"][0] >= t["bound"][1] else "bytes"
         t["bound_ms"], t["bound_by"] = 1e3 * max(t["bound"]), by
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
         print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"library {lib}, bound {t['bound_ms']:.4f} ms "
               f"({by}: {t['bound'][0] * 1e3:.4f} ms ops, {t['bound'][1] * 1e3:.4f} ms bytes)")
+    print(f"  attention with float32 q, k, v: kernel {att['ms_f32_in']:.4f} ms; "
+          f"library = SDPA on the float32 inputs")
     print(f"  end to end, kernel path: {e2e_ms:.3f} ms per {B} x 10 s = "
           f"{audio_s / (e2e_ms / 1e3):.1f} audio-s/s")
     print(f"  end to end, unfused path: {e2e_u_ms:.3f} ms = "
           f"{audio_s / (e2e_u_ms / 1e3):.1f} audio-s/s")
-    profile_forward(lambda: forward(rec_k), card, B)
+    profile_forward(lambda: forward(rec_k), "all-exit forward", card, B)
 
+    # ---- 6. gated cascade serving: paths (A) bf16 blocks and (B) W8A8 blocks
+    E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
+    k_casc = int(rec_k.calib.get("cascade_k") or 2)
+    dense_wer = {"A": ladder[-1]}
+
+    def gated_path(rec, path, entry, what, rows_differ=ROWS_DIFFER):
+        """One calibration on the 128 requests: counts around the cascade,
+        its decisions against the while-loop gate's and the plain-version
+        cascade's, WER and mean exits. Returns its block launches."""
+        with torch.no_grad():
+            reset_counts()
+            out = rec.transcribe_gated(wav, counts)
+            want = k_casc * npe + ((E - k_casc) * npe if out.rows_packed else 0)
+            got = expect_counts(f"path ({path}), {what}",
+                                **{"conformer_block_" + entry: want})
+            gate = rec.transcribe_gated(wav, counts, strategy="whileloop")
+            with plain_versions(kcb, katt):
+                plain = rec.transcribe_gated(wav, counts)
+        agree = int((out.chosen_exit == gate.chosen_exit).sum())
+        differ = float((out.chosen_exit != plain.chosen_exit).float().mean())
+        hist = torch.bincount(out.chosen_exit.long(), minlength=E + 1)[1:].tolist()
+        print(f"path ({path}), {what}: chosen exits equal to the while-loop gate's "
+              f"on {agree}/{B} rows; differing from the plain-version cascade on "
+              f"{100 * differ:.2f}% of rows; rows per exit {hist}, mean exit "
+              f"{float(out.chosen_exit.float().mean()):.3f}, escalated "
+              f"{100 * out.escalated_share:.2f}% ({out.rows_packed} rows packed), "
+              f"exits computed per request "
+              f"{(k_casc * B + (E - k_casc) * out.rows_packed) / B:.3f}; gated WER "
+              f"{wer_pct(refs, out.texts):.2f}% (while-loop gate "
+              f"{wer_pct(refs, gate.texts):.2f}%, plain-version cascade "
+              f"{wer_pct(refs, plain.texts):.2f}%) beside the dense final-exit "
+              f"{dense_wer[path]:.2f}%")
+        if agree != B:
+            fail(f"path ({path}), {what}: the cascade and the while-loop gate "
+                 f"choose different exits on {B - agree} rows")
+        # the heads are torch.matmul, whose result for a row may depend on
+        # the batch it is in (packed phase-B rows vs the whole batch)
+        n_text = sum(a != b for a, b in zip(out.texts, gate.texts))
+        print(f"path ({path}), {what}: rows whose text differs from the while-loop "
+              f"gate's: {n_text}/{B}")
+        if n_text > ROWS_DIFFER * B:
+            fail(f"path ({path}), {what}: the cascade and the gate decode different "
+                 f"text on {n_text} rows")
+        if differ > rows_differ:
+            fail(f"path ({path}), {what}: chosen exits differ from the plain-version "
+                 f"cascade's on more than {100 * rows_differ:.0f}% of rows")
+        if wer_pct(refs, out.texts) > SANE_DENSE_WER:
+            fail(f"path ({path}), {what}: gated WER beyond the sanity bound")
+        return got["conformer_block_" + entry], out
+
+    def cascade_times(rec, path):
+        def dense():
+            ids, sub_len = rec.exit_ids(wav, counts)
+            E_, B_, T_ = ids.shape
+            return ctc.greedy_decode_ids(ids.reshape(E_ * B_, T_), sub_len.repeat(E_))
+
+        def whileloop():
+            logp, _, sub_len, _ = gated_apply(rec.model, *rec._features(wav, counts),
+                                              **rec.gate_settings())
+            return ctc.greedy_decode(logp, sub_len)
+
+        with torch.no_grad():
+            t_c = cuda_ms(lambda: rec.cascade_pass(wav, counts), 10, 2)
+            t_g = cuda_ms(whileloop, 10, 2)
+            t_d = cuda_ms(dense, 10, 2)
+        true_s = float(counts.sum()) / acfg.sample_rate
+        print(f"path ({path}) times on {card} (B={B}, true audio {true_s:.1f} s): one "
+              f"cascade pass, mask fetch and host packing included, {t_c:.3f} ms = "
+              f"{true_s / (t_c / 1e3):.1f} audio-s/s; while-loop gate {t_g:.3f} ms; "
+              f"all-exit forward {t_d:.3f} ms = {true_s / (t_d / 1e3):.1f} audio-s/s")
+
+    def median_threshold(rec):
+        """The calibration with exit k's threshold at the batch's median
+        confidence there: half the rows escalate."""
+        gate = rec.gate_settings()
+        with torch.no_grad():
+            lp, sub_len = rec.model.encode_exit(*rec._features(wav, counts), k_casc)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sub_len[:, None]
+            conf = scaled_confidence(lp, m, gate["score"],
+                                     gate["temperatures"][k_casc - 1])
+        thr = list(gate["threshold"])
+        thr[k_casc - 1] = float(conf.sort().values[B // 2 - 1:B // 2 + 1].mean())
+        return {**rec.calib, "thresholds": thr}
+
+    rec_q = Recognizer.from_flagship("cuda", fused=True, quantize="int8")
+    with torch.no_grad():
+        out_q = rec_q.transcribe(wav, counts)
+    ladder_q = [round(wer_pct(refs, t), 2) for t in out_q.texts]
+    print(f"exit WER ladder, W8A8 kernel path (B={B}): {ladder_q}")
+    dense_wer["B"] = ladder_q[-1]
+    if ladder_q[-1] > SANE_DENSE_WER:
+        fail(f"W8A8 final-exit WER {ladder_q[-1]}% > {SANE_DENSE_WER}%")
+    gated_launches = {}
+    for path, rec, entry in (("A", rec_k, "bf16"), ("B", rec_q, "w8a8")):
+        committed = rec.calib
+        n1, _ = gated_path(rec, path, entry, "committed calibration")
+        cascade_times(rec, path)
+        profile_forward(lambda: rec.cascade_pass(wav, counts),
+                        f"path ({path}) cascade pass, committed calibration",
+                        card, B, top=12)
+        rec.calib = median_threshold(rec)
+        n2, out_m = gated_path(rec, path, entry, "exit 2's threshold at the median",
+                               ROWS_DIFFER_AT_MEDIAN)
+        if not 0.4 <= out_m.escalated_share <= 0.6:
+            fail(f"path ({path}): the moved threshold escalated "
+                 f"{out_m.escalated_share:.2f} of the rows, not about half")
+        cascade_times(rec, path)
+        rec.calib = committed
+        gated_launches[entry] = (n1, n2)
+
+    # ---- 7. paths (C) float32 fused and (D) unfused with the attention kernel
+    def allexit_path(path, rec, ref, n, **want):
+        with torch.no_grad():
+            reset_counts()
+            out = rec.transcribe(wav[:n], counts[:n])
+            got = expect_counts(f"path ({path})", **want)
+            out_r = ref.transcribe(wav[:n], counts[:n])
+            with plain_versions(kcb, katt):
+                out_p = rec.transcribe(wav[:n], counts[:n])
+        wers = [round(wer_pct(refs[:n], t), 2) for t in out.texts]
+        print(f"path ({path}) exit WER ladder ({n} requests): {wers}")
+        for what, o in (("the unfused path of the same configuration", out_r),
+                        ("the same path built from the plain versions", out_p)):
+            dis = disagreement(out.tokens, out.n_tokens, o.tokens, o.n_tokens)
+            pooled = sum(e for e, _ in dis) / sum(t for _, t in dis)
+            print(f"path ({path}) token disagreement vs {what}: per exit "
+                  f"{[f'{e}/{t}' for e, t in dis]}, pooled {100 * pooled:.3f}%")
+            if pooled > TOKEN_DISAGREE:
+                fail(f"path ({path}) disagrees with {what} by > 1% pooled")
+            for i, ((e, t), w) in enumerate(zip(dis, wers)):
+                if w <= SANE_DENSE_WER and e > TOKEN_DISAGREE * t:
+                    fail(f"path ({path}) disagrees with {what} by > 1% at exit {i + 1}")
+        if wers[-1] > SANE_DENSE_WER:
+            fail(f"path ({path}): final-exit WER {wers[-1]}%")
+        return got
+
+    n_cd = 16
+    rec_f = Recognizer.from_flagship("cuda", fused=True, compute_dtype="float32")
+    rec_fu = Recognizer.from_flagship("cuda", fused=False, compute_dtype="float32")
+    got_c = allexit_path("C", rec_f, rec_fu, n_cd, conformer_block_f32=len(folded))
+    del rec_f, rec_fu
+    rec_a = Recognizer.from_flagship("cuda", fused=False, attention_impl="pallas")
+    got_d = allexit_path("D", rec_a, rec_u, n_cd, attention=len(folded))
+
+    blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
+    blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
     rows = []
-    for name, t, err, line in (
-            ("conformer_block", blk, blk_err,
-             "early_exit_tpu/ops/pallas/conformer_block.py:368"),
-            ("head_argmax", head, head_err,
-             "early_exit_tpu/ops/pallas/head_argmax.py:53")):
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"early_exit_tpu_torch/csrc/{name}.cu",
-                     "replaces": line, "launches": launches[name],
+    for name, t, err, src, line, n, path in (
+            ("conformer_block", blk, blk_err, blk_src, blk_line,
+             launches["conformer_block_bf16"],
+             f"all-exit path; the cascade (A): {gated_launches['bf16'][0]} with no "
+             f"row escalated, {gated_launches['bf16'][1]} with half"),
+            ("conformer_block_f32", f32, f32_err, blk_src,
+             blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
+             f"(C) all-exit float32, {n_cd} requests"),
+            ("conformer_block_w8a8", w8, w8_err, blk_src,
+             blk_line + " (quantize='int8', body :225)", gated_launches["w8a8"][1],
+             f"(B) the W8A8 cascade with half the rows escalated; "
+             f"{gated_launches['w8a8'][0]} with none"),
+            ("head_argmax", head, head_err, "early_exit_tpu_torch/csrc/head_argmax.cu",
+             "early_exit_tpu/ops/pallas/head_argmax.py:53", launches["head_argmax"],
+             "all-exit path"),
+            ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
+             f"(D) unfused, attention_impl='pallas', {n_cd} requests")):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": line, "launches": n, "path": path,
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
@@ -366,8 +735,9 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
-def profile_forward(forward, card: str, B: int, iters: int = 3) -> None:
-    """Phase 5: device time per kernel name over `iters` forwards (each
+def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
+                    top: int = 25) -> None:
+    """Device time per kernel name over `iters` calls of `forward` (each
     B x 10 s), and the share of the wall time the device was busy."""
     import torch
     from torch.autograd import DeviceType
@@ -384,11 +754,11 @@ def profile_forward(forward, card: str, B: int, iters: int = 3) -> None:
                    if ev.device_type == DeviceType.CUDA),   # kernels only
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile on {card} (B={B} x 10 s, torch.profiler): wall "
-          f"{wall_ms:.3f} ms per forward, device busy {busy:.3f} ms "
+    print(f"profile of the {what} on {card} (B={B} x 10 s, torch.profiler): wall "
+          f"{wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
           f"({100 * busy / wall_ms:.1f}%)")
-    print(f"{'ms/forward':>11} {'calls':>6}  kernel")
-    for name, ms, n in rows[:25]:
+    print(f"{'ms/call':>11} {'calls':>6}  kernel")
+    for name, ms, n in rows[:top]:
         print(f"{ms:11.4f} {n:6d}  {name[:110]}")
 
 

@@ -39,11 +39,11 @@ class ModelConfig:
     conv_norm: str = "batch"              # conformer conv-module norm
     length_mode: str = "reference"        # "reference": clamp(len/4); "true": conv arithmetic
     remat: bool = False                   # training only; no effect here
-    attention_impl: str = "xla"           # only "xla" is ported
+    attention_impl: str = "xla"           # "pallas": the CUDA attention kernel (unfused path)
     residual_dtype: str | None = None     # None = compute_dtype
     attn_softmax_dtype: str = "float32"
     fused_block: bool = False             # route inference through the block kernel
-    quantize: str = "none"                # only "none" is ported
+    quantize: str = "none"                # "int8": W8A8 linears in the Conformer blocks
 
     @property
     def dtype(self) -> torch.dtype:
@@ -68,7 +68,14 @@ class AudioConfig:
     mel_method: str = "fft"
 
 
-def inference_profile(fused_block: bool = True) -> ModelConfig:
+def inference_profile(fused_block: bool = True, *, quantize: str = "none",
+                      compute_dtype: str | None = None,
+                      attention_impl: str = "xla") -> ModelConfig:
     """The CLI's inference profile: bf16 compute and residual stream,
-    bf16 attention softmax (early_exit_tpu/cli.py get_args, mode="infer")."""
-    return ModelConfig(attn_softmax_dtype="bfloat16", fused_block=fused_block)
+    bf16 attention softmax (early_exit_tpu/cli.py get_args, mode="infer").
+    compute_dtype="float32" makes everything float32, the softmax
+    included."""
+    cd = compute_dtype or "bfloat16"
+    return ModelConfig(compute_dtype=cd, attn_softmax_dtype=cd,
+                       fused_block=fused_block, quantize=quantize,
+                       attention_impl=attention_impl)

@@ -1,7 +1,9 @@
-// One inference Conformer block in the bf16 profile, for Hopper (sm_90a).
+// One inference Conformer block for Hopper (sm_90a), in three entries:
+// the bf16 profile, float32, and W8A8 (int8 products in the bf16 profile).
 //
 // Replaces the TPU kernel early_exit_tpu/ops/pallas/conformer_block.py
-// (fused_block_apply -> _block_kernel). That kernel keeps a whole block
+// (fused_block_apply -> _block_kernel, with compute_dtype bf16 or float32
+// and quantize="int8"). That kernel keeps a whole block
 // of two items resident in VMEM; a block's shared memory (227 KB) holds
 // nothing of that size, so here one C entry launches a sequence of
 // kernels on the caller's stream, with the intermediates in device
@@ -32,8 +34,25 @@
 // through device memory; LayerNorm runs as its own pass instead of in
 // the next GEMM's prologue; attention computes its scores three times
 // to keep the TPU kernel's rounding points.
+//
+// The float32 entry runs the same chain on float32 tensors: a tiled FMA
+// product in true float32 (no TF32), the float32 attention of
+// attention_f32.cuh, scores masked to -1e9. Its bound at the same shape
+// is 171.5 GFLOP at 67 TFLOP/s (float32 outside the tensor cores),
+// 2.6 ms.
+//
+// The W8A8 entry replaces the block's 10 products: the float input of
+// each (the float32 LayerNorm, conv-module or float32-softmax attention
+// output, or a bf16 activation) is quantized row by row (absmax -> sx =
+// max(amax, 1e-8) / 127 -> rint(v / sx) clipped to +-127), multiplied
+// int8 x int8 -> int32 on the tensor cores (mma.sync m16n8k32) with the
+// per-output-channel int8 weights, and rescaled in the epilogue:
+// float(acc) * (sx * sw) + float32 bias -> one rounding to bf16 -> the
+// fused SiLU / residual add. Scores, P V and the depthwise conv stay in
+// the float path. Its products are 163 of the block's 171.5 G operations:
+// 0.082 ms at 1,979 TOP/s int8 plus 0.009 ms for the rest at 989 TFLOP/s.
 
-#include "common.cuh"
+#include "attention_f32.cuh"
 
 // ---------------------------------------------------------------- GEMM
 // out[M, N] = epilogue(bf16(A[M, K] @ W[K, N]) + bias[N])
@@ -137,7 +156,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         for (int q = 0; q < 8; ++q) {
           float v = bf16r(st[r * 16 + c0 + q]);
           v = bf16r(v + bf2f(bb[q]));
-          if (EPI == EPI_SILU) v = silu_bf16(v);
+          if (EPI == EPI_SILU) v = silu_t<bf16>(v);
           if (EPI == EPI_RES) v = bf2f(rr[q]) + v;
           if (EPI == EPI_RES_HALF) v = bf2f(rr[q]) + 0.5f * v;
           oo[q] = f2bf(v);
@@ -161,29 +180,319 @@ static cudaError_t gemm(int epi, const bf16* A, const bf16* W, const bf16* bias,
   return cudaGetLastError();
 }
 
+// -------------------------------------------------------- float32 GEMM
+// out[M, N] = epilogue(A[M, K] @ W[K, N] + bias[N]), FMA in float32 with
+// the k index running in order. 128 x 128 x 8 tiles; each thread owns an
+// 8 x 8 block of the tile as four 4 x 4 quadrants.
+constexpr int FBM = 128, FBN = 128, FBK = 8;
+
+template <int EPI>
+__global__ void __launch_bounds__(GTHREADS)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias, const float* res, float* out, int M, int N,
+                int K) {
+  __shared__ __align__(16) float As[2][FBK][FBM];  // transposed: [k][m]
+  __shared__ __align__(16) float Bs[2][FBK][FBN];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  const int a_row = tid >> 1, a_k = (tid & 1) * 4;  // A: 128 rows x 2 float4
+  const int b_k = tid >> 5, b_n = (tid & 31) * 4;   // W: 8 rows x 32 float4
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float4 ra, rb;
+  auto load_tile = [&](int k0) {
+    const int gm = m0 + a_row;
+    ra = gm < M ? *reinterpret_cast<const float4*>(A + (size_t)gm * K + k0 + a_k)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+    rb = *reinterpret_cast<const float4*>(W + (size_t)(k0 + b_k) * N + n0 + b_n);
+  };
+  auto store_tile = [&](int buf) {
+    As[buf][a_k + 0][a_row] = ra.x;
+    As[buf][a_k + 1][a_row] = ra.y;
+    As[buf][a_k + 2][a_row] = ra.z;
+    As[buf][a_k + 3][a_row] = ra.w;
+    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = rb;
+  };
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[buf][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+
+  const int KT = K / FBK;
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < KT) load_tile((kt + 1) * FBK);
+    compute(cur);
+    if (kt + 1 < KT) store_tile(cur ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      const int gn = n0 + jh * 64 + tx * 4;
+      const float4 bv = *reinterpret_cast<const float4*>(bias + gn);
+      float4 rv = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (EPI == EPI_RES || EPI == EPI_RES_HALF)
+        rv = *reinterpret_cast<const float4*>(res + (size_t)gm * N + gn);
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w}, rr[4] = {rv.x, rv.y, rv.z, rv.w};
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float v = acc[i][jh * 4 + q] + bb[q];
+        if (EPI == EPI_SILU) v = silu_t<float>(v);
+        if (EPI == EPI_RES) v = rr[q] + v;
+        if (EPI == EPI_RES_HALF) v = rr[q] + 0.5f * v;
+        o[q] = v;
+      }
+      *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) = make_float4(o[0], o[1], o[2], o[3]);
+    }
+  }
+}
+
+static cudaError_t gemm_f32(int epi, const float* A, const float* W, const float* bias,
+                            const float* res, float* out, int M, int N, int K,
+                            cudaStream_t s) {
+  const dim3 grid(N / FBN, (M + FBM - 1) / FBM);
+  switch (epi) {
+    case EPI_BIAS: gemm_f32_kernel<EPI_BIAS><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_SILU: gemm_f32_kernel<EPI_SILU><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_RES: gemm_f32_kernel<EPI_RES><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    default: gemm_f32_kernel<EPI_RES_HALF><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+  }
+  return cudaGetLastError();
+}
+
+// ----------------------------------------------------------- int8 GEMM
+// out[M, N] = epilogue(bf16(float(A[M, K] @ Wt[N, K]^T) * (sx[M] * sw[N])
+//                           + bias[N]))
+// A: int8 rows with one float scale each; Wt: the int8 weight stored
+// transposed, (N, K), so that four consecutive k of a column are one
+// 32-bit word, as mma.sync m16n8k32's column-major B fragment wants them.
+// Same 128 x 128 tiling as the bf16 GEMM, 64 k per stage; the fragments
+// are read from shared memory as words (row g = lane/4 and g+8, k bytes
+// 4*(lane%4) and +16), the 80-byte row stride keeping a warp's 32 words
+// on 32 banks. The accumulators go straight from registers to the
+// epilogue (rows g and g+8, columns 2*(lane%4) and +1 of each 8-wide tile).
+constexpr int QBK = 64, QLD = QBK + 16;
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_word(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+template <int EPI>
+__global__ void __launch_bounds__(GTHREADS)
+gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sx,
+               const int8_t* __restrict__ Wt, const float* __restrict__ sw,
+               const float* __restrict__ bias, const bf16* res, bf16* out, int M, int N,
+               int K) {
+  __shared__ __align__(16) int8_t As[2][GBM * QLD];
+  __shared__ __align__(16) int8_t Bs[2][GBN * QLD];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = 4 * (lane & 3);
+  const int wm = warp >> 1, wn = warp & 1;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+
+  int acc[2][8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
+
+  uint4 ra[2], rb[2];
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * GTHREADS;
+      const int r = idx >> 2, cv = idx & 3;  // 128 rows x 4 x 16 int8, A and Wt alike
+      const int gm = m0 + r;
+      ra[i] = gm < M ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + k0 + cv * 16)
+                     : make_uint4(0u, 0u, 0u, 0u);
+      rb[i] = *reinterpret_cast<const uint4*>(Wt + (size_t)(n0 + r) * K + k0 + cv * 16);
+    }
+  };
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * GTHREADS;
+      *reinterpret_cast<uint4*>(&As[buf][(idx >> 2) * QLD + (idx & 3) * 16]) = ra[i];
+      *reinterpret_cast<uint4*>(&Bs[buf][(idx >> 2) * QLD + (idx & 3) * 16]) = rb[i];
+    }
+  };
+  auto compute = [&](int buf) {
+#pragma unroll
+    for (int kk = 0; kk < QBK; kk += 32) {
+      uint32_t fa[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int8_t* ar = &As[buf][(wm * 32 + i * 16 + g) * QLD + kk + t4];
+        fa[i][0] = ld_word(ar);
+        fa[i][1] = ld_word(ar + 8 * QLD);
+        fa[i][2] = ld_word(ar + 16);
+        fa[i][3] = ld_word(ar + 8 * QLD + 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int8_t* br = &Bs[buf][(wn * 64 + j * 8 + g) * QLD + kk + t4];
+        const uint32_t b0 = ld_word(br), b1 = ld_word(br + 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], fa[i], b0, b1);
+      }
+    }
+  };
+
+  const int KT = K / QBK;
+  load_tile(0);
+  store_tile(0);
+  __syncthreads();
+  for (int kt = 0; kt < KT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < KT) load_tile((kt + 1) * QBK);
+    compute(cur);
+    if (kt + 1 < KT) store_tile(cur ^ 1);
+    __syncthreads();
+  }
+
+  const int c2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8
+      const int gm = m0 + wm * 32 + i * 16 + g + hr * 8;
+      if (gm >= M) continue;
+      const float sxm = sx[gm];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int gn = n0 + wn * 64 + j * 8 + c2;
+        float o[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          // no FMA contraction: the product and the sum round separately
+          float v = __fmul_rn((float)acc[i][j][hr * 2 + q], __fmul_rn(sxm, sw[gn + q]));
+          v = bf16r(__fadd_rn(v, bias[gn + q]));
+          if (EPI == EPI_SILU) v = silu_t<bf16>(v);
+          if (EPI == EPI_RES) v = bf2f(res[(size_t)gm * N + gn + q]) + v;
+          if (EPI == EPI_RES_HALF) v = bf2f(res[(size_t)gm * N + gn + q]) + 0.5f * v;
+          o[q] = v;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gm * N + gn) =
+            __floats2bfloat162_rn(o[0], o[1]);
+      }
+    }
+  }
+}
+
+static cudaError_t gemm_s8(int epi, const int8_t* A, const float* sx, const int8_t* Wt,
+                           const float* sw, const float* bias, const bf16* res, bf16* out,
+                           int M, int N, int K, cudaStream_t s) {
+  const dim3 grid(N / GBN, (M + GBM - 1) / GBM);
+  switch (epi) {
+    case EPI_BIAS: gemm_s8_kernel<EPI_BIAS><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
+    case EPI_SILU: gemm_s8_kernel<EPI_SILU><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
+    case EPI_RES: gemm_s8_kernel<EPI_RES><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
+    default: gemm_s8_kernel<EPI_RES_HALF><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
+  }
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------ row quantization
+// q[r, :] = clip(rint(x[r, :] / sx[r]), -127, 127), sx[r] = max(absmax of
+// the row, 1e-8) / 127. One warp per row. rint rounds half to even and the
+// value is divided by the scale, as the TPU kernel does; an all-zero row
+// gives sx = 1e-8/127 and q = 0.
+template <typename TIn>
+__global__ void __launch_bounds__(256)
+quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ sx,
+                     int rows, int K) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const TIn* xr = x + (size_t)row * K;
+  float amax = 0.f;
+  for (int v = lane; v < K / 8; v += 32) {
+    float f[8];
+    load8(xr + v * 8, f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(f[e]));
+  }
+  amax = warp_max(amax);
+  const float scale = fmaxf(amax, 1e-8f) * (float)(1.0 / 127.0);
+  if (lane == 0) sx[row] = scale;
+  for (int v = lane; v < K / 8; v += 32) {
+    float f[8];
+    load8(xr + v * 8, f);
+    union { int8_t b[8]; uint2 u; } o;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o.b[e] = (int8_t)fminf(fmaxf(rintf(f[e] / scale), -127.f), 127.f);
+    *reinterpret_cast<uint2*>(q + (size_t)row * K + v * 8) = o.u;
+  }
+}
+
+template <typename TIn>
+static cudaError_t quantize_rows(const TIn* x, int8_t* q, float* sx, int rows, int K,
+                                 cudaStream_t s) {
+  quantize_rows_kernel<TIn><<<(rows + 7) / 8, 256, 0, s>>>(x, q, sx, rows, K);
+  return cudaGetLastError();
+}
+
 // ----------------------------------------------------------- LayerNorm
 // One warp per row, one-pass float32 statistics. With `lengths`, rows
-// t >= lengths[b] are written as zeros. x and y may alias.
+// t >= lengths[b] are written as zeros. x and y may alias when their
+// types agree.
 constexpr int LN_THREADS = 256;
 
+template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(LN_THREADS)
-layer_norm_kernel(const bf16* x, bf16* y, const float* __restrict__ g,
+layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
                   const float* __restrict__ b, int rows, int D, float eps,
                   const int* __restrict__ lengths, int T) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * D;
-  bf16* yr = y + (size_t)row * D;
+  const TIn* xr = x + (size_t)row * D;
+  TOut* yr = y + (size_t)row * D;
   float s = 0.f, ss = 0.f;
   for (int v = lane; v < D / 8; v += 32) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + v * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+    float e[8];
+    load8(xr + v * 8, e);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const float f = bf2f(e[q]);
-      s += f;
-      ss += f * f;
+      s += e[q];
+      ss += e[q] * e[q];
     }
   }
   s = warp_sum(s);
@@ -192,24 +501,23 @@ layer_norm_kernel(const bf16* x, bf16* y, const float* __restrict__ g,
   const float rstd = rsqrtf(fmaxf(ss / D - mu * mu, 0.f) + eps);
   const bool zero = lengths != nullptr && (row % T) >= lengths[row / T];
   for (int v = lane; v < D / 8; v += 32) {
-    const uint4 u = *reinterpret_cast<const uint4*>(xr + v * 8);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-    uint4 o;
-    bf16* oo = reinterpret_cast<bf16*>(&o);
+    float e[8], o[8];
+    load8(xr + v * 8, e);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int c = v * 8 + q;
-      oo[q] = zero ? f2bf(0.f) : f2bf((bf2f(e[q]) - mu) * rstd * g[c] + b[c]);
+      o[q] = zero ? 0.f : (e[q] - mu) * rstd * g[c] + b[c];
     }
-    *reinterpret_cast<uint4*>(yr + v * 8) = o;
+    store8(yr + v * 8, o);
   }
 }
 
-static cudaError_t layer_norm(const bf16* x, bf16* y, const float* g, const float* b,
+template <typename TIn, typename TOut>
+static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float* b,
                               int rows, int D, float eps, const int* lengths, int T,
                               cudaStream_t s) {
   const int per_block = LN_THREADS / 32;
-  layer_norm_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
+  layer_norm_kernel<TIn, TOut><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
       x, y, g, b, rows, D, eps, lengths, T);
   return cudaGetLastError();
 }
@@ -256,10 +564,19 @@ struct AttLayout {
   }
 };
 
-template <int DH>
+__device__ __forceinline__ void store_pair(bf16* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack_pair(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
+  *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
+}
+
+// TOut: bf16, or float for the W8A8 entry with a float32 softmax, whose
+// o projection quantizes the unrounded P V.
+template <int DH, typename TOut>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
-                 bf16* __restrict__ out, int T, int D, int Tp, float scale, int sm_bf16) {
+                 TOut* __restrict__ out, int T, int D, int Tp, float scale, int sm_bf16) {
   using L = AttLayout<DH>;
   constexpr int KLD = L::KLD;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -372,40 +689,42 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
 #pragma unroll
   for (int nt = 0; nt < DH / 8; ++nt) {
     const int c = h * DH + nt * 8 + t2;
-    if (r0 < T)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)b * T + r0) * D + c) = pack_pair(o[nt][0], o[nt][1]);
-    if (r1 < T)
-      *reinterpret_cast<uint32_t*>(out + ((size_t)b * T + r1) * D + c) = pack_pair(o[nt][2], o[nt][3]);
+    if (r0 < T) store_pair(out + ((size_t)b * T + r0) * D + c, o[nt][0], o[nt][1]);
+    if (r1 < T) store_pair(out + ((size_t)b * T + r1) * D + c, o[nt][2], o[nt][3]);
   }
 }
 
-static cudaError_t attention(const bf16* qkv, const int* lengths, bf16* out, int B, int T,
+template <typename TOut>
+static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
   const int Tp = (T + 15) / 16 * 16;
   const size_t bytes = AttLayout<32>::bytes(Tp);
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
-  EET_TRY(cudaFuncSetAttribute(attention_kernel<32>,
+  EET_TRY(cudaFuncSetAttribute(attention_kernel<32, TOut>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
-  attention_kernel<32><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp, scale,
-                                                           sm_bf16);
+  attention_kernel<32, TOut><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp,
+                                                                 scale, sm_bf16);
   return cudaGetLastError();
 }
 
 // --------------------------------------------------------- conv module
 // GLU over the PW1 output (rows, 2D) -> zero rows t >= len -> depthwise
-// 'SAME' conv over time (float32 accumulation, one bf16 rounding) ->
-// + bias -> folded BatchNorm -> SiLU (float32) -> bf16. One block per
+// 'SAME' conv over time (float32 accumulation, one rounding to T) ->
+// + bias -> folded BatchNorm -> SiLU (float32) -> TOut. One block per
 // (time tile, item); the GLU tile with its halo sits in shared memory.
+// T is the compute type; TOut is T, or float for the W8A8 entry, whose
+// PW2 product quantizes the unrounded value.
 constexpr int CONV_TT = 32, CONV_THREADS = 256;
 
+template <typename T_, typename TOut>
 __global__ void __launch_bounds__(CONV_THREADS)
-conv_module_kernel(const bf16* __restrict__ g, const int* __restrict__ lengths,
-                   const bf16* __restrict__ dw, const float* __restrict__ dw_b,
+conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
+                   const T_* __restrict__ dw, const float* __restrict__ dw_b,
                    const float* __restrict__ bn_scale, const float* __restrict__ bn_shift,
-                   bf16* __restrict__ out, int T, int D, int ksize) {
+                   TOut* __restrict__ out, int T, int D, int ksize) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* tile = reinterpret_cast<bf16*>(smem);
+  T_* tile = reinterpret_cast<T_*>(smem);
   const int b = blockIdx.y, t0 = blockIdx.x * CONV_TT;
   const int len = lengths[b], padl = (ksize - 1) / 2;
   const int rows = CONV_TT + ksize - 1;
@@ -413,34 +732,35 @@ conv_module_kernel(const bf16* __restrict__ g, const int* __restrict__ lengths,
     const int r = idx / D, c = idx % D, t = t0 - padl + r;
     float v = 0.f;
     if (t >= 0 && t < len) {
-      const bf16* gr = g + ((size_t)b * T + t) * 2 * D;
-      v = bf16r(bf2f(gr[c]) * sigmoid_bf16(bf2f(gr[D + c])));
+      const T_* gr = g + ((size_t)b * T + t) * 2 * D;
+      v = rnd<T_>(to_f(gr[c]) * sigmoid_t<T_>(to_f(gr[D + c])));
     }
-    tile[idx] = f2bf(v);
+    tile[idx] = from_f<T_>(v);
   }
   __syncthreads();
   for (int idx = threadIdx.x; idx < CONV_TT * D; idx += blockDim.x) {
     const int r = idx / D, c = idx % D, t = t0 + r;
     if (t >= T) continue;
     float acc = 0.f;
-    for (int j = 0; j < ksize; ++j) acc += bf2f(tile[(r + j) * D + c]) * bf2f(dw[j * D + c]);
-    float y = bf16r(acc) + dw_b[c];
+    for (int j = 0; j < ksize; ++j) acc += to_f(tile[(r + j) * D + c]) * to_f(dw[j * D + c]);
+    float y = rnd<T_>(acc) + dw_b[c];
     y = y * bn_scale[c] + bn_shift[c];
     y = y / (1.f + expf(-y));
-    out[((size_t)b * T + t) * D + c] = f2bf(y);
+    out[((size_t)b * T + t) * D + c] = from_f<TOut>(y);
   }
 }
 
-static cudaError_t conv_module(const bf16* g, const int* lengths, const bf16* dw,
+template <typename T_, typename TOut>
+static cudaError_t conv_module(const T_* g, const int* lengths, const T_* dw,
                                const float* dw_b, const float* bn_scale, const float* bn_shift,
-                               bf16* out, int B, int T, int D, int ksize, cudaStream_t s) {
-  const size_t bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(bf16);
+                               TOut* out, int B, int T, int D, int ksize, cudaStream_t s) {
+  const size_t bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(T_);
   if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
-  EET_TRY(cudaFuncSetAttribute(conv_module_kernel,
+  EET_TRY(cudaFuncSetAttribute(conv_module_kernel<T_, TOut>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + CONV_TT - 1) / CONV_TT, B);
-  conv_module_kernel<<<grid, CONV_THREADS, bytes, s>>>(g, lengths, dw, dw_b, bn_scale,
-                                                       bn_shift, out, T, D, ksize);
+  conv_module_kernel<T_, TOut><<<grid, CONV_THREADS, bytes, s>>>(
+      g, lengths, dw, dw_b, bn_scale, bn_shift, out, T, D, ksize);
   return cudaGetLastError();
 }
 
@@ -495,13 +815,123 @@ extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* le
   return 0;
 }
 
+// The float32 entry. x, y: (B*T, D) float32 (may not alias); every weight
+// float32, same order; scratch as above in float32. Scores are masked to
+// -1e9 and the softmax is float32.
+extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* lengths_, int B,
+                                       int T, int D, int H, int F, int ksize, float scale,
+                                       float eps, const void* const* w, void* s_ln_,
+                                       void* s_big_, void* s_att_, void* stream_) {
+  const float* x = static_cast<const float*>(x_);
+  float* y = static_cast<float*>(y_);
+  const int* lengths = static_cast<const int*>(lengths_);
+  float* s_ln = static_cast<float*>(s_ln_);
+  float* s_big = static_cast<float*>(s_big_);
+  float* s_att = static_cast<float*>(s_att_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  const int R = B * T, DH = D / H;
+  const float* no_res = nullptr;
+
+  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN1_W1), fw(W_FFN1_B1), no_res, s_big, R, F, D, s));
+  EET_TRY(gemm_f32(EPI_RES_HALF, s_big, fw(W_FFN1_W2), fw(W_FFN1_B2), x, y, R, D, F, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_QKV), fw(W_BQKV), no_res, s_big, R, 3 * D, D, s));
+  // q | k | v of a frame are one (3D) row of s_big; head h at column h*DH
+  EET_TRY(attention_f32<float>(s_big, s_big + D, s_big + 2 * D, nullptr, lengths, s_att, B, H,
+                               T, (long long)T * 3 * D, DH, 3 * D, (long long)T * D, DH, D,
+                               scale, s));
+  EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_O), fw(W_BO), y, y, R, D, D, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_PW1), fw(W_BPW1), no_res, s_big, R, 2 * D, D, s));
+  EET_TRY(conv_module<float, float>(s_big, lengths, fw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
+                                    fw(W_BN_SHIFT), s_att, B, T, D, ksize, s));
+  EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_PW2), fw(W_BPW2), y, y, R, D, D, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN2_W1), fw(W_FFN2_B1), no_res, s_big, R, F, D, s));
+  EET_TRY(gemm_f32(EPI_RES_HALF, s_big, fw(W_FFN2_W2), fw(W_FFN2_B2), y, y, R, D, F, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  return 0;
+}
+
+// The W8A8 entry. x, y: (B*T, D) bf16 (may not alias). w: the same order,
+// with each of the 10 product weights as its transposed int8 twin (N, K)
+// and each of their biases in float32; ws: the float32 per-output-channel
+// scale row at each product weight's index (nullptr elsewhere). Scratch:
+// s_f (B*T, D) float32; s_q (B*T, max(F, D)) int8; s_sx (B*T) float32;
+// s_big (B*T, max(F, 3D)) and s_att (B*T, D) bf16.
+extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* lengths_, int B,
+                                        int T, int D, int H, int F, int ksize, int sm_bf16,
+                                        float scale, float eps, const void* const* w,
+                                        const void* const* ws, void* s_f_, void* s_q_,
+                                        void* s_sx_, void* s_big_, void* s_att_,
+                                        void* stream_) {
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* y = static_cast<bf16*>(y_);
+  const int* lengths = static_cast<const int*>(lengths_);
+  float* s_f = static_cast<float*>(s_f_);
+  int8_t* s_q = static_cast<int8_t*>(s_q_);
+  float* s_sx = static_cast<float*>(s_sx_);
+  bf16* s_big = static_cast<bf16*>(s_big_);
+  bf16* s_att = static_cast<bf16*>(s_att_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  const int R = B * T;
+  // LayerNorm in float32 -> quantized rows in s_q / s_sx
+  auto ln_q = [&](const bf16* v, int g, int b) -> cudaError_t {
+    EET_TRY(layer_norm(v, s_f, fw(g), fw(b), R, D, eps, nullptr, T, s));
+    return quantize_rows(s_f, s_q, s_sx, R, D, s);
+  };
+  // out = epilogue(quantized s_q @ weight wi); bi: its bias
+  auto mm = [&](int epi, int wi, int bi, const bf16* res, bf16* out, int N, int K) {
+    return gemm_s8(epi, s_q, s_sx, static_cast<const int8_t*>(w[wi]),
+                   static_cast<const float*>(ws[wi]), fw(bi), res, out, R, N, K, s);
+  };
+  auto ffn = [&](const bf16* v, bf16* out, int ln_g, int ln_b, int w1, int b1, int w2,
+                 int b2) -> cudaError_t {
+    EET_TRY(ln_q(v, ln_g, ln_b));
+    EET_TRY(mm(EPI_SILU, w1, b1, nullptr, s_big, F, D));
+    EET_TRY(quantize_rows(s_big, s_q, s_sx, R, F, s));
+    return mm(EPI_RES_HALF, w2, b2, v, out, D, F);
+  };
+
+  EET_TRY(ffn(x, y, W_FFN1_LN_G, W_FFN1_LN_B, W_FFN1_W1, W_FFN1_B1, W_FFN1_W2, W_FFN1_B2));
+  // MHSA: one quantized LayerNorm output feeds q, k and v
+  EET_TRY(ln_q(y, W_ATTN_LN_G, W_ATTN_LN_B));
+  EET_TRY(mm(EPI_BIAS, W_QKV, W_BQKV, nullptr, s_big, 3 * D, D));
+  if (sm_bf16) {
+    EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, 1, s));
+    EET_TRY(quantize_rows(s_att, s_q, s_sx, R, D, s));
+  } else {
+    EET_TRY(attention(s_big, lengths, s_f, B, T, D, H, scale, 0, s));
+    EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+  }
+  EET_TRY(mm(EPI_RES, W_O, W_BO, y, y, D, D));
+  // convolution module
+  EET_TRY(ln_q(y, W_CONV_LN_G, W_CONV_LN_B));
+  EET_TRY(mm(EPI_BIAS, W_PW1, W_BPW1, nullptr, s_big, 2 * D, D));
+  EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
+                      s_f, B, T, D, ksize, s));
+  EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+  EET_TRY(mm(EPI_RES, W_PW2, W_BPW2, y, y, D, D));
+  EET_TRY(ffn(y, y, W_FFN2_LN_G, W_FFN2_LN_B, W_FFN2_W1, W_FFN2_B1, W_FFN2_W2, W_FFN2_B2));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  return 0;
+}
+
 extern "C" int eet_conformer_block_param_count() { return W_COUNT; }
 
-// The longest T the kernel takes: attention keeps K and V^T of T rounded
-// up to 16 frames in shared memory (T = 1600 at dh = 32). The TPU
-// kernel's T' <= 512 is its VMEM budget, not this kernel's.
+// The longest T each entry takes. bf16 and W8A8: attention keeps K and
+// V^T of T rounded up to 16 frames in shared memory as bf16 (T = 1600 at
+// dh = 32). float32: K, V and the probability strips are float32, which
+// more than halves it. The TPU kernel's T' <= 512 is its VMEM budget,
+// not these kernels'.
 extern "C" int eet_conformer_block_max_t() {
   int t = 16;
   while (AttLayout<32>::bytes(t + 16) <= SMEM_LIMIT) t += 16;
   return t;
 }
+
+extern "C" int eet_conformer_block_f32_max_t() { return AttF32Layout<32>::max_t(); }

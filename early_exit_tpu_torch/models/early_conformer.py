@@ -17,18 +17,16 @@ from early_exit_tpu_torch.nn import core
 
 
 def conformer_cfg(cfg: ModelConfig) -> conformer.ConformerConfig:
-    if (cfg.attention_impl != "xla" or cfg.quantize != "none"
-            or cfg.conv_norm != "batch"):
-        raise NotImplementedError(
-            "the port runs attention_impl='xla', quantize='none' and "
-            "conv_norm='batch' only")
+    if cfg.conv_norm != "batch":
+        raise NotImplementedError("the port runs conv_norm='batch' only")
     return conformer.ConformerConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_feed_forward,
         kernel_size=cfg.depthwise_kernel_size,
         compute_dtype=cfg.compute_dtype,
         residual_dtype=(cfg.residual_dtype or cfg.compute_dtype),
         attn_softmax_dtype=cfg.attn_softmax_dtype,
-        fused_block=cfg.fused_block)
+        fused_block=cfg.fused_block, attention_impl=cfg.attention_impl,
+        quantize=cfg.quantize)
 
 
 class EarlyConformer(nn.Module):

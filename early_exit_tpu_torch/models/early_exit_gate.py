@@ -1,0 +1,122 @@
+"""Confidence-gated dynamic early exit (counterpart of
+`early_exit_tpu/models/early_exit_gate.py`).
+
+The trunk runs exit by exit and stops -- later layers are not executed --
+once every item of the batch has cleared its threshold. Confidence is a
+masked mean over valid frames of a per-frame statistic of the exit's CTC
+posterior. The loop is batch-conservative: it goes on while any item is
+below threshold, and each item keeps the log-probs of the first exit
+that satisfied it. The JAX package's `lax.while_loop` is a Python loop
+here that ends on `done.all()`.
+
+`early_conformer` only: the splitformer's parallel branches are not
+ported.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+
+from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.nn import core
+
+GATED_MODEL_TYPES = ("early_conformer", "splitformer")
+GATE_SCORES = ("maxprob", "margin", "negentropy")
+
+
+def exit_confidence(log_probs: torch.Tensor, mask: torch.Tensor,
+                    score: str = "maxprob") -> torch.Tensor:
+    """(B, T', V) log-probs, (B, T') validity -> (B,) confidence in [0, 1].
+
+    score selects the per-frame statistic, averaged over valid frames:
+      maxprob    -- max posterior probability;
+      margin     -- top-1 minus top-2 probability;
+      negentropy -- 1 - H / log V."""
+    if score == "maxprob":
+        frame = torch.exp(log_probs.amax(-1))
+    elif score == "margin":
+        top2 = torch.topk(log_probs, 2, dim=-1).values
+        frame = torch.exp(top2[..., 0]) - torch.exp(top2[..., 1])
+    elif score == "negentropy":
+        ent = -(torch.exp(log_probs) * log_probs).sum(-1)
+        frame = 1.0 - ent / math.log(float(log_probs.shape[-1]))
+    else:
+        raise ValueError(f"score must be one of {GATE_SCORES}: {score!r}")
+    m = mask.to(torch.float32)
+    return (frame * m).sum(1) / m.sum(1).clamp_min(1.0)
+
+
+def per_exit(value: Union[float, Sequence[float], None], n_exits: int):
+    """A scalar or a per-exit sequence -> a list of n_exits floats."""
+    if value is None:
+        return None
+    if hasattr(value, "__len__"):
+        out = [float(v) for v in value]
+        if len(out) != n_exits:
+            raise ValueError(f"expected {n_exits} per-exit values, got {len(out)}")
+        return out
+    return [float(value)] * n_exits
+
+
+def head_logp_conf(model: EarlyConformer, h: torch.Tensor, mask: torch.Tensor,
+                   e: int, score: str, temperature: Optional[float],
+                   with_conf: bool = True):
+    """Exit e's head on its hidden state: float32 log-probs for decoding
+    (never temperature-scaled) and the confidence of
+    softmax(logits / temperature)."""
+    logits = core.linear(h, model.heads_w[e], model.heads_b[e],
+                         compute_dtype=model.cfg.dtype).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    if not with_conf:
+        return logp, None
+    conf_lp = (logp if temperature is None else
+               torch.log_softmax(logits / temperature, dim=-1))
+    return logp, exit_confidence(conf_lp, mask, score)
+
+
+@torch.no_grad()
+def gated_apply(model: EarlyConformer, feats: torch.Tensor,
+                lengths: torch.Tensor, *, threshold, item_mask=None,
+                score: str = "maxprob", temperatures=None):
+    """Returns (log_probs (B, T', V) of each item's chosen exit,
+    chosen_exit (B,) 1-based, sub_len (B,), n_exits_run).
+
+    threshold: a scalar or a per-exit sequence. item_mask: optional (B,)
+    0/1; rows with 0 pad the batch and count as already satisfied.
+    temperatures: optional per-exit sequence; exit e's confidence is
+    computed from softmax(logits / temperatures[e]), while the returned
+    log-probs stay unscaled."""
+    cfg = model.cfg
+    if cfg.model_type not in GATED_MODEL_TYPES:
+        raise ValueError(
+            f"gated_apply supports {GATED_MODEL_TYPES}; {cfg.model_type!r} "
+            "has a single output exit, nothing to gate")
+    if cfg.model_type == "splitformer":
+        raise NotImplementedError(
+            "gated_apply: the splitformer's parallel branches are not ported")
+    E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
+    temps = per_exit(temperatures, E)
+    h, sub_len, mask = model.frontend_embed(feats, lengths)
+    thr = torch.tensor(per_exit(threshold, E), device=h.device)
+    B, Tp, _ = h.shape
+    chosen_lp = torch.zeros(B, Tp, cfg.vocab_size, device=h.device)
+    chosen_exit = torch.zeros(B, dtype=torch.int32, device=h.device)
+    if item_mask is None:
+        done = torch.zeros(B, dtype=torch.bool, device=h.device)
+    else:
+        done = torch.as_tensor(item_mask, device=h.device) < 0.5
+    e = 0
+    while e < E and not bool(done.all()):
+        h = model.stack(h, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
+        logp, conf = head_logp_conf(model, h, mask, e, score,
+                                    None if temps is None else temps[e])
+        ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
+        newly = ~done & ok
+        chosen_lp = torch.where(newly[:, None, None], logp, chosen_lp)
+        chosen_exit = torch.where(newly, e + 1, chosen_exit).to(torch.int32)
+        done = done | ok
+        e += 1
+    return chosen_lp, chosen_exit, sub_len, e

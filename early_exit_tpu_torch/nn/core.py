@@ -21,10 +21,47 @@ NEG_INF = -1e9
 NEG_BF16 = -30000.0
 
 
+def quantize_int8(x: torch.Tensor, axis: int = -1):
+    """Symmetric int8 quantization along `axis`: (q int8, scale float32
+    with the axis kept) with q * scale ~ x; scale = max(absmax, 1e-8) / 127,
+    q = clip(round half to even of x / scale, -127, 127)."""
+    x32 = x.float()
+    scale = x32.abs().amax(axis, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x32 / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> int32 product, returned as float32 (rounded
+    once, as int32 -> float32 is): the sums stay below 2^53, so float64
+    carries them exactly on any device and in any order."""
+    return torch.matmul(xq.double(), wq.double()).float()
+
+
+def _linear_int8(x: torch.Tensor, w: torch.Tensor,
+                 b: Optional[torch.Tensor] = None, *,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """W8A8 dynamically quantized linear: per-row activation scales,
+    per-output-channel weight scales, int8 x int8 -> int32, rescaled by
+    sx * sw in float32, float32 bias, then one cast to the compute dtype."""
+    xq, sx = quantize_int8(x, axis=-1)            # (..., d_in), (..., 1)
+    wq, sw = quantize_int8(w, axis=0)             # (d_in, d_out), (1, d_out)
+    y = int8_matmul(xq, wq) * (sx * sw.reshape(-1))
+    if b is not None:
+        y = y + b
+    if compute_dtype is not None:
+        y = y.to(compute_dtype)
+    return y
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           *, compute_dtype: Optional[torch.dtype] = None,
+           quantize: Optional[str] = None) -> torch.Tensor:
     """y = x @ w + b, all in `compute_dtype`: the product is rounded to the
-    compute dtype, then the bias is added in that dtype."""
+    compute dtype, then the bias is added in that dtype. quantize="int8"
+    takes the W8A8 path (`_linear_int8`)."""
+    if quantize == "int8":
+        return _linear_int8(x, w, b, compute_dtype=compute_dtype)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
@@ -106,18 +143,21 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         kv_in: torch.Tensor, n_heads: int, *,
         key_mask: Optional[torch.Tensor] = None,
         compute_dtype: Optional[torch.dtype] = None,
-        softmax_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        softmax_dtype: torch.dtype = torch.float32,
+        quantize: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention on (B, Tq, D) / (B, Tk, D).
 
     p maps "q", "k", "v", "o" to (w, b). key_mask: (B, Tk) bool, True
     where the key is valid. With a bf16 softmax dtype the scores stay in
-    bf16: scaled in bf16 and masked to -30000."""
+    bf16: scaled in bf16 and masked to -30000. quantize="int8" quantizes
+    the four projections; scores and P V stay in the float path."""
     B, Tq, D = q_in.shape
     Tk = kv_in.shape[1]
     dh = D // n_heads
-    q = linear(q_in, *p["q"], compute_dtype=compute_dtype)
-    k = linear(kv_in, *p["k"], compute_dtype=compute_dtype)
-    v = linear(kv_in, *p["v"], compute_dtype=compute_dtype)
+    lin = dict(compute_dtype=compute_dtype, quantize=quantize)
+    q = linear(q_in, *p["q"], **lin)
+    k = linear(kv_in, *p["k"], **lin)
+    v = linear(kv_in, *p["v"], **lin)
     q = q.reshape(B, Tq, n_heads, dh).transpose(1, 2)
     k = k.reshape(B, Tk, n_heads, dh).transpose(1, 2)
     v = v.reshape(B, Tk, n_heads, dh).transpose(1, 2)
@@ -141,7 +181,7 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
             v = v.to(compute_dtype)
         out = torch.matmul(attn.float(), v.float())
     out = out.transpose(1, 2).reshape(B, Tq, D)
-    return linear(out, *p["o"], compute_dtype=compute_dtype)
+    return linear(out, *p["o"], **lin)
 
 
 def sinusoidal_pe(max_len: int, d_model: int, *,

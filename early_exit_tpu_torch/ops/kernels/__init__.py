@@ -5,4 +5,4 @@ CUDA tensor it launches its kernel or raises. Each wrapper counts its
 launches in a plain int (`launches`).
 """
 
-KERNEL_SOURCES = ("conformer_block", "head_argmax")
+KERNEL_SOURCES = ("conformer_block", "head_argmax", "attention")

@@ -37,8 +37,23 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 20
+    assert int(n) >= 24
     assert bad.strip() == "[]"
+
+
+def test_gate_cascade_and_attention_modules_import():
+    import importlib
+    for name in ("models.early_exit_gate", "models.gate_calibration",
+                 "serving.cascade", "ops.kernels.attention"):
+        importlib.import_module("early_exit_tpu_torch." + name)
+
+
+def test_every_cuda_source_is_listed_for_the_build():
+    from early_exit_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
+    on_disk = {f[:-3] for f in os.listdir(_build.CSRC) if f.endswith(".cu")}
+    assert on_disk == set(KERNEL_SOURCES)
+    assert "attention" in KERNEL_SOURCES
+    assert os.path.exists(os.path.join(_build.CSRC, "attention_f32.cuh"))
 
 
 def _sources():
@@ -71,9 +86,14 @@ def test_entry_points_default_to_cuda():
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    from early_exit_tpu_torch.ops.kernels import attention as katt
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     from early_exit_tpu_torch.ops.kernels import head_argmax as kha
     meta = torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        katt.fused_attention(*(torch.empty(1, 8, 4, 32, device=meta)
+                               for _ in range(3)),
+                             torch.empty(1, 4, dtype=torch.bool, device=meta))
     with pytest.raises(ValueError, match="unsupported device"):
         kha.head_argmax(torch.empty(6, 1, 4, 32, device=meta),
                         torch.empty(6, 32, 256, device=meta),
