@@ -17,7 +17,13 @@ Phases (any failure exits non-zero, with no result line):
      plain version it must fall outside); a row's result must not depend
      on its batch. The bf16 block's product on its own (`block_gemm`) at a
      ragged M, at each (K, N) of the block's products and each of the four
-     epilogues, with the residual in place; the attention kernel at T = 1,
+     epilogues, with the residual in place, and the W8A8 block's int8
+     product (`block_gemm_s8`) at the same shapes, held equal bit for bit;
+     the W8A8 LayerNorm + quantize (`layer_norm_quantize`) equal to its
+     plain version value for value, and against the plain LayerNorm
+     followed by `quantize_int8` differing only next to rounding ties; the
+     heads at ragged row counts with forced exact ties; the attention
+     kernel at T = 1,
      65, 249 and 785 in both layouts ((B, H, T, dh) through
      `fused_attention`, packed q|k|v rows through the float32 block);
   3. the main path end to end: `Recognizer.from_flagship("cuda")` on 128
@@ -33,16 +39,20 @@ Phases (any failure exits non-zero, with no result line):
      of which runs a kernel, already disagree by about 1%; so against the
      unfused path exit 1 is held to the pooled contract only, and the
      no-kernel pair's rates are printed beside it;
-  4. times at B=128 x 10 s (T'=249): each kernel, its plain version, a
+  4. at B=128 x 10 s (T'=249), where the persistent kernels' rings wrap,
+     the heads' ids, the six int8 products and the LayerNorm + quantize
+     held to their plain versions as in phase 2, the W8A8 block to the
+     block tolerance; then times: each kernel, its plain version, a
      library yardstick (the block composed of torch ops with cuBLAS,
-     SDPA and cuDNN, in bf16 and in float32; the heads as torch.matmul +
-     argmax; attention as SDPA on float32 inputs; none for W8A8) and its
-     bound; each product of the bf16 block on its own in ms and TFLOP/s,
-     and the host time of one block launch; the end-to-end forward in
-     audio-seconds per second;
+     SDPA and cuDNN, in bf16 and in float32, and in W8A8 with
+     `torch._int_mm` products; the heads as torch.matmul + argmax;
+     attention as SDPA on float32 inputs) and its bound; each product of
+     the bf16 and of the W8A8 block on its own in ms and TFLOP/s (TOP/s),
+     beside torch.matmul (torch._int_mm), and the host time of one block
+     launch; the end-to-end forward in audio-seconds per second;
   5. torch.profiler over a few end-to-end forwards of phase 4: device
-     time per kernel and the device-busy share (and the same over the
-     cascade pass of phase 6);
+     time per kernel and the device-busy share; the same over W8A8 block
+     launches at that shape, and over the cascade pass of phase 6;
   6. gated cascade serving, `Recognizer.transcribe_gated`, on the same 128
      requests under the committed calibration, with bf16 blocks (path A)
      and with W8A8 blocks (path B): launch counts (4 block launches in
@@ -106,6 +116,13 @@ F32_BLOCK_ATOL = 5e-5
 # differed, more at K=2048
 GEMM_MAX_ULPS = 3
 GEMM_DIFFERING = 0.002
+# the W8A8 LayerNorm + quantize against the plain LayerNorm followed by
+# quantize_int8: the LayerNorms' float32 values differ from the kernel's in
+# the last places (a few 1e-7 relative), which moves an int8 value by one
+# level only where v / sx lies within ~1e-4 of a rounding tie, and a scale
+# by a float32 ulp or two
+LNQ_TIE = 1e-3
+LNQ_SCALE_RTOL = 1e-6
 ROWS_DIFFER = 0.01      # chosen exits, kernel cascade vs plain-version cascade
 # the same with exit 2's threshold at the batch's median confidence, where
 # the confidences lie closest together: the two rows next to the threshold
@@ -226,13 +243,19 @@ def main() -> None:
             kcb.conformer_block.entry_launches[entry] = 0
         kha.head_argmax.launches = 0
         katt.fused_attention.launches = 0
+        kcb.block_gemm_s8.launches = 0
+        kcb.layer_norm_quantize.launches = 0
 
     def read_counts():
+        """Launches per wrapper; the two W8A8 wrappers for checks must show
+        none on any path (the block's C entry runs their kernels)."""
         torch.cuda.synchronize()
         return {**{"conformer_block_" + e: n for e, n in
                    kcb.conformer_block.entry_launches.items()},
                 "head_argmax": kha.head_argmax.launches,
-                "attention": katt.fused_attention.launches}
+                "attention": katt.fused_attention.launches,
+                "block_gemm_s8": kcb.block_gemm_s8.launches,
+                "layer_norm_quantize": kcb.layer_norm_quantize.launches}
 
     def expect_counts(what, **want):
         got = read_counts()
@@ -285,6 +308,15 @@ def main() -> None:
                         collect_every=cfg.n_enc_layers_per_exit)
         return hs.to(torch.bfloat16).contiguous()
 
+    def bf16_figures(y, ref):
+        """(max|d|, mean|d|, max bf16 ulps of max(|ref|, 1), share of values
+        differing) of y against ref."""
+        d = (y.float() - ref.float()).abs()
+        # bf16 ulp of each reference value (8 significant bits), 2^-7 at |y| < 1
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1.0))) - 7)
+        return (float(d.max()), float(d.mean()), float((d / ulp).max()),
+                float((d > 0).float().mean()))
+
     def block_vs_plain(x, lengths, what, **over):
         """Block kernel (kw overridden by `over`) against the plain version
         in the main path's profile: (max|d|, within the tolerance)."""
@@ -295,17 +327,60 @@ def main() -> None:
             fail(f"conformer_block kernel gave non-finite values ({what})")
         if (y_k[lengths == 0] != 0).any():
             fail("conformer_block kernel: an empty item is not all zeros")
-        d = (y_k.float() - y_p.float()).abs()
-        err, mean = float(d.max()), float(d.mean())
-        # bf16 ulp of each plain value (8 significant bits), 2^-7 at |y| < 1
-        ulp = torch.exp2(torch.floor(torch.log2(
-            y_p.float().abs().clamp_min(1.0))) - 7)
-        ulps, frac = float((d / ulp).max()), float((d > 0).float().mean())
+        err, mean, ulps, frac = bf16_figures(y_k, y_p)
         print(f"conformer_block vs plain, {what} (B={x.shape[0]}, "
               f"T'={x.shape[1]}, lengths {lengths.tolist()}): max|d| {err} "
               f"mean|d| {mean} max ulps {ulps} values differing {frac} "
               f"(tolerance {BLOCK_MAX_ULPS} ulps, {BLOCK_DIFFERING})")
         return err, ulps <= BLOCK_MAX_ULPS and frac <= BLOCK_DIFFERING
+
+    def heads_vs_plain(hh, ww, bb, what):
+        """head_argmax against its plain version: every id equal, ties too
+        broken as the plain version breaks them (the lowest index)."""
+        ids_k = kha.head_argmax(hh, ww, bb)
+        ids_p = kha.head_argmax_plain(hh, ww, bb)
+        torch.cuda.synchronize()
+        n_diff = int((ids_k != ids_p).sum())
+        print(f"head_argmax vs plain, {what} (E={hh.shape[0]}, "
+              f"{hh.shape[1] * hh.shape[2]} rows): {n_diff} ids differ")
+        if n_diff:
+            fail(f"head_argmax kernel differs from the plain version ({what})")
+
+    def lnq_vs_plain(rows, g, b, what):
+        """layer_norm_quantize against its plain version, value for value;
+        then against the plain LayerNorm followed by quantize_int8 (the
+        model's two-pass LayerNorm, and the block plain version's one-pass
+        one): an int8 value may differ there by one level, and only where
+        the reference's v / sx lies within LNQ_TIE of a rounding tie; the
+        scales within LNQ_SCALE_RTOL."""
+        q_k, s_k = kcb.layer_norm_quantize(rows, g, b)
+        q_p, s_p = kcb.layer_norm_quantize_plain(rows, g, b)
+        torch.cuda.synchronize()
+        n_q, n_s = int((q_k != q_p).sum()), int((s_k != s_p).sum())
+        print(f"layer_norm_quantize vs plain, {what} ({rows.shape[0]} rows of "
+              f"{rows.shape[1]}): {n_q} int8 values and {n_s} scales differ")
+        if n_q or n_s:
+            fail(f"layer_norm_quantize kernel differs from its plain version ({what})")
+        for ln_name, ln in (("two-pass core.layer_norm", core.layer_norm(rows, g, b)),
+                            ("one-pass LayerNorm of the block's plain version",
+                             kcb._ln_one_pass(rows, g, b, 1e-5))):
+            q_r, s_r = core.quantize_int8(ln)
+            s_r = s_r[:, 0]
+            t = ln / s_r[:, None]                  # the levels before rounding
+            tie = ((t - torch.floor(t)) - 0.5).abs()
+            diff = q_k != q_r
+            n_d = int(diff.sum())
+            far = float(tie[diff].max()) if n_d else 0.0
+            step = int((q_k.int() - q_r.int()).abs().max())
+            s_rel = float(((s_k - s_r).abs() / s_r).max())
+            print(f"layer_norm_quantize vs {ln_name} + quantize_int8, {what}: {n_d} "
+                  f"of {q_k.numel()} int8 values differ (at most {step} level; the "
+                  f"farthest from a rounding tie at {far:.3e} of a level, tolerance "
+                  f"{LNQ_TIE}); scales' max relative difference {s_rel:.3e} "
+                  f"(tolerance {LNQ_SCALE_RTOL})")
+            if step > 1 or far > LNQ_TIE or s_rel > LNQ_SCALE_RTOL:
+                fail(f"layer_norm_quantize kernel disagrees with the {ln_name} + "
+                     f"quantize_int8 ({what})")
 
     # ---- 2. each kernel against its plain version, B=8, one short item
     with torch.no_grad():
@@ -346,6 +421,19 @@ def main() -> None:
               f"{n_diff} ids differ, {n_nontie} not at exact bf16 ties")
         if n_nontie:
             fail("head_argmax kernel id differs from the plain version at a non-tie")
+        # forced exact ties: each exit's most frequent id copied into two
+        # other columns, so its rows tie three ways; and row counts that
+        # leave the last 64-row tile ragged
+        tie_w, tie_b = heads_w.clone(), heads_b.clone()
+        for e in range(tie_w.shape[0]):
+            top = int(torch.mode(ids_p[e].flatten().long()).values)
+            for c in {(top + 97) % 256, (top + 181) % 256} - {top}:
+                tie_w[e, :, c], tie_b[e, c] = heads_w[e, :, top], heads_b[e, top]
+        for what, hh, ww, bb in (("forced ties", h8, tie_w, tie_b),
+                                 ("rows 3 x 37", h8[:, :3, :37].contiguous(), heads_w, heads_b),
+                                 ("forced ties, rows 1 x 1", h8[:, :1, :1].contiguous(),
+                                  tie_w, tie_b)):
+            heads_vs_plain(hh, ww, bb, what)
 
         # the attention kernel on block 1's q, k, v, bf16 and float32
         blk0 = rec_u.model.stack.blocks[0]
@@ -404,16 +492,12 @@ def main() -> None:
             res = []
             for what, ref in (("its plain version", y_qp),
                               ("the unquantized plain version", y_fp)):
-                d = (y_q.float() - ref.float()).abs()
-                ulp = torch.exp2(torch.floor(torch.log2(
-                    ref.float().abs().clamp_min(1.0))) - 7)
-                ulps, frac = float((d / ulp).max()), float((d > 0).float().mean())
+                err, mean, ulps, frac = bf16_figures(y_q, ref)
                 print(f"conformer_block W8A8 entry ({sm} softmax) vs {what}: "
-                      f"max|d| {float(d.max())} mean|d| {float(d.mean())} max ulps "
-                      f"{ulps} values differing {frac} (tolerance "
-                      f"{BLOCK_MAX_ULPS} ulps, {BLOCK_DIFFERING})")
-                res.append((float(d.max()), ulps <= BLOCK_MAX_ULPS
-                            and frac <= BLOCK_DIFFERING))
+                      f"max|d| {err} mean|d| {mean} max ulps {ulps} values "
+                      f"differing {frac} (tolerance {BLOCK_MAX_ULPS} ulps, "
+                      f"{BLOCK_DIFFERING})")
+                res.append((err, ulps <= BLOCK_MAX_ULPS and frac <= BLOCK_DIFFERING))
             if (not torch.isfinite(y_q.float()).all() or not res[0][1]
                     or (y_q[len8 == 0] != 0).any()):
                 fail("conformer_block W8A8 entry disagrees with its plain version")
@@ -480,6 +564,45 @@ def main() -> None:
             print(f"block_gemm vs plain, {name} {K_}->{N_}, M={M_rag}, four epilogues: "
                   f"max ulps {worst[0]} values differing {worst[1]} (tolerance "
                   f"{GEMM_MAX_ULPS} ulps, {GEMM_DIFFERING})")
+
+        # the W8A8 block's int8 product on its own, same shapes, bit for bit.
+        # Outputs of the block's scale, as for block_gemm: the SiLU of both
+        # products rounds as the plain version's for inputs above -87
+        # (gemm_bf16.cuh, silu_bf16x2), far below any the block makes
+        def int8_operands(M_, K_, N_):
+            aq, sx = core.quantize_int8(randn_bf16(M_, K_, scale=3.0).float())
+            wq, sw = core.quantize_int8(randn_bf16(K_, N_, scale=K_ ** -0.5).float(), axis=0)
+            return aq, sx[:, 0].contiguous(), wq.t().contiguous(), sw[0].contiguous()
+
+        for name, K_, N_, M_rag in gemm_cases:
+            aq, sx, wt, sw = int8_operands(M_rag, K_, N_)
+            b_, r_ = randn_bf16(N_).float(), randn_bf16(M_rag, N_)
+            for epi in kcb.GEMM_EPILOGUES:
+                res = r_.clone() if epi.startswith("res") else None
+                y_p = kcb.block_gemm_s8_plain(aq, sx, wt, sw, b_, res, epi)
+                y_k = kcb.block_gemm_s8(aq, sx, wt, sw, b_, res, epi, out=res)
+                torch.cuda.synchronize()
+                if not torch.equal(y_k, y_p):
+                    fail(f"block_gemm_s8 kernel differs from its plain version ({name} "
+                         f"{K_}->{N_}, M={M_rag}, {epi}): {int((y_k != y_p).sum())} values")
+            print(f"block_gemm_s8 vs plain, {name} {K_}->{N_}, M={M_rag}, four epilogues: "
+                  f"equal bit for bit")
+        # the int8 extremes at K = 256, where the epilogue's exact int ->
+        # float conversion meets its bound: sums of +-2^22
+        aq = torch.full((64, 256), -128, dtype=torch.int8, device=dev)
+        wt = torch.full((256, 256), 127, dtype=torch.int8, device=dev)
+        wt[::2] = -128
+        ones = torch.ones(256, device=dev)
+        y_k = kcb.block_gemm_s8(aq, ones[:64], wt, ones, ones)
+        y_p = kcb.block_gemm_s8_plain(aq, ones[:64], wt, ones, ones)
+        torch.cuda.synchronize()
+        if not torch.equal(y_k, y_p):
+            fail("block_gemm_s8 kernel differs from its plain version at int8 extremes")
+        print("block_gemm_s8 vs plain, int8 extremes at K=256 (sums of +-2^22): "
+              "equal bit for bit")
+        # the W8A8 LayerNorm + quantize on block 1's attention LayerNorm
+        lnq_vs_plain(x8.reshape(-1, x8.shape[-1]), q8_0["attn_ln_g"],
+                     q8_0["attn_ln_b"], "B=8")
 
         # the float32 attention at one key, either side of its 64-wide tiles
         # and at 12 tiles and a bit, in both layouts
@@ -589,6 +712,9 @@ def main() -> None:
         V = heads_w.shape[-1]
         head_flops = 2 * E * R * D * V
         head_bytes = hid.numel() * 2 + heads_w.numel() * 2 + heads_b.numel() * 2 + E * R * 4
+        # the persistent heads at the main path's size (~23 (exit, 64-row)
+        # items a block: the ring wraps, a block's run crosses exits)
+        heads_vs_plain(hid, heads_w, heads_b, f"B={B}")
         head = dict(
             ms=cuda_ms(lambda: kha.head_argmax(hid, heads_w, heads_b)),
             plain_ms=cuda_ms(lambda: kha.head_argmax_plain(hid, heads_w, heads_b)),
@@ -608,12 +734,24 @@ def main() -> None:
         gemm_ops = 2 * R * D * (4 * Fd + 3 * D + D + 2 * D + D)
         wq_bytes = sum(q8_0[n].numel() * q8_0[n].element_size()
                        for n in kcb.PARAM_ORDER_INT8)
+        # the W8A8 block and its LayerNorm + quantize at the main path's size
+        err, mean, ulps, frac = bf16_figures(
+            kcb.conformer_block(q8_0, x, lengths, quantize="int8", **kw),
+            kcb.conformer_block_plain(q8_0, x, lengths, quantize="int8", **kw))
+        print(f"conformer_block W8A8 entry vs its plain version (B={B}, T'={T}): "
+              f"max|d| {err} mean|d| {mean} max ulps {ulps} values differing "
+              f"{frac} (tolerance {BLOCK_MAX_ULPS} ulps, {BLOCK_DIFFERING})")
+        if ulps > BLOCK_MAX_ULPS or frac > BLOCK_DIFFERING:
+            fail(f"conformer_block W8A8 entry disagrees with its plain version at B={B}")
+        w8_err = max(w8_err, err)
+        lnq_vs_plain(x.reshape(R, D), q8_0["attn_ln_g"], q8_0["attn_ln_b"], f"B={B}")
         w8 = dict(
             ms=cuda_ms(lambda: kcb.conformer_block(q8_0, x, lengths,
                                                    quantize="int8", **kw)),
             plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(
                 q8_0, x, lengths, quantize="int8", **kw), 5, 1),
-            library_ms=None,      # no one PyTorch call computes a W8A8 block
+            library_ms=cuda_ms(lambda: block_library(q8_0, x, lengths, H,
+                                                     mm=library_int8_mm(q8_0))),
             # the 10 products at the int8 rate, scores, P V and the conv at bf16's
             bound=(gemm_ops / PEAK_INT8 + (blk_flops - gemm_ops) / PEAK_BF16,
                    (2 * R * D * 2 + wq_bytes + B * 4) / PEAK_BYTES))
@@ -646,7 +784,24 @@ def main() -> None:
                           behind=blocker)
             t_l = cuda_ms(lambda: torch.matmul(a, w_), behind=blocker)
             gemm_times.append((name, K_, N_, epi, t_k, t_l))
-        del a, w_, b_, r_, o_, big
+        s8_times = []
+        for name, K_, N_, epi in gemm_shapes:
+            aq, sx, wt, sw = int8_operands(R, K_, N_)
+            b_ = randn_bf16(N_).float()
+            r_ = randn_bf16(R, N_) if epi.startswith("res") else None
+            o_ = torch.empty(R, N_, dtype=torch.bfloat16, device=dev)
+            t_k = cuda_ms(lambda: kcb.block_gemm_s8(aq, sx, wt, sw, b_, r_, epi, out=o_),
+                          behind=blocker)
+            t_l = cuda_ms(lambda: torch._int_mm(aq, wt.t()), behind=blocker)
+            s8_times.append((name, K_, N_, epi, t_k, t_l))
+            # and bit for bit at this M (~15 tiles a block when K <= 256: the
+            # rings wrap, a block's strip and accumulators are reused)
+            if not torch.equal(o_, kcb.block_gemm_s8_plain(aq, sx, wt, sw, b_, r_, epi)):
+                fail(f"block_gemm_s8 kernel differs from its plain version ({name} "
+                     f"{K_}->{N_}, M={R}, {epi})")
+            print(f"block_gemm_s8 vs plain, {name} {K_}->{N_} +{epi}, M={R}: "
+                  f"equal bit for bit")
+        del a, w_, b_, r_, o_, aq, wt, big
         # the host's side of one bf16 block launch: the wrapper and the C
         # entry's 15 launches, no synchronisation inside the timed calls
         torch.cuda.synchronize()
@@ -680,6 +835,10 @@ def main() -> None:
         print(f"  block_gemm {name} {K_}->{N_} +{epi}, M={R}: {t_k:.4f} ms = "
               f"{2 * R * K_ * N_ / t_k / 1e9:.1f} TFLOP/s (torch.matmul without the "
               f"epilogue {t_l:.4f} ms)")
+    for name, K_, N_, epi, t_k, t_l in s8_times:
+        print(f"  block_gemm_s8 {name} {K_}->{N_} +{epi}, M={R}: {t_k:.4f} ms = "
+              f"{2 * R * K_ * N_ / t_k / 1e9:.1f} TOP/s (torch._int_mm without the "
+              f"epilogue {t_l:.4f} ms)")
     print(f"  host time of one bf16 block launch (wrapper + C entry, no "
           f"synchronisation): {host_ms:.4f} ms")
     print(f"  end to end, kernel path: {e2e_ms:.3f} ms per {B} x 10 s = "
@@ -687,6 +846,9 @@ def main() -> None:
     print(f"  end to end, unfused path: {e2e_u_ms:.3f} ms = "
           f"{audio_s / (e2e_u_ms / 1e3):.1f} audio-s/s")
     profile_forward(lambda: forward(rec_k), "all-exit forward", card, B)
+    with torch.no_grad():
+        profile_forward(lambda: kcb.conformer_block(q8_0, x, lengths, quantize="int8", **kw),
+                        "W8A8 block", card, B, iters=10)
 
     # ---- 6. gated cascade serving: paths (A) bf16 blocks and (B) W8A8 blocks
     E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
@@ -890,38 +1052,54 @@ def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
         print(f"{ms:11.4f} {n:6d}  {name[:110]}")
 
 
-def block_library(f, x, lengths, n_heads):
-    """Yardstick: the same block composed of library calls (cuBLAS bf16
-    products, SDPA, cuDNN depthwise conv, torch LayerNorm). Timed here
-    only; the port never calls it."""
+def block_library(f, x, lengths, n_heads, mm=None):
+    """Yardstick: the same block composed of library calls (cuBLAS
+    products, or `mm` such as `library_int8_mm`'s, SDPA, cuDNN depthwise
+    conv, torch LayerNorm). Timed here only; the port never calls it."""
     import torch
     import torch.nn.functional as F
     B, T, D = x.shape
     valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
+    if mm is None:
+        def mm(v, w, b):
+            return torch.matmul(v, f[w]) + f[b]
 
     def ln(v, g, b):
         return F.layer_norm(v, (D,), g.to(v.dtype), b.to(v.dtype))
 
     def ffn(v, pre):
-        y = F.silu(torch.matmul(ln(v, f[pre + "_ln_g"], f[pre + "_ln_b"]),
-                                f[pre + "_w1"]) + f[pre + "_b1"])
-        return torch.matmul(y, f[pre + "_w2"]) + f[pre + "_b2"]
+        y = F.silu(mm(ln(v, f[pre + "_ln_g"], f[pre + "_ln_b"]), pre + "_w1", pre + "_b1"))
+        return mm(y, pre + "_w2", pre + "_b2")
 
     x = x + 0.5 * ffn(x, "ffn1")
-    qkv = torch.matmul(ln(x, f["attn_ln_g"], f["attn_ln_b"]), f["wqkv"]) + f["bqkv"]
+    qkv = mm(ln(x, f["attn_ln_g"], f["attn_ln_b"]), "wqkv", "bqkv")
     q, k, v = (t.reshape(B, T, n_heads, D // n_heads).transpose(1, 2)
                for t in qkv.split(D, -1))
     o = F.scaled_dot_product_attention(q, k, v, attn_mask=valid[:, None, None, :])
-    x = x + torch.matmul(o.transpose(1, 2).reshape(B, T, D), f["wo"]) + f["bo"]
-    y = torch.matmul(ln(x, f["conv_ln_g"], f["conv_ln_b"]), f["pw1_w"]) + f["pw1_b"]
+    x = x + mm(o.transpose(1, 2).reshape(B, T, D), "wo", "bo")
+    y = mm(ln(x, f["conv_ln_g"], f["conv_ln_b"]), "pw1_w", "pw1_b")
     y = F.glu(y, dim=-1) * valid[..., None]
     k_ = f["dw_w"].shape[0]
     y = F.conv1d(y.transpose(1, 2), f["dw_w"].t()[:, None, :], f["dw_b"].to(y.dtype),
                  padding=(k_ - 1) // 2, groups=D).transpose(1, 2)
     y = F.silu(y * f["bn_scale"].to(y.dtype) + f["bn_shift"].to(y.dtype))
-    x = x + torch.matmul(y, f["pw2_w"]) + f["pw2_b"]
+    x = x + mm(y, "pw2_w", "pw2_b")
     x = x + 0.5 * ffn(x, "ffn2")
     return ln(x, f["final_ln_g"], f["final_ln_b"]) * valid[..., None]
+
+
+def library_int8_mm(f):
+    """The W8A8 products for `block_library`: a row quantize in torch ops,
+    torch._int_mm on the int8 twins, the float32 rescale and bias."""
+    import torch
+
+    def mm(v, name, bias):
+        v2 = v.reshape(-1, v.shape[-1]).float()
+        sx = v2.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127
+        q = (v2 / sx).round().clamp(-127, 127).to(torch.int8)
+        y = torch._int_mm(q, f[name + "_t"].t()).float() * (sx * f[name + "_s"]) + f[bias]
+        return y.to(torch.bfloat16).reshape(*v.shape[:-1], -1)
+    return mm
 
 
 if __name__ == "__main__":

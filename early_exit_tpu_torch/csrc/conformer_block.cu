@@ -50,19 +50,33 @@
 // each (the float32 LayerNorm, conv-module or float32-softmax attention
 // output, or a bf16 activation) is quantized row by row (absmax -> sx =
 // max(amax, 1e-8) / 127 -> rint(v / sx) clipped to +-127), multiplied
-// int8 x int8 -> int32 on the tensor cores (mma.sync m16n8k32) with the
-// per-output-channel int8 weights, and rescaled in the epilogue:
-// float(acc) * (sx * sw) + float32 bias -> one rounding to bf16 -> the
-// fused SiLU / residual add. Scores, P V and the depthwise conv stay in
-// the float path. Its products are 163 of the block's 171.5 G operations:
-// 0.082 ms at 1,979 TOP/s int8 plus 0.009 ms for the rest at 989 TFLOP/s.
+// int8 x int8 -> int32 on the tensor cores with the per-output-channel
+// int8 weights, and rescaled in the epilogue: float(acc) * (sx * sw) +
+// float32 bias -> one rounding to bf16 -> the fused SiLU / residual add.
+// Scores, P V and the depthwise conv stay in the float path. Its products
+// are 163 of the block's 171.5 G operations: 0.082 ms at 1,979 TOP/s int8
+// plus 0.009 ms for the rest at 989 TFLOP/s, 0.091 ms; 25 MB of
+// activations in and out at 3.35 TB/s are 0.01 ms. Design:
+//   - the products run through gemm_s8.cuh: the bf16 product's persistent,
+//     warp-specialised wgmma + TMA kernel with int8 operands
+//     (m64n256k32 .s32.s8.s8, both operands K-major);
+//   - five of the eight quantizations happen in the kernels that make the
+//     values: the four LayerNorms (one warp a row, D <= 256, the row in registers
+//     from the one read of x to the int8 store: no float32 LayerNorm
+//     output goes through device memory) and the conv module (a block's
+//     32 rows wait in shared memory for their absmax). The attention
+//     output (a row's 8 heads are 8 blocks) and the W1 output (a row's
+//     2048 columns are 8 tiles) keep a quantize pass each.
+
+#include <type_traits>
 
 #include "attention_f32.cuh"
-#include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
 
-// The bf16 entry's ten products: gemm() of gemm_bf16.cuh (wgmma + TMA).
-// Tile geometry of the float32 and int8 products below:
-constexpr int GBM = 128, GBN = 128, GTHREADS = 256;
+// The bf16 entry's ten products: gemm() of gemm_bf16.cuh, the W8A8
+// entry's gemm_s8() of gemm_s8.cuh (both wgmma + TMA). The float32
+// products below run on 256 threads a block.
+constexpr int GTHREADS = 256;
 
 // -------------------------------------------------------- float32 GEMM
 // out[M, N] = epilogue(A[M, K] @ W[K, N] + bias[N]), FMA in float32 with
@@ -169,154 +183,26 @@ static cudaError_t gemm_f32(int epi, const float* A, const float* W, const float
   return cudaGetLastError();
 }
 
-// ----------------------------------------------------------- int8 GEMM
-// out[M, N] = epilogue(bf16(float(A[M, K] @ Wt[N, K]^T) * (sx[M] * sw[N])
-//                           + bias[N]))
-// A: int8 rows with one float scale each; Wt: the int8 weight stored
-// transposed, (N, K), so that four consecutive k of a column are one
-// 32-bit word, as mma.sync m16n8k32's column-major B fragment wants them.
-// Same 128 x 128 tiling as the bf16 GEMM, 64 k per stage; the fragments
-// are read from shared memory as words (row g = lane/4 and g+8, k bytes
-// 4*(lane%4) and +16), the 80-byte row stride keeping a warp's 32 words
-// on 32 banks. The accumulators go straight from registers to the
-// epilogue (rows g and g+8, columns 2*(lane%4) and +1 of each 8-wide tile).
-constexpr int QBK = 64, QLD = QBK + 16;
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_word(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int EPI>
-__global__ void __launch_bounds__(GTHREADS)
-gemm_s8_kernel(const int8_t* __restrict__ A, const float* __restrict__ sx,
-               const int8_t* __restrict__ Wt, const float* __restrict__ sw,
-               const float* __restrict__ bias, const bf16* res, bf16* out, int M, int N,
-               int K) {
-  __shared__ __align__(16) int8_t As[2][GBM * QLD];
-  __shared__ __align__(16) int8_t Bs[2][GBN * QLD];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = 4 * (lane & 3);
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0;
-
-  uint4 ra[2], rb[2];
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GTHREADS;
-      const int r = idx >> 2, cv = idx & 3;  // 128 rows x 4 x 16 int8, A and Wt alike
-      const int gm = m0 + r;
-      ra[i] = gm < M ? *reinterpret_cast<const uint4*>(A + (size_t)gm * K + k0 + cv * 16)
-                     : make_uint4(0u, 0u, 0u, 0u);
-      rb[i] = *reinterpret_cast<const uint4*>(Wt + (size_t)(n0 + r) * K + k0 + cv * 16);
-    }
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * GTHREADS;
-      *reinterpret_cast<uint4*>(&As[buf][(idx >> 2) * QLD + (idx & 3) * 16]) = ra[i];
-      *reinterpret_cast<uint4*>(&Bs[buf][(idx >> 2) * QLD + (idx & 3) * 16]) = rb[i];
-    }
-  };
-  auto compute = [&](int buf) {
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* ar = &As[buf][(wm * 32 + i * 16 + g) * QLD + kk + t4];
-        fa[i][0] = ld_word(ar);
-        fa[i][1] = ld_word(ar + 8 * QLD);
-        fa[i][2] = ld_word(ar + 16);
-        fa[i][3] = ld_word(ar + 8 * QLD + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int8_t* br = &Bs[buf][(wn * 64 + j * 8 + g) * QLD + kk + t4];
-        const uint32_t b0 = ld_word(br), b1 = ld_word(br + 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_s8(acc[i][j], fa[i], b0, b1);
-      }
-    }
-  };
-
-  const int KT = K / QBK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int kt = 0; kt < KT; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < KT) load_tile((kt + 1) * QBK);
-    compute(cur);
-    if (kt + 1 < KT) store_tile(cur ^ 1);
-    __syncthreads();
-  }
-
-  const int c2 = 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {  // rows g and g + 8
-      const int gm = m0 + wm * 32 + i * 16 + g + hr * 8;
-      if (gm >= M) continue;
-      const float sxm = sx[gm];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int gn = n0 + wn * 64 + j * 8 + c2;
-        float o[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          // no FMA contraction: the product and the sum round separately
-          float v = __fmul_rn((float)acc[i][j][hr * 2 + q], __fmul_rn(sxm, sw[gn + q]));
-          v = bf16r(__fadd_rn(v, bias[gn + q]));
-          if (EPI == EPI_SILU) v = silu_t<bf16>(v);
-          if (EPI == EPI_RES) v = bf2f(res[(size_t)gm * N + gn + q]) + v;
-          if (EPI == EPI_RES_HALF) v = bf2f(res[(size_t)gm * N + gn + q]) + 0.5f * v;
-          o[q] = v;
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)gm * N + gn) =
-            __floats2bfloat162_rn(o[0], o[1]);
-      }
-    }
-  }
-}
-
-static cudaError_t gemm_s8(int epi, const int8_t* A, const float* sx, const int8_t* Wt,
-                           const float* sw, const float* bias, const bf16* res, bf16* out,
-                           int M, int N, int K, cudaStream_t s) {
-  const dim3 grid(N / GBN, (M + GBM - 1) / GBM);
-  switch (epi) {
-    case EPI_BIAS: gemm_s8_kernel<EPI_BIAS><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
-    case EPI_SILU: gemm_s8_kernel<EPI_SILU><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
-    case EPI_RES: gemm_s8_kernel<EPI_RES><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
-    default: gemm_s8_kernel<EPI_RES_HALF><<<grid, GTHREADS, 0, s>>>(A, sx, Wt, sw, bias, res, out, M, N, K); break;
-  }
-  return cudaGetLastError();
-}
-
 // ------------------------------------------------------ row quantization
 // q[r, :] = clip(rint(x[r, :] / sx[r]), -127, 127), sx[r] = max(absmax of
-// the row, 1e-8) / 127. One warp per row. rint rounds half to even and the
-// value is divided by the scale, as the TPU kernel does; an all-zero row
-// gives sx = 1e-8/127 and q = 0.
+// the row, 1e-8) / 127. rint rounds half to even and the value is divided
+// by the scale, as the TPU kernel does; an all-zero row gives sx =
+// 1e-8/127 and q = 0. Three kernels quantize: the LayerNorm (four rows of
+// the block's eight quantized inputs), the conv module (one) in the
+// kernels that produce the values, and this pass for the attention output
+// and the W1 output, whose rows span several blocks of their producers.
+__device__ __forceinline__ float row_scale_of(float amax) {
+  return fmaxf(amax, 1e-8f) * (float)(1.0 / 127.0);
+}
+__device__ __forceinline__ uint2 quantize8(const float (&f)[8], float scale) {
+  union { int8_t b[8]; uint2 u; } o;
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    o.b[e] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(f[e], scale)), -127.f), 127.f);
+  return o.u;
+}
+
+// One warp per row.
 template <typename TIn>
 __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ sx,
@@ -332,17 +218,12 @@ quantize_rows_kernel(const TIn* __restrict__ x, int8_t* __restrict__ q, float* _
 #pragma unroll
     for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(f[e]));
   }
-  amax = warp_max(amax);
-  const float scale = fmaxf(amax, 1e-8f) * (float)(1.0 / 127.0);
+  const float scale = row_scale_of(warp_max(amax));
   if (lane == 0) sx[row] = scale;
   for (int v = lane; v < K / 8; v += 32) {
     float f[8];
     load8(xr + v * 8, f);
-    union { int8_t b[8]; uint2 u; } o;
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      o.b[e] = (int8_t)fminf(fmaxf(rintf(f[e] / scale), -127.f), 127.f);
-    *reinterpret_cast<uint2*>(q + (size_t)row * K + v * 8) = o.u;
+    *reinterpret_cast<uint2*>(q + (size_t)row * K + v * 8) = quantize8(f, scale);
   }
 }
 
@@ -403,6 +284,64 @@ static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float
   const int per_block = LN_THREADS / 32;
   layer_norm_kernel<TIn, TOut><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
       x, y, g, b, rows, D, eps, lengths, T);
+  return cudaGetLastError();
+}
+
+// LayerNorm in float32 of a bf16 row, quantized on the way out: only the
+// int8 row and its scale are written. One warp per row, D <= 256: lane l
+// holds the row's 8 values at 8 l (lanes past D / 8 hold none) in
+// registers from the one read to the int8 store. The arithmetic is the
+// LayerNorm kernel's above with its contractions written out (every FMA
+// the compiler forms there is an explicit __fmaf_rn here, every other
+// operation rounded on its own), so the plain version can repeat it
+// exactly: each lane sums its 8 values in order, then a butterfly over
+// the warp.
+constexpr int LNQ_MAX_D = 256;
+
+__global__ void __launch_bounds__(LN_THREADS)
+layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                           const float* __restrict__ b, int8_t* __restrict__ q,
+                           float* __restrict__ sx, int rows, int D, float eps) {
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const bool has = lane < D / 8;
+  float e[8];
+  float s = 0.f, ss = 0.f;
+  if (has) {
+    load8(x + (size_t)row * D + lane * 8, e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s = __fadd_rn(s, e[k]);
+      ss = __fmaf_rn(e[k], e[k], ss);
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = __fdiv_rn(s, (float)D);
+  const float var = fmaxf(__fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)D)), 0.f);
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  float amax = 0.f;
+  if (has) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = lane * 8 + k;
+      e[k] = __fmaf_rn(__fmul_rn(__fsub_rn(e[k], mu), rstd), g[c], b[c]);
+      amax = fmaxf(amax, fabsf(e[k]));
+    }
+  }
+  const float scale = row_scale_of(warp_max(amax));
+  if (lane == 0) sx[row] = scale;
+  if (has) *reinterpret_cast<uint2*>(q + (size_t)row * D + lane * 8) = quantize8(e, scale);
+}
+
+// D a multiple of 8, at most LNQ_MAX_D
+static cudaError_t layer_norm_quantize(const bf16* x, const float* g, const float* b, int8_t* q,
+                                       float* sx, int rows, int D, float eps, cudaStream_t s) {
+  if (D % 8 || D > LNQ_MAX_D) return cudaErrorInvalidValue;
+  const int per_block = LN_THREADS / 32;
+  layer_norm_quantize_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
+      x, g, b, q, sx, rows, D, eps);
   return cudaGetLastError();
 }
 
@@ -597,8 +536,10 @@ static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int
 // 'SAME' conv over time (float32 accumulation, one rounding to T) ->
 // + bias -> folded BatchNorm -> SiLU (float32) -> TOut. One block per
 // (time tile, item); the GLU tile with its halo sits in shared memory.
-// T is the compute type; TOut is T, or float for the W8A8 entry, whose
-// PW2 product quantizes the unrounded value.
+// T is the compute type; TOut is T, or int8_t for the W8A8 entry: the
+// unrounded float32 values of the block's 32 rows wait in shared memory
+// while a warp takes each row's absmax, and leave quantized, with their
+// scales in sx, as the PW2 product reads them.
 constexpr int CONV_TT = 32, CONV_THREADS = 256;
 
 template <typename T_, typename TOut>
@@ -606,12 +547,14 @@ __global__ void __launch_bounds__(CONV_THREADS)
 conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
                    const T_* __restrict__ dw, const float* __restrict__ dw_b,
                    const float* __restrict__ bn_scale, const float* __restrict__ bn_shift,
-                   TOut* __restrict__ out, int T, int D, int ksize) {
+                   TOut* __restrict__ out, float* __restrict__ sx, int T, int D, int ksize) {
+  constexpr bool kQuant = std::is_same<TOut, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   T_* tile = reinterpret_cast<T_*>(smem);
   const int b = blockIdx.y, t0 = blockIdx.x * CONV_TT;
   const int len = lengths[b], padl = (ksize - 1) / 2;
   const int rows = CONV_TT + ksize - 1;
+  float* ytile = reinterpret_cast<float*>(smem + (size_t)rows * D * sizeof(T_));
   for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
     const int r = idx / D, c = idx % D, t = t0 - padl + r;
     float v = 0.f;
@@ -630,21 +573,42 @@ conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
     float y = rnd<T_>(acc) + dw_b[c];
     y = y * bn_scale[c] + bn_shift[c];
     y = y / (1.f + expf(-y));
-    out[((size_t)b * T + t) * D + c] = from_f<TOut>(y);
+    if constexpr (kQuant) ytile[idx] = y;
+    else out[((size_t)b * T + t) * D + c] = from_f<TOut>(y);
+  }
+  if constexpr (kQuant) {
+    __syncthreads();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < CONV_TT && t0 + r < T; r += CONV_THREADS / 32) {
+      const float* yr = ytile + r * D;
+      float amax = 0.f;
+      for (int c = lane; c < D; c += 32) amax = fmaxf(amax, fabsf(yr[c]));
+      const float scale = row_scale_of(warp_max(amax));
+      const size_t row = (size_t)b * T + t0 + r;
+      if (lane == 0) sx[row] = scale;
+      for (int v = lane; v < D / 8; v += 32) {
+        float f[8];
+        load8(yr + v * 8, f);
+        *reinterpret_cast<uint2*>(out + row * D + v * 8) = quantize8(f, scale);
+      }
+    }
   }
 }
 
 template <typename T_, typename TOut>
 static cudaError_t conv_module(const T_* g, const int* lengths, const T_* dw,
                                const float* dw_b, const float* bn_scale, const float* bn_shift,
-                               TOut* out, int B, int T, int D, int ksize, cudaStream_t s) {
-  const size_t bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(T_);
-  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+                               TOut* out, float* sx, int B, int T, int D, int ksize,
+                               cudaStream_t s) {
+  const size_t rows_bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(T_);
+  const size_t bytes =
+      rows_bytes + (std::is_same<TOut, int8_t>::value ? (size_t)CONV_TT * D * sizeof(float) : 0);
+  if (bytes > SMEM_LIMIT || rows_bytes % 16) return cudaErrorInvalidValue;
   EET_TRY(cudaFuncSetAttribute(conv_module_kernel<T_, TOut>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + CONV_TT - 1) / CONV_TT, B);
   conv_module_kernel<T_, TOut><<<grid, CONV_THREADS, bytes, s>>>(
-      g, lengths, dw, dw_b, bn_scale, bn_shift, out, T, D, ksize);
+      g, lengths, dw, dw_b, bn_scale, bn_shift, out, sx, T, D, ksize);
   return cudaGetLastError();
 }
 
@@ -689,7 +653,7 @@ extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* le
   EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
   EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
   EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
-                      s_att, B, T, D, ksize, s));
+                      s_att, nullptr, B, T, D, ksize, s));
   EET_TRY(gemm(EPI_RES, s_att, bw(W_PW2), bw(W_BPW2), y, y, R, D, D, s));
   // second half-FFN, final LayerNorm with padded rows zeroed
   EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
@@ -730,7 +694,7 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
   EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
   EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_PW1), fw(W_BPW1), no_res, s_big, R, 2 * D, D, s));
   EET_TRY(conv_module<float, float>(s_big, lengths, fw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
-                                    fw(W_BN_SHIFT), s_att, B, T, D, ksize, s));
+                                    fw(W_BN_SHIFT), s_att, nullptr, B, T, D, ksize, s));
   EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_PW2), fw(W_BPW2), y, y, R, D, D, s));
   EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
   EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN2_W1), fw(W_FFN2_B1), no_res, s_big, R, F, D, s));
@@ -743,8 +707,9 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
 // with each of the 10 product weights as its transposed int8 twin (N, K)
 // and each of their biases in float32; ws: the float32 per-output-channel
 // scale row at each product weight's index (nullptr elsewhere). Scratch:
-// s_f (B*T, D) float32; s_q (B*T, max(F, D)) int8; s_sx (B*T) float32;
-// s_big (B*T, max(F, 3D)) and s_att (B*T, D) bf16.
+// s_q (B*T, max(F, D)) int8; s_sx (B*T) float32; s_big (B*T, max(F, 3D))
+// and s_att (B*T, D) bf16; s_f (B*T, D) float32, only with the float32
+// softmax (nullptr otherwise).
 extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* lengths_, int B,
                                         int T, int D, int H, int F, int ksize, int sm_bf16,
                                         float scale, float eps, const void* const* w,
@@ -763,10 +728,10 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
   auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
   const int R = B * T;
-  // LayerNorm in float32 -> quantized rows in s_q / s_sx
-  auto ln_q = [&](const bf16* v, int g, int b) -> cudaError_t {
-    EET_TRY(layer_norm(v, s_f, fw(g), fw(b), R, D, eps, nullptr, T, s));
-    return quantize_rows(s_f, s_q, s_sx, R, D, s);
+  if (!sm_bf16 && s_f == nullptr) return cudaErrorInvalidValue;
+  // LayerNorm in float32, quantized rows in s_q / s_sx
+  auto ln_q = [&](const bf16* v, int g, int b) {
+    return layer_norm_quantize(v, fw(g), fw(b), s_q, s_sx, R, D, eps, s);
   };
   // out = epilogue(quantized s_q @ weight wi); bi: its bias
   auto mm = [&](int epi, int wi, int bi, const bf16* res, bf16* out, int N, int K) {
@@ -793,12 +758,11 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
     EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
   }
   EET_TRY(mm(EPI_RES, W_O, W_BO, y, y, D, D));
-  // convolution module
+  // convolution module, its output quantized as it is made
   EET_TRY(ln_q(y, W_CONV_LN_G, W_CONV_LN_B));
   EET_TRY(mm(EPI_BIAS, W_PW1, W_BPW1, nullptr, s_big, 2 * D, D));
   EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
-                      s_f, B, T, D, ksize, s));
-  EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+                      s_q, s_sx, B, T, D, ksize, s));
   EET_TRY(mm(EPI_RES, W_PW2, W_BPW2, y, y, D, D));
   EET_TRY(ffn(y, y, W_FFN2_LN_G, W_FFN2_LN_B, W_FFN2_W1, W_FFN2_B1, W_FFN2_W2, W_FFN2_B2));
   EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
@@ -825,4 +789,27 @@ extern "C" int eet_gemm_bf16(const void* a, const void* w, const void* bias, con
   return gemm(epi, static_cast<const bf16*>(a), static_cast<const bf16*>(w),
               static_cast<const bf16*>(bias), static_cast<const bf16*>(res),
               static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
+}
+
+// The W8A8 entry's product on its own, for checks and timing:
+// out (M, N) = epilogue(bf16(float(aq (M, K) @ wt (N, K)^T) * (sx (M) *
+// sw (N)) + bias (N))), aq and wt int8, sx, sw and bias float32, epi as
+// above; res may be out.
+extern "C" int eet_gemm_s8(const void* aq, const void* sx, const void* wt, const void* sw,
+                           const void* bias, const void* res, void* out, int M, int N, int K,
+                           int epi, void* stream_) {
+  return gemm_s8(epi, static_cast<const int8_t*>(aq), static_cast<const float*>(sx),
+                 static_cast<const int8_t*>(wt), static_cast<const float*>(sw),
+                 static_cast<const float*>(bias), static_cast<const bf16*>(res),
+                 static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
+}
+
+// The W8A8 entry's LayerNorm + quantize on its own, for checks: x (rows,
+// D) bf16 -> q (rows, D) int8 and sx (rows) float32.
+extern "C" int eet_layer_norm_quantize(const void* x, const void* g, const void* b, void* q,
+                                       void* sx, int rows, int D, float eps, void* stream_) {
+  return layer_norm_quantize(static_cast<const bf16*>(x), static_cast<const float*>(g),
+                             static_cast<const float*>(b), static_cast<int8_t*>(q),
+                             static_cast<float*>(sx), rows, D, eps,
+                             static_cast<cudaStream_t>(stream_));
 }

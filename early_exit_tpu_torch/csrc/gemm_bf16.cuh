@@ -50,6 +50,9 @@
 //     rows, the gate does not);
 //   - ragged edges: TMA zero-fills rows past M, columns past N and k past
 //     K on the way in; stores are guarded by row < M and column < N.
+// The kernel is a template over the operand type: OpBf16 below, OpS8 for
+// the W8A8 block's int8 products (gemm_s8.cuh), which share the schedule,
+// the rings, the strips and the epilogue's bf16 tail.
 // Tensor maps are encoded on the host by libcuda's
 // cuTensorMapEncodeTiled (looked up in libcuda.so.1 at first use, so the
 // build links nothing of it) and cached by (pointer, shape, box):
@@ -195,15 +198,61 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// What a product's epilogue reads beside the sums, by value in the kernel's
+// parameters: bias is bf16 for a bf16 product, float32 for an int8 one,
+// whose sums are rescaled by sx[row] * sw[column] first.
+struct GemmArgs {
+  const void* bias;
+  const float* sx;
+  const float* sw;
+  const bf16* res;
+  bf16* out;
+  int M, N, K;
+};
+
+// The operand type of a product: how a stage of W is loaded, which wgmma
+// runs on a stage, and how a pair of sums becomes a pair of bf16 values
+// before the bias is behind them. A stage is 128 bytes of k in A and W
+// alike, so the rings and strips below serve both types.
+struct OpBf16 {
+  typedef float Acc;
+  static constexpr int BK = WG_BK;  // k per stage
+  // W (K, N) row-major, the MN-major operand: four [64 k][64 n] boxes
+  __device__ static void load_w(uint32_t dst, const CUtensorMap* map, uint32_t bar, int n0,
+                                int k0) {
+#pragma unroll
+    for (int i = 0; i < WG_BN / 64; ++i)
+      tma_load_2d(dst + i * WG_BOX_BYTES, map, bar, n0 + 64 * i, k0);
+  }
+  __device__ static void mma(float (&d)[128], uint32_t a, uint32_t w, int accumulate) {
+    const uint64_t da = desc_k_major(a), db = desc_mn_major(w);
+#pragma unroll
+    for (int k16 = 0; k16 < BK / 16; ++k16)  // 32 bytes along k in A, 16 rows in W
+      wgmma_m64n256k16(d, da + 2 * k16, db + (16 * 128 / 16) * k16, accumulate | k16);
+  }
+  typedef __nv_bfloat162 Col;  // the bias of a column pair
+  __device__ static Col col(const GemmArgs& g, int gn) {
+    return *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(g.bias) + gn);
+  }
+  __device__ static float row_scale(const GemmArgs&, int) { return 0.f; }
+  // bf16(acc) + bias, both rounding points on the pair (see above)
+  __device__ static __nv_bfloat162 pair(float a, float b, Col bias, float, const GemmArgs&) {
+    return __hadd2(__floats2bfloat162_rn(a, b), bias);
+  }
+};
+
 // The epilogue of one warp's 16 x 256 sums: d[4j + 2h + e] is row lane/4
 // + 8h, column 8j + 2*(lane%4) + e. row0: the warp's first row in the
 // matrix; n0: the tile's first column.
-template <int EPI>
-__device__ __forceinline__ void epilogue(float (&d)[128], bf16* strip, int row0, int n0, int M,
-                                         int N, const bf16* __restrict__ bias, const bf16* res,
-                                         bf16* out, int lane) {
+template <class Op, int EPI>
+__device__ __forceinline__ void epilogue(typename Op::Acc (&d)[128], bf16* strip, int row0, int n0,
+                                         const GemmArgs& g, int lane) {
+  const int M = g.M, N = g.N;
   const int fr = lane >> 2, fc = 2 * (lane & 3);
   const int chunk = lane & 15, rsub = lane >> 4;  // on the way out: 16 bytes of row 2i + rsub
+  float rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rs[h] = Op::row_scale(g, row0 + fr + 8 * h);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int gn_out = n0 + 128 * half + 8 * chunk;
@@ -214,7 +263,7 @@ __device__ __forceinline__ void epilogue(float (&d)[128], bf16* strip, int row0,
       for (int i = 0; i < 8; ++i) {
         const int gm = row0 + 2 * i + rsub;
         rv[i] = gm < M && gn_out < N
-                    ? *reinterpret_cast<const uint4*>(res + (size_t)gm * N + gn_out)
+                    ? *reinterpret_cast<const uint4*>(g.res + (size_t)gm * N + gn_out)
                     : make_uint4(0u, 0u, 0u, 0u);
       }
     }
@@ -222,12 +271,10 @@ __device__ __forceinline__ void epilogue(float (&d)[128], bf16* strip, int row0,
     for (int jj = 0; jj < 16; ++jj) {
       const int j = 16 * half + jj;
       const int gn = n0 + 8 * j + fc;
-      const __nv_bfloat162 bv =
-          *reinterpret_cast<const __nv_bfloat162*>(bias + (gn < N ? gn : 0));
+      const typename Op::Col c = Op::col(g, gn < N ? gn : 0);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        __nv_bfloat162 v = __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-        v = __hadd2(v, bv);
+        __nv_bfloat162 v = Op::pair(d[4 * j + 2 * h], d[4 * j + 2 * h + 1], c, rs[h], g);
         if (EPI == EPI_SILU) v = silu_bf16x2(v);
         const int r = fr + 8 * h;
         *reinterpret_cast<__nv_bfloat162*>(strip + r * 128 + ((jj ^ (r & 7)) << 3) + fc) = v;
@@ -249,7 +296,7 @@ __device__ __forceinline__ void epilogue(float (&d)[128], bf16* strip, int row0,
 #pragma unroll
         for (int e = 0; e < 4; ++e) y2[e] = __hfma2(y2[e], w, r2[e]);
       }
-      *reinterpret_cast<uint4*>(out + (size_t)gm * N + gn_out) = yv;
+      *reinterpret_cast<uint4*>(g.out + (size_t)gm * N + gn_out) = yv;
     }
     __syncwarp();  // the strip is free again
   }
@@ -257,13 +304,12 @@ __device__ __forceinline__ void epilogue(float (&d)[128], bf16* strip, int row0,
 
 // A block's tiles are [first, last) of the tile sequence, in which tile t
 // is row tile t % tiles_m of tile column t / tiles_m. Stage `it` of a
-// block's run (one per tile and 64 k) lies in slot it % WG_STAGES of every
-// ring, in phase (it / WG_STAGES) & 1 of the slot's barriers.
-template <int EPI>
+// block's run (one per tile and 128 bytes of k) lies in slot it % WG_STAGES
+// of every ring, in phase (it / WG_STAGES) & 1 of the slot's barriers.
+template <class Op, int EPI>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
-                 const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ bias,
-                 const bf16* res, bf16* out, int M, int N, int K) {
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_w, const GemmArgs g) {
   extern __shared__ unsigned char wg_smem[];
   const uint32_t base = (smem_u32(wg_smem) + 1023u) & ~1023u;
   const uint32_t a_base = base + WG_STAGES * WG_B_BYTES;  // [warpgroup][stage]
@@ -273,19 +319,19 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t b_empty = b_full + 8 * WG_STAGES;
   const uint32_t a_bars = b_empty + 8 * WG_STAGES;  // per warpgroup: full[], empty[]
   const int group = threadIdx.x >> 7;
-  const int tiles_m = (M + WG_BM - 1) / WG_BM;
-  const int n_tiles = tiles_m * ((N + WG_BN - 1) / WG_BN);
+  const int tiles_m = (g.M + WG_BM - 1) / WG_BM;
+  const int n_tiles = tiles_m * ((g.N + WG_BN - 1) / WG_BN);
   const int first = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
   const int last = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
-  const int KB = (K + WG_BK - 1) / WG_BK;
+  const int KB = (g.K + Op::BK - 1) / Op::BK;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < WG_STAGES; ++s) {
       mbar_init(b_full + 8 * s, 1);                  // the producer's expect_tx
       mbar_init(b_empty + 8 * s, WG_CONSUMERS * 4);  // lane 0 of each consumer warp
-      for (int g = 0; g < WG_CONSUMERS; ++g) {
-        mbar_init(a_bars + 8 * (2 * WG_STAGES * g + s), 1);
-        mbar_init(a_bars + 8 * (2 * WG_STAGES * g + WG_STAGES + s), 4);
+      for (int c = 0; c < WG_CONSUMERS; ++c) {
+        mbar_init(a_bars + 8 * (2 * WG_STAGES * c + s), 1);
+        mbar_init(a_bars + 8 * (2 * WG_STAGES * c + WG_STAGES + s), 4);
       }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -293,31 +339,28 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
   __syncthreads();
 
   if (group == WG_CONSUMERS) {
-    // ---- producers: lane 0 of warp g loads consumer warpgroup g's A;
+    // ---- producers: lane 0 of warp c loads consumer warpgroup c's A;
     // that of warp 0 loads W as well
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    const int g = (threadIdx.x & 127) >> 5;
-    if (g < WG_CONSUMERS && (threadIdx.x & 31) == 0) {
-      const uint32_t a_full = a_bars + 8 * (2 * WG_STAGES * g), a_empty = a_full + 8 * WG_STAGES;
+    const int c = (threadIdx.x & 127) >> 5;
+    if (c < WG_CONSUMERS && (threadIdx.x & 31) == 0) {
+      const uint32_t a_full = a_bars + 8 * (2 * WG_STAGES * c), a_empty = a_full + 8 * WG_STAGES;
       int it = 0;
       for (int tile = first; tile < last; ++tile) {
-        const int m0 = (tile % tiles_m) * WG_BM + 64 * g, n0 = (tile / tiles_m) * WG_BN;
+        const int m0 = (tile % tiles_m) * WG_BM + 64 * c, n0 = (tile / tiles_m) * WG_BN;
         for (int kb = 0; kb < KB; ++kb, ++it) {
           const int s = it % WG_STAGES;
           const uint32_t free_parity = ((it / WG_STAGES) & 1) ^ 1;  // passes the first time
-          if (g == 0) {
+          if (c == 0) {
             const uint32_t bar = b_full + 8 * s;
             mbar_wait(b_empty + 8 * s, free_parity);
             mbar_expect_tx(bar, WG_B_BYTES);
-#pragma unroll
-            for (int i = 0; i < WG_BN / 64; ++i)
-              tma_load_2d(base + s * WG_B_BYTES + i * WG_BOX_BYTES, &map_w, bar, n0 + 64 * i,
-                          kb * WG_BK);
+            Op::load_w(base + s * WG_B_BYTES, &map_w, bar, n0, kb * Op::BK);
           }
           mbar_wait(a_empty + 8 * s, free_parity);
           mbar_expect_tx(a_full + 8 * s, WG_A_BYTES);
-          tma_load_2d(a_base + (g * WG_STAGES + s) * WG_A_BYTES, &map_a, a_full + 8 * s,
-                      kb * WG_BK, m0);
+          tma_load_2d(a_base + (c * WG_STAGES + s) * WG_A_BYTES, &map_a, a_full + 8 * s,
+                      kb * Op::BK, m0);
         }
       }
     }
@@ -327,7 +370,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
     const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
     const uint32_t a_full = a_bars + 8 * (2 * WG_STAGES * group), a_empty = a_full + 8 * WG_STAGES;
     bf16* strip = strips + (group * 4 + warp) * 16 * 128;
-    float d[128];
+    typename Op::Acc d[128];
     int it = 0;
     for (int tile = first; tile < last; ++tile) {
       const int m0 = (tile % tiles_m) * WG_BM + 64 * group, n0 = (tile / tiles_m) * WG_BN;
@@ -336,12 +379,8 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
         const uint32_t parity = (it / WG_STAGES) & 1;
         mbar_wait(b_full + 8 * s, parity);
         mbar_wait(a_full + 8 * s, parity);
-        const uint64_t da = desc_k_major(a_base + (group * WG_STAGES + s) * WG_A_BYTES);
-        const uint64_t db = desc_mn_major(base + s * WG_B_BYTES);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-        for (int k16 = 0; k16 < WG_BK / 16; ++k16)  // 32 bytes along k in A, 16 rows in W
-          wgmma_m64n256k16(d, da + 2 * k16, db + (16 * 128 / 16) * k16, (kb | k16) != 0);
+        Op::mma(d, a_base + (group * WG_STAGES + s) * WG_A_BYTES, base + s * WG_B_BYTES, kb != 0);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
         if (lane == 0) {
@@ -349,8 +388,7 @@ gemm_bf16_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_arrive(b_empty + 8 * s);
         }
       }
-      if (m0 + 16 * warp < M)
-        epilogue<EPI>(d, strip, m0 + 16 * warp, n0, M, N, bias, res, out, lane);
+      if (m0 + 16 * warp < g.M) epilogue<Op, EPI>(d, strip, m0 + 16 * warp, n0, g, lane);
     }
   }
 }
@@ -377,29 +415,31 @@ static EncodeTiledFn encode_tiled_fn() {
 struct MapKey {
   const void* ptr;
   uint64_t inner, outer;
-  uint32_t box_inner, box_outer;
+  uint32_t box_inner, box_outer, elem_bytes;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && inner == o.inner && outer == o.outer && box_inner == o.box_inner &&
-           box_outer == o.box_outer;
+           box_outer == o.box_outer && elem_bytes == o.elem_bytes;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t h = reinterpret_cast<size_t>(k.ptr);
-    for (uint64_t v : {k.inner, k.outer, (uint64_t)k.box_inner, (uint64_t)k.box_outer})
+    for (uint64_t v : {k.inner, k.outer, (uint64_t)k.box_inner, (uint64_t)k.box_outer,
+                       (uint64_t)k.elem_bytes})
       h = h * 0x9E3779B97F4A7C15ull + v;
     return h;
   }
 };
 
-// The tensor map of a row-major bf16 matrix (outer rows of inner values)
-// read in boxes of box_outer x box_inner, 128-byte swizzle, zeros past the
-// edges. Maps are cached: one is a pure function of its key.
-static cudaError_t tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
+// The tensor map of a row-major matrix of bf16 (elem_bytes 2) or int8 (1)
+// values, outer rows of inner values, read in boxes of box_outer x
+// box_inner, 128-byte swizzle, zeros past the edges. Maps are cached: one
+// is a pure function of its key.
+static cudaError_t tensor_map(const void* ptr, int elem_bytes, uint64_t inner, uint64_t outer,
                               uint32_t box_inner, uint32_t box_outer, CUtensorMap* map) {
   static std::mutex mu;
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, inner, outer, box_inner, box_outer};
+  const MapKey key{ptr, inner, outer, box_inner, box_outer, (uint32_t)elem_bytes};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {
@@ -409,11 +449,11 @@ static cudaError_t tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
   EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner * sizeof(bf16)};
+  const cuuint64_t strides[1] = {inner * elem_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer}, elem[2] = {1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  if (encode(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   if (cache.size() >= 4096) cache.clear();
@@ -421,24 +461,43 @@ static cudaError_t tensor_map(const void* ptr, uint64_t inner, uint64_t outer,
   return cudaSuccess;
 }
 
-// One persistent block per SM, or per tile where there are fewer.
-template <int EPI>
-static cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const bf16* bias,
-                               const bf16* res, bf16* out, int M, int N, int K,
-                               cudaStream_t s) {
-  static int sms_of[64] = {};  // by device; 0 until the kernel is configured there
+// The SM count of the current device, by device, after `kernel`'s shared
+// memory limit is raised there: 0 until then. Each caller keeps its own.
+template <class Kernel>
+static cudaError_t sm_count(Kernel kernel, int smem, int (&sms_of)[64], int* sms) {
   int dev = 0;
   EET_TRY(cudaGetDevice(&dev));
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (sms_of[dev] == 0) {
-    EET_TRY(cudaFuncSetAttribute(gemm_bf16_kernel<EPI>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM));
+    EET_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     EET_TRY(cudaDeviceGetAttribute(&sms_of[dev], cudaDevAttrMultiProcessorCount, dev));
   }
-  const int tiles = ((M + WG_BM - 1) / WG_BM) * ((N + WG_BN - 1) / WG_BN);
-  const int blocks = tiles < sms_of[dev] ? tiles : sms_of[dev];
-  gemm_bf16_kernel<EPI><<<blocks, WG_THREADS, WG_SMEM, s>>>(ma, mw, bias, res, out, M, N, K);
+  *sms = sms_of[dev];
+  return cudaSuccess;
+}
+
+// One persistent block per SM, or per tile where there are fewer.
+template <class Op, int EPI>
+static cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const GemmArgs& g,
+                               cudaStream_t s) {
+  static int sms_of[64] = {};  // one per instantiation, as the attribute is
+  int sms = 0;
+  EET_TRY(sm_count(gemm_wgmma_kernel<Op, EPI>, WG_SMEM, sms_of, &sms));
+  const int tiles = ((g.M + WG_BM - 1) / WG_BM) * ((g.N + WG_BN - 1) / WG_BN);
+  gemm_wgmma_kernel<Op, EPI><<<tiles < sms ? tiles : sms, WG_THREADS, WG_SMEM, s>>>(ma, mw, g);
   return cudaGetLastError();
+}
+
+template <class Op>
+static cudaError_t launch_gemm_epi(int epi, const CUtensorMap& ma, const CUtensorMap& mw,
+                                   const GemmArgs& g, cudaStream_t s) {
+  switch (epi) {
+    case EPI_BIAS: return launch_gemm<Op, EPI_BIAS>(ma, mw, g, s);
+    case EPI_SILU: return launch_gemm<Op, EPI_SILU>(ma, mw, g, s);
+    case EPI_RES: return launch_gemm<Op, EPI_RES>(ma, mw, g, s);
+    case EPI_RES_HALF: return launch_gemm<Op, EPI_RES_HALF>(ma, mw, g, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // A: (M, K), W: (K, N), res and out: (M, N), all row-major and 16-byte
@@ -451,13 +510,7 @@ static cudaError_t gemm(int epi, const bf16* A, const bf16* W, const bf16* bias,
       (uintptr_t)bias % 4)
     return cudaErrorInvalidValue;
   CUtensorMap ma, mw;
-  EET_TRY(tensor_map(A, K, M, WG_BK, 64, &ma));
-  EET_TRY(tensor_map(W, N, K, 64, WG_BK, &mw));
-  switch (epi) {
-    case EPI_BIAS: return launch_gemm<EPI_BIAS>(ma, mw, bias, res, out, M, N, K, s);
-    case EPI_SILU: return launch_gemm<EPI_SILU>(ma, mw, bias, res, out, M, N, K, s);
-    case EPI_RES: return launch_gemm<EPI_RES>(ma, mw, bias, res, out, M, N, K, s);
-    case EPI_RES_HALF: return launch_gemm<EPI_RES_HALF>(ma, mw, bias, res, out, M, N, K, s);
-    default: return cudaErrorInvalidValue;
-  }
+  EET_TRY(tensor_map(A, 2, K, M, WG_BK, 64, &ma));
+  EET_TRY(tensor_map(W, 2, N, K, 64, WG_BK, &mw));
+  return launch_gemm_epi<OpBf16>(epi, ma, mw, GemmArgs{bias, nullptr, nullptr, res, out, M, N, K}, s);
 }

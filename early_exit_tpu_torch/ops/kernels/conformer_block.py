@@ -10,9 +10,11 @@ and the tests use it. The CUDA source has three entries: the bf16
 profile (bf16 compute and residual, bf16 or float32 softmax), float32
 (everything float32) and W8A8 (`quantize="int8"` in the bf16 profile).
 Any other mix raises on the card. The bf16 entry's ten products run
-through one wgmma + TMA kernel (`csrc/gemm_bf16.cuh`), which `block_gemm`
-exposes on its own for checks and timing. Bounds and design notes are in
-the sources.
+through one wgmma + TMA kernel (`csrc/gemm_bf16.cuh`), the W8A8 entry's
+through its int8 instantiation (`csrc/gemm_s8.cuh`); `block_gemm` and
+`block_gemm_s8` expose them on their own for checks and timing, and
+`layer_norm_quantize` the W8A8 entry's LayerNorm + quantize kernel.
+Bounds and design notes are in the sources.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ _FLOAT32 = {n for n in PARAM_ORDER if "_ln_" in n} | {
     "dw_b", "bn_scale", "bn_shift"}
 _FLOAT32_INT8 = _FLOAT32 | set(_MATMULS.values()) | {
     n + "_s" for n in _MATMULS}
+# the widest row the W8A8 LayerNorm + quantize kernel takes (LNQ_MAX_D in
+# the source): one warp, 8 values a lane
+LNQ_MAX_D = 256
 
 
 def fold_block_params(sd: Mapping[str, torch.Tensor], *,
@@ -199,6 +204,22 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"{tuple(t.shape)} on {t.device}")
 
 
+def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    """y, written into `out` when one is given (the CPU paths)."""
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def _check_epilogue(name: str, epilogue: str, res: Optional[torch.Tensor]) -> None:
+    if epilogue not in GEMM_EPILOGUES:
+        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}: {epilogue!r}")
+    if (res is not None) != epilogue.startswith("res"):
+        raise ValueError(f"{name}: epilogue {epilogue!r} with res "
+                         f"{'given' if res is not None else 'missing'}")
+
+
 def _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize) -> str:
     """Which C entry takes this profile on the card; raises by name for a
     mix none takes."""
@@ -231,18 +252,14 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel: the bf16 entry, the W8A8 entry (`quantize="int8"`, bf16
-    compute and residual), both with T up to their attention's
-    shared-memory limit (1600), or the float32 entry, which takes any T.
-    Any other dtype mix, head width or T raises."""
+    compute and residual, d_model <= 256), both with T up to their
+    attention's shared-memory limit (1600), or the float32 entry, which
+    takes any T. Any other dtype mix, width, head width or T raises."""
     if x.device.type == "cpu":
-        y = conformer_block_plain(
+        return _into(out, conformer_block_plain(
             f, x, lengths, n_heads=n_heads, kernel_size=kernel_size,
             compute_dtype=compute_dtype, residual_dtype=residual_dtype,
-            attn_softmax_dtype=attn_softmax_dtype, quantize=quantize)
-        if out is not None:
-            out.copy_(y)
-            return out
-        return y
+            attn_softmax_dtype=attn_softmax_dtype, quantize=quantize))
     if x.device.type != "cuda":
         raise ValueError(f"conformer_block: unsupported device {x.device}")
     entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
@@ -252,6 +269,10 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(
             f"conformer_block kernel needs d_model and d_ff multiples of 128 "
             f"and 32-wide heads; got D={D} F={Fd} heads={n_heads}")
+    if entry == "w8a8" and D > LNQ_MAX_D:
+        raise ValueError(f"conformer_block kernel (w8a8) needs d_model <= "
+                         f"{LNQ_MAX_D} (its LayerNorm + quantize keeps a row in "
+                         f"one warp's registers); got D={D}")
     lib = _lib()
     max_t = None if entry == "f32" else lib.eet_conformer_block_max_t()
     if T <= 0 or (max_t is not None and T > max_t):
@@ -303,13 +324,14 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
             *head, scale, 1e-5, wptrs, _build.ptr(s_ln), _build.ptr(s_big),
             _build.ptr(s_att), _build.stream_ptr(dev))
     else:
-        s_f = torch.empty(R, D, dtype=torch.float32, device=dev)
+        # float32 scratch only for the float32-softmax attention output
+        s_f = None if sm_bf16 else torch.empty(R, D, dtype=torch.float32, device=dev)
         s_q = torch.empty(R, max(Fd, D), dtype=torch.int8, device=dev)
         s_sx = torch.empty(R, dtype=torch.float32, device=dev)
         err = lib.eet_conformer_block_w8a8(
             *head, int(sm_bf16), scale, 1e-5, wptrs,
             (ctypes.c_void_p * len(PARAM_ORDER))(*scale_ptrs),
-            _build.ptr(s_f), _build.ptr(s_q), _build.ptr(s_sx),
+            None if s_f is None else _build.ptr(s_f), _build.ptr(s_q), _build.ptr(s_sx),
             _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev))
     _build.check(lib, err, f"conformer_block kernel ({entry})")
     conformer_block.launches += 1
@@ -352,17 +374,9 @@ def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     (res + 0.5 y); `out` may be `res`, as in the block. For checks and
     timing: the block never calls it. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
-    if epilogue not in GEMM_EPILOGUES:
-        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}: {epilogue!r}")
-    if (res is not None) != epilogue.startswith("res"):
-        raise ValueError(f"block_gemm: epilogue {epilogue!r} with res "
-                         f"{'given' if res is not None else 'missing'}")
+    _check_epilogue("block_gemm", epilogue, res)
     if a.device.type == "cpu":
-        y = block_gemm_plain(a, w, bias, res, epilogue)
-        if out is not None:
-            out.copy_(y)
-            return out
-        return y
+        return _into(out, block_gemm_plain(a, w, bias, res, epilogue))
     if a.device.type != "cuda":
         raise ValueError(f"block_gemm: unsupported device {a.device}")
     (M, K), N = a.shape, w.shape[1]
@@ -383,6 +397,142 @@ def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
+def block_gemm_s8_plain(aq: torch.Tensor, sx: torch.Tensor, wt: torch.Tensor,
+                        sw: torch.Tensor, bias: torch.Tensor,
+                        res: Optional[torch.Tensor] = None,
+                        epilogue: str = "bias") -> torch.Tensor:
+    """The W8A8 entry's product in PyTorch ops, rounding where the kernel
+    rounds: the exact int32 sums of aq @ wt^T -> float32 * (sx * sw) ->
+    + bias in float32 -> one rounding to bf16 -> the epilogue op by op in
+    bf16 -> bf16."""
+    bf = torch.bfloat16
+    y = int8_matmul(aq, wt.t()) * (sx[:, None] * sw) + bias
+    y = y.to(bf)
+    if epilogue == "silu":
+        return y / (1 + torch.exp(-y))
+    if epilogue == "res":
+        return (res.float() + y.float()).to(bf)
+    if epilogue == "res_half":
+        return (res.float() + 0.5 * y.float()).to(bf)
+    if epilogue != "bias":
+        raise ValueError(f"epilogue must be one of {GEMM_EPILOGUES}: {epilogue!r}")
+    return y
+
+
+def block_gemm_s8(aq: torch.Tensor, sx: torch.Tensor, wt: torch.Tensor,
+                  sw: torch.Tensor, bias: torch.Tensor,
+                  res: Optional[torch.Tensor] = None, epilogue: str = "bias",
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One product of the W8A8 block on its own, as the block's C entry
+    runs it: epilogue(bf16(float(aq (M, K) @ wt (N, K)^T) * (sx (M) *
+    sw (N)) + bias (N))), aq and wt int8 (wt the `<name>_t` twin of
+    `fold_block_params`), sx, sw and bias float32, res and out bf16; the
+    epilogues as `block_gemm`'s, and `out` may be `res`. For checks and
+    timing: the block never calls it. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    _check_epilogue("block_gemm_s8", epilogue, res)
+    if aq.device.type == "cpu":
+        return _into(out, block_gemm_s8_plain(aq, sx, wt, sw, bias, res, epilogue))
+    if aq.device.type != "cuda":
+        raise ValueError(f"block_gemm_s8: unsupported device {aq.device}")
+    (M, K), N = aq.shape, wt.shape[0]
+    if M <= 0 or K % 16 or N % 8:
+        raise ValueError(f"block_gemm_s8 kernel needs M > 0, K a multiple of 16 "
+                         f"and N of 8; got M={M} K={K} N={N}")
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=aq.device) if out is None else out
+    for name, t, dtype, shape in (
+            ("aq", aq, torch.int8, (M, K)), ("sx", sx, torch.float32, (M,)),
+            ("wt", wt, torch.int8, (N, K)), ("sw", sw, torch.float32, (N,)),
+            ("bias", bias, torch.float32, (N,)), ("res", res, torch.bfloat16, (M, N)),
+            ("out", y, torch.bfloat16, (M, N))):
+        if t is not None:
+            _check(t, name, dtype, shape, aq.device)
+    lib = _lib()
+    err = lib.eet_gemm_s8(
+        _build.ptr(aq), _build.ptr(sx), _build.ptr(wt), _build.ptr(sw),
+        _build.ptr(bias), None if res is None else _build.ptr(res), _build.ptr(y),
+        M, N, K, GEMM_EPILOGUES.index(epilogue), _build.stream_ptr(aq.device))
+    _build.check(lib, err, "block_gemm_s8 kernel")
+    block_gemm_s8.launches += 1
+    return y
+
+
+block_gemm_s8.launches = 0
+
+
+def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                              eps: float = 1e-5):
+    """The W8A8 entry's LayerNorm + quantize in PyTorch ops, repeating the
+    kernel's float32 arithmetic operation for operation: lane l of a warp
+    sums the row's values 8 l .. 8 l + 7 in order (x and x^2, the latter
+    by fused multiply-add), a butterfly over the 32 lanes totals them,
+    then the one-pass statistics of `_ln_one_pass` with the kernel's two
+    fused multiply-adds; the output is quantized row by row as
+    `quantize_int8` does. x (R, D), D a multiple of 8 up to 256 -> (q int8
+    (R, D), sx float32 (R,)). A fused multiply-add is taken in float64,
+    where the product is exact, and rounded once to float32."""
+    def fma(a, b_, c):
+        return (a.double() * b_.double() + c.double()).float()
+
+    R, D = x.shape
+    if D % 8 or D > LNQ_MAX_D:
+        raise ValueError(f"layer_norm_quantize needs D a multiple of 8 up to "
+                         f"{LNQ_MAX_D}; got {D}")
+    v = x.float()
+    ch = torch.zeros(R, 32, 8, dtype=torch.float32, device=x.device)   # [row][lane]
+    ch[:, :D // 8] = v.reshape(R, D // 8, 8)
+    s = torch.zeros(R, 32, dtype=torch.float32, device=x.device)
+    ss = torch.zeros_like(s)
+    for k in range(8):
+        e = ch[:, :, k]
+        s = s + e
+        ss = fma(e, e, ss)
+    lane = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        s = s + s[:, lane ^ o]
+        ss = ss + ss[:, lane ^ o]
+    d = torch.full((R, 1), float(D), dtype=torch.float32, device=x.device)
+    mu = s[:, :1] / d
+    var = fma(-mu, mu, ss[:, :1] / d).clamp_min(0.0)
+    rstd = torch.rsqrt(var + eps)
+    y = fma((v - mu) * rstd, g.float(), b.float())
+    q, sx = quantize_int8(y)
+    return q, sx[:, 0]
+
+
+def layer_norm_quantize(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                        eps: float = 1e-5):
+    """The W8A8 entry's LayerNorm + quantize on its own: x (R, D) bf16, g
+    and b (D,) float32 -> (q int8 (R, D), sx float32 (R,)), the int8 rows
+    of the float32 LayerNorm and their scales. For checks: the block
+    never calls it. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (D a multiple of 8 up to 256: a warp holds a row
+    in registers, 8 values a lane) or raises."""
+    if x.device.type == "cpu":
+        return layer_norm_quantize_plain(x, g, b, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm_quantize: unsupported device {x.device}")
+    R, D = x.shape
+    if R <= 0 or D % 8 or D > LNQ_MAX_D:
+        raise ValueError(f"layer_norm_quantize kernel needs rows > 0 and D a "
+                         f"multiple of 8 up to {LNQ_MAX_D}; got {R} x {D}")
+    _check(x, "x", torch.bfloat16, (R, D), x.device)
+    _check(g, "g", torch.float32, (D,), x.device)
+    _check(b, "b", torch.float32, (D,), x.device)
+    q = torch.empty(R, D, dtype=torch.int8, device=x.device)
+    sx = torch.empty(R, dtype=torch.float32, device=x.device)
+    lib = _lib()
+    err = lib.eet_layer_norm_quantize(
+        _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(q), _build.ptr(sx),
+        R, D, eps, _build.stream_ptr(x.device))
+    _build.check(lib, err, "layer_norm_quantize kernel")
+    layer_norm_quantize.launches += 1
+    return q, sx
+
+
+layer_norm_quantize.launches = 0
+
+
 def _lib():
     lib = _build.load("conformer_block")
     if lib.eet_conformer_block_bf16.argtypes is None:
@@ -394,8 +544,11 @@ def _lib():
         lib.eet_conformer_block_w8a8.argtypes = head + [i, fl, fl, pp, pp, vp, vp, vp,
                                                         vp, vp, vp]
         lib.eet_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
+        lib.eet_gemm_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
+        lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, fl, vp]
         for entry in (lib.eet_conformer_block_bf16, lib.eet_conformer_block_f32,
                       lib.eet_conformer_block_w8a8, lib.eet_gemm_bf16,
+                      lib.eet_gemm_s8, lib.eet_layer_norm_quantize,
                       lib.eet_conformer_block_param_count,
                       lib.eet_conformer_block_max_t):
             entry.restype = i

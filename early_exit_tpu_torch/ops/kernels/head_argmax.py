@@ -38,7 +38,8 @@ def head_argmax(hidden: torch.Tensor, w: torch.Tensor,
     """hidden (E, B, T, D), w (E, D, V), b (E, V) -> ids (E, B, T) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16 operands, V == 256, D a multiple of 32) or raises."""
+    kernel (bf16 operands, V == 256, D a multiple of 64 up to 256: the
+    kernel keeps an exit's whole head in shared memory) or raises."""
     if hidden.device.type == "cpu":
         return head_argmax_plain(hidden, w, b)
     if hidden.device.type != "cuda":
@@ -54,8 +55,9 @@ def head_argmax(hidden: torch.Tensor, w: torch.Tensor,
                 f"head_argmax kernel: {name} must be a contiguous bf16 tensor "
                 f"of shape {shape} on {dev}; got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
-    if D % 32:
-        raise ValueError(f"head_argmax kernel needs D % 32 == 0, got {D}")
+    if D % 64 or D > 256:
+        raise ValueError(f"head_argmax kernel needs D a multiple of 64 up to "
+                         f"256, got {D}")
     out = torch.empty(E, B, T, dtype=torch.int32, device=dev)
     lib = _lib()
     err = lib.eet_head_argmax_bf16(_build.ptr(hidden), _build.ptr(w),
