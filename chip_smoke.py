@@ -67,7 +67,32 @@ Phases (any failure exits non-zero, with no result line):
   7. the all-exit path on 16 requests in float32 through the float32 block
      entry (path C) and unfused with `attention_impl="pallas"` through the
      attention kernel (path D), 12 launches each, tokens held to phase 3's
-     contract against the unfused path of the same configuration.
+     contract against the unfused path of the same configuration;
+  8. training (plain PyTorch with autograd: no TPU kernel lies on the
+     training path): (a) one CTC train step of the flagship on 4 requests
+     of bench_eval's distribution on the card and on the CPU, dropout 0, no
+     SpecAugment: in float32 with TF32 off the loss and the gradients'
+     global norm within 1e-4 relative, each gradient leaf within 1e-3
+     relative L2, the BatchNorm running statistics within 1e-5; in the train
+     profile (bf16) the loss within 2e-2 and each leaf's cosine >= 0.98;
+     (b) a fresh model at the flagship's width in the train profile
+     (dropout 0.1, SpecAugment, warmup 10) takes 40 steps on one sub-batch
+     of 16 requests: every loss finite and the last < 0.6x the first; then
+     the trained model transcribes through the block and head kernels (12
+     and 1 launches, the kernel layout rebuilt after the weights moved)
+     within phase 3's token contract of its unfused path; its cached
+     kernel layout equals one folded anew from the trained weights bit for
+     bit, and each block kernel, fed the kernel path's own input, stays
+     within phase 2's ulps of the plain version of that layout (the first
+     block within phase 2's whole tolerance, which the layout folded
+     before training must miss); (c) the training loop over the `Pipeline` at the CLI's
+     --batch_size 64 --n_batch_split 4 on a corpus made beforehand: ms per
+     step by CUDA events, trained audio-seconds per second, peak memory,
+     the host's share of the wall time; then 12 steps over the
+     `SyntheticDataset` itself (the CLI's path, which synthesises in the
+     loader threads) and the host's wait there; a torch.profiler top-15 of
+     one step's device time, and a checkpoint pair written and read back
+     equal.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -128,6 +153,30 @@ ROWS_DIFFER = 0.01      # chosen exits, kernel cascade vs plain-version cascade
 # the confidences lie closest together: the two rows next to the threshold
 # are ~1e-4 apart, within what two bf16 schedules move a confidence by
 ROWS_DIFFER_AT_MEDIAN = 0.05
+# phase 8, one train step of the flagship on the card against the CPU. In
+# float32 with TF32 off the two sum in other orders (and the CUDA CTC
+# backward with atomics); in bf16 their products round differently
+TRAIN_F32_LOSS = 1e-4       # relative
+TRAIN_F32_NORM = 1e-4       # relative, the global norm of the gradients
+TRAIN_F32_LEAF = 1e-3       # relative L2 of each gradient leaf
+TRAIN_F32_BN = 1e-5         # BN running statistics, of max(1, max|ref|)
+TRAIN_BF16_LOSS = 2e-2
+# cosine of each gradient leaf, held at a fresh seeded init: the flagship's
+# bf16 gradient is chaotic, its norm and leaf directions moving between
+# runs of the card whose features differ by 1e-5 relative noise (far below
+# bf16's rounding) about as far as between the card and the CPU; the
+# script prints that envelope, in float32 and bf16, beside the comparison.
+# In float32 the flagship's gradient is stable, and a fresh init is stable
+# in bf16
+TRAIN_BF16_COS = 0.98
+CHAOS_NOISE, CHAOS_DRAWS = 1e-5, 4
+# the two leaves whose gradient is 0 in exact arithmetic -- the key bias (a
+# softmax does not see a constant added to a query's scores) and the
+# depthwise conv's bias (BatchNorm takes the batch mean out) -- hold float
+# noise on both sides, held below this share of the global norm
+ZERO_GRAD_LEAVES = ("['blocks']['attn']['mha']['k']['b']", "['blocks']['conv']['dw']['b']")
+ZERO_GRAD_SHARE = 1e-5
+LEARN_STEPS, LEARN_RATIO = 40, 0.6   # the JAX package's criterion, tests/test_trainer.py
 
 
 def fail(msg: str) -> None:
@@ -187,6 +236,17 @@ def disagreement(tok_a, n_a, tok_b, n_b):
             total += max(len(y), 1)
         out.append((edits, total))
     return out
+
+
+def bf16_figures(y, ref):
+    """(max|d|, mean|d|, max bf16 ulps of max(|ref|, 1), share of values
+    differing) of y against ref."""
+    import torch
+    d = (y.float() - ref.float()).abs()
+    # bf16 ulp of each reference value (8 significant bits), 2^-7 at |y| < 1
+    ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1.0))) - 7)
+    return (float(d.max()), float(d.mean()), float((d / ulp).max()),
+            float((d > 0).float().mean()))
 
 
 @contextlib.contextmanager
@@ -307,15 +367,6 @@ def main() -> None:
         _, hs = m.stack(x, mask, collect_outputs=True,
                         collect_every=cfg.n_enc_layers_per_exit)
         return hs.to(torch.bfloat16).contiguous()
-
-    def bf16_figures(y, ref):
-        """(max|d|, mean|d|, max bf16 ulps of max(|ref|, 1), share of values
-        differing) of y against ref."""
-        d = (y.float() - ref.float()).abs()
-        # bf16 ulp of each reference value (8 significant bits), 2^-7 at |y| < 1
-        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp_min(1.0))) - 7)
-        return (float(d.max()), float(d.mean()), float((d / ulp).max()),
-                float((d > 0).float().mean()))
 
     def block_vs_plain(x, lengths, what, **over):
         """Block kernel (kw overridden by `over`) against the plain version
@@ -993,6 +1044,10 @@ def main() -> None:
     del rec_f, rec_fu
     rec_a = Recognizer.from_flagship("cuda", fused=False, attention_impl="pallas")
     got_d = allexit_path("D", rec_a, rec_u, n_cd, attention=len(folded))
+    del rec_a, rec_q
+
+    # ---- 8. training on the card
+    train_phase(dev, card, knobs, reset_counts, expect_counts)
 
     blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
     blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
@@ -1025,15 +1080,362 @@ def main() -> None:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 
 
+def _flat(tree, prefix=""):
+    """{"['a'][0]['b']": leaf} of nested dicts and lists of arrays."""
+    if isinstance(tree, list):
+        tree = dict(enumerate(tree))
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}[{k!r}]"))
+    return out
+
+
+def train_phase(dev, card, knobs, reset_counts, expect_counts) -> None:
+    """Phase 8: (a) one train step of the flagship on the card against the
+    CPU, in float32 and in the train profile; (b) 40 steps of a fresh
+    model on one sub-batch must learn, and the trained model's kernel path
+    must agree with its unfused path; (c) the throughput of the training
+    loop over the data pipeline, its profile, and a checkpoint pair
+    written and read back."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import checkpoint, interop
+    from early_exit_tpu_torch.configs import AudioConfig, ModelConfig, TrainConfig, train_profile
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import SyntheticDataset, synth_batch
+    from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.optim.noam import global_norm
+    from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
+    from early_exit_tpu_torch.tokenizer import load_decoder, load_tokenizer
+    from early_exit_tpu_torch.training import checkpoint as tck
+    from early_exit_tpu_torch.training import trainer
+
+    bound = checkpoint.bound_tokenizer(checkpoint.load_calib())
+    tok, decoder = load_tokenizer(bound), load_decoder(bound)
+    acfg, tcfg = AudioConfig(), TrainConfig()          # the train profile's FFT mel
+    cpu_pipe = Pipeline([], tok, acfg, tcfg, device="cpu")
+
+    def requests(n, seed):
+        """n requests of bench_eval's distribution: (items for the
+        pipeline, padded waveforms, sample counts, transcripts)."""
+        wav, counts, refs = synth_batch(knobs, n, seed)
+        items = []
+        for i in range(n):
+            label = text.clean_train_label(refs[i])
+            items.append((wav[i, :counts[i]], text.encode_target(label, tok), label))
+        return items, wav, counts, refs
+
+    def host_batch(items):
+        return {k: torch.from_numpy(v) for k, v in cpu_pipe.host_subbatch(items).items()}
+
+    # -- 8a. one step of the flagship, card against CPU, same features
+    items, _, _, _ = requests(4, seed=777)
+    batch_cpu = cpu_pipe.to_device(host_batch(items))
+    batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
+    tree = checkpoint.load_tree(checkpoint.FLAGSHIP_CKPT)
+
+    def one_step(cfg, device, batch, fresh=False):
+        """Loss, global grad norm, gradient leaves (the JAX layout) and new
+        BN statistics of one step: the flagship's weights, or (fresh) a
+        seeded init drawn on the CPU."""
+        if fresh:
+            model = EarlyConformer(cfg).init(torch.Generator().manual_seed(5))
+        else:
+            model = interop.from_jax_params(tree["params"], tree["model_state"], cfg)
+        model = model.requires_grad_(True).to(device)
+        total, per_exit, new_state = trainer.loss_fn(model, tcfg, batch)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(total, params)
+        norm = float(global_norm(grads))
+        leaves = {k: np.asarray(v, np.float64) for k, v in
+                  _flat(interop.jax_tree(model, dict(zip(params, grads)))).items()}
+        bn = {k: v.detach().cpu() for k, v in new_state["blocks"]["conv_bn"].items()}
+        return float(total.detach()), norm, leaves, bn
+
+    def compare(a, b):
+        """b's figures against the reference a: loss and norm relative
+        differences, per-leaf relative L2 and cosine, the zero-gradient
+        leaves' share of the norm, the BN statistics' max|d|."""
+        rel, cos, zero = {}, {}, {}
+        for k, h in a[2].items():
+            c = b[2][k]
+            if k in ZERO_GRAD_LEAVES:
+                zero[k] = max(np.linalg.norm(c), np.linalg.norm(h)) / a[1]
+                continue
+            rel[k] = np.linalg.norm(c - h) / np.linalg.norm(h)
+            cos[k] = float(c.ravel() @ h.ravel() / (np.linalg.norm(c) * np.linalg.norm(h)))
+        bn = max(float((b[3][k] - a[3][k]).abs().max()) / max(1.0, float(a[3][k].abs().max()))
+                 for k in a[3])
+        wr, wc = max(rel, key=rel.get), min(cos, key=cos.get)
+        out = dict(loss=abs(b[0] - a[0]) / abs(a[0]), norm=abs(b[1] - a[1]) / a[1],
+                   leaf=rel[wr], cos=cos[wc], zero=max(zero.values()), bn=bn)
+        text_ = (f"loss {b[0]:.6f} vs {a[0]:.6f} (relative {out['loss']:.3e}); grad_norm "
+                 f"{b[1]:.6f} vs {a[1]:.6f} ({out['norm']:.3e}); gradient leaves: worst "
+                 f"relative L2 {rel[wr]:.3e} ({wr}), lowest cosine {cos[wc]:.6f} ({wc}); "
+                 f"zero-gradient leaves at most {out['zero']:.3e} of the global norm; BN "
+                 f"running statistics max|d| {bn:.3e}")
+        return out, text_
+
+    T_ = int(batch_cpu["feats"].shape[1])
+    f32, b16 = ModelConfig(compute_dtype="float32", drop_prob=0.0), train_profile(drop_prob=0.0)
+
+    def envelope(what, cfg, ref):
+        """The card against itself over CHAOS_DRAWS draws of the features
+        moved by CHAOS_NOISE relative noise: the grad norms and the lowest
+        leaf cosine. Returns the lowest cosine."""
+        norms, lows = [], []
+        for draw in range(CHAOS_DRAWS):
+            noisy = dict(batch_dev)
+            noisy["feats"] = batch_dev["feats"] * (1 + CHAOS_NOISE * torch.randn(
+                batch_dev["feats"].shape, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(draw)))
+            step = one_step(cfg, dev, noisy)
+            norms.append(step[1])
+            lows.append(compare(ref, step)[0]["cos"])
+        print(f"train step, {what}, the card against itself with the features x (1 + "
+              f"{CHAOS_NOISE} N(0, 1)), {CHAOS_DRAWS} draws: grad_norm "
+              f"{min(norms):.6f} .. {max(norms):.6f} (unmoved {ref[1]:.6f}); lowest leaf "
+              f"cosine per draw {[round(c, 6) for c in lows]}")
+        return min(lows)
+
+    for what, cfg, fresh in (("flagship, float32, TF32 off", f32, False),
+                             ("flagship, train profile (bf16)", b16, False),
+                             ("fresh init at the flagship's width, train profile (bf16)",
+                              b16, True)):
+        t0 = time.perf_counter()
+        on_card = one_step(cfg, dev, batch_dev, fresh)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = one_step(cfg, torch.device("cpu"), batch_cpu, fresh)
+        t_cpu = time.perf_counter() - t0
+        got, line = compare(host, on_card)
+        print(f"train step, {what} (B=4, T={T_}), card vs CPU: {line}; {t_dev:.2f} s on "
+              f"the card, {t_cpu:.2f} s on the CPU")
+        if not np.isfinite([on_card[0], on_card[1]]).all():
+            fail(f"non-finite train step on the card ({what})")
+        if not fresh:       # how far the card moves from itself, for scale
+            envelope(what, cfg, on_card)
+        if cfg.compute_dtype == "float32":
+            bad = (got["loss"] > TRAIN_F32_LOSS or got["norm"] > TRAIN_F32_NORM
+                   or got["leaf"] > TRAIN_F32_LEAF or got["bn"] > TRAIN_F32_BN
+                   or got["zero"] > ZERO_GRAD_SHARE)
+        elif fresh:
+            bad = got["loss"] > TRAIN_BF16_LOSS or got["cos"] < TRAIN_BF16_COS
+        else:       # the flagship's bf16 gradient is chaotic: its loss only
+            bad = got["loss"] > TRAIN_BF16_LOSS
+        if bad:
+            fail(f"train step on the card disagrees with the CPU ({what})")
+
+    # -- 8b. a fresh model learns one sub-batch; then its kernel path
+    cfg = train_profile(fused_block=True)                 # dropout 0.1
+    model = EarlyConformer(cfg).to(dev).init(torch.Generator(device=dev).manual_seed(0))
+    items, wav16, counts16, refs16 = requests(16, seed=4343)
+    batch = {k: v.to(dev) for k, v in cpu_pipe.to_device(host_batch(items)).items()}
+    tr = trainer.Trainer(model, dataclasses.replace(tcfg, specaugment=True), warmup=10)
+    rec = Recognizer(model, decoder, device=dev)
+    wav16, counts16 = torch.as_tensor(wav16, device=dev), torch.as_tensor(counts16, device=dev)
+    with torch.no_grad():
+        before = rec.transcribe(wav16, counts16)          # builds the kernel layout
+        stale = [{k: v.clone() for k, v in f.items()} for f in model.stack.folded()]
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LEARN_STEPS):
+        losses.append(float(tr.step(batch)["loss"]))
+    t_learn = time.perf_counter() - t0
+    print(f"learning: {LEARN_STEPS} steps on one sub-batch of 16 (T={batch['feats'].shape[1]}), "
+          f"fresh init, dropout 0.1, SpecAugment, warmup 10, {t_learn:.2f} s: loss "
+          f"{[round(v, 4) for v in losses[:3]]} ... {[round(v, 4) for v in losses[-3:]]}, "
+          f"last / first {losses[-1] / losses[0]:.4f} (must be < {LEARN_RATIO})")
+    if not np.isfinite(losses).all() or losses[-1] >= LEARN_RATIO * losses[0]:
+        fail("training on the card did not learn the sub-batch")
+    with torch.no_grad():
+        reset_counts()
+        after = rec.transcribe(wav16, counts16)
+        expect_counts("trained model, kernel path", conformer_block_bf16=len(model.stack.blocks),
+                      head_argmax=1)
+        twin = EarlyConformer(dataclasses.replace(cfg, fused_block=False)).requires_grad_(False)
+        twin.load_state_dict(model.state_dict())
+        unfused = Recognizer(twin, decoder, device=dev).transcribe(wav16, counts16)
+    wers = [round(wer_pct(refs16, t), 2) for t in after.texts]
+    dis = disagreement(after.tokens, after.n_tokens, unfused.tokens, unfused.n_tokens)
+    moved = disagreement(before.tokens, before.n_tokens, after.tokens, after.n_tokens)
+    pooled = sum(e for e, _ in dis) / sum(t for _, t in dis)
+    print(f"trained model (WER per exit {wers}): kernel path vs unfused path, token "
+          f"disagreement per exit {[f'{e}/{t}' for e, t in dis]}, pooled "
+          f"{100 * pooled:.3f}%; the kernel path before training vs after: "
+          f"{[f'{e}/{t}' for e, t in moved]}")
+    if pooled > TOKEN_DISAGREE or any(
+            w <= SANE_DENSE_WER and e > TOKEN_DISAGREE * t for (e, t), w in zip(dis, wers)):
+        fail("the trained model's kernel path disagrees with its unfused path")
+    # the tokens are mostly blanks after 40 steps, so the layout is checked
+    # itself: the cached kernel layout of every block equals, bit for bit,
+    # one folded anew from the trained weights and running statistics, and
+    # differs from the one folded before training. Then each block kernel,
+    # fed the kernel path's own input, against the plain version of the new
+    # layout: the first block, fed the embedding as in phase 2, within
+    # phase 2's tolerance (ulps and share), which the layout folded before
+    # training must miss; every block within its ulps. Phase 2 calibrated
+    # the share on the first block; past it, on a block's bf16 LayerNorm
+    # output, more values differ by the same ulps (printed here)
+    scfg = model.stack.cfg
+    kw = dict(n_heads=scfg.n_heads, kernel_size=scfg.kernel_size, compute_dtype=scfg.dtype,
+              residual_dtype=scfg.rdtype, attn_softmax_dtype=scfg.sm_dtype)
+    fresh_fig, stale_fig, equal, moved = [], [], [], []
+    with torch.no_grad():
+        x, _, mask = model.frontend_embed(batch["feats"], batch["feat_lengths"])
+        h, lengths = x.contiguous(), mask.sum(1, dtype=torch.int32)
+        for blk, f, f_old in zip(model.stack.blocks, model.stack.folded(), stale):
+            f_new = kcb.fold_block_params(blk.state_dict(), compute_dtype=scfg.dtype,
+                                          quantize=scfg.quant)
+            equal.append(f.keys() == f_new.keys() and all(torch.equal(f[k], f_new[k]) for k in f))
+            moved.append(any(not torch.equal(f_old[k], f_new[k]) for k in f_new))
+            y_k = kcb.conformer_block(f, h, lengths, **kw)
+            fresh_fig.append(bf16_figures(y_k, kcb.conformer_block_plain(f_new, h, lengths, **kw)))
+            stale_fig.append(bf16_figures(y_k, kcb.conformer_block_plain(f_old, h, lengths, **kw)))
+            if not torch.isfinite(y_k.float()).all():
+                fail("the trained model's block kernel gave non-finite values")
+            h = y_k
+    fmt = lambda figs: [f"{u:.1f} ulps/{100 * fr:.3f}%" for _, _, u, fr in figs]
+    within = lambda fig: fig[2] <= BLOCK_MAX_ULPS and fig[3] <= BLOCK_DIFFERING
+    print(f"trained model's kernel layout: equal bit for bit to one folded anew from the "
+          f"trained weights in {sum(equal)} of {len(equal)} blocks, moved from the one "
+          f"folded before training in {sum(moved)}; each block kernel vs the plain version "
+          f"of the new layout (B={h.shape[0]}, T'={h.shape[1]}; tolerance {BLOCK_MAX_ULPS} "
+          f"ulps, and {BLOCK_DIFFERING} of values differing at the first block): "
+          f"{fmt(fresh_fig)}; vs the layout folded before training: {fmt(stale_fig)}")
+    if not all(equal) or not all(moved):
+        fail("the trained model's cached kernel layout is not its weights'")
+    if not within(fresh_fig[0]) or any(u > BLOCK_MAX_ULPS for _, _, u, _ in fresh_fig):
+        fail("the trained model's block kernel disagrees with the plain version")
+    if within(stale_fig[0]):
+        fail("the tolerance does not tell the layout before training from the trained one")
+    del model, tr, rec, twin, batch, stale
+
+    # -- 8c. throughput of the training loop over the pipeline
+    n_warm, n_timed, n_prof = 3, 30, 3
+    ds = SyntheticDataset(n_items=tcfg.batch_size * 10, seed=99,
+                          min_words=knobs.get("min_words", 18),
+                          max_words=knobs.get("max_words", 22),
+                          noise=knobs.get("noise", 0.02), noise_hi=knobs.get("noise_hi"),
+                          speaker_warp=knobs.get("speaker_warp", 0.0),
+                          dur_jitter=knobs.get("dur_jitter", 0.0),
+                          amp_jitter=knobs.get("amp_jitter", 0.0))
+    # the corpus is made before the run (set-up, as a disk corpus is read):
+    # numpy synthesis holds the GIL, ~11 ms an utterance
+    t0 = time.perf_counter()
+    utts = [ds[i] for i in range(len(ds))]
+    t_data = time.perf_counter() - t0
+    pipe = Pipeline(utts, tok, acfg, tcfg, workers=8, device=dev)
+    model = EarlyConformer(train_profile()).to(dev).init(torch.Generator(device=dev).manual_seed(1))
+    warmup = pipe.batches_per_epoch() * tcfg.n_batch_split
+    tr = trainer.Trainer(model, tcfg, warmup=warmup)
+    it = pipe.epoch(0)
+    t0 = time.perf_counter()
+    for _ in range(n_warm):
+        tr.step(next(it))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    events, losses, wait = [], [], 0.0
+    audio = torch.zeros((), device=dev)
+    hop = acfg.hop_length
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        t1 = time.perf_counter()
+        b = next(it)
+        wait += time.perf_counter() - t1
+        audio += ((b["feat_lengths"] - 1).clamp_min(0) * b["item_mask"]).sum() * hop
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(tr.step(b)["loss"])
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    peak = torch.cuda.max_memory_allocated(dev)
+    audio_s = float(audio) / acfg.sample_rate
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"train throughput on {card} (flagship width, train profile, "
+          f"--batch_size {tcfg.batch_size} --n_batch_split {tcfg.n_batch_split}: "
+          f"sub-batches of 16, {n_timed} steps after {n_warm} warm-up steps of {t_warm:.2f} s; "
+          f"{len(utts)} utterances made in {t_data:.2f} s before): "
+          f"{np.mean(step_ms):.3f} ms per step by CUDA events (min {min(step_ms):.3f}, "
+          f"max {max(step_ms):.3f}); wall {1e3 * wall / n_timed:.3f} ms per step; "
+          f"{audio_s / wall:.1f} trained audio-s per s ({audio_s:.1f} s of audio); peak "
+          f"memory {peak / 2 ** 30:.3f} GiB; host waiting on the pipeline "
+          f"{100 * wait / wall:.1f}% of the wall time; loss {losses[0]:.3f} -> {losses[-1]:.3f}")
+    if not np.isfinite(losses).all():
+        fail("non-finite training loss in the throughput run")
+    # the CLI's own path: the Pipeline over the SyntheticDataset itself, whose
+    # items are synthesised in the loader threads as the consumer asks for
+    # each batch of 64 (every n_batch_split steps)
+    lazy = Pipeline(ds, tok, acfg, tcfg, workers=8, device=dev).epoch(1)
+    tr.step(next(lazy))
+    torch.cuda.synchronize()
+    n_lazy, lazy_wait, lazy_losses = 3 * tcfg.n_batch_split, 0.0, []
+    t0 = time.perf_counter()
+    for _ in range(n_lazy):
+        t1 = time.perf_counter()
+        b = next(lazy)
+        lazy_wait += time.perf_counter() - t1
+        lazy_losses.append(tr.step(b)["loss"])
+    torch.cuda.synchronize()
+    lazy_wall = time.perf_counter() - t0
+    lazy.close()
+    print(f"train loop over the SyntheticDataset itself (the CLI's path, synthesis in the "
+          f"loader threads), {n_lazy} steps: wall {1e3 * lazy_wall / n_lazy:.3f} ms per step; "
+          f"host waiting on the pipeline {100 * lazy_wait / lazy_wall:.1f}% of the wall time "
+          f"(the pre-made corpus above: {100 * wait / wall:.1f}%)")
+    if not np.isfinite(torch.stack(lazy_losses).cpu().numpy()).all():
+        fail("non-finite training loss over the SyntheticDataset")
+    busy = profile_forward(lambda: tr.step(next(it)), "train step", card, 16, iters=n_prof,
+                           top=15, grad=True, shape="sub-batch of 16, ~10 s")
+    print(f"train step: the device idles {100 * (1 - busy):.1f}% of the wall time "
+          f"(the host's share)")
+    # a checkpoint pair, written and read back
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    d = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        tck.save_epoch(d, 0, model, tr.opt)
+        back = EarlyConformer(train_profile()).to(dev)
+        tr2 = trainer.Trainer(back, tcfg, warmup=warmup)
+        tck.load_model_file(back, tck.model_ckpt_path(d, 0))
+        tck.load_opt_tree(back, tr2.opt, checkpoint.load_tree(tck.opt_ckpt_path(d, 0)))
+        same = (all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                       back.state_dict().values()))
+                and all(torch.equal(a, b) for a, b in zip(tr.opt.mu + tr.opt.nu,
+                                                          tr2.opt.mu + tr2.opt.nu))
+                and tr2.step_count == tr.step_count)
+        sizes = [os.path.getsize(p) for p in (tck.model_ckpt_path(d, 0), tck.opt_ckpt_path(d, 0))]
+    finally:
+        shutil.rmtree(d)
+    print(f"checkpoint pair (mod {sizes[0]} bytes, lr {sizes[1]} bytes, step "
+          f"{tr.step_count}) read back equal: {same}")
+    if not same:
+        fail("the checkpoint pair did not read back equal")
+
+
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
-                    top: int = 25) -> None:
+                    top: int = 25, grad: bool = False, shape: str = None) -> float:
     """Device time per kernel name over `iters` calls of `forward` (each
-    B x 10 s), and the share of the wall time the device was busy."""
+    B x 10 s, or `shape`), and the share of the wall time the device was
+    busy, which it returns. grad: autograd stays on (a train step)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
+    mode = torch.enable_grad() if grad else torch.no_grad()
+    with mode, profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
             forward()
@@ -1044,12 +1446,13 @@ def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
                    if ev.device_type == DeviceType.CUDA),   # kernels only
                   key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile of the {what} on {card} (B={B} x 10 s, torch.profiler): wall "
-          f"{wall_ms:.3f} ms per call, device busy {busy:.3f} ms "
-          f"({100 * busy / wall_ms:.1f}%)")
+    print(f"profile of the {what} on {card} ({shape or f'B={B} x 10 s'}, "
+          f"torch.profiler): wall {wall_ms:.3f} ms per call, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
     print(f"{'ms/call':>11} {'calls':>6}  kernel")
     for name, ms, n in rows[:top]:
         print(f"{ms:11.4f} {n:6d}  {name[:110]}")
+    return busy / wall_ms
 
 
 def block_library(f, x, lengths, n_heads, mm=None):

@@ -1,4 +1,4 @@
-"""Reader for the flax-msgpack checkpoints of the JAX package.
+"""Reader and writer of the flax-msgpack checkpoints of the JAX package.
 
 `early_exit_tpu/training/checkpoint.py` writes `{"params", "model_state"}`
 with `flax.serialization.to_bytes`: a msgpack map whose array leaves are
@@ -8,7 +8,12 @@ C-order bytes)`; numpy scalars are ext type 3 with the same payload. Python list
 The decoder is pure Python (no `msgpack` package): it reads only what
 flax writes -- maps, arrays, strings, bytes, ints, floats, nil/bools and
 ext -- and returns nested dicts of CPU tensors (bf16 leaves are read as
-int16 and viewed as `torch.bfloat16`).
+int16 and viewed as `torch.bfloat16`). The encoder (`packb`,
+`save_tree`) writes what `flax.serialization.to_bytes` writes for the
+JAX package's host trees, byte for byte: maps with sorted string keys,
+lists as maps keyed "0", "1", ..., every tensor or numpy array as ext
+type 1, with msgpack's shortest encodings; `save_tree` writes atomically
+(a temporary file, then a rename).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import hashlib
 import json
 import os
 import struct
+import tempfile
 
 import numpy as np
 import torch
@@ -118,6 +124,114 @@ def unpackb(data: bytes):
     if r.pos != len(r.buf):
         raise ValueError("trailing bytes after the msgpack object")
     return out
+
+
+def _pack_uint(out: bytearray, n: int, fix_max: int, fix_base: int, codes) -> None:
+    """A length or count: the fixed form up to fix_max, else the shortest
+    of the 8/16/32-bit forms whose codes are given (None: no 8-bit form)."""
+    if n <= fix_max:
+        out.append(fix_base | n)
+        return
+    for code, fmt, limit in zip(codes, (">B", ">H", ">I"), (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+    elif v > 0:
+        for code, fmt, limit in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                                 (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1)):
+            if v <= limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+    else:
+        for code, fmt, limit in ((0xD0, ">b", 2 ** 7), (0xD1, ">h", 2 ** 15),
+                                 (0xD2, ">i", 2 ** 31), (0xD3, ">q", 2 ** 63)):
+            if v >= -limit:
+                out.append(code)
+                out += struct.pack(fmt, v)
+                return
+
+
+def _pack_str(out: bytearray, s: str) -> None:
+    b = s.encode("utf-8")
+    _pack_uint(out, len(b), 31, 0xA0, (0xD9, 0xDA, 0xDB))
+    out += b
+
+
+def _ndarray_payload(shape, dtype_name: str, raw: bytes) -> bytes:
+    p = bytearray([0x93])                       # [shape, dtype name, bytes]
+    _pack_uint(p, len(shape), 15, 0x90, (None, 0xDC, 0xDD))
+    for n in shape:
+        _pack_int(p, int(n))
+    _pack_str(p, dtype_name)
+    _pack_uint(p, len(raw), -1, 0, (0xC4, 0xC5, 0xC6))
+    p += raw
+    return bytes(p)
+
+
+def _pack_array(out: bytearray, a) -> None:
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            raw, name = t.view(torch.int16).numpy().tobytes(), "bfloat16"
+        else:
+            n = t.numpy()
+            raw, name = n.tobytes(), n.dtype.name
+        shape = tuple(t.shape)
+    else:
+        n = np.asarray(a)
+        raw, name, shape = n.tobytes(order="C"), n.dtype.name, n.shape
+    payload = _ndarray_payload(shape, name, raw)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(payload) in fixext:
+        out.append(fixext[len(payload)])
+    else:
+        _pack_uint(out, len(payload), -1, 0, (0xC7, 0xC8, 0xC9))
+    out += struct.pack(">b", _EXT_NDARRAY)
+    out += payload
+
+
+def _pack(out: bytearray, obj) -> None:
+    if isinstance(obj, (list, tuple)):
+        obj = {str(i): v for i, v in enumerate(obj)}
+    if isinstance(obj, dict):
+        _pack_uint(out, len(obj), 15, 0x80, (None, 0xDE, 0xDF))
+        for k in sorted(obj, key=str):
+            _pack_str(out, str(k))
+            _pack(out, obj[k])
+    elif isinstance(obj, (torch.Tensor, np.ndarray, np.generic)):
+        _pack_array(out, np.asarray(obj) if isinstance(obj, np.generic) else obj)
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__} into a checkpoint")
+
+
+def packb(tree) -> bytes:
+    """Nested dicts/lists of tensors or numpy arrays -> flax-msgpack bytes."""
+    out = bytearray()
+    _pack(out, tree)
+    return bytes(out)
+
+
+def save_tree(tree, path: str) -> None:
+    """Atomic write: a temporary file in the same directory, then a rename."""
+    data = packb(tree)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def load_tree(path: str) -> dict:

@@ -1,7 +1,9 @@
-"""Model and audio configuration (inference fields).
+"""Model, training and audio configuration.
 
 Same field names and defaults as `early_exit_tpu/configs.py`
-(ModelConfig, AudioConfig); the dtype properties return torch dtypes.
+(ModelConfig, TrainConfig, AudioConfig); the dtype properties return
+torch dtypes. `inference_profile` and `train_profile` are the CLI's two
+performance profiles (`early_exit_tpu/cli.py` get_args).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"       # matmul dtype
     conv_norm: str = "batch"              # conformer conv-module norm
     length_mode: str = "reference"        # "reference": clamp(len/4); "true": conv arithmetic
-    remat: bool = False                   # training only; no effect here
+    remat: bool = False                   # training: recompute each block in backward
     attention_impl: str = "xla"           # "pallas": the CUDA attention kernel (unfused path)
     residual_dtype: str | None = None     # None = compute_dtype
     attn_softmax_dtype: str = "float32"
@@ -56,6 +58,38 @@ class ModelConfig:
     @property
     def sm_dtype(self) -> torch.dtype:
         return _dt(self.attn_softmax_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 64
+    n_batch_split: int = 4
+    n_epochs: int = 10000
+    warmup: int = -1
+    adam_eps: float = 1e-9
+    weight_decay: float = 5e-4
+    clip: float = 1.0
+    max_utterance_length: int = 360
+    decoder_mode: str = "ctc"            # ctc | aed (the port trains ctc)
+    aed_ce_weight: float = 0.7
+    aed_ctc_weight: float = 0.3
+    # feed the padded frame count as every row's CTC input length (the
+    # reference's quirk); off by default
+    ctc_compat_padded_lengths: bool = False
+    fast_rng: bool = True                 # a TPU PRNG choice; no effect here
+    # self-distillation: KL(softmax(deepest exit) || exit e), per earlier exit
+    distill: bool = False
+    distill_weight: float = 1.0
+    distill_temperature: float = 2.0
+    # dynamic-chunk training: per step, full attention (50%) or a chunked mask
+    dynamic_chunk: bool = False
+    chunk_left: int = 1000                # chunks of left context kept
+    specaugment: bool = False
+    sa_freq_masks: int = 2
+    sa_freq_width: int = 27
+    sa_time_masks: int = 2
+    sa_time_frac: float = 0.05
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +113,12 @@ def inference_profile(fused_block: bool = True, *, quantize: str = "none",
     return ModelConfig(compute_dtype=cd, attn_softmax_dtype=cd,
                        fused_block=fused_block, quantize=quantize,
                        attention_impl=attention_impl)
+
+
+def train_profile(**over) -> ModelConfig:
+    """The CLI's train profile: bf16 compute and residual stream, float32
+    attention softmax, dropout 0.1 (early_exit_tpu/cli.py get_args,
+    mode="train"; its mel is the FFT). `over` replaces fields."""
+    return dataclasses.replace(
+        ModelConfig(compute_dtype="bfloat16", attn_softmax_dtype="float32"),
+        **over)

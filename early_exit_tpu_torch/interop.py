@@ -1,16 +1,23 @@
-"""Carry the JAX package's parameter trees across to the port's modules.
+"""Carry parameter trees between the JAX package's layout and the port's
+modules.
 
 `from_jax_params(params, state, cfg)` takes the `early_conformer`
 parameter and state trees -- as the JAX package builds them, or as the
 port's checkpoint reader returns them -- with numpy or tensor leaves,
 and returns an `EarlyConformer` on the CPU with float32 weights (the
 compute-dtype casts happen per op, as in the JAX package).
+`to_jax_params(model)` goes the other way, to numpy trees of the JAX
+layout (block leaves stacked on a leading layer axis, the two subsampling
+convolutions a list). `jax_tree(model, values)` lays out any per-parameter
+tensors (gradients, Adam moments) the same way, and `from_jax_tree`
+reads such a tree back into one tensor per parameter.
 """
 
 from __future__ import annotations
 
 from typing import Mapping
 
+import numpy as np
 import torch
 
 from early_exit_tpu_torch.checkpoint import to_torch
@@ -55,9 +62,12 @@ def _item(seq, i):
     return seq[str(i)] if isinstance(seq, Mapping) else seq[i]
 
 
-def load_stack(stack: ConformerStack, params, state) -> ConformerStack:
+def load_stack(stack: ConformerStack, params, state, *,
+               trainable: bool = False) -> ConformerStack:
     """Layer-stacked JAX block trees (`conformer.stack_init` layout, a
-    leading layer axis on every leaf) -> the stack's blocks."""
+    leading layer axis on every leaf) -> the stack's blocks, frozen unless
+    trainable."""
+    stack.requires_grad_(trainable)
     blocks = {n: _f32(_get(params, p)) for n, p in _BLOCK_PATHS.items()}
     blocks.update({n: _f32(_get(state, p)) for n, p in _STATE_PATHS.items()})
     with torch.no_grad():
@@ -67,9 +77,12 @@ def load_stack(stack: ConformerStack, params, state) -> ConformerStack:
     return stack
 
 
-def from_jax_params(params, state, cfg: ModelConfig) -> EarlyConformer:
-    model = EarlyConformer(cfg)
-    load_stack(model.stack, params["blocks"], state["blocks"])
+def from_jax_params(params, state, cfg: ModelConfig, *,
+                    trainable: bool = False) -> EarlyConformer:
+    """trainable=False (serving) freezes the parameters: no graph is built
+    even outside `torch.no_grad`."""
+    model = EarlyConformer(cfg).requires_grad_(trainable)
+    load_stack(model.stack, params["blocks"], state["blocks"], trainable=trainable)
     with torch.no_grad():
         for i in range(2):
             conv = _item(params["subsample"]["convs"], i)
@@ -78,3 +91,70 @@ def from_jax_params(params, state, cfg: ModelConfig) -> EarlyConformer:
         model.heads_w.copy_(_f32(params["heads"]["w"]))
         model.heads_b.copy_(_f32(params["heads"]["b"]))
     return model
+
+
+def _param_paths(model: EarlyConformer):
+    """(JAX path, [port parameters]) per leaf of the JAX params tree; a
+    block leaf lists the L blocks' tensors, to be stacked."""
+    out = []
+    for i in range(2):
+        out.append((("subsample", "convs", i, "w"), [model.sub_w[i]]))
+        out.append((("subsample", "convs", i, "b"), [model.sub_b[i]]))
+    for name, path in _BLOCK_PATHS.items():
+        mod, attr = name.rsplit(".", 1) if "." in name else (None, name)
+        out.append((("blocks",) + path,
+                    [getattr(b if mod is None else getattr(b, mod), attr)
+                     for b in model.stack.blocks]))
+    out.append((("heads", "w"), [model.heads_w]))
+    out.append((("heads", "b"), [model.heads_b]))
+    return out
+
+
+def _set(tree, path, value) -> None:
+    """tree[path] = value, making dicts (or lists, before an int key)."""
+    for k, nxt in zip(path[:-1], path[1:]):
+        make = list if isinstance(nxt, int) else dict
+        if isinstance(k, int):
+            while len(tree) <= k:
+                tree.append(make())
+            tree = tree[k]
+        else:
+            tree = tree.setdefault(k, make())
+    tree[path[-1]] = value
+
+
+def _np(t: torch.Tensor):
+    """A float32 numpy copy (never a view of a live parameter)."""
+    return t.detach().float().cpu().numpy().copy()
+
+
+def jax_tree(model: EarlyConformer, values=None) -> dict:
+    """The JAX params tree of `values` (a dict from parameter to tensor;
+    default the parameters themselves), float32 numpy leaves."""
+    tree: dict = {}
+    for path, params in _param_paths(model):
+        ts = [p if values is None else values[p] for p in params]
+        leaf = _np(ts[0]) if len(ts) == 1 else np.stack([_np(t) for t in ts])
+        _set(tree, path, leaf)
+    return tree
+
+
+def to_jax_params(model: EarlyConformer):
+    """(params, state) numpy trees in the JAX package's layout."""
+    bn = model.state()["blocks"]["conv_bn"]
+    state = {"blocks": {"conv_bn": {"mean": _np(bn["mean"]),
+                                    "var": _np(bn["var"])}}}
+    return jax_tree(model), state
+
+
+def from_jax_tree(model: EarlyConformer, tree) -> dict:
+    """A tree in the JAX params layout -> {parameter: float32 CPU tensor}."""
+    out = {}
+    for path, params in _param_paths(model):
+        leaf = tree
+        for k in path:
+            leaf = _item(leaf, k) if isinstance(k, int) else leaf[k]
+        leaf = _f32(leaf)
+        for i, p in enumerate(params):
+            out[p] = leaf if len(params) == 1 else leaf[i]
+    return out

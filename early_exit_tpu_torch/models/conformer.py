@@ -1,16 +1,28 @@
 """Conformer encoder blocks (counterpart of `early_exit_tpu/models/conformer.py`).
 
-Inference only. Block structure (torchaudio ConformerLayer semantics,
+Block structure (torchaudio ConformerLayer semantics,
 convolution_first=False):
 
     x = x + 0.5 * FFN(LN(x))            # macaron half-FFN (SiLU)
-    x = x + MHSA(LN(x), key_mask)
-    x = x + ConvModule(x)               # LN -> PW(2d)+GLU -> DW(k) -> BN -> SiLU -> PW
+    x = x + Drop(MHSA(LN(x), key_mask))
+    x = x + ConvModule(x)               # LN -> PW(2d)+GLU -> DW(k) -> BN -> SiLU -> PW -> Drop
     x = x + 0.5 * FFN(LN(x))
     x = LN(x), padded rows zeroed
 
+Training (`ConformerStack.train_forward`) runs the unfused blocks with
+autograd, unquantized, with dropout at the JAX package's places (two in
+each half-FFN, after SiLU and after W2; after the attention's Wo; after
+PW2), masked BatchNorm on the batch's statistics, and an optional
+(T, T) attention pair mask. A block's dropout masks come from a
+generator on the activations' device seeded with the block's own seed,
+so a block recomputed in backward (`remat`, torch.utils.checkpoint)
+draws the same masks; BatchNorm's new running statistics are returned,
+never written inside the block, so a recomputation cannot apply them
+twice. No kernel runs in training.
+
 `ConformerBlock.forward` is the unfused path (the JAX package's XLA
-path, two-pass LayerNorm); with `attention_impl="pallas"` its
+path, two-pass LayerNorm), for inference and, with `train=True`, for
+training; with `attention_impl="pallas"` its
 self-attention runs the CUDA attention kernel
 (`ops/kernels/attention.py`), and with `quantize="int8"` its linears are
 W8A8. `ConformerStack.forward` routes inference
@@ -24,9 +36,10 @@ the kernel, which raises past its own limit rather than leave the path.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from early_exit_tpu_torch.configs import _dt
@@ -43,6 +56,7 @@ class ConformerConfig:
     n_heads: int
     d_ff: int
     kernel_size: int
+    dropout: float = 0.1
     compute_dtype: str = "float32"
     residual_dtype: str = "float32"
     attn_softmax_dtype: str = "float32"
@@ -50,7 +64,8 @@ class ConformerConfig:
     # "pallas" keeps the JAX package's value, so that its configurations
     # carry across unchanged: here it selects the CUDA attention kernel
     attention_impl: str = "xla"
-    quantize: str = "none"          # "int8": W8A8 linears
+    quantize: str = "none"          # "int8": W8A8 linears (inference)
+    remat: bool = False             # training: recompute each block in backward
 
     def __post_init__(self):
         if self.attention_impl not in ("xla", "pallas"):
@@ -78,7 +93,16 @@ class ConformerConfig:
 
 
 def _weight(*shape) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+    return nn.Parameter(torch.zeros(*shape))
+
+
+def _block_generator(seed: Optional[int], rate: float,
+                     device: torch.device) -> Optional[torch.Generator]:
+    """The generator of one block's dropout masks in one step (None: no
+    dropout)."""
+    if seed is None or rate <= 0.0:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 class FeedForward(nn.Module):
@@ -88,12 +112,20 @@ class FeedForward(nn.Module):
         self.w1, self.b1 = _weight(d, d_ff), _weight(d_ff)
         self.w2, self.b2 = _weight(d_ff, d), _weight(d)
 
-    def forward(self, x, cfg: ConformerConfig):
+    def init(self, gen: torch.Generator) -> None:
+        core.norm_init_(self.ln_g, self.ln_b)
+        core.linear_init_(self.w1, self.b1, gen)
+        core.linear_init_(self.w2, self.b2, gen)
+
+    def forward(self, x, cfg: ConformerConfig, *, quant: Optional[str] = None,
+                gen: Optional[torch.Generator] = None):
         y = core.layer_norm(x, self.ln_g, self.ln_b)
-        lin = dict(compute_dtype=cfg.dtype, quantize=cfg.quant)
+        lin = dict(compute_dtype=cfg.dtype, quantize=quant)
         y = core.linear(y, self.w1, self.b1, **lin)
         y = torch.nn.functional.silu(y)
-        return core.linear(y, self.w2, self.b2, **lin)
+        y = core.dropout(y, cfg.dropout, gen)
+        y = core.linear(y, self.w2, self.b2, **lin)
+        return core.dropout(y, cfg.dropout, gen)
 
 
 class SelfAttention(nn.Module):
@@ -104,18 +136,30 @@ class SelfAttention(nn.Module):
             setattr(self, "w" + n, _weight(d, d))
             setattr(self, "b" + n, _weight(d))
 
-    def forward(self, x, mask, cfg: ConformerConfig):
+    def init(self, gen: torch.Generator) -> None:
+        core.norm_init_(self.ln_g, self.ln_b)
+        for n in ("q", "k", "v", "o"):
+            core.linear_init_(getattr(self, "w" + n), getattr(self, "b" + n), gen)
+
+    def forward(self, x, mask, cfg: ConformerConfig, *,
+                quant: Optional[str] = None, train: bool = False,
+                attn_mask: Optional[torch.Tensor] = None):
         y = core.layer_norm(x, self.ln_g, self.ln_b)
         p = {n: (getattr(self, "w" + n), getattr(self, "b" + n))
              for n in ("q", "k", "v", "o")}
-        if cfg.attention_impl == "pallas":
+        if cfg.attention_impl == "pallas" and attn_mask is None:
+            if train:
+                raise NotImplementedError(
+                    "attention_impl='pallas' cannot train: the attention kernel "
+                    "has no backward, and the JAX package cannot differentiate "
+                    "its Pallas kernel either")
             # float32 softmax and unquantized projections whatever the
             # configuration says, as the JAX package's kernel path
             return katt.mha_fused(p, y, cfg.n_heads, key_mask=mask,
                                   compute_dtype=cfg.dtype)
-        return core.mha(p, y, y, cfg.n_heads, key_mask=mask,
+        return core.mha(p, y, y, cfg.n_heads, key_mask=mask, pair_mask=attn_mask,
                         compute_dtype=cfg.dtype, softmax_dtype=cfg.sm_dtype,
-                        quantize=cfg.quant)
+                        quantize=quant)
 
 
 class ConvModule(nn.Module):
@@ -129,9 +173,22 @@ class ConvModule(nn.Module):
         self.register_buffer("bn_var", torch.ones(d))
         self.pw2_w, self.pw2_b = _weight(d, d), _weight(d)
 
-    def forward(self, x, mask, cfg: ConformerConfig):
+    def init(self, gen: torch.Generator) -> None:
+        core.norm_init_(self.ln_g, self.ln_b)
+        core.linear_init_(self.pw1_w, self.pw1_b, gen)
+        core.depthwise_conv1d_init_(self.dw_w, self.dw_b, gen)
+        core.norm_init_(self.bn_g, self.bn_b)
+        core.linear_init_(self.pw2_w, self.pw2_b, gen)
+        with torch.no_grad():
+            self.bn_mean.zero_()
+            self.bn_var.fill_(1.0)
+
+    def forward(self, x, mask, cfg: ConformerConfig, *,
+                quant: Optional[str] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None):
+        """Returns y, and with train the BatchNorm's new running (mean, var)."""
         y = core.layer_norm(x, self.ln_g, self.ln_b)
-        lin = dict(compute_dtype=cfg.dtype, quantize=cfg.quant)
+        lin = dict(compute_dtype=cfg.dtype, quantize=quant)
         y = core.linear(y, self.pw1_w, self.pw1_b, **lin)
         a, b = y.chunk(2, dim=-1)
         y = a * torch.sigmoid(b)                                  # GLU
@@ -140,10 +197,17 @@ class ConvModule(nn.Module):
                                                             device=y.device))
         y = core.depthwise_conv1d(y, self.dw_w, self.dw_b,
                                   compute_dtype=cfg.dtype)
-        y = core.masked_batch_norm(y, self.bn_g, self.bn_b,
-                                   self.bn_mean, self.bn_var)
+        if train:
+            y, new_mean, new_var = core.masked_batch_norm_train(
+                y, self.bn_g, self.bn_b, self.bn_mean, self.bn_var, mask)
+        else:
+            y = core.masked_batch_norm(y, self.bn_g, self.bn_b,
+                                       self.bn_mean, self.bn_var)
         y = torch.nn.functional.silu(y)
-        return core.linear(y, self.pw2_w, self.pw2_b, **lin)
+        y = core.linear(y, self.pw2_w, self.pw2_b, **lin)
+        if not train:
+            return y
+        return core.dropout(y, cfg.dropout, gen), new_mean, new_var
 
 
 class ConformerBlock(nn.Module):
@@ -157,20 +221,42 @@ class ConformerBlock(nn.Module):
         self.ffn2 = FeedForward(d, cfg.d_ff)
         self.final_ln_g, self.final_ln_b = _weight(d), _weight(d)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """Unfused block on (B, T, D); mask (B, T) bool validity."""
-        cfg, rd = self.cfg, self.cfg.rdtype
-        x = x.to(rd)
-        x = x + 0.5 * self.ffn1(x, cfg).to(rd)
-        x = x + self.attn(x, mask, cfg).to(rd)
-        x = x + self.conv(x, mask, cfg).to(rd)
-        x = x + 0.5 * self.ffn2(x, cfg).to(rd)
+    def init(self, gen: torch.Generator) -> None:
+        for m in (self.ffn1, self.attn, self.conv, self.ffn2):
+            m.init(gen)
+        core.norm_init_(self.final_ln_g, self.final_ln_b)
+
+    def _finish(self, x, mask):
+        rd = self.cfg.rdtype
         x = core.layer_norm(x, self.final_ln_g, self.final_ln_b).to(rd)
         if mask is not None:
             x = torch.where(mask[..., None], x, torch.zeros((), dtype=rd,
                                                             device=x.device))
         return x
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
+                train: bool = False, seed: Optional[int] = None,
+                attn_mask: Optional[torch.Tensor] = None):
+        """Unfused block on (B, T, D); mask (B, T) bool validity; attn_mask
+        (T, T) bool, True where q may attend to k. Returns y. With train:
+        unquantized, dropout masks drawn from a generator seeded with
+        `seed` (none without one), BatchNorm on the batch, and returns
+        (y, new BN mean, new BN var)."""
+        cfg, rd = self.cfg, self.cfg.rdtype
+        q = None if train else cfg.quant
+        gen = _block_generator(seed, cfg.dropout, x.device) if train else None
+        x = x.to(rd)
+        x = x + 0.5 * self.ffn1(x, cfg, quant=q, gen=gen).to(rd)
+        y = self.attn(x, mask, cfg, quant=q, train=train, attn_mask=attn_mask)
+        x = x + core.dropout(y, cfg.dropout, gen).to(rd)
+        if train:
+            y, new_mean, new_var = self.conv(x, mask, cfg, train=True, gen=gen)
+        else:
+            y = self.conv(x, mask, cfg, quant=q)
+        x = x + y.to(rd)
+        x = x + 0.5 * self.ffn2(x, cfg, quant=q, gen=gen).to(rd)
+        y = self._finish(x, mask)
+        return (y, new_mean, new_var) if train else y
 
 
 class ConformerStack(nn.Module):
@@ -181,16 +267,26 @@ class ConformerStack(nn.Module):
                                     for _ in range(n_layers))
         self._folded: List[dict] = []
         self._folded_key = None
+        self._slots: List[tuple] = []
+
+    def init(self, gen: torch.Generator) -> None:
+        for b in self.blocks:
+            b.init(gen)
 
     def clear_folded(self) -> None:
         self._folded, self._folded_key = [], None
 
     def folded(self) -> List[dict]:
-        """Per-block kernel layout (`fold_block_params`), built once per
-        (device, quantize, compute dtype); inference weights do not
-        change."""
-        key = (self.blocks[0].final_ln_g.device, self.cfg.quantize,
-               self.cfg.dtype)
+        """Per-block kernel layout (`fold_block_params`), rebuilt whenever
+        the device, quantize, compute dtype or any weight or running
+        statistic changed: every in-place write (an optimizer step, a
+        load) moves a tensor's version counter."""
+        if not self._slots:         # (dict, name) of every parameter and buffer
+            self._slots = [(d, n) for m in self.modules()
+                           for d in (m._parameters, m._buffers) for n in d]
+        d0, n0 = self._slots[0]
+        key = (d0[n0].device, self.cfg.quantize, self.cfg.dtype,
+               tuple(d[n]._version for d, n in self._slots))
         if self._folded_key != key:
             self._folded = [kcb.fold_block_params(b.state_dict(),
                                                   compute_dtype=self.cfg.dtype,
@@ -201,10 +297,12 @@ class ConformerStack(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect_outputs: bool = False, collect_every: int = 1,
-                n_layers: Optional[int] = None, first_layer: int = 0):
-        """Runs blocks first_layer .. n_layers-1 (default all). Returns y,
-        or (y, outs) with collect_outputs: outs (L/k, B, T, D) holds every
-        k-th output of the L layers run (their layers k-1, 2k-1, ...)."""
+                n_layers: Optional[int] = None, first_layer: int = 0,
+                attn_mask: Optional[torch.Tensor] = None):
+        """Inference over blocks first_layer .. n_layers-1 (default all).
+        Returns y, or (y, outs) with collect_outputs: outs (L/k, B, T, D)
+        holds every k-th output of the L layers run (their layers k-1,
+        2k-1, ...). An attn_mask takes the unfused path."""
         last = len(self.blocks) if n_layers is None else n_layers
         if not 0 <= first_layer <= last <= len(self.blocks):
             raise ValueError(f"layers {first_layer}..{last} of "
@@ -217,8 +315,8 @@ class ConformerStack(nn.Module):
         if collect_outputs:
             outs = torch.empty((L // k,) + tuple(x.shape), dtype=self.cfg.rdtype,
                                device=x.device)
-        if self.cfg.fused_block and (x.device.type != "cpu"
-                                     or x.shape[1] <= FUSED_MAX_T):
+        if (self.cfg.fused_block and attn_mask is None
+                and (x.device.type != "cpu" or x.shape[1] <= FUSED_MAX_T)):
             if mask is not None:
                 lengths = mask.sum(dim=1, dtype=torch.int32)
             else:
@@ -237,7 +335,39 @@ class ConformerStack(nn.Module):
         else:
             h = x
             for i, block in enumerate(self.blocks[first_layer:last]):
-                h = block(h, mask)
+                h = block(h, mask, attn_mask=attn_mask)
                 if outs is not None and (i + 1) % k == 0:
                     outs[i // k] = h
         return (h, outs) if collect_outputs else h
+
+    def train_forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
+                      seeds: Optional[List[int]] = None, collect_every: int = 1,
+                      attn_mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Training over every block, with autograd: block i's dropout
+        from seeds[i] (no dropout without seeds); with cfg.remat each block
+        is recomputed in backward. Returns (outs (L/k, B, T, D), the new
+        BatchNorm running means (L, D) and variances (L, D))."""
+        outs, means, variances = [], [], []
+        h = x
+        for i, block in enumerate(self.blocks):
+            seed = None if seeds is None else seeds[i]
+            if self.cfg.remat:
+                h, m, v = torch.utils.checkpoint.checkpoint(
+                    block, h, mask, train=True, seed=seed, attn_mask=attn_mask,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                h, m, v = block(h, mask, train=True, seed=seed,
+                                attn_mask=attn_mask)
+            means.append(m)
+            variances.append(v)
+            if (i + 1) % collect_every == 0:
+                outs.append(h)
+        return torch.stack(outs), torch.stack(means), torch.stack(variances)
+
+    def set_bn_state(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Assign every block's BatchNorm running statistics ((L, D) each)."""
+        with torch.no_grad():
+            for i, b in enumerate(self.blocks):
+                b.conv.bn_mean.copy_(mean[i])
+                b.conv.bn_var.copy_(var[i])

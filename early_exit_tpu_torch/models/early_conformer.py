@@ -1,12 +1,17 @@
 """Early-exit Conformer CTC encoder (counterpart of
-`early_exit_tpu/models/early_conformer.py`), inference only.
+`early_exit_tpu/models/early_conformer.py`).
 
-conv subsample x4 -> sinusoidal PE -> n_exits x n_layers Conformer
-blocks -> per-exit Linear(d, V) heads. The exit hidden states are the
-outputs of layers k-1, 2k-1, ... (k = n_enc_layers_per_exit).
+conv subsample x4 -> sinusoidal PE (+ dropout in training) -> n_exits x
+n_layers Conformer blocks -> per-exit Linear(d, V) heads. The exit hidden
+states are the outputs of layers k-1, 2k-1, ... (k =
+n_enc_layers_per_exit). `init` draws fresh weights; `apply_train` is the
+training forward, whose BatchNorm statistics the caller assigns with
+`set_state` once the step is done.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -21,8 +26,8 @@ def conformer_cfg(cfg: ModelConfig) -> conformer.ConformerConfig:
         raise NotImplementedError("the port runs conv_norm='batch' only")
     return conformer.ConformerConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_feed_forward,
-        kernel_size=cfg.depthwise_kernel_size,
-        compute_dtype=cfg.compute_dtype,
+        kernel_size=cfg.depthwise_kernel_size, dropout=cfg.drop_prob,
+        remat=cfg.remat, compute_dtype=cfg.compute_dtype,
         residual_dtype=(cfg.residual_dtype or cfg.compute_dtype),
         attn_softmax_dtype=cfg.attn_softmax_dtype,
         fused_block=cfg.fused_block, attention_impl=cfg.attention_impl,
@@ -35,27 +40,39 @@ class EarlyConformer(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.sub_w = nn.ParameterList([
-            nn.Parameter(torch.zeros(3, cfg.n_mels, d), requires_grad=False),
-            nn.Parameter(torch.zeros(3, d, d), requires_grad=False)])
-        self.sub_b = nn.ParameterList([
-            nn.Parameter(torch.zeros(d), requires_grad=False)
-            for _ in range(2)])
+            nn.Parameter(torch.zeros(3, cfg.n_mels, d)),
+            nn.Parameter(torch.zeros(3, d, d))])
+        self.sub_b = nn.ParameterList([nn.Parameter(torch.zeros(d))
+                                       for _ in range(2)])
         self.stack = conformer.ConformerStack(
             conformer_cfg(cfg), cfg.n_enc_exits * cfg.n_enc_layers_per_exit)
         self.heads_w = nn.Parameter(
-            torch.zeros(cfg.n_enc_exits, d, cfg.vocab_size), requires_grad=False)
+            torch.zeros(cfg.n_enc_exits, d, cfg.vocab_size))
         self.heads_b = nn.Parameter(
-            torch.zeros(cfg.n_enc_exits, cfg.vocab_size), requires_grad=False)
+            torch.zeros(cfg.n_enc_exits, cfg.vocab_size))
 
-    def frontend_embed(self, feats: torch.Tensor, lengths: torch.Tensor):
-        """Subsample + PE (added in float32) -> padded frames zeroed ->
-        residual dtype. Returns (x, sub_len, mask)."""
+    def init(self, generator: torch.Generator) -> "EarlyConformer":
+        """Fresh weights in place, drawn from `generator` (on the
+        parameters' device): Xavier-uniform products and convolutions,
+        zero biases, unit norm scales, BatchNorm statistics (0, 1)."""
+        subsampling.conv_subsample_init_(list(zip(self.sub_w, self.sub_b)),
+                                         generator)
+        self.stack.init(generator)
+        for e in range(self.cfg.n_enc_exits):
+            core.linear_init_(self.heads_w[e], self.heads_b[e], generator)
+        return self
+
+    def frontend_embed(self, feats: torch.Tensor, lengths: torch.Tensor, *,
+                       generator: Optional[torch.Generator] = None):
+        """Subsample + PE (added in float32) -> dropout (with a generator)
+        -> padded frames zeroed -> residual dtype. Returns (x, sub_len,
+        mask)."""
         cfg = self.cfg
         x = subsampling.conv_subsample_apply(
             list(zip(self.sub_w, self.sub_b)), feats, compute_dtype=cfg.dtype)
         t_sub = x.shape[1]
         pe = core.sinusoidal_pe(t_sub, cfg.d_model, device=x.device)
-        x = x.float() + pe[None]
+        x = core.dropout(x.float() + pe[None], cfg.drop_prob, generator)
         if cfg.length_mode == "reference":
             sub_len = subsampling.reference_subsampled_length(lengths, 4, t_sub)
         else:
@@ -90,6 +107,42 @@ class EarlyConformer(nn.Module):
         (E, B, T', V), sub_lengths (B,))."""
         hidden, sub_len = self.apply_hidden(feats, lengths)
         return self.apply_heads(hidden, log_probs=log_probs), sub_len
+
+    def apply_train(self, feats: torch.Tensor, lengths: torch.Tensor, *,
+                    seed: Optional[int] = None,
+                    attn_mask: Optional[torch.Tensor] = None):
+        """The training forward, with autograd: no kernel, unquantized,
+        BatchNorm on the batch, and dropout (rate drop_prob) whose masks
+        derive from `seed` (no dropout without one). attn_mask: (T', T')
+        bool over the subsampled frames. Returns (log_probs (E, B, T', V)
+        float32, sub_lengths (B,), new_state), new_state holding the
+        BatchNorm running statistics as the JAX package's state tree does
+        ({"blocks": {"conv_bn": {"mean", "var"}}}, (L, D) each)."""
+        n_layers = len(self.stack.blocks)
+        seeds = None
+        if seed is not None and self.cfg.drop_prob > 0.0:
+            host = torch.Generator().manual_seed(seed)
+            seeds = torch.randint(0, 2 ** 62, (n_layers + 1,),
+                                  generator=host).tolist()
+        pe_gen = (None if seeds is None else
+                  torch.Generator(device=feats.device).manual_seed(seeds[-1]))
+        x, sub_len, mask = self.frontend_embed(feats, lengths, generator=pe_gen)
+        hidden, mean, var = self.stack.train_forward(
+            x, mask, seeds=seeds, attn_mask=attn_mask,
+            collect_every=self.cfg.n_enc_layers_per_exit)
+        new_state = {"blocks": {"conv_bn": {"mean": mean, "var": var}}}
+        return self.apply_heads(hidden), sub_len, new_state
+
+    def state(self) -> dict:
+        """The BatchNorm running statistics as `apply_train` returns them."""
+        convs = [b.conv for b in self.stack.blocks]
+        return {"blocks": {"conv_bn": {
+            "mean": torch.stack([c.bn_mean for c in convs]),
+            "var": torch.stack([c.bn_var for c in convs])}}}
+
+    def set_state(self, state: dict) -> None:
+        bn = state["blocks"]["conv_bn"]
+        self.stack.set_bn_state(bn["mean"], bn["var"])
 
     def encode_exit(self, feats: torch.Tensor, lengths: torch.Tensor,
                     n_exit: int):

@@ -9,6 +9,14 @@ import torch
 from early_exit_tpu_torch.nn import core
 
 
+def conv_subsample_init_(convs: List[Tuple[torch.Tensor, torch.Tensor]],
+                         generator: torch.Generator) -> None:
+    """Each (w (3, c_in, c_out), b) in place: Xavier uniform with fans
+    c_in * 3 and c_out * 3, zero bias."""
+    for w, b in convs:
+        core.conv1d_init_(w, b, generator)
+
+
 def conv_subsample_apply(convs: List[Tuple[torch.Tensor, torch.Tensor]],
                          x: torch.Tensor, *,
                          compute_dtype: Optional[torch.dtype] = None

@@ -1,9 +1,12 @@
-"""Functional neural-net primitives, inference subset.
+"""Functional neural-net primitives.
 
 Counterparts of `early_exit_tpu/nn/core.py` with the same rounding
 points, on (B, T, C) tensors and the JAX package's weight layouts:
 linear `w` is (d_in, d_out), conv `w` is (k, c_in, c_out), depthwise
-`w` is (k, 1, C).
+`w` is (k, 1, C). The initialisers draw, in place, from an explicit
+`torch.Generator` on the tensor's device, with the JAX package's
+distributions and limits. Training differentiates through these ops
+with autograd.
 """
 
 from __future__ import annotations
@@ -19,6 +22,72 @@ import torch.nn.functional as F
 NEG_INF = -1e9
 # the bf16 score mask; -30000 is representable in bf16
 NEG_BF16 = -30000.0
+
+
+def xavier_uniform_(w: torch.Tensor, generator: torch.Generator, *,
+                    fan_in: Optional[int] = None,
+                    fan_out: Optional[int] = None) -> torch.Tensor:
+    """Xavier/Glorot uniform in place: U(-l, l), l = sqrt(6 / (fan_in +
+    fan_out)); the fans default to the last two axes (a vector: its
+    length for both)."""
+    shape = w.shape
+    if fan_in is None:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    if fan_out is None:
+        fan_out = shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return w.uniform_(-limit, limit, generator=generator)
+
+
+def linear_init_(w: torch.Tensor, b: Optional[torch.Tensor],
+                 generator: torch.Generator) -> None:
+    """w (d_in, d_out) Xavier uniform, b zeros."""
+    xavier_uniform_(w, generator)
+    if b is not None:
+        with torch.no_grad():
+            b.zero_()
+
+
+def conv1d_init_(w: torch.Tensor, b: Optional[torch.Tensor],
+                 generator: torch.Generator) -> None:
+    """w (k, c_in, c_out) Xavier uniform with fan_in = c_in * k and
+    fan_out = c_out * k, b zeros."""
+    k, c_in, c_out = w.shape
+    xavier_uniform_(w, generator, fan_in=c_in * k, fan_out=c_out * k)
+    if b is not None:
+        with torch.no_grad():
+            b.zero_()
+
+
+def depthwise_conv1d_init_(w: torch.Tensor, b: Optional[torch.Tensor],
+                           generator: torch.Generator) -> None:
+    """w (k, 1, C) Xavier uniform with both fans = k, b zeros."""
+    k = w.shape[0]
+    xavier_uniform_(w, generator, fan_in=k, fan_out=k)
+    if b is not None:
+        with torch.no_grad():
+            b.zero_()
+
+
+def norm_init_(g: torch.Tensor, b: torch.Tensor) -> None:
+    """LayerNorm or BatchNorm scale 1, shift 0."""
+    with torch.no_grad():
+        g.fill_(1.0)
+        b.zero_()
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each value with probability 1 - rate, scaled
+    by 1 / (1 - rate), in x's dtype. Identity at rate 0 or without a
+    generator."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device)).to(x.dtype)
 
 
 def quantize_int8(x: torch.Tensor, axis: int = -1):
@@ -132,6 +201,34 @@ def masked_batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
             * g.float() + b.float())
 
 
+def masked_batch_norm_train(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                            mean: torch.Tensor, var: torch.Tensor,
+                            mask: Optional[torch.Tensor], *,
+                            momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm in training mode over (batch, time) per channel of
+    (B, T, C), counting only the valid frames (mask (B, T) bool).
+    Normalises with the batch's biased statistics; the running estimate
+    takes the unbiased variance, count / (count - 1), with momentum 0.1.
+    Returns (y, new_mean, new_var); the new statistics carry no graph."""
+    x32 = x.float()
+    if mask is not None:
+        m = mask.float()[..., None]
+        count = m.sum().clamp_min(1.0)
+        mu = (x32 * m).sum((0, 1)) / count
+        v = ((x32 - mu).square() * m).sum((0, 1)) / count
+        unbiased = v * count / (count - 1.0).clamp_min(1.0)
+    else:
+        n = x32.shape[0] * x32.shape[1]
+        mu = x32.mean((0, 1))
+        v = x32.var((0, 1), unbiased=False)
+        unbiased = v * n / max(n - 1, 1)
+    with torch.no_grad():
+        new_mean = (1 - momentum) * mean + momentum * mu
+        new_var = (1 - momentum) * var + momentum * unbiased
+    y = (x32 - mu) * torch.rsqrt(v + eps) * g.float() + b.float()
+    return y, new_mean, new_var
+
+
 def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:
     """Softmax with every elementwise op in the scores' own dtype."""
     m = s.amax(-1, keepdim=True)
@@ -142,15 +239,18 @@ def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:
 def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         kv_in: torch.Tensor, n_heads: int, *,
         key_mask: Optional[torch.Tensor] = None,
+        pair_mask: Optional[torch.Tensor] = None,
         compute_dtype: Optional[torch.dtype] = None,
         softmax_dtype: torch.dtype = torch.float32,
         quantize: Optional[str] = None) -> torch.Tensor:
     """Multi-head attention on (B, Tq, D) / (B, Tk, D).
 
     p maps "q", "k", "v", "o" to (w, b). key_mask: (B, Tk) bool, True
-    where the key is valid. With a bf16 softmax dtype the scores stay in
-    bf16: scaled in bf16 and masked to -30000. quantize="int8" quantizes
-    the four projections; scores and P V stay in the float path."""
+    where the key is valid. pair_mask: (Tq, Tk) or (B, Tq, Tk) bool, True
+    where q may attend to k (dynamic-chunk training). With a bf16 softmax
+    dtype the scores stay in bf16: scaled in bf16 and masked to -30000.
+    quantize="int8" quantizes the four projections; scores and P V stay
+    in the float path."""
     B, Tq, D = q_in.shape
     Tk = kv_in.shape[1]
     dh = D // n_heads
@@ -172,6 +272,9 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         neg = NEG_INF
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, :], neg)
+    if pair_mask is not None:
+        pm = pair_mask if pair_mask.dim() == 3 else pair_mask[None]
+        scores = scores.masked_fill(~pm[:, None], neg)
     if lowp:
         out = torch.matmul(_softmax_lowp(scores), v)
     else:

@@ -1,8 +1,33 @@
-"""Greedy CTC decoding (counterpart of `early_exit_tpu/ops/ctc.py`)."""
+"""CTC loss and greedy CTC decoding (counterpart of
+`early_exit_tpu/ops/ctc.py`).
+
+`ctc_loss` is `torch.nn.functional.ctc_loss` (one call; a Python loop
+over ~250-400 frames would cost thousands of launches a step) with the
+input lengths clamped to >= 1, which gives the JAX package's values: its
+recursion always counts frame 0, so an input length of 0 scores as 1.
+`zero_infinity` zeroes the infeasible rows and their gradients.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+def ctc_loss(log_probs: torch.Tensor, input_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor, *,
+             blank: int = 0, reduction: str = "mean",
+             zero_infinity: bool = True) -> torch.Tensor:
+    """torch.nn.CTCLoss-compatible loss of (B, T, V) log-probs. reduction
+    "none" gives (B,); "mean" divides each row by its label length and
+    means over the batch; "sum"."""
+    nll = F.ctc_loss(log_probs.float().transpose(0, 1), labels.long(),
+                     input_lengths.long().clamp_min(1), label_lengths.long(),
+                     blank=blank, reduction="none", zero_infinity=zero_infinity)
+    if reduction == "none":
+        return nll
+    if reduction == "sum":
+        return nll.sum()
+    return (nll / label_lengths.clamp_min(1).float()).mean()
 
 
 def greedy_decode(log_probs: torch.Tensor, lengths: torch.Tensor, *,

@@ -1,7 +1,8 @@
-"""Decode-only reader of SentencePiece `.model` files.
+"""Reader of SentencePiece `.model` files, and their decoder.
 
 Parses the serialized ModelProto (protobuf wire format, no protobuf
-runtime) for the pieces and their types, and turns ids back into text
+runtime) for the pieces, their scores and types and the trainer and
+normalizer settings (`parse_model`), and turns ids back into text
 with the semantics of `early_exit_tpu/tokenizer/bpe.py::decode`:
 consecutive byte pieces form one UTF-8 run, control ids are skipped,
 unk renders as " ⁇ ", "▁" becomes a space and the leading space is
@@ -55,27 +56,40 @@ def _fields(buf: bytes):
         yield field, wtype, val
 
 
-def parse_pieces(path: str) -> Tuple[List[Tuple[str, int]], bool]:
-    """(piece, type) for every entry of ModelProto.pieces (field 1), and
-    whether TrainerSpec.byte_fallback (field 2.35) is set."""
+# TrainerSpec and NormalizerSpec field numbers (sentencepiece_model.proto)
+_TRAINER = {3: "model_type", 35: "byte_fallback", 40: "unk_id", 41: "bos_id",
+            42: "eos_id", 43: "pad_id"}
+_NORMALIZER = {2: "precompiled_charsmap", 3: "add_dummy_prefix",
+               4: "remove_extra_whitespaces"}
+
+
+def parse_model(path: str):
+    """(piece, score, type) for every entry of ModelProto.pieces (field 1),
+    and the TrainerSpec (field 2) and NormalizerSpec (field 3) values the
+    port reads, by name."""
     with open(path, "rb") as f:
         buf = f.read()
-    pieces: List[Tuple[str, int]] = []
-    byte_fallback = False
+    pieces: List[Tuple[str, float, int]] = []
+    trainer: dict = {}
+    normalizer: dict = {}
     for field, wtype, val in _fields(buf):
         if field == 1 and wtype == 2:
-            piece, ptype = "", NORMAL
+            piece, score, ptype = "", 0.0, NORMAL
             for f2, _, v2 in _fields(val):
                 if f2 == 1:
                     piece = v2.decode("utf-8")
+                elif f2 == 2:
+                    score = float(v2)
                 elif f2 == 3:
                     ptype = int(v2)
-            pieces.append((piece, ptype))
-        elif field == 2 and wtype == 2:
+            pieces.append((piece, score, ptype))
+        elif field in (2, 3) and wtype == 2:
+            names, out = ((_TRAINER, trainer) if field == 2
+                          else (_NORMALIZER, normalizer))
             for f2, _, v2 in _fields(val):
-                if f2 == 35:
-                    byte_fallback = bool(v2)
-    return pieces, byte_fallback
+                if f2 in names:
+                    out[names[f2]] = v2
+    return pieces, trainer, normalizer
 
 
 def _is_trail(b: int) -> bool:
@@ -160,4 +174,6 @@ class SentencePieceDecoder:
 
 
 def load_decoder(path: str) -> SentencePieceDecoder:
-    return SentencePieceDecoder(*parse_pieces(path))
+    pieces, trainer, _ = parse_model(path)
+    return SentencePieceDecoder([(p, t) for p, _, t in pieces],
+                                bool(int(trainer.get("byte_fallback", 0))))

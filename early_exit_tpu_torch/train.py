@@ -1,0 +1,189 @@
+"""Training entry point of the port: CTC training of the early-exit
+Conformer, the same surface as the JAX package's `train.py`.
+
+    python -m early_exit_tpu_torch.train --decoder_mode ctc \\
+        --synthetic_data true [--device cpu] ...
+
+Build the model (fresh Xavier init from --seed, a checkpoint file, or an
+average of epoch checkpoints) -> the data pipeline -> Noam-AdamW with
+warmup defaulting to one epoch of sub-batches -> one train step per
+sub-batch, with `step N loss ... grad_norm ... RATE:` every 50 steps and
+a sample greedy decode every 500 -> `LOSS_TOTAL-e :=` per epoch -> save
+the model and optimizer pair when the epoch loss improves (`saving:`,
+else `WORST:`), keeping the newest --keep_last_ckpts. A run resumes from
+the newest complete pair in --save_model_dir. Runs on CUDA unless
+--device cpu; raises without a GPU otherwise.
+
+Not ported, and raising by name: --decoder_mode aed, model types other
+than early_conformer, --conv_norm group, the LibriSpeech reader (train on
+--synthetic_data true), --dp/--tp above 1, and --attention_impl pallas in
+training.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+from early_exit_tpu_torch import runtime
+from early_exit_tpu_torch.cli import get_args
+from early_exit_tpu_torch.data.pipeline import Pipeline
+from early_exit_tpu_torch.data.synthetic import SyntheticDataset
+from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.ops import ctc
+from early_exit_tpu_torch.training import checkpoint
+from early_exit_tpu_torch.training.trainer import Trainer
+from early_exit_tpu_torch.utils.metrics import MetricsLogger, count_parameters
+
+LOG_EVERY = 50
+DECODE_EVERY = 500
+
+
+def check_ported(args) -> None:
+    if args.decoder_mode != "ctc":
+        raise NotImplementedError(
+            "--decoder_mode aed: the AED model (full_conformer + "
+            "transformer_decoder) is not ported; train --decoder_mode ctc")
+    if args.model_type != "early_conformer":
+        raise NotImplementedError(
+            f"--model_type {args.model_type}: only early_conformer is ported")
+    if not args.synthetic_data:
+        raise NotImplementedError(
+            "the LibriSpeech reader (FLAC decoding) is not ported; train on "
+            "--synthetic_data true")
+    if (args.dp or 1) > 1 or args.tp > 1:
+        raise NotImplementedError(
+            "--dp/--tp above 1: data and tensor parallelism are not ported; "
+            "the port trains on one GPU")
+
+
+def build_dataset(args) -> SyntheticDataset:
+    return SyntheticDataset(n_items=max(args.batch_size * 4, 64), seed=args.seed)
+
+
+@torch.no_grad()
+def sample_decode(model: EarlyConformer, batch, tokenizer) -> None:
+    """Greedy decode of the sub-batch's first utterance at the last exit,
+    with the inference path (the block and head kernels with
+    --fused_block on CUDA)."""
+    logp, sub_len = model.apply(batch["feats"][:1], batch["feat_lengths"][:1])
+    toks, n = ctc.greedy_decode(logp[-1], sub_len, blank=model.cfg.blank_id)
+    ll = int(batch["label_lengths"][0])
+    print("EXPECTED:", tokenizer.decode(batch["labels"][0, 1:ll].tolist()).lower())
+    print("CTC_OUT :", tokenizer.decode(toks[0, :int(n[0])].tolist()).lower())
+
+
+def _resolve_dir(path: str) -> str:
+    return path if os.path.isabs(path) else os.path.join(os.getcwd(), path.lstrip("/"))
+
+
+def main(argv=None) -> None:
+    args, model_cfg, train_cfg, audio_cfg, tokenizer = get_args(argv)
+    check_ported(args)
+    device = runtime.resolve_device(args.device)
+    if device.type == "cuda":
+        runtime.exact_float32()
+    model = EarlyConformer(model_cfg).to(device)
+    model.init(torch.Generator(device=device).manual_seed(args.seed))
+    if args.load_model_path is not None:
+        checkpoint.load_model_file(model, args.load_model_path)
+        print(f"loaded checkpoint: {args.load_model_path}")
+    elif None not in (args.load_model_dir, args.avg_model_start, args.avg_model_end):
+        checkpoint.avg_models(model, args.load_model_dir, args.avg_model_start,
+                              args.avg_model_end)
+        print(f"averaged checkpoints {args.avg_model_start}.."
+              f"{args.avg_model_end} from {args.load_model_dir}")
+    print(f"The model has {count_parameters(model):,} trainable parameters")
+
+    pipe = Pipeline(build_dataset(args), tokenizer, audio_cfg, train_cfg,
+                    bpe=args.bpe, shuffle=args.shuffle, seed=args.seed,
+                    workers=args.n_workers, device=device)
+    warmup = args.warmup
+    if warmup == -1:
+        warmup = pipe.batches_per_epoch() * args.n_batch_split
+    print("batch_size:", args.batch_size, " num_heads:", args.n_heads,
+          " num_encoder_layers:", args.n_enc_layers_per_exit,
+          " optimizer: NOAM[warmup", warmup, "] vocab_size:",
+          model_cfg.vocab_size, "SOS,EOS,PAD", model_cfg.bos_id,
+          model_cfg.eos_id, model_cfg.pad_id, "device:",
+          torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
+    trainer = Trainer(model, train_cfg, warmup=warmup)
+    logger = MetricsLogger(args.log_dir)
+    moddir = _resolve_dir(args.save_model_dir)
+    os.makedirs(moddir, exist_ok=True)
+
+    start_epoch = 0
+    if args.load_model_path is None and args.load_model_dir is None:
+        resume, warning = checkpoint.resume_epoch(moddir)
+        if warning:
+            print(warning)
+        if resume is not None:
+            checkpoint.load_model_file(model, checkpoint.model_ckpt_path(moddir, resume))
+            opt_path = checkpoint.opt_ckpt_path(moddir, resume)
+            if os.path.exists(opt_path):
+                checkpoint.load_opt_tree(model, trainer.opt,
+                                         checkpoint.load_tree(opt_path))
+            start_epoch = resume + 1
+            print(f"auto-resume from epoch {resume} (step {trainer.step_count})")
+
+    best_loss = float("inf")
+    prof, prof_left = None, args.profile_steps
+    for epoch in range(start_epoch, train_cfg.n_epochs):
+        t0 = time.time()
+        # the loss stays on the device; the host reads it every LOG_EVERY steps
+        loss_sum = torch.zeros((), device=device)
+        n_batches = 0
+        for i, batch in enumerate(pipe.epoch(epoch)):
+            if args.profile_trace and prof is None and prof_left > 0 and i == 1:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if device.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=acts)
+                prof.__enter__()
+            metrics = trainer.step(batch)
+            if prof is not None:
+                prof_left -= 1
+                if prof_left <= 0:
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    prof.__exit__(None, None, None)
+                    os.makedirs(args.profile_trace, exist_ok=True)
+                    prof.export_chrome_trace(os.path.join(args.profile_trace,
+                                                          "trace.json"))
+                    prof = None
+                    print(f"profiler trace written to {args.profile_trace}")
+            loss_sum += metrics["loss"]
+            n_batches += 1
+            step = trainer.step_count
+            if i % LOG_EVERY == 0:
+                loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+                lr = trainer.opt.schedule(step - 1)
+                print(f"step {step} loss {loss:.4f} grad_norm {gnorm:.3f} "
+                      f"RATE: {lr:.6e}")
+                logger.log(step, {"loss": loss, "lr": lr, "grad_norm": gnorm})
+            if i % DECODE_EVERY == 0:
+                sample_decode(model, batch, tokenizer)
+        if n_batches == 0:
+            sys.exit("empty epoch - no usable utterances")
+        loss_total = float(loss_sum) / n_batches
+        print(f"LOSS_TOTAL-{epoch} := {loss_total:.4f}  ({time.time() - t0:.1f}s, "
+              f"{n_batches} sub-batches)")
+        logger.log(epoch, {"Total loss": loss_total})
+        if loss_total < best_loss:
+            best_loss = loss_total
+            print("saving:", checkpoint.model_ckpt_path(moddir, epoch))
+            checkpoint.save_epoch(moddir, epoch, model, trainer.opt)
+            pruned = checkpoint.prune_old(moddir, args.keep_last_ckpts)
+            if pruned:
+                print(f"pruned {len(pruned)} old checkpoint(s) (--keep_last_ckpts "
+                      f"{args.keep_last_ckpts}): epochs {pruned[0]}..{pruned[-1]}")
+        else:
+            print("WORST: not saving epoch", epoch)
+    logger.close()
+
+
+if __name__ == "__main__":
+    main()

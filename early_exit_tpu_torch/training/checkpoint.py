@@ -1,0 +1,192 @@
+"""Epoch checkpoints in the JAX package's files (counterpart of
+`early_exit_tpu/training/checkpoint.py`).
+
+- `mod{epoch:03d}-transformer`: {"params", "model_state"} in the JAX
+  package's layout (`interop.to_jax_params`);
+- `lr{epoch:03d}-transformer`: {"opt_state", "step"}, the optimizer in
+  optax's own tree for `optax.chain(clip_by_global_norm, adamw)`:
+  {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}},
+  mu and nu in the params layout, the counts and the step int32.
+
+Both are flax-msgpack (`checkpoint.save_tree`, atomic), so the JAX
+package's `load_pytree(template, path)` reads what the port writes and
+the port reads what the JAX package writes. Also: checkpoint averaging
+(accumulated in float64), the saved epochs by regex, pruning to the
+newest N, and the resume rule that prefers a complete model + optimizer
+pair.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from early_exit_tpu_torch import interop
+from early_exit_tpu_torch.checkpoint import load_tree, save_tree
+from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.optim.noam import NoamAdamW
+
+
+def model_ckpt_path(directory: str, epoch: int) -> str:
+    return os.path.join(directory, f"mod{epoch:03d}-transformer")
+
+
+def opt_ckpt_path(directory: str, epoch: int) -> str:
+    return os.path.join(directory, f"lr{epoch:03d}-transformer")
+
+
+def opt_tree(model: EarlyConformer, opt: NoamAdamW) -> dict:
+    """{"opt_state", "step"} in optax's tree."""
+    count = np.asarray(opt.count, np.int32)
+    params = list(model.parameters())
+    mu = interop.jax_tree(model, dict(zip(params, opt.mu)))
+    nu = interop.jax_tree(model, dict(zip(params, opt.nu)))
+    return {"opt_state": {"0": {}, "1": {"0": {"count": count, "mu": mu, "nu": nu},
+                                         "1": {}, "2": {"count": count}}},
+            "step": count}
+
+
+def load_opt_tree(model: EarlyConformer, opt: NoamAdamW, tree: dict) -> None:
+    """Restores mu, nu and the count from an optax tree (as `opt_tree`
+    writes it or the JAX package saves it)."""
+    adam = tree["opt_state"]["1"]["0"]
+    params = list(model.parameters())
+    for name, dest in (("mu", opt.mu), ("nu", opt.nu)):
+        src = interop.from_jax_tree(model, adam[name])
+        with torch.no_grad():
+            for p, d in zip(params, dest):
+                d.copy_(src[p])
+    opt.count = int(tree["step"])
+    if int(adam["count"]) != opt.count:
+        raise ValueError(f"optimizer count {int(adam['count'])} != step "
+                         f"{opt.count} in the checkpoint")
+
+
+def load_model_tree(model: EarlyConformer, tree: dict) -> None:
+    """{"params", "model_state"} in the JAX layout -> the model, in place."""
+    src = interop.from_jax_tree(model, tree["params"])
+    bn = tree["model_state"]["blocks"]["conv_bn"]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(src[p])
+        model.set_state({"blocks": {"conv_bn": {
+            "mean": torch.as_tensor(np.asarray(bn["mean"], np.float32)),
+            "var": torch.as_tensor(np.asarray(bn["var"], np.float32))}}})
+
+
+def save_epoch(directory: str, epoch: int, model: EarlyConformer,
+               opt: Optional[NoamAdamW] = None) -> None:
+    params, state = interop.to_jax_params(model)
+    save_tree({"params": params, "model_state": state},
+              model_ckpt_path(directory, epoch))
+    if opt is not None:
+        save_tree(opt_tree(model, opt), opt_ckpt_path(directory, epoch))
+
+
+def load_model_file(model: EarlyConformer, path: str) -> None:
+    load_model_tree(model, load_tree(path))
+
+
+def avg_models(model: EarlyConformer, directory: str, start: int,
+               end: int) -> None:
+    """The model <- leaf-wise average of the epoch checkpoints in
+    [start, end], accumulated in float64; missing epochs after `start`
+    are skipped."""
+    if start > end:
+        raise ValueError("avg_model_start must be <= avg_model_end")
+    acc, count = None, 0
+    for epoch in range(start, end + 1):
+        path = model_ckpt_path(directory, epoch)
+        if epoch != start and not os.path.exists(path):
+            continue
+        tree = load_tree(path)
+        leaves = _leaves(tree)
+        if acc is None:
+            acc = {k: v.double() for k, v in leaves.items()}
+        else:
+            for k, v in leaves.items():
+                acc[k] += v.double()
+        count += 1
+    if acc is None:
+        raise FileNotFoundError(f"no checkpoints in [{start},{end}] under "
+                                f"{directory}")
+    load_model_tree(model, _unflatten({k: (v / count).float()
+                                       for k, v in acc.items()}))
+
+
+def _leaves(tree, prefix=()) -> dict:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves(v, prefix + (k,)))
+        return out
+    return {prefix: torch.as_tensor(tree)}
+
+
+def _unflatten(leaves: dict) -> dict:
+    out: dict = {}
+    for path, v in leaves.items():
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
+_CKPT_RE = re.compile(r"mod(\d+)-transformer$")
+
+
+def saved_epochs(directory: str) -> List[int]:
+    """Sorted epochs with a model checkpoint, parsed by regex (`mod%03d`
+    widens to four digits at epoch 1000)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(m.group(1)) for m in map(_CKPT_RE.match, os.listdir(directory))
+                  if m)
+
+
+def prune_old(directory: str, keep_last: int, protect=()) -> List[int]:
+    """Deletes the model and optimizer files of every saved epoch but the
+    newest `keep_last` (<= 0 keeps all) and those in `protect`. Returns
+    the pruned epochs."""
+    if keep_last <= 0:
+        return []
+    victims = [e for e in saved_epochs(directory)[:-keep_last]
+               if e not in set(protect)]
+    for e in victims:
+        for path in (model_ckpt_path(directory, e), opt_ckpt_path(directory, e)):
+            if os.path.exists(path):
+                os.unlink(path)
+    return victims
+
+
+def latest_epoch(directory: str) -> Optional[int]:
+    epochs = saved_epochs(directory)
+    return epochs[-1] if epochs else None
+
+
+def resume_epoch(directory: str) -> Tuple[Optional[int], Optional[str]]:
+    """The epoch to resume from and a warning, or (None, None) with no
+    checkpoint. The newest epoch whose model and optimizer files both
+    exist: a params-only resume restarts the Noam schedule and its warmup
+    spike wrecks the model. With no complete pair, the newest model file
+    alone, and a warning saying so."""
+    epochs = saved_epochs(directory)
+    if not epochs:
+        return None, None
+    latest = epochs[-1]
+    complete = [e for e in epochs if os.path.exists(opt_ckpt_path(directory, e))]
+    if not complete:
+        return latest, (f"warning: newest checkpoint epoch {latest} has no "
+                        f"optimizer state and no earlier complete pair exists "
+                        f"- resuming params-only (LR schedule restarts; "
+                        f"expect a warmup loss spike)")
+    if complete[-1] != latest:
+        return complete[-1], (f"warning: epoch {latest} has no optimizer state "
+                              f"(crash during save?) - resuming from the "
+                              f"newest complete pair, epoch {complete[-1]}")
+    return latest, None

@@ -1,0 +1,171 @@
+"""CTC training step of the early-exit Conformer (counterpart of
+`early_exit_tpu/training/trainer.py`, CTC mode).
+
+One step: SpecAugment (optional) -> the training forward of every exit
+-> the sum over exits of each exit's CTC loss (per row divided by its
+label length, then the mean over the real rows) -> plus self-distillation
+(optional) -> backward -> global-norm clip -> AdamW under the Noam
+schedule -> the new BatchNorm statistics. Plain PyTorch with autograd:
+no TPU kernel lies on the JAX package's training path.
+
+Randomness: step n's seed is drawn from a CPU `torch.Generator` seeded
+with (seed + 1, n), so a resumed run continues the same stream; from it
+derive the SpecAugment uniforms (drawn on the features' device), the
+dynamic-chunk choice (drawn on the host) and every dropout mask (see
+`EarlyConformer.apply_train`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from early_exit_tpu_torch.configs import ModelConfig, TrainConfig
+from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.ops import ctc, specaugment
+from early_exit_tpu_torch.optim.noam import NoamAdamW
+
+# dynamic-chunk training: chunk sizes in subsampled frames (40 ms each),
+# ~0.5/1/2/4 s
+CHUNK_SIZES = (12, 25, 50, 100)
+
+
+def ctc_multi_exit_loss(log_probs: torch.Tensor, sub_len: torch.Tensor,
+                        labels: torch.Tensor, label_lengths: torch.Tensor, *,
+                        blank: int, padded_lengths: bool,
+                        item_mask: Optional[torch.Tensor] = None):
+    """Sum over exits of the torch-mean CTC loss of (E, B, T', V)
+    log-probs. padded_lengths: every row's input length is T' (the
+    reference's quirk). item_mask (B,) 0/1: rows added to reach a bucket's
+    batch size count for nothing, and the mean is over the real rows.
+    Returns (total, per_exit (E,))."""
+    E, B, Tp, V = log_probs.shape
+    input_len = (torch.full((B,), Tp, dtype=torch.long, device=log_probs.device)
+                 if padded_lengths else sub_len)
+    nll = ctc.ctc_loss(log_probs.reshape(E * B, Tp, V), input_len.repeat(E),
+                       labels.repeat(E, 1), label_lengths.repeat(E),
+                       blank=blank, reduction="none").reshape(E, B)
+    per_item = nll / label_lengths.clamp_min(1).float()
+    if item_mask is None:
+        per_exit = per_item.mean(dim=1)
+    else:
+        m = item_mask.float()
+        per_exit = (per_item * m).sum(dim=1) / m.sum().clamp_min(1.0)
+    return per_exit.sum(), per_exit
+
+
+def distill_loss(log_probs: torch.Tensor, sub_len: torch.Tensor, *,
+                 temperature: float = 2.0,
+                 item_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Self-distillation: T^2 times the mean over the earlier exits of
+    KL(teacher || exit) over the valid frames, the teacher being the
+    deepest exit's temperature-smoothed posterior without gradient."""
+    E, B, Tp, V = log_probs.shape
+    teacher = torch.log_softmax(log_probs[-1].detach() / temperature, dim=-1)
+    frame_mask = (torch.arange(Tp, device=log_probs.device)[None, :]
+                  < sub_len[:, None]).float()
+    if item_mask is not None:
+        frame_mask = frame_mask * item_mask.float()[:, None]
+    s = torch.log_softmax(log_probs[:-1] / temperature, dim=-1)
+    kl = (teacher.exp() * (teacher - s)).sum(-1)                  # (E-1, B, T')
+    kls = (kl * frame_mask).sum((1, 2)) / frame_mask.sum().clamp_min(1.0)
+    return (temperature ** 2) * kls.mean()
+
+
+def make_chunk_mask(t_sub: int, c: int, chunk_left: int,
+                    device=None) -> torch.Tensor:
+    """(T', T') bool: q attends within its chunk (in-chunk lookahead
+    included) and up to chunk_left previous chunks."""
+    pos = torch.arange(t_sub, device=device)
+    qc, kc = pos[:, None] // c, pos[None, :] // c
+    return (kc <= qc) & (qc - kc <= chunk_left)
+
+
+def subsampled_frames(t: int) -> int:
+    """Frames after the two VALID k=3 s=2 convolutions."""
+    return ((t - 3) // 2 + 1 - 3) // 2 + 1
+
+
+def sample_attn_mask(t_sub: int, host: torch.Generator, chunk_left: int,
+                     device=None) -> Optional[torch.Tensor]:
+    """50% full attention (None), else a chunk mask of a uniformly drawn
+    size of CHUNK_SIZES."""
+    full = bool(torch.rand((), generator=host) < 0.5)
+    idx = int(torch.randint(len(CHUNK_SIZES), (), generator=host))
+    return None if full else make_chunk_mask(t_sub, CHUNK_SIZES[idx],
+                                             chunk_left, device)
+
+
+def _child_seed(host: torch.Generator) -> int:
+    return int(torch.randint(0, 2 ** 62, (), generator=host))
+
+
+def loss_fn(model: EarlyConformer, train_cfg: TrainConfig,
+            batch: Dict[str, torch.Tensor], seed: Optional[int] = None):
+    """The training loss of one batch ({"feats", "feat_lengths", "labels",
+    "label_lengths"[, "item_mask"]}). seed None: no dropout, no
+    SpecAugment and full attention. Returns (total, per_exit (E,),
+    new_state)."""
+    mcfg: ModelConfig = model.cfg
+    tcfg = train_cfg
+    if tcfg.decoder_mode != "ctc":
+        raise NotImplementedError(
+            f"decoder_mode={tcfg.decoder_mode!r}: the port trains CTC mode only "
+            "(the AED decoder is not ported)")
+    item_mask = batch.get("item_mask")
+    feats, feat_len = batch["feats"], batch["feat_lengths"]
+    host = None if seed is None else torch.Generator().manual_seed(seed)
+    if tcfg.specaugment and host is not None:
+        gen = torch.Generator(device=feats.device).manual_seed(_child_seed(host))
+        feats = specaugment.apply(
+            gen, feats, feat_len, n_freq_masks=tcfg.sa_freq_masks,
+            freq_mask_width=tcfg.sa_freq_width, n_time_masks=tcfg.sa_time_masks,
+            time_mask_frac=tcfg.sa_time_frac)
+    attn_mask = None
+    if tcfg.dynamic_chunk and host is not None:
+        attn_mask = sample_attn_mask(subsampled_frames(feats.shape[1]), host,
+                                     tcfg.chunk_left, feats.device)
+    log_probs, sub_len, new_state = model.apply_train(
+        feats, feat_len, seed=None if host is None else _child_seed(host),
+        attn_mask=attn_mask)
+    total, per_exit = ctc_multi_exit_loss(
+        log_probs, sub_len, batch["labels"], batch["label_lengths"],
+        blank=mcfg.blank_id, padded_lengths=tcfg.ctc_compat_padded_lengths,
+        item_mask=item_mask)
+    if tcfg.distill and log_probs.shape[0] > 1:
+        total = total + tcfg.distill_weight * distill_loss(
+            log_probs, sub_len, temperature=tcfg.distill_temperature,
+            item_mask=item_mask)
+    return total, per_exit, new_state
+
+
+class Trainer:
+    """The train step over a model whose parameters are float32 and
+    trainable. `step(batch)` returns device tensors (no synchronisation):
+    loss, loss_per_exit, grad_norm (of the unclipped gradients) and the
+    step count (an int)."""
+
+    def __init__(self, model: EarlyConformer, train_cfg: TrainConfig, *,
+                 warmup: int):
+        self.model = model
+        self.cfg = train_cfg
+        self.params = list(model.parameters())
+        self.opt = NoamAdamW(self.params, model.cfg.d_model, warmup,
+                             clip=train_cfg.clip, adam_eps=train_cfg.adam_eps,
+                             weight_decay=train_cfg.weight_decay)
+
+    @property
+    def step_count(self) -> int:
+        return self.opt.count
+
+    def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+        host = torch.Generator().manual_seed(
+            ((self.cfg.seed + 1) << 32) + self.opt.count)
+        total, per_exit, new_state = loss_fn(self.model, self.cfg, batch,
+                                             seed=_child_seed(host))
+        grads = torch.autograd.grad(total, self.params)
+        norm = self.opt.step(grads)
+        self.model.set_state(new_state)
+        return {"loss": total.detach(), "loss_per_exit": per_exit.detach(),
+                "grad_norm": norm, "step": self.opt.count}
