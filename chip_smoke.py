@@ -8,7 +8,10 @@ Phases (any failure exits non-zero, with no result line):
   2. hold each kernel against its plain PyTorch version on the card, at
      the flagship's weights and main-path shapes (B=8, T'=249, ragged
      lengths with one short and one empty item), and the block kernel
-     again past the TPU kernel's T' <= 512 (B=2, 60 s and 45 s, T'=1499);
+     again past the TPU kernel's T' <= 512 (B=2, 60 s and 45 s, T'=1499)
+     and, bf16 and W8A8 entries, at 80.02 s or 79.98 s beside 55 s
+     (T'=2000 and 1999), with the plain version's drift from its own
+     softmax denominator's sum order printed beside each long reading;
      the block kernel with the other softmax dtype must fall outside the
      tolerance, which shows the tolerance sees a moved rounding point.
      Likewise the attention kernel (bf16 and float32 inputs, 1e-5 of
@@ -92,7 +95,26 @@ Phases (any failure exits non-zero, with no result line):
      `SyntheticDataset` itself (the CLI's path, which synthesises in the
      loader threads) and the host's wait there; a torch.profiler top-15 of
      one step's device time, and a checkpoint pair written and read back
-     equal.
+     equal;
+  9. the inference CLI, `early_exit_tpu_torch.inference.main`, on the card
+     over a LibriSpeech-layout FLAC corpus of N_CORPUS utterances of
+     bench_eval's distribution (split test-clean), written with the port's
+     FLAC writer and read back equal to the int16 sources: greedy, the
+     prefix beam (beam 10), the lexicon beam with an ARPA LM trained from
+     the corpus's transcripts by tools/train_arpa.py, and the gated
+     cascade under the committed calibration (k=2), all with
+     --fused_block true. Launch counts around each run: 12 block launches
+     a sub-batch and one head launch for greedy, 12 block launches for
+     the beams, 4 a sub-batch plus 8 a phase-B batch for the cascade.
+     Held: every exit but exit 1 (the flagship's ~90%-WER exit, which does
+     not transcribe) within the 30% sanity bound; the prefix beam's exit-6
+     WER within 0.5 points of greedy's; greedy on the card against the same
+     CLI on the CPU over 8 utterances within phase 3's token contract; the
+     prefix beam on the card and on the CPU, fed the same log-probs, equal
+     tokens and scores within 1e-4 relative; the cascade's chosen exits
+     equal to `Recognizer.transcribe_gated`'s on the same requests. Times:
+     audio-s/s of each whole CLI pass, the share of its wall spent in the
+     decoders, and the device's busy share of a second, profiled pass.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -113,6 +135,7 @@ PEAK_INT8 = 1979e12     # H100 SXM dense int8 OP/s, tensor cores
 PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SANE_DENSE_WER = 30.0   # bench.py's in-distribution sanity bound
+N_CORPUS = 32          # phase 9's FLAC corpus, utterances
 # bf16 tolerance of the block kernel against its plain version, in bf16
 # ulps of the plain value (2^-7 below |y| = 1) and in the share of values
 # that differ at all. The two sum the softmax denominator over T' keys in
@@ -213,19 +236,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, behind=None) -> float:
     return start.elapsed_time(end) / iters
 
 
-def edit_distance(a, b) -> int:
-    import numpy as np
-    d = np.arange(len(b) + 1)
-    for i in range(1, len(a) + 1):
-        prev, d[0] = d.copy(), i
-        for j in range(1, len(b) + 1):
-            d[j] = min(prev[j] + 1, d[j - 1] + 1,
-                       prev[j - 1] + (a[i - 1] != b[j - 1]))
-    return int(d[len(b)])
-
-
 def disagreement(tok_a, n_a, tok_b, n_b):
     """Per exit (edits, reference tokens) of a's greedy tokens against b's."""
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
     out = []
     for e in range(tok_a.shape[0]):
         edits = total = 0
@@ -265,6 +278,20 @@ def plain_versions(kcb, katt):
         yield
     finally:
         kcb.conformer_block, katt.fused_attention = saved
+
+
+@contextlib.contextmanager
+def exact_key_sums():
+    """Within the block's plain version, its one sum over the keys (the
+    bf16 softmax's denominator) is taken in float64 and rounded once to
+    float32: that sum's order taken out of the comparison."""
+    import torch
+    tsum = torch.Tensor.sum
+    torch.Tensor.sum = lambda v, *a, **k: tsum(v.double(), *a, **k).to(v.dtype)
+    try:
+        yield
+    finally:
+        torch.Tensor.sum = tsum
 
 
 def main() -> None:
@@ -385,6 +412,18 @@ def main() -> None:
               f"(tolerance {BLOCK_MAX_ULPS} ulps, {BLOCK_DIFFERING})")
         return err, ulps <= BLOCK_MAX_ULPS and frac <= BLOCK_DIFFERING
 
+    def denominator_order(x, lengths, what):
+        """How far the order of the softmax denominator's float32 sum alone
+        moves the block: the plain version against itself with that sum
+        exact (a reading, not a check)."""
+        y_p = kcb.conformer_block_plain(folded[0], x, lengths, **kw)
+        with exact_key_sums():
+            y_x = kcb.conformer_block_plain(folded[0], x, lengths, **kw)
+        _, _, ulps, frac = bf16_figures(y_p, y_x)
+        print(f"plain version vs itself with the softmax denominator summed "
+              f"exactly, {what} (T'={x.shape[1]}): max ulps {ulps} values "
+              f"differing {frac}")
+
     def heads_vs_plain(hh, ww, bb, what):
         """head_argmax against its plain version: every id equal, ties too
         broken as the plain version breaks them (the lowest index)."""
@@ -456,6 +495,8 @@ def main() -> None:
         if r[2][1] or r[3][1]:
             fail("the block tolerance cannot tell the softmax dtypes apart")
         blk_err = max(r[0][0], r[1][0])
+        denominator_order(x8, len8, "main-path shape")
+        denominator_order(xl, lenl, "past T'=512")
 
         h8 = exit_hidden(rec_u.model, wav[:8], c8)
         ids_k = kha.head_argmax(h8, heads_w, heads_b)
@@ -555,6 +596,37 @@ def main() -> None:
             if res[1][1]:
                 fail("the block tolerance cannot tell W8A8 from the unquantized block")
             w8_err = max(w8_err, res[0][0])
+
+        # the bf16 and W8A8 entries past their former T' = 1600 limit (K and
+        # V of a whole item in shared memory; now streamed in key tiles):
+        # 80.02 s (T' = 2000) and its neighbour 79.98 s (T' = 1999) beside
+        # 55 s, the requests laid end to end
+        for n_hop in (8002, 7998):
+            n_long = n_hop * acfg.hop_length
+            x80, _, _, len80 = embed(wav[:18].reshape(2, -1)[:, :n_long].contiguous(),
+                                     torch.tensor([n_long, 55 * acfg.sample_rate],
+                                                  device=dev))
+            tp = n_hop // 4
+            if x80.shape[1] != tp:
+                fail(f"the long check's T' is {x80.shape[1]}, not {tp}")
+            r80 = block_vs_plain(x80, len80, f"bf16 entry, T'={tp}")
+            denominator_order(x80, len80, f"T'={tp}")
+            y_q = kcb.conformer_block(q8_0, x80, len80, quantize="int8", **kw)
+            y_qp = kcb.conformer_block_plain(q8_0, x80, len80, quantize="int8", **kw)
+            torch.cuda.synchronize()
+            err, mean, ulps, frac = bf16_figures(y_q, y_qp)
+            print(f"conformer_block W8A8 entry vs its plain version, T'={tp} "
+                  f"(lengths {len80.tolist()}): max|d| {err} mean|d| {mean} max ulps "
+                  f"{ulps} values differing {frac} (tolerance {BLOCK_MAX_ULPS} ulps, "
+                  f"{BLOCK_DIFFERING})")
+            if not r80[1]:
+                fail(f"conformer_block kernel disagrees with its plain version at T'={tp}")
+            if (not torch.isfinite(y_q.float()).all() or ulps > BLOCK_MAX_ULPS
+                    or frac > BLOCK_DIFFERING):
+                fail(f"conformer_block W8A8 entry disagrees with its plain version "
+                     f"at T'={tp}")
+            blk_err, w8_err = max(blk_err, r80[0]), max(w8_err, err)
+            del x80, y_q, y_qp
 
         # a row's result must not depend on the rows beside it
         y_b = kcb.conformer_block(folded[0], x8, len8, **kw)
@@ -1049,6 +1121,11 @@ def main() -> None:
     # ---- 8. training on the card
     train_phase(dev, card, knobs, reset_counts, expect_counts)
 
+    # ---- 9. the inference CLI on the card
+    t9 = time.perf_counter()
+    infer_phase(dev, card, knobs, reset_counts, read_counts)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
     blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
     blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
     rows = []
@@ -1078,6 +1155,362 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+class _DecodeClock:
+    """Host wall time spent inside the CLI's decoders, the device drained
+    on entry and on exit so that the forward's device time stays outside
+    and the decoder's own inside."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.depth = targets, 0.0, 0
+
+    def __enter__(self):
+        import torch
+        self.saved = [(obj, name, getattr(obj, name)) for obj, name in self.targets]
+        for obj, name, fn in self.saved:
+            def timed(*a, _fn=fn, **k):
+                if self.depth:                  # a decoder inside a decoder
+                    return _fn(*a, **k)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                self.depth += 1
+                try:
+                    out = _fn(*a, **k)
+                    torch.cuda.synchronize()
+                finally:
+                    self.depth -= 1
+                self.seconds += time.perf_counter() - t0
+                return out
+            setattr(obj, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+
+
+def infer_phase(dev, card, knobs, reset_counts, read_counts) -> None:
+    """Phase 9: the inference CLI (`python -m early_exit_tpu_torch.inference`)
+    on the card over a LibriSpeech-layout FLAC corpus written beforehand:
+    greedy, the prefix beam, the lexicon beam with an ARPA LM, and the
+    gated cascade, with launch counts, WER, held results and times."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from early_exit_tpu_torch import _native, checkpoint, inference
+    from early_exit_tpu_torch.cli import get_args
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.flac import write_flac_verbatim
+    from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import SyntheticDataset
+    from early_exit_tpu_torch.decoding import prefix_beam
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    from early_exit_tpu_torch.decoding.lexicon_beam import LexiconBeamDecoder
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops import ctc
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    tmp = tempfile.mkdtemp(prefix="eet_infer_")
+    try:
+        # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
+        t0 = time.perf_counter()
+        ds = SyntheticDataset(n_items=N_CORPUS, seed=9090,
+                              min_words=knobs.get("min_words", 18),
+                              max_words=knobs.get("max_words", 22),
+                              noise=knobs.get("noise", 0.02), noise_hi=knobs.get("noise_hi"),
+                              speaker_warp=knobs.get("speaker_warp", 0.0),
+                              dur_jitter=knobs.get("dur_jitter", 0.0),
+                              amp_jitter=knobs.get("amp_jitter", 0.0))
+        src = {}
+        for sub, n in (("full", N_CORPUS), ("cpu8", 8)):
+            for i in range(n):
+                utt = ds[i]
+                spk, ch = str(100 + i % 4), str(10 + i // 4)
+                d = os.path.join(tmp, sub, "LibriSpeech", "test-clean", spk, ch)
+                os.makedirs(d, exist_ok=True)
+                stem = f"{spk}-{ch}-{i:04d}"
+                write_flac_verbatim(os.path.join(d, stem + ".flac"), utt.waveform)
+                with open(os.path.join(d, f"{spk}-{ch}.trans.txt"), "a") as f:
+                    f.write(f"{stem} {utt.transcript}\n")
+                quant = (np.clip(utt.waveform, -1, 1) * 32767).astype(np.int16)
+                src[stem] = (quant.astype(np.float32) / 32768.0, utt.transcript)
+        corpus = LibriSpeechDataset(os.path.join(tmp, "full"), "test-clean")
+        if len(corpus) != N_CORPUS:
+            fail(f"the corpus lists {len(corpus)} utterances, not {N_CORPUS}")
+        waves, refs_by_text = [], {}
+        for i in range(len(corpus)):
+            u = corpus[i]
+            want, transcript = src[u.utterance_id]
+            if u.transcript != transcript or not np.array_equal(u.waveform, want):
+                fail(f"{u.utterance_id} does not read back as its int16 source")
+            waves.append(u.waveform)
+        audio_s = sum(len(w) for w in waves) / 16000.0
+        _native.build()
+        print(f"inference corpus: {len(corpus)} utterances, {audio_s:.1f} s of audio, "
+              f"written as FLAC and read back equal to the int16 sources "
+              f"({time.perf_counter() - t0:.1f} s, native library built)")
+        spec = importlib.util.spec_from_file_location(
+            "train_arpa", os.path.join(HERE, "tools", "train_arpa.py"))
+        arpa_mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(arpa_mod)
+        arpa = os.path.join(tmp, "lm.arpa")
+        arpa_mod.write_arpa(arpa_mod.train(
+            [t.lower().split() for _, t in src.values()], order=2), arpa)
+
+        # a calibration under which the cascade escalates part of the
+        # corpus (the committed one accepts it all at exit 2): exit 2's
+        # threshold in the middle of the widest gap between the corpus's
+        # exit-2 confidences in their middle half, so that no row lies
+        # within a bf16 schedule's reach of it
+        rec = Recognizer.from_flagship("cuda", fused=True)
+        wav = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
+        for i, w in enumerate(waves):
+            wav[i, :len(w)] = w
+        counts = np.array([len(w) for w in waves])
+        k_casc, gate = int(rec.calib["cascade_k"]), rec.gate_settings()
+        with torch.no_grad():
+            lp, sub_len = rec.model.encode_exit(*rec._features(wav, counts), k_casc)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sub_len[:, None]
+            conf = scaled_confidence(lp, m, gate["score"],
+                                     gate["temperatures"][k_casc - 1]).sort().values
+        lo, hi = N_CORPUS // 4, 3 * N_CORPUS // 4
+        j = lo + int((conf[lo + 1:hi + 1] - conf[lo:hi]).argmax())
+        thr = list(gate["threshold"])
+        thr[k_casc - 1] = float(conf[j:j + 2].mean())
+        calib_esc = {**rec.calib, "thresholds": thr}
+        esc_path = os.path.join(tmp, "calib_escalating.json")
+        with open(esc_path, "w") as f:
+            json.dump(calib_esc, f)
+        print(f"escalating calibration: exit {k_casc}'s threshold {thr[k_casc - 1]:.6f}, "
+              f"in a gap of {float(conf[j + 1] - conf[j]):.3e} between the corpus's "
+              f"confidences; {j + 1} of {N_CORPUS} below it")
+        del lp, sub_len, m
+
+        base = ["--decoder_mode", "ctc", "--load_model_path",
+                os.path.join(HERE, "assets", "flagship_ckpt"), "--eval_splits",
+                "test-clean", "--fused_block", "true"]
+        modes = {
+            "greedy": [],
+            "prefix_beam": ["--decode", "prefix_beam", "--beam_size", "10"],
+            "lexicon_beam": ["--decode", "lexicon_beam", "--lm_path", arpa],
+            "cascade": ["--gate_calibration",
+                        os.path.join(HERE, "assets", "flagship_calib.json"),
+                        "--cascade_k", str(k_casc)],
+            "cascade_escalating": ["--gate_calibration", esc_path,
+                                   "--cascade_k", str(k_casc)],
+        }
+
+        def cli(argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                inference.main(argv)
+            return buf.getvalue()
+
+        def wer_lines(out):
+            return {int(ln.split("WER exit ")[1].split(":")[0]):
+                    float(ln.split(": ")[1].split("%")[0])
+                    for ln in out.splitlines() if " WER exit " in ln}
+
+        def sub_batches(root):
+            args, _, tcfg, acfg, tk = get_args(base + ["--data_root", root], mode="infer")
+            pipe = Pipeline(LibriSpeechDataset(root, "test-clean"), tk, acfg, tcfg,
+                            shuffle=False, infer_mode=True, device="cpu")
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(4) as pool:
+                return sum(len(s) for s in pipe._epoch_host(0, pool))
+
+        full = os.path.join(tmp, "full")
+        n_sub = sub_batches(full)
+        outs, rates = {}, {}
+        for mode, extra in modes.items():
+            t_mode = time.perf_counter()
+            argv = base + ["--data_root", full] + extra
+            targets = [(ctc, "greedy_decode_ids"), (ctc, "greedy_decode"),
+                       (prefix_beam, "prefix_beam_search"),
+                       (LexiconBeamDecoder, "decode_batch")]
+            reset_counts()
+            with _DecodeClock(targets) as clock:
+                t0 = time.perf_counter()
+                out = cli(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            got = read_counts()
+            outs[mode] = out
+            blocks, heads = got["conformer_block_bf16"], got["head_argmax"]
+            others = {k: v for k, v in got.items()
+                      if k not in ("conformer_block_bf16", "head_argmax") and v}
+            print(f"CLI {mode}: launches {got} over {n_sub} sub-batches")
+            if others:
+                fail(f"CLI {mode}: unexpected launches {others}")
+            if mode == "greedy" and (blocks, heads) != (12 * n_sub, n_sub):
+                fail(f"CLI greedy: {blocks} block and {heads} head launches, expected "
+                     f"{12 * n_sub} and {n_sub}")
+            if mode in ("prefix_beam", "lexicon_beam") and (blocks, heads) != (12 * n_sub, 0):
+                fail(f"CLI {mode}: {blocks} block and {heads} head launches, expected "
+                     f"{12 * n_sub} and 0")
+            if mode.startswith("cascade"):
+                n_esc = int(out.split("cascade escalated: ")[1].split("/")[0])
+                # phase A: 2 exits x 2 blocks a sub-batch; phase B: 8 blocks
+                # a batch of escalated rows
+                a_blocks = 2 * k_casc * n_sub
+                if (heads or not a_blocks <= blocks <= 12 * n_sub
+                        or (blocks - a_blocks) % (12 - 2 * k_casc)
+                        or (blocks > a_blocks) != (n_esc > 0)):
+                    fail(f"CLI {mode}: {blocks} block and {heads} head launches with "
+                         f"{n_esc} rows escalated, expected {2 * k_casc} a sub-batch in "
+                         f"phase A and {12 - 2 * k_casc} a phase-B batch")
+                if mode == "cascade_escalating" and not n_esc:
+                    fail("CLI cascade_escalating: no row escalated")
+            # the device's busy share, from a second pass under the profiler:
+            # device activity only, tallied from the trace file (the prefix
+            # beam launches ~10^5 kernels, too many for key_averages)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                cli(argv)
+                torch.cuda.synchronize()
+                wall_p = time.perf_counter() - t1
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                busy = sum(ev.get("dur", 0) for ev in json.load(f)["traceEvents"]
+                           if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+            rates[mode] = audio_s / wall
+            summary = [ln for ln in out.splitlines()
+                       if " WER" in ln or "cascade" in ln or "shallow fusion" in ln]
+            for ln in summary:
+                print(f"CLI {mode}: {ln}")
+            print(f"CLI {mode} on {card}: {audio_s:.1f} s of audio in {wall:.3f} s of wall "
+                  f"= {audio_s / wall:.1f} audio-s/s (the whole main(): model load, FLAC "
+                  f"decode, pipeline, forward, decoding, detokenising); decoding {100 * clock.seconds / wall:.1f}% "
+                  f"of the wall ({clock.seconds:.3f} s); device busy {busy:.3f} s of a "
+                  f"profiled pass's {wall_p:.3f} s ({100 * busy / wall_p:.1f}%); both passes "
+                  f"and the profile's tally {time.perf_counter() - t_mode:.1f} s")
+
+        # ---- 9.3 held results
+        wers = {m: wer_lines(o) for m, o in outs.items() if not m.startswith("cascade")}
+        for m, w in wers.items():
+            if sorted(w) != list(range(1, 7)):
+                fail(f"CLI {m}: WER lines {w}")
+            # exit 1 (~90% WER on the flagship) does not transcribe
+            bad = {e: v for e, v in w.items() if e > 1 and v > SANE_DENSE_WER}
+            if bad:
+                fail(f"CLI {m}: exits above {SANE_DENSE_WER}% WER: {bad}")
+        if wers["prefix_beam"][6] > wers["greedy"][6] + 0.5:
+            fail(f"prefix beam exit-6 WER {wers['prefix_beam'][6]}% > greedy's "
+                 f"{wers['greedy'][6]}% + 0.5")
+        print(f"CLI exit-6 WER: greedy {wers['greedy'][6]}%, prefix beam "
+              f"{wers['prefix_beam'][6]}%, lexicon beam + LM {wers['lexicon_beam'][6]}%")
+
+        # greedy on the card against the same CLI on the CPU, 8 utterances
+        small = os.path.join(tmp, "cpu8")
+
+        def per_exit_hyps(out):
+            hyps = {}
+            for ln in out.splitlines():
+                if "BEAM_OUT_" in ln:
+                    e = int(ln.split("BEAM_OUT_")[1].split(":")[0])
+                    hyps.setdefault(e, []).append(ln.split(" : ", 1)[1]
+                                                  if " : " in ln else "")
+            return hyps
+
+        t0 = time.perf_counter()
+        out_c = cli(base + ["--data_root", small])
+        out_h = cli(base + ["--data_root", small, "--device", "cpu"])
+        print(f"CLI greedy on 8 utterances, card then CPU: {time.perf_counter() - t0:.1f} s")
+        hc, hh, w8 = per_exit_hyps(out_c), per_exit_hyps(out_h), wer_lines(out_c)
+        edits = total = 0
+        for e in sorted(hh):
+            ee = tt = 0
+            for a, b in zip(hc[e], hh[e]):
+                ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
+                ee += edit_distance(ta, tb)
+                tt += max(len(tb), 1)
+            print(f"CLI greedy, card vs CPU, 8 utterances, exit {e} (WER {w8[e]}%): "
+                  f"{ee}/{tt} tokens differ")
+            if w8[e] <= SANE_DENSE_WER and ee > TOKEN_DISAGREE * tt:
+                fail(f"CLI greedy: card and CPU disagree by > 1% at exit {e}")
+            edits, total = edits + ee, total + tt
+        print(f"CLI greedy, card vs CPU: pooled {100 * edits / total:.3f}%")
+        if edits > TOKEN_DISAGREE * total:
+            fail("CLI greedy: card and CPU disagree by > 1% pooled")
+
+        # the prefix beam on the card and on the CPU, the same log-probs
+        args, mcfg, tcfg, acfg, tk = get_args(base + ["--data_root", full], mode="infer")
+        model = inference.load_model(args, mcfg, dev)
+        pipe = Pipeline(corpus, tk, acfg, tcfg, shuffle=False, infer_mode=True, device=dev)
+        batch = next(iter(pipe.epoch(0)))
+        logp, _, sub_len = inference.exit_outputs(model, batch["feats"], batch["feat_lengths"],
+                                                  greedy=False, timestamps=False)
+        lp_h, len_h = logp.cpu(), sub_len.cpu()
+        worst, n_rows, t0 = 0.0, 0, time.perf_counter()
+        for e in range(logp.shape[0]):
+            a = prefix_beam.prefix_beam_search(logp[e], sub_len, beam_size=10)
+            b = prefix_beam.prefix_beam_search(lp_h[e], len_h, beam_size=10)
+            a = [t.cpu() for t in a]
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                fail(f"prefix beam: card and CPU tokens differ at exit {e + 1}")
+            worst = max(worst, float(((a[2] - b[2]).abs() / b[2].abs()).max()))
+            n_rows += a[0].shape[0]
+        print(f"prefix beam, card vs CPU on the same log-probs ({n_rows} rows of "
+              f"{logp.shape[2]} frames, beam 10): tokens equal, scores' max relative "
+              f"difference {worst:.3e} (tolerance 1e-4); {time.perf_counter() - t0:.1f} s")
+        if worst > 1e-4:
+            fail("prefix beam: card and CPU scores differ by more than 1e-4 relative")
+        del model, logp, lp_h
+
+        # the cascade's chosen exits and transcripts against
+        # Recognizer.transcribe_gated's under the same calibration
+        lex = inference._load_lexicon(args)
+        for mode, calib in (("cascade", rec.calib), ("cascade_escalating", calib_esc)):
+            chosen_cli, hyp_cli, ref = {}, {}, None
+            for ln in outs[mode].splitlines():
+                if "EXPECTED:" in ln:
+                    ref = ln.split("EXPECTED: ", 1)[1] if "EXPECTED: " in ln else ""
+                elif "GATED_OUT (exit " in ln:
+                    e, hyp = ln.split("GATED_OUT (exit ", 1)[1].split(")", 1)
+                    chosen_cli[ref], hyp_cli[ref] = int(e), hyp[2:]
+            rec.calib = calib
+            with torch.no_grad():
+                g = rec.transcribe_gated(wav, counts)
+            n_diff = n_esc = n_text = 0
+            tally = {"every row": [0, 0], "the escalated rows": [0, 0]}
+            for i in range(len(corpus)):
+                label = text.clean_infer_label(corpus.items[i][1])
+                key = tok.decode(text.encode_target(label, tok)[1:-1]).lower()
+                want = int(g.chosen_exit[i])
+                n_diff += chosen_cli.get(key) != want
+                a, b = hyp_cli.get(key, ""), lex.apply(g.texts[i].lower())
+                n_text += a != b
+                ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
+                for rows in ("every row",) + (("the escalated rows",) if want > k_casc else ()):
+                    tally[rows][0] += edit_distance(ta, tb)
+                    tally[rows][1] += max(len(tb), 1)
+                n_esc += want > k_casc
+            print(f"CLI {mode} vs Recognizer.transcribe_gated, {len(corpus)} utterances, "
+                  f"{n_esc} escalated: {n_diff} chosen exits differ; {n_text} transcripts "
+                  f"differ; tokens differing: " + ", ".join(
+                      f"{rows} {e}/{t}" for rows, (e, t) in tally.items()))
+            if n_diff or len(chosen_cli) != len(corpus):
+                fail(f"the CLI's {mode} chooses other exits than "
+                     f"Recognizer.transcribe_gated")
+            if any(e > TOKEN_DISAGREE * t for e, t in tally.values()):
+                fail(f"the CLI's {mode} transcribes other tokens than "
+                     f"Recognizer.transcribe_gated by > 1%")
+            if mode == "cascade_escalating" and not n_esc:
+                fail("transcribe_gated escalates no row under the escalating calibration")
+        print(f"CLI audio-s/s on {card}: " + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _flat(tree, prefix=""):

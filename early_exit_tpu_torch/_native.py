@@ -1,0 +1,125 @@
+"""The port's loader for the native library (counterpart of
+`early_exit_tpu/_native.py`).
+
+`csrc/` at the repository root holds the C++ host components that both
+packages call through ctypes: the FLAC decoder, the lexicon snapper, the
+lexicon-constrained CTC beam search and its ARPA LM (and the tokenizer,
+which the port does not call: it encodes BPE in Python). The library is
+built from the same sources as the JAX package's (`csrc/**/*.cc` but the
+`*_cli.cc` programs), with g++, into the port's own directory
+`build/torch_native/`, named by a hash of the sources and flags so that
+a stale library is never loaded. The objects compile in parallel; the
+link writes a temporary file that `os.replace` moves into place, under a
+file lock, so processes that build at once (parallel test workers)
+neither race nor read a partial file. A failed build raises with the
+compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import hashlib
+import os
+import subprocess
+import tempfile
+import threading
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_REPO, "csrc")
+BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
+FLAGS = ["-O3", "-std=c++17", "-fPIC"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "**", "*.cc"), recursive=True))
+    # files with a main() build into CLI programs, not the library
+    return [s for s in srcs if not s.endswith("_cli.cc")]
+
+
+def lib_path() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "**", "*.h"),
+                                             recursive=True)):
+        h.update(path[len(CSRC):].encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libeet_native-{h.hexdigest()[:16]}.so")
+
+
+def _run(cmds) -> None:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for c in cmds]
+    errors = []
+    for cmd, p in zip(cmds, procs):
+        out = p.communicate()[0].decode(errors="replace")
+        if p.returncode:
+            errors.append(f"{' '.join(cmd)} (rc={p.returncode}):\n{out}")
+    if errors:
+        raise RuntimeError("building the native library failed:\n" + "\n".join(errors))
+
+
+def build() -> str:
+    """Build the library unless it is there; returns its path."""
+    out = lib_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(out):          # another process built it meanwhile
+            return out
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources()))]
+            _run([["g++", *FLAGS, "-c", "-o", o, s] for o, s in zip(objs, sources())])
+            so = os.path.join(tmp, "lib.so")
+            _run([["g++", "-shared", "-o", so, *objs]])
+            os.replace(so, out)
+    return out
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _configure(lib)
+            _lib = lib
+        return _lib
+
+
+def _configure(lib: ctypes.CDLL) -> None:
+    c = ctypes
+    vp, i, f, cp = c.c_void_p, c.c_int, c.c_float, c.c_char_p
+    ip, fp = c.POINTER(c.c_int), c.POINTER(c.c_float)
+    sigs = {
+        # lexicon snapper
+        "eet_lex_create": (vp, []), "eet_lex_free": (None, [vp]),
+        "eet_lex_add": (None, [vp, cp]), "eet_lex_contains": (i, [vp, cp]),
+        "eet_lex_closest": (i, [vp, cp, cp, i]),
+        # FLAC decoder
+        "eet_flac_decode": (vp, [cp]), "eet_flac_num_samples": (c.c_long, [vp]),
+        "eet_flac_sample_rate": (i, [vp]), "eet_flac_channels": (i, [vp]),
+        "eet_flac_copy": (None, [vp, c.POINTER(c.c_int32)]),
+        "eet_flac_free": (None, [vp]),
+        # lexicon-constrained CTC beam search
+        "eet_trie_create": (vp, [i]), "eet_trie_free": (None, [vp]),
+        "eet_trie_add_word": (None, [vp, ip, i, i]),
+        "eet_trie_decode": (i, [vp, fp, i, i, i, f, i, f, ip, i, fp]),
+        "eet_trie_decode_nbest": (i, [vp, fp, i, i, i, f, i, f, i, ip, i, ip, fp]),
+        "eet_trie_set_lm": (None, [vp, vp, f, ip, i]),
+        # ARPA n-gram LM
+        "eet_lm_load": (vp, [cp]), "eet_lm_free": (None, [vp]),
+        "eet_lm_order": (i, [vp]), "eet_lm_vocab_size": (i, [vp]),
+        "eet_lm_word_id": (i, [vp, cp]),
+        "eet_lm_score_sequence": (f, [vp, ip, i, i]),
+    }
+    for name, (res, args) in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = res
+        fn.argtypes = args

@@ -1,14 +1,17 @@
-"""Command-line flags of the port's training entry point.
+"""Command-line flags of the port's entry points (`train.py`,
+`inference.py`).
 
 The same flags and defaults as `early_exit_tpu/cli.py` (the reference's
 util/conf.py surface plus the JAX package's additions), so invocations
-carry across unchanged, and `--device` (default cuda). `get_args` resolves
-the "auto" profile flags to the JAX package's training profile (float32
-attention softmax, FFT mel), loads the tokenizer, sets the special
-ids and vocabulary size, and builds the configs. Flags that mean nothing
-to PyTorch (--fast_rng, --n_threads, --init_lr) warn when set, as the JAX
-package's dead flags do; modes the port has not ported raise by name in
-`train.py`.
+carry across unchanged, and `--device` (default cuda). `get_args`
+resolves the "auto" profile flags as the JAX package does: for training
+(mode "train") float32 attention softmax and FFT mel, for inference
+(mode "infer") bf16 softmax and DFT mel. It loads the tokenizer, sets
+the special ids and vocabulary size, finds the lexicon beam's
+`.lex`/`.tok` pair beside the tokenizer's model file, and builds the
+configs. Flags that mean nothing to PyTorch (--fast_rng, --n_threads,
+--init_lr) warn when set, as the JAX package's dead flags do; modes the
+port has not ported raise by name in the entry points.
 """
 
 from __future__ import annotations
@@ -225,8 +228,8 @@ def get_parser() -> argparse.ArgumentParser:
                         "(chrome trace format).")
     p.add_argument("--profile_steps", type=int, default=10)
 
-    # performance profile. "auto" resolves to the training profile:
-    # fp32 attention softmax + FFT mel.
+    # performance profile. "auto" resolves by mode: training fp32
+    # attention softmax + FFT mel, inference bf16 softmax + DFT mel.
     p.add_argument("--attention_impl", type=str, default="xla",
                    choices=["xla", "pallas"],
                    help="Attention: PyTorch ops, or the CUDA attention "
@@ -252,14 +255,14 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--attn_softmax_dtype", type=str, default="auto",
                    choices=["auto", "bfloat16", "float32"],
                    help="Dtype of materialised attention scores/probs; "
-                        "auto = fp32 (the training profile).")
+                        "auto = fp32 in training, bf16 at inference.")
     p.add_argument("--fast_rng", type=_bool, default=True,
                    help="Parity flag (a PRNG choice of the JAX package); "
                         "no effect in the port.")
     p.add_argument("--mel_method", type=str, default="auto",
                    choices=["auto", "fft", "dft"],
                    help="Mel frontend: rFFT or real-DFT products; auto = "
-                        "fft (the training profile).")
+                        "fft in training, dft at inference.")
     p.add_argument("--streaming", type=_bool, default=False,
                    help="Inference only: decode through the streaming "
                         "serving path (chunked windows via StreamPool) "
@@ -319,8 +322,11 @@ def resolve_bpe_model(path: str, load_model_path=None) -> str:
     raise FileNotFoundError(f"BPE model not found: {path} (nor {OWN_BPE_MODEL})")
 
 
-def get_args(argv=None):
-    """Returns (args, model_cfg, train_cfg, audio_cfg, tokenizer)."""
+def get_args(argv=None, mode: str = "train"):
+    """Returns (args, model_cfg, train_cfg, audio_cfg, tokenizer). mode
+    ("train" | "infer") resolves the "auto" profile flags."""
+    if mode not in ("train", "infer"):
+        raise ValueError(f"mode must be 'train' or 'infer': {mode!r}")
     parser = get_parser()
     args = parser.parse_args(argv)
     for dead in DEAD_FLAGS:
@@ -328,9 +334,9 @@ def get_args(argv=None):
             print(f"warning: --{dead} is accepted for reference-CLI "
                   f"parity but has no effect here")
     if args.attn_softmax_dtype == "auto":
-        args.attn_softmax_dtype = "float32"
+        args.attn_softmax_dtype = "float32" if mode == "train" else "bfloat16"
     if args.mel_method == "auto":
-        args.mel_method = "fft"
+        args.mel_method = "fft" if mode == "train" else "dft"
     residual_dtype = None if args.residual_dtype == "auto" else args.residual_dtype
 
     if args.bpe:
@@ -339,10 +345,20 @@ def get_args(argv=None):
         tokenizer = load_tokenizer(args.bpe_model_path)
         vocab = tokenizer.get_piece_size()
         blank_id, pad_id, bos_id, eos_id = 0, 126, 1, 2
+        # the lexicon beam's pair beside the tokenizer's model file:
+        # "<model stem>.{lex,tok}", else the reference's fixed names
+        mdir = os.path.dirname(args.bpe_model_path) or "."
+        stem = os.path.splitext(os.path.basename(args.bpe_model_path))[0]
+        args.lexicon = os.path.join(mdir, stem + ".lex")
+        args.tokens = os.path.join(mdir, stem + ".tok")
+        if not (os.path.exists(args.lexicon) and os.path.exists(args.tokens)):
+            args.lexicon = os.path.join(mdir, "librispeech-bpe-256.lex")
+            args.tokens = os.path.join(mdir, "librispeech-bpe-256.tok")
     else:
         tokenizer = CharTokenizer()
         vocab = 32
         blank_id, pad_id, bos_id, eos_id = 0, 30, 1, 31
+        args.lexicon, args.tokens = args.lexicon_path, args.tokens_path
 
     model_type = args.model_type if args.decoder_mode == "ctc" else "full_conformer"
     model_cfg = ModelConfig(

@@ -349,15 +349,22 @@ static cudaError_t layer_norm_quantize(const bf16* x, const float* g, const floa
 // One block per (64-query tile, head, item); each warp owns 16 query
 // rows and keeps everything of them in registers, as mma.sync m16n8k16
 // fragments (row g = lane/4 and g+8, columns 2*(lane%4) and +1 of each
-// 8-wide tile). K (Tp x DH) and V transposed (DH x Tp) of the (item,
-// head) sit in shared memory; Tp is T rounded up to 16, its extra keys
-// are zeros and, like every key t >= lengths[b], masked.
+// 8-wide tile). K and V of the (item, head) pass through shared memory
+// in tiles of up to ATT_KT keys: K as rows (KT x DH), V transposed
+// (DH x KT). Tp is T rounded up to 16; keys past T are zeros and, like
+// every key t >= lengths[b], masked. A T' up to ATT_KT (the main path's
+// 249) is one tile, loaded once for all three passes; a longer one
+// streams its tiles through each pass, so no T' is too long.
 //
-// The softmax is the TPU kernel's, not an online one: the scores are
-// recomputed in three passes -- row max, then the sum of bf16(exp(s - m)),
-// then p = bf16(e / z) into P V -- so every rounding point stays where
-// the TPU kernel has it.
+// The softmax is the TPU kernel's, not an online one: an online softmax
+// would round exp(s - m) against a running max and move the bf16
+// rounding points that the TPU kernel and the plain version share. The
+// scores are recomputed in three passes over the key tiles -- row max,
+// then the sum of bf16(exp(s - m)), then p = bf16(e / z) into P V --
+// and every sum runs over the keys in the same order whatever the tile
+// size, so the result does not depend on it.
 constexpr int ATT_WARPS = 4;
+constexpr int ATT_KT = 256;
 constexpr size_t SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
@@ -381,9 +388,9 @@ __device__ __forceinline__ uint32_t pack_pair(float lo, float hi) {
 template <int DH>
 struct AttLayout {
   static constexpr int KLD = DH + 8;  // K row stride (bf16), conflict-free pair loads
-  __host__ __device__ static int vld(int Tp) { return Tp + 8; }
-  __host__ __device__ static size_t bytes(int Tp) {
-    return ((size_t)Tp * KLD + (size_t)DH * vld(Tp)) * sizeof(bf16);
+  __host__ __device__ static int vld(int KT) { return KT + 8; }
+  __host__ __device__ static size_t bytes(int KT) {
+    return ((size_t)KT * KLD + (size_t)DH * vld(KT)) * sizeof(bf16);
   }
 };
 
@@ -395,17 +402,19 @@ __device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
 }
 
 // TOut: bf16, or float for the W8A8 entry with a float32 softmax, whose
-// o projection quantizes the unrounded P V.
+// o projection quantizes the unrounded P V. KT: keys per tile, a multiple
+// of 16 (min(Tp, ATT_KT)).
 template <int DH, typename TOut>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
-                 TOut* __restrict__ out, int T, int D, int Tp, float scale, int sm_bf16) {
+                 TOut* __restrict__ out, int T, int D, int Tp, int KT, float scale,
+                 int sm_bf16) {
   using L = AttLayout<DH>;
   constexpr int KLD = L::KLD;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vt = Ks + (size_t)Tp * KLD;
-  const int VLD = L::vld(Tp);
+  bf16* Vt = Ks + (size_t)KT * KLD;
+  const int VLD = L::vld(KT);
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
@@ -413,22 +422,35 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   const int len = lengths[b];
   const size_t row3 = 3 * (size_t)D;
   const bf16* base = qkv + (size_t)b * T * row3 + h * DH;
+  // a warp past the last query row computes nothing, but takes its part
+  // in every tile load
+  const bool active = q0 < T;
+  const bool resident = Tp <= KT;
 
   constexpr int VPR = DH / 8;  // 16-byte vectors per head row
-  for (int idx = threadIdx.x; idx < Tp * VPR; idx += blockDim.x) {
-    const int tk = idx / VPR, v = idx % VPR;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (tk < T) {
-      kv = *reinterpret_cast<const uint4*>(base + tk * row3 + D + v * 8);
-      vv = *reinterpret_cast<const uint4*>(base + tk * row3 + 2 * D + v * 8);
-    }
-    *reinterpret_cast<uint4*>(Ks + tk * KLD + v * 8) = kv;
-    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+  // keys k0 .. k0+n-1 into Ks and, with_v, their values into Vt
+  auto load_tile = [&](int k0, int n, bool with_v) {
+    __syncthreads();  // every warp is done with the previous tile
+    for (int idx = threadIdx.x; idx < n * VPR; idx += blockDim.x) {
+      const int j = idx / VPR, v = idx % VPR, tk = k0 + j;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (tk < T) {
+        kv = *reinterpret_cast<const uint4*>(base + tk * row3 + D + v * 8);
+        if (with_v) vv = *reinterpret_cast<const uint4*>(base + tk * row3 + 2 * D + v * 8);
+      }
+      *reinterpret_cast<uint4*>(Ks + j * KLD + v * 8) = kv;
+      if (with_v) {
+        const bf16* ve = reinterpret_cast<const bf16*>(&vv);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) Vt[(v * 8 + q) * VLD + tk] = ve[q];
+        for (int q = 0; q < 8; ++q) Vt[(v * 8 + q) * VLD + j] = ve[q];
+      }
+    }
+    __syncthreads();
+  };
+  if (resident) {
+    load_tile(0, Tp, true);
+    if (!active) return;  // no tile load follows
   }
-  __syncthreads();
-  if (q0 >= T) return;
 
   // Q as A fragments: rows r0 = q0+g and r1 = q0+g+8
   const int r0 = q0 + g, r1 = r0 + 8;
@@ -443,12 +465,13 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   }
 
   const float neg = sm_bf16 ? bf16r(-30000.f) : -1e9f;
-  // scaled, masked scores of keys n0 .. n0+7: s[0..1] row r0, s[2..3] row r1
-  auto scores = [&](int n0, float (&s)[4]) {
+  // scaled, masked scores of keys n0 .. n0+7, at row j of the tile in
+  // shared memory: s[0..1] row r0, s[2..3] row r1
+  auto scores = [&](int j, int n0, float (&s)[4]) {
     s[0] = s[1] = s[2] = s[3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      const bf16* kr = Ks + (n0 + g) * KLD + kk * 16 + t2;
+      const bf16* kr = Ks + (j + g) * KLD + kk * 16 + t2;
       mma_16816(s, qa[kk], ld_pair(kr), ld_pair(kr + 8));
     }
 #pragma unroll
@@ -467,11 +490,16 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   };
 
   float m0 = -INFINITY, m1 = -INFINITY;
-  for (int n0 = 0; n0 < Tp; n0 += 8) {
-    float s[4];
-    scores(n0, s);
-    m0 = fmaxf(m0, fmaxf(s[0], s[1]));
-    m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+  for (int k0 = 0; k0 < Tp; k0 += KT) {
+    const int n = min(KT, Tp - k0);
+    if (!resident) load_tile(k0, n, false);
+    if (!active) continue;
+    for (int j = 0; j < n; j += 8) {
+      float s[4];
+      scores(j, k0 + j, s);
+      m0 = fmaxf(m0, fmaxf(s[0], s[1]));
+      m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+    }
   }
   m0 = quad_max(m0);
   m1 = quad_max(m1);
@@ -480,11 +508,16 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   };
 
   float z0 = 0.f, z1 = 0.f;
-  for (int n0 = 0; n0 < Tp; n0 += 8) {
-    float s[4];
-    scores(n0, s);
-    z0 += ex(s[0], m0) + ex(s[1], m0);
-    z1 += ex(s[2], m1) + ex(s[3], m1);
+  for (int k0 = 0; k0 < Tp; k0 += KT) {
+    const int n = min(KT, Tp - k0);
+    if (!resident) load_tile(k0, n, false);
+    if (!active) continue;
+    for (int j = 0; j < n; j += 8) {
+      float s[4];
+      scores(j, k0 + j, s);
+      z0 += ex(s[0], m0) + ex(s[1], m0);
+      z1 += ex(s[2], m1) + ex(s[3], m1);
+    }
   }
   z0 = quad_sum(z0);
   z1 = quad_sum(z1);
@@ -494,21 +527,27 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   }
 
   float o[DH / 8][4] = {};
-  for (int n0 = 0; n0 < Tp; n0 += 16) {
-    float sa[4], sb[4];
-    scores(n0, sa);
-    scores(n0 + 8, sb);
-    const uint32_t pa[4] = {
-        pack_pair(ex(sa[0], m0) / z0, ex(sa[1], m0) / z0),
-        pack_pair(ex(sa[2], m1) / z1, ex(sa[3], m1) / z1),
-        pack_pair(ex(sb[0], m0) / z0, ex(sb[1], m0) / z0),
-        pack_pair(ex(sb[2], m1) / z1, ex(sb[3], m1) / z1)};
+  for (int k0 = 0; k0 < Tp; k0 += KT) {
+    const int n = min(KT, Tp - k0);
+    if (!resident) load_tile(k0, n, true);
+    if (!active) continue;
+    for (int j = 0; j < n; j += 16) {
+      float sa[4], sb[4];
+      scores(j, k0 + j, sa);
+      scores(j + 8, k0 + j + 8, sb);
+      const uint32_t pa[4] = {
+          pack_pair(ex(sa[0], m0) / z0, ex(sa[1], m0) / z0),
+          pack_pair(ex(sa[2], m1) / z1, ex(sa[3], m1) / z1),
+          pack_pair(ex(sb[0], m0) / z0, ex(sb[1], m0) / z0),
+          pack_pair(ex(sb[2], m1) / z1, ex(sb[3], m1) / z1)};
 #pragma unroll
-    for (int nt = 0; nt < DH / 8; ++nt) {
-      const bf16* vr = Vt + (nt * 8 + g) * VLD + n0 + t2;
-      mma_16816(o[nt], pa, ld_pair(vr), ld_pair(vr + 8));
+      for (int nt = 0; nt < DH / 8; ++nt) {
+        const bf16* vr = Vt + (nt * 8 + g) * VLD + j + t2;
+        mma_16816(o[nt], pa, ld_pair(vr), ld_pair(vr + 8));
+      }
     }
   }
+  if (!active) return;
 #pragma unroll
   for (int nt = 0; nt < DH / 8; ++nt) {
     const int c = h * DH + nt * 8 + t2;
@@ -521,13 +560,13 @@ template <typename TOut>
 static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
   const int Tp = (T + 15) / 16 * 16;
-  const size_t bytes = AttLayout<32>::bytes(Tp);
-  if (bytes > SMEM_LIMIT) return cudaErrorInvalidValue;
+  const int KT = Tp < ATT_KT ? Tp : ATT_KT;
+  const size_t bytes = AttLayout<32>::bytes(KT);
   EET_TRY(cudaFuncSetAttribute(attention_kernel<32, TOut>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
   attention_kernel<32, TOut><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp,
-                                                                 scale, sm_bf16);
+                                                                 KT, scale, sm_bf16);
   return cudaGetLastError();
 }
 
@@ -770,16 +809,6 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
 }
 
 extern "C" int eet_conformer_block_param_count() { return W_COUNT; }
-
-// The longest T the bf16 and W8A8 entries take: attention keeps K and V^T
-// of T rounded up to 16 frames in shared memory as bf16 (T = 1600 at
-// dh = 32). The float32 entry streams K and V and takes any T. The TPU
-// kernel's T' <= 512 is its VMEM budget, not these kernels'.
-extern "C" int eet_conformer_block_max_t() {
-  int t = 16;
-  while (AttLayout<32>::bytes(t + 16) <= SMEM_LIMIT) t += 16;
-  return t;
-}
 
 // The bf16 entry's product on its own, for checks and timing:
 // out (M, N) = epilogue(bf16(a (M, K) @ w (K, N)) + bias (N)), epi one of

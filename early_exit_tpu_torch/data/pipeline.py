@@ -1,6 +1,10 @@
-"""Training data pipeline: load -> clean -> tokenize -> bucket on the
-host, mel on the device (counterpart of
-`early_exit_tpu/data/pipeline.py`).
+"""Data pipeline: load -> clean -> tokenize -> bucket on the host, mel
+on the device (counterpart of `early_exit_tpu/data/pipeline.py`).
+
+Training cleans labels with `clean_train_label` and drops items whose
+label reaches `max_utterance_length`; `infer_mode=True` (the inference
+CLI) cleans with `clean_infer_label` and drops only the items it marks
+as not scored.
 
 Host threads build each sub-batch: the items' waveforms, cleaned and
 encoded labels, the equal-total split into `n_batch_split` sub-batches,
@@ -40,8 +44,8 @@ PREFETCH = 4           # sub-batches built ahead of the consumer
 class Pipeline:
     def __init__(self, dataset, tokenizer, audio_cfg: AudioConfig,
                  train_cfg: TrainConfig, *, bpe: bool = True,
-                 shuffle: bool = True, seed: int = 0, workers: int = 4,
-                 device=None):
+                 shuffle: bool = True, seed: int = 0, infer_mode: bool = False,
+                 workers: int = 4, device=None):
         self.ds = dataset
         self.tok = tokenizer
         self.acfg = audio_cfg
@@ -49,6 +53,7 @@ class Pipeline:
         self.bpe = bpe
         self.shuffle = shuffle
         self.seed = seed
+        self.infer_mode = infer_mode
         self.workers = max(workers, 1)
         self.device = runtime.resolve_device(device)
         self._clip_warned = False
@@ -58,9 +63,14 @@ class Pipeline:
 
     def _load_item(self, i: int):
         utt = self.ds[i]
-        label = text_mod.clean_train_label(utt.transcript)
-        if len(label) >= self.tcfg.max_utterance_length:
-            return None
+        if self.infer_mode:
+            label = text_mod.clean_infer_label(utt.transcript)
+            if label is None:
+                return None
+        else:
+            label = text_mod.clean_train_label(utt.transcript)
+            if len(label) >= self.tcfg.max_utterance_length:
+                return None
         ids = text_mod.encode_target(label, self.tok, bpe=self.bpe)
         return utt.waveform, ids, label
 

@@ -27,9 +27,14 @@ _WORDS = ("THE OF AND TO A IN THAT IS WAS HE FOR IT WITH AS HIS ON BE AT "
 
 @dataclasses.dataclass
 class Utterance:
-    waveform: np.ndarray
+    waveform: np.ndarray          # float32 (n_samples,), in [-1, 1]
     sample_rate: int
     transcript: str
+    speaker_id: str = "0"
+    chapter_id: str = "0"
+    utterance_id: str = ""
+    # the white-noise sigma a synthetic utterance was drawn with; 0.0 for
+    # a disk corpus
     noise_sigma: float = 0.0
 
 
@@ -89,7 +94,7 @@ class SyntheticDataset:
                  else self.noise)
         wav += sigma * rng.randn(len(wav)).astype(np.float32)
         return Utterance(wav.astype(np.float32), self.sample_rate, text,
-                         noise_sigma=float(sigma))
+                         "0", "0", f"synth-{i}", noise_sigma=float(sigma))
 
 
 def synth_batch(knobs: dict, n: int, seed: int):

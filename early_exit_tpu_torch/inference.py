@@ -1,0 +1,349 @@
+"""Inference entry point of the port: CTC decoding of every exit of the
+early-exit Conformer, the same surface as the JAX package's
+`inference.py`.
+
+    python -m early_exit_tpu_torch.inference --decoder_mode ctc \\
+        --load_model_path assets/flagship_ckpt --data_root <dir> \\
+        [--eval_splits test-clean,test-other] [--decode greedy] \\
+        [--fused_block true] [--device cpu] ...
+
+Per split: every utterance of the LibriSpeech layout under --data_root
+(or the synthetic corpus with --synthetic_data true), decoded at every
+exit, with `EXPECTED:` / `BEAM_OUT_ n :` pairs (the lexicon corrector
+snaps out-of-lexicon words), `TIMESTAMPS:` of the last exit with
+--timestamps, and the WER of each exit. One batched forward gives every
+exit; then greedy CTC, the prefix beam (on the device) or the lexicon
+beam (C++ on the host, optionally with an ARPA LM through --lm_path).
+With --fused_block true the trunk runs through the Conformer block kernel
+and greedy decoding through the head + argmax kernel. --exit_threshold or
+--gate_calibration decodes each utterance at one exit instead: the
+batch-conservative gate, or with --cascade_k the two-phase cascade.
+
+The model comes from --load_model_path or the average of the epoch
+checkpoints --avg_model_start..--avg_model_end in --load_model_dir. Runs
+on CUDA unless --device cpu; raises without a GPU otherwise.
+
+Not ported, and raising by name: --decoder_mode aed (the AED model and
+its beam search), --streaming (the chunked streaming recognizer), model
+types other than early_conformer, and --conv_norm group.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from early_exit_tpu_torch import runtime
+from early_exit_tpu_torch.cli import get_args
+from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
+from early_exit_tpu_torch.data.pipeline import Pipeline
+from early_exit_tpu_torch.decoding.lexicon import LexiconCorrector, load_dict
+from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.ops import ctc
+from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
+from early_exit_tpu_torch.training import checkpoint
+from early_exit_tpu_torch.utils.metrics import WerAccumulator
+from early_exit_tpu_torch.utils.model_utils import count_parameters
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPM = os.path.join(REPO, "assets", "spm")
+
+
+def check_ported(args) -> None:
+    if args.decoder_mode != "ctc":
+        raise NotImplementedError(
+            "--decoder_mode aed: the AED model (full_conformer + "
+            "transformer_decoder) and its beam search are not ported; decode "
+            "--decoder_mode ctc")
+    if args.streaming:
+        raise NotImplementedError(
+            "--streaming: the streaming recognizer (serving/streaming.py) is "
+            "not ported; decode whole utterances")
+    if args.model_type != "early_conformer":
+        raise NotImplementedError(
+            f"--model_type {args.model_type}: only early_conformer is ported")
+
+
+def _load_lexicon(args):
+    for cand in ("librispeech.lex", os.path.join(SPM, "words.txt")):
+        if os.path.exists(cand):
+            return LexiconCorrector(load_dict(cand))
+    print("warning: librispeech.lex not found; lexicon correction off")
+    return None
+
+
+def _gate_operating_point(model_cfg, args):
+    """(threshold, score, temperatures) from --gate_calibration (the
+    fitted per-exit operating point) or the raw --exit_threshold."""
+    score, temps = args.gate_score, None
+    if args.gate_calibration is not None:
+        with open(args.gate_calibration) as f:
+            calib = json.load(f)
+        thr = [float(t) for t in calib["thresholds"]]
+        if len(thr) != model_cfg.n_enc_exits:
+            sys.exit(f"--gate_calibration: {len(thr)} thresholds for a "
+                     f"{model_cfg.n_enc_exits}-exit model")
+        score = calib.get("score", score)
+        temps = calib.get("temperatures")
+        if temps is not None and len(temps) != model_cfg.n_enc_exits:
+            sys.exit(f"--gate_calibration: {len(temps)} temperatures for "
+                     f"a {model_cfg.n_enc_exits}-exit model")
+        print(f"gate calibration: score={score} thresholds="
+              f"{[round(t, 3) for t in thr]} (from {args.gate_calibration})")
+    else:
+        thr = float(args.exit_threshold)
+    return thr, score, temps
+
+
+def _references(batch, tokenizer):
+    """Each real row's reference text (None for padding) and the item
+    mask, on the host."""
+    mask = batch["item_mask"].cpu().numpy().astype(bool)
+    labels = batch["labels"].cpu().numpy()
+    lab_len = batch["label_lengths"].cpu().numpy()
+    refs = []
+    for b in range(labels.shape[0]):
+        if not mask[b]:
+            refs.append(None)
+            continue
+        refs.append(tokenizer.decode([int(t) for t in labels[b][1:lab_len[b]]]).lower())
+    return refs, mask
+
+
+def _hyp(tokenizer, lex, ids) -> str:
+    hyp = tokenizer.decode([int(t) for t in ids]).lower()
+    return lex.apply(hyp) if lex is not None else hyp
+
+
+def run_ctc_gated_cascade(model, model_cfg, pipe, split, tokenizer, lex, args):
+    """Gated inference through the two-phase cascade (--cascade_k,
+    serving/cascade.py): exits 1..k for every utterance, the unconfident
+    rows re-batched and resumed through exits k+1..E. Decisions are
+    those of the batch-conservative gate; the exits computed are counted
+    per utterance."""
+    from early_exit_tpu_torch.serving import cascade
+    E, k = model_cfg.n_enc_exits, int(args.cascade_k)
+    thr, score, temps = _gate_operating_point(model_cfg, args)
+    gate = dict(k=k, threshold=thr, score=score, temperatures=temps)
+    blank = model_cfg.blank_id
+    acc = WerAccumulator()
+    chosen_all, n_utts, exits_computed = [], 0, 0
+    for batch in pipe.epoch(0):
+        lp, chosen, accepted, sub_len, h_k = cascade.shallow_apply(
+            model, batch["feats"], batch["feat_lengths"],
+            item_mask=batch["item_mask"], **gate)
+        toks, n = ctc.greedy_decode(lp, sub_len, blank=blank)
+        toks, n, chosen = toks.cpu().numpy(), n.cpu().numpy(), chosen.cpu().numpy()
+        idx, pmask = cascade.pack_escalation_indices(accepted.cpu().numpy(),
+                                                     pack_batch=args.cascade_pack)
+        refs, mask = _references(batch, tokenizer)
+        exits_computed += k * int(mask.sum()) + (E - k) * len(idx)
+        if idx.size:
+            rows = torch.as_tensor(idx, dtype=torch.long, device=sub_len.device)
+            sl = sub_len.index_select(0, rows)
+            b_lp, b_chosen = cascade.continue_apply(model, h_k.index_select(0, rows),
+                                                    sl, **gate)
+            b_toks, b_n = ctc.greedy_decode(b_lp, sl, blank=blank)
+            b_toks, b_n, b_chosen = (b_toks.cpu().numpy(), b_n.cpu().numpy(),
+                                     b_chosen.cpu().numpy())
+            for j, (i, real) in enumerate(zip(idx, pmask)):
+                if real:
+                    toks[i], n[i], chosen[i] = b_toks[j], b_n[j], b_chosen[j]
+        for b, ref in enumerate(refs):
+            if ref is None:
+                continue
+            hyp = _hyp(tokenizer, lex, toks[b][:n[b]])
+            print(split, "EXPECTED:", ref)
+            print(split, f"GATED_OUT (exit {int(chosen[b])}):", hyp)
+            acc.add(ref, hyp)
+            chosen_all.append(int(chosen[b]))
+            n_utts += 1
+    hist = {e: chosen_all.count(e) for e in range(1, E + 1)}
+    print(f"{split} cascade exit histogram (utts per exit): {hist}")
+    print(f"{split} cascade escalated: "
+          f"{sum(v for e, v in hist.items() if e > k)}/{n_utts} "
+          f"(k={k}, mean chosen exit "
+          f"{np.mean(chosen_all) if chosen_all else 0:.2f})")
+    print(f"{split} gated WER: {100 * acc.value:.2f}% "
+          f"(mean exits run {exits_computed / max(n_utts, 1):.2f}/{E})")
+
+
+def run_ctc_gated(model, model_cfg, pipe, split, tokenizer, lex, args):
+    """Confidence-gated early exit: each batch stops at the first exit
+    where every row's confidence has cleared its threshold."""
+    from early_exit_tpu_torch.models import early_exit_gate
+    thr, score, temps = _gate_operating_point(model_cfg, args)
+    acc = WerAccumulator()
+    exits_run = []
+    for batch in pipe.epoch(0):
+        lp, chosen, sub_len, n_run = early_exit_gate.gated_apply(
+            model, batch["feats"], batch["feat_lengths"], threshold=thr,
+            item_mask=batch["item_mask"], score=score, temperatures=temps)
+        exits_run.append(int(n_run))
+        toks, n = ctc.greedy_decode(lp, sub_len, blank=model_cfg.blank_id)
+        toks, n, chosen = toks.cpu().numpy(), n.cpu().numpy(), chosen.cpu().numpy()
+        refs, _ = _references(batch, tokenizer)
+        for b, ref in enumerate(refs):
+            if ref is None:
+                continue
+            hyp = _hyp(tokenizer, lex, toks[b][:n[b]])
+            print(split, "EXPECTED:", ref)
+            print(split, f"GATED_OUT (exit {int(chosen[b])}):", hyp)
+            acc.add(ref, hyp)
+    print(f"{split} gated WER: {100 * acc.value:.2f}% "
+          f"(mean exits run {np.mean(exits_run):.2f}/{model_cfg.n_enc_exits})")
+
+
+def _lexicon_beam(args):
+    from early_exit_tpu_torch.decoding.lexicon_beam import LexiconBeamDecoder
+    lm = None
+    if args.lm_path:
+        from early_exit_tpu_torch.decoding.ngram_lm import ArpaLM
+        lm = ArpaLM(args.lm_path)
+        print(f"shallow fusion: {args.lm_path} (order {lm.order}, weight "
+              f"{args.lm_weight})")
+    for tok, lex in ((args.tokens, args.lexicon),
+                     (os.path.join(SPM, "synth.bpe-256.tok"),
+                      os.path.join(SPM, "synth.bpe-256.lex"))):
+        if os.path.exists(tok) and os.path.exists(lex):
+            return LexiconBeamDecoder.from_files(
+                lex, tok, beam_size=args.beam_size, word_score=args.word_score,
+                lm=lm, lm_weight=args.lm_weight)
+    sys.exit(f"lexicon_beam: tokens/lexicon not found ({args.tokens}, {args.lexicon})")
+
+
+@torch.no_grad()
+def exit_outputs(model, feats, lengths, *, greedy: bool, timestamps: bool):
+    """One batched forward of every exit. greedy: per-frame argmax ids
+    (E, B, T') int32 -- with fused bf16 blocks from the head + argmax
+    kernel, else the argmax of the raw logits, which is what the JAX
+    package decodes -- and, with timestamps, the last exit's raw logits
+    (B, T', V). Otherwise float32 log-probs (E, B, T', V) for the beams.
+    Returns (ids or log-probs, last exit's emission or None, sub_len)."""
+    hidden, sub_len = model.apply_hidden(feats, lengths)
+    if not greedy:
+        return model.apply_heads(hidden, log_probs=True), None, sub_len
+    cfg = model.cfg
+    if cfg.fused_block and cfg.dtype == torch.bfloat16:
+        ids = head_argmax(hidden.to(torch.bfloat16).contiguous(),
+                          model.heads_w.to(torch.bfloat16),
+                          model.heads_b.to(torch.bfloat16))
+        last = (model.apply_heads(hidden[-1:], log_probs=False)[0]
+                if timestamps else None)
+        return ids, last, sub_len
+    logits = model.apply_heads(hidden, log_probs=False)
+    return torch.argmax(logits, dim=-1).to(torch.int32), logits[-1], sub_len
+
+
+def run_ctc(model, model_cfg, pipe, split, tokenizer, lex, args):
+    from early_exit_tpu_torch.decoding import prefix_beam
+    from early_exit_tpu_torch.decoding import timestamps as ts
+    greedy = args.decode == "greedy"
+    trie_dec = _lexicon_beam(args) if args.decode == "lexicon_beam" else None
+    blank = model_cfg.blank_id
+    wers = None
+    for batch in pipe.epoch(0):
+        out, last_em, sub_len = exit_outputs(model, batch["feats"], batch["feat_lengths"],
+                                             greedy=greedy, timestamps=args.timestamps)
+        E = out.shape[0]
+        if wers is None:
+            wers = [WerAccumulator() for _ in range(E)]
+        refs, mask = _references(batch, tokenizer)
+        for ref in refs:
+            if ref is not None:
+                print(split, "EXPECTED:", ref)
+        sub_h = sub_len.cpu().numpy()
+        feat_len = batch["feat_lengths"].cpu().numpy()
+        host_lp = out.cpu().numpy() if trie_dec is not None else None
+        for e in range(E):
+            if trie_dec is not None:
+                # lexicon beam: the output is lexicon words already
+                for b, hyp in enumerate(trie_dec.decode_batch(host_lp[e], sub_h)):
+                    if mask[b]:
+                        print(split, "BEAM_OUT_", e + 1, ":", hyp)
+                        wers[e].add(refs[b], hyp)
+                continue
+            if greedy:
+                toks, n = ctc.greedy_decode_ids(out[e], sub_len, blank=blank)
+            else:
+                toks, n, _ = prefix_beam.prefix_beam_search(
+                    out[e], sub_len, beam_size=args.beam_size, blank=blank,
+                    blank_skip_threshold=0.95)
+            toks, n = toks.cpu().numpy(), n.cpu().numpy()
+            last_exit = e == E - 1
+            for b in range(toks.shape[0]):
+                if not mask[b]:
+                    continue
+                ids = [int(t) for t in toks[b][:n[b]]]
+                hyp = _hyp(tokenizer, lex, ids)
+                print(split, "BEAM_OUT_", e + 1, ":", hyp)
+                if args.timestamps and last_exit and ids:
+                    audio_s = float(feat_len[b]) * args.hop_length / args.sample_rate
+                    em = last_em[b] if greedy else out[e][b]
+                    spans = ts.word_timestamps(
+                        em, int(sub_h[b]), ids, ts.pieces_of(tokenizer, ids),
+                        blank=blank, seconds_per_frame=audio_s / max(int(sub_h[b]), 1))
+                    print(split, "TIMESTAMPS:", ts.format_spans(spans))
+                wers[e].add(refs[b], hyp)
+    for e, acc in enumerate(wers or []):
+        print(f"{split} WER exit {e + 1}: {100 * acc.value:.2f}% "
+              f"({acc.utterances} utts)")
+
+
+def load_model(args, model_cfg, device) -> EarlyConformer:
+    model = EarlyConformer(model_cfg).to(device)
+    model.init(torch.Generator(device=device).manual_seed(args.seed))
+    if args.load_model_path is not None:
+        checkpoint.load_model_file(model, args.load_model_path)
+    elif None not in (args.load_model_dir, args.avg_model_start, args.avg_model_end):
+        checkpoint.avg_models(model, args.load_model_dir, args.avg_model_start,
+                              args.avg_model_end)
+    else:
+        raise ValueError(
+            "Invalid model loading config. Use either --load_model_path "
+            "for a single model or --load_model_dir/--avg_model_start/"
+            "--avg_model_end for an average of models.")
+    return model.eval().requires_grad_(False)
+
+
+def main(argv=None) -> None:
+    # mode="infer": the auto profile resolves to bf16 attention softmax and
+    # the DFT mel
+    args, model_cfg, train_cfg, audio_cfg, tokenizer = get_args(argv, mode="infer")
+    check_ported(args)
+    device = runtime.resolve_device(args.device)
+    if device.type == "cuda":
+        runtime.exact_float32()
+    model = load_model(args, model_cfg, device)
+    print(f"The model has {count_parameters(model):,} trainable parameters")
+    lex = _load_lexicon(args)
+
+    splits = (["synthetic"] if args.synthetic_data
+              else [s for s in args.eval_splits.split(",") if s])
+    for split in splits:
+        print(split)
+        if args.synthetic_data:
+            ds = SyntheticDataset(n_items=max(args.batch_size, 8), seed=args.seed + 7)
+        else:
+            try:
+                ds = LibriSpeechDataset(args.data_root, split)
+            except FileNotFoundError:
+                sys.exit("Invalid data split")
+        pipe = Pipeline(ds, tokenizer, audio_cfg, train_cfg, bpe=args.bpe,
+                        shuffle=False, infer_mode=True, workers=args.n_workers,
+                        device=device)
+        if args.exit_threshold is not None or args.gate_calibration is not None:
+            if args.cascade_k is not None:
+                run_ctc_gated_cascade(model, model_cfg, pipe, split, tokenizer, lex, args)
+            else:
+                run_ctc_gated(model, model_cfg, pipe, split, tokenizer, lex, args)
+        else:
+            run_ctc(model, model_cfg, pipe, split, tokenizer, lex, args)
+
+
+if __name__ == "__main__":
+    main()

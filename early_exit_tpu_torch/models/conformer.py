@@ -30,7 +30,7 @@ through the block kernel (`ops/kernels/conformer_block.py`) when
 `fused_block` is set. On the CPU, where the kernel's plain version runs,
 it mirrors the JAX dispatch: the kernel up to T' = 512 (the TPU kernel's
 VMEM budget), the unfused blocks beyond. On the GPU it always launches
-the kernel, which raises past its own limit rather than leave the path.
+the kernel, at any T'.
 """
 
 from __future__ import annotations

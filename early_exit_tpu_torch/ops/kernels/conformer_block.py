@@ -252,9 +252,9 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel: the bf16 entry, the W8A8 entry (`quantize="int8"`, bf16
-    compute and residual, d_model <= 256), both with T up to their
-    attention's shared-memory limit (1600), or the float32 entry, which
-    takes any T. Any other dtype mix, width, head width or T raises."""
+    compute and residual, d_model <= 256) or the float32 entry, each at
+    any T > 0 (their attention streams the keys through shared memory in
+    tiles). Any other dtype mix, width or head width raises."""
     if x.device.type == "cpu":
         return _into(out, conformer_block_plain(
             f, x, lengths, n_heads=n_heads, kernel_size=kernel_size,
@@ -273,11 +273,9 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(f"conformer_block kernel (w8a8) needs d_model <= "
                          f"{LNQ_MAX_D} (its LayerNorm + quantize keeps a row in "
                          f"one warp's registers); got D={D}")
+    if T <= 0:
+        raise ValueError(f"conformer_block kernel ({entry}) needs T > 0, got {T}")
     lib = _lib()
-    max_t = None if entry == "f32" else lib.eet_conformer_block_max_t()
-    if T <= 0 or (max_t is not None and T > max_t):
-        raise ValueError(f"conformer_block kernel ({entry}) needs 0 < T"
-                         f"{'' if max_t is None else f' <= {max_t}'}, got {T}")
     dev, xdt = x.device, residual_dtype
     _check(x, "x", xdt, (B, T, D), dev)
     _check(lengths, "lengths", torch.int32, (B,), dev)
@@ -549,12 +547,9 @@ def _lib():
         for entry in (lib.eet_conformer_block_bf16, lib.eet_conformer_block_f32,
                       lib.eet_conformer_block_w8a8, lib.eet_gemm_bf16,
                       lib.eet_gemm_s8, lib.eet_layer_norm_quantize,
-                      lib.eet_conformer_block_param_count,
-                      lib.eet_conformer_block_max_t):
+                      lib.eet_conformer_block_param_count):
             entry.restype = i
-        for entry in (lib.eet_conformer_block_param_count,
-                      lib.eet_conformer_block_max_t):
-            entry.argtypes = []
+        lib.eet_conformer_block_param_count.argtypes = []
         if lib.eet_conformer_block_param_count() != len(PARAM_ORDER):
             raise RuntimeError("conformer_block.cu and PARAM_ORDER disagree")
     return lib

@@ -34,12 +34,12 @@ import argparse
 import dataclasses
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from early_exit_tpu_torch import checkpoint, interop, runtime
 from early_exit_tpu_torch.configs import AudioConfig, inference_profile
 from early_exit_tpu_torch.data.synthetic import synth_batch
+from early_exit_tpu_torch.decoding.lexicon import edit_distance
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
 from early_exit_tpu_torch.models.early_exit_gate import gated_apply
 from early_exit_tpu_torch.ops import ctc, frontend
@@ -204,14 +204,8 @@ class Recognizer:
 
 def word_errors(ref: str, hyp: str) -> tuple:
     """(edit distance in words, reference word count)."""
-    r, h = ref.lower().split(), hyp.lower().split()
-    d = np.arange(len(h) + 1)
-    for i in range(1, len(r) + 1):
-        prev, d[0] = d.copy(), i
-        for j in range(1, len(h) + 1):
-            d[j] = min(prev[j] + 1, d[j - 1] + 1,
-                       prev[j - 1] + (r[i - 1] != h[j - 1]))
-    return int(d[len(h)]), len(r)
+    r = ref.lower().split()
+    return edit_distance(r, hyp.lower().split()), len(r)
 
 
 def wer_pct(refs: List[str], hyps: List[str]) -> float:

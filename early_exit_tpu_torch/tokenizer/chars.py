@@ -31,6 +31,9 @@ class CharTokenizer:
     def text_to_int(self, text: str) -> List[int]:
         return [self.char_to_id[c] for c in text]
 
+    def int_to_text(self, ids) -> str:
+        return "".join(self.id_to_char[int(i)] for i in ids)
+
     def encode_as_ids(self, text: str) -> List[int]:
         return self.text_to_int(text.lower())
 

@@ -144,6 +144,9 @@ class SentencePieceDecoder:
     def get_piece_size(self) -> int:
         return len(self.pieces)
 
+    def id_to_piece(self, i: int) -> str:
+        return self.pieces[i]
+
     def decode(self, ids: Iterable[int]) -> str:
         segments: List[Tuple[str, bool]] = []
         run = bytearray()

@@ -14,10 +14,12 @@ else `WORST:`), keeping the newest --keep_last_ckpts. A run resumes from
 the newest complete pair in --save_model_dir. Runs on CUDA unless
 --device cpu; raises without a GPU otherwise.
 
+The corpus is --train_split of the LibriSpeech layout under --data_root,
+or the synthetic corpus with --synthetic_data true.
+
 Not ported, and raising by name: --decoder_mode aed, model types other
-than early_conformer, --conv_norm group, the LibriSpeech reader (train on
---synthetic_data true), --dp/--tp above 1, and --attention_impl pallas in
-training.
+than early_conformer, --conv_norm group, --dp/--tp above 1, and
+--attention_impl pallas in training.
 """
 
 from __future__ import annotations
@@ -31,12 +33,13 @@ import torch
 from early_exit_tpu_torch import runtime
 from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.pipeline import Pipeline
-from early_exit_tpu_torch.data.synthetic import SyntheticDataset
+from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
 from early_exit_tpu_torch.ops import ctc
 from early_exit_tpu_torch.training import checkpoint
 from early_exit_tpu_torch.training.trainer import Trainer
-from early_exit_tpu_torch.utils.metrics import MetricsLogger, count_parameters
+from early_exit_tpu_torch.utils.metrics import MetricsLogger
+from early_exit_tpu_torch.utils.model_utils import count_parameters
 
 LOG_EVERY = 50
 DECODE_EVERY = 500
@@ -50,18 +53,20 @@ def check_ported(args) -> None:
     if args.model_type != "early_conformer":
         raise NotImplementedError(
             f"--model_type {args.model_type}: only early_conformer is ported")
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "the LibriSpeech reader (FLAC decoding) is not ported; train on "
-            "--synthetic_data true")
     if (args.dp or 1) > 1 or args.tp > 1:
         raise NotImplementedError(
             "--dp/--tp above 1: data and tensor parallelism are not ported; "
             "the port trains on one GPU")
 
 
-def build_dataset(args) -> SyntheticDataset:
-    return SyntheticDataset(n_items=max(args.batch_size * 4, 64), seed=args.seed)
+def build_dataset(args):
+    if args.synthetic_data:
+        return SyntheticDataset(n_items=max(args.batch_size * 4, 64), seed=args.seed)
+    try:
+        return LibriSpeechDataset(args.data_root, args.train_split)
+    except FileNotFoundError as e:
+        sys.exit(f"{e}\n(use --data_root to point at LibriSpeech, or "
+                 f"--synthetic_data true for a smoke run)")
 
 
 @torch.no_grad()

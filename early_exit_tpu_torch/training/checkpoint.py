@@ -94,28 +94,36 @@ def load_model_file(model: EarlyConformer, path: str) -> None:
 def avg_models(model: EarlyConformer, directory: str, start: int,
                end: int) -> None:
     """The model <- leaf-wise average of the epoch checkpoints in
-    [start, end], accumulated in float64; missing epochs after `start`
-    are skipped."""
+    [start, end], accumulated in float64 (int64 for integer leaves);
+    missing epochs after `start` are skipped. Each average is cast back to
+    its leaf's dtype in the first file, as the JAX package does: a float
+    leaf is rounded to it (a bf16 file gives bf16-rounded means), an
+    integer leaf takes the floor of the mean."""
     if start > end:
         raise ValueError("avg_model_start must be <= avg_model_end")
-    acc, count = None, 0
+    acc, dtypes, count = None, None, 0
     for epoch in range(start, end + 1):
         path = model_ckpt_path(directory, epoch)
         if epoch != start and not os.path.exists(path):
             continue
-        tree = load_tree(path)
-        leaves = _leaves(tree)
+        leaves = _leaves(load_tree(path))
         if acc is None:
-            acc = {k: v.double() for k, v in leaves.items()}
+            dtypes = {k: v.dtype for k, v in leaves.items()}
+            acc = {k: _wide(v) for k, v in leaves.items()}
         else:
             for k, v in leaves.items():
-                acc[k] += v.double()
+                acc[k] += _wide(v)
         count += 1
     if acc is None:
         raise FileNotFoundError(f"no checkpoints in [{start},{end}] under "
                                 f"{directory}")
-    load_model_tree(model, _unflatten({k: (v / count).float()
-                                       for k, v in acc.items()}))
+    load_model_tree(model, _unflatten({
+        k: ((v / count) if v.dtype.is_floating_point else v // count).to(dtypes[k])
+        for k, v in acc.items()}))
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    return t.double() if t.dtype.is_floating_point else t.long()
 
 
 def _leaves(tree, prefix=()) -> dict:

@@ -1,11 +1,12 @@
-"""Training metrics stream and parameter count (counterparts of
-`early_exit_tpu/utils/metrics.py::MetricsLogger` and
-`utils/model_utils.py::count_parameters`).
+"""Word error rate and the training metrics stream (counterpart of
+`early_exit_tpu/utils/metrics.py`).
 
-`MetricsLogger` appends one JSON object per `log` call to
-`<log_dir>/metrics.jsonl`: {"step", "time", <metric>: float, ...}. The
-JAX package's logger also writes TensorBoard events when
-`torch.utils.tensorboard` imports; the port writes the JSONL stream only.
+`WerAccumulator`: substitutions + insertions + deletions over the
+reference words of a corpus. `MetricsLogger` appends
+one JSON object per `log` call to `<log_dir>/metrics.jsonl`: {"step",
+"time", <metric>: float, ...}. The JAX package's logger also writes
+TensorBoard events when `torch.utils.tensorboard` imports; the port
+writes the JSONL stream only.
 """
 
 from __future__ import annotations
@@ -15,7 +16,26 @@ import os
 import time
 from typing import Dict
 
-import torch
+from early_exit_tpu_torch.decoding.lexicon import edit_distance
+
+
+class WerAccumulator:
+    """Corpus-level WER: total errors / total reference words."""
+
+    def __init__(self):
+        self.errors = 0
+        self.words = 0
+        self.utterances = 0
+
+    def add(self, reference: str, hypothesis: str) -> None:
+        ref = reference.split()
+        self.errors += edit_distance(ref, hypothesis.split())
+        self.words += len(ref)
+        self.utterances += 1
+
+    @property
+    def value(self) -> float:
+        return self.errors / self.words if self.words else 0.0
 
 
 class MetricsLogger:
@@ -30,8 +50,3 @@ class MetricsLogger:
 
     def close(self) -> None:
         self._f.close()
-
-
-def count_parameters(model: torch.nn.Module) -> int:
-    """Every parameter's element count (the JAX tree's leaves)."""
-    return sum(p.numel() for p in model.parameters())

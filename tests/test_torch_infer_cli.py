@@ -1,0 +1,161 @@
+"""`python -m early_exit_tpu_torch.inference` against the JAX package's
+`inference.py`, end to end on the CPU.
+
+Set-up: a tiny early_conformer (d 32, 2 exits x 1 layer, 4 heads, ffn
+64, k 7, BPE-256), initialised from a seed by the JAX package and saved
+with its checkpoint writer, and a LibriSpeech-layout FLAC corpus of 6
+utterances. Both CLIs run in process with the float32 profile
+(--compute_dtype float32 --attn_softmax_dtype float32); their printed
+transcript lines (EXPECTED, BEAM_OUT, GATED_OUT, TIMESTAMPS) and WER and
+gate summary lines must be equal, for greedy (with timestamps), the
+prefix beam (with timestamps), the lexicon beam with an ARPA LM trained
+from the corpus's transcripts, the while-loop gate, the cascade, and an
+`avg_models` range over two bf16 checkpoint files.
+
+Also: the unported modes raise by name, and the CLI needs a GPU unless
+told --device cpu.
+"""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from early_exit_tpu.configs import ModelConfig as JModelConfig
+from early_exit_tpu.models import early_conformer as jec
+from early_exit_tpu.training import checkpoint as jck
+from early_exit_tpu_torch import inference as port_inference
+
+from test_torch_infer_data import write_corpus
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--d_model", "32", "--n_enc_exits", "2", "--n_enc_layers_per_exit", "1",
+        "--n_heads", "4", "--d_feed_forward", "64", "--depthwise_kernel_size", "7",
+        "--batch_size", "4", "--n_batch_split", "1", "--n_workers", "2",
+        "--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
+KEEP = ("EXPECTED:", "BEAM_OUT_", "GATED_OUT", "TIMESTAMPS:", "WER", "histogram",
+        "escalated:", "gate calibration", "shallow fusion", "trainable parameters")
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_inference():
+    return _load("jax_inference_cli", os.path.join(REPO, "inference.py"))
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    d = tmp_path_factory.mktemp("infer_cli")
+    write_corpus(str(d / "corpus"), speakers=("19", "103", "7"), chapters=("200",),
+                 per_chapter=2, seed=21)
+    cfg = JModelConfig(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,
+                       n_enc_layers_per_exit=1, depthwise_kernel_size=7, vocab_size=256)
+    params, state = jec.init(jax.random.PRNGKey(5), cfg)
+    # widen the heads so that the random model emits tokens, not only blanks
+    params["heads"]["w"] = params["heads"]["w"] * 6.0
+    jck.save_pytree({"params": params, "model_state": state}, str(d / "model"))
+    avg = d / "avg"
+    avg.mkdir()
+    for e, seed in ((0, 6), (1, 7)):
+        p, s = jec.init(jax.random.PRNGKey(seed), cfg)
+        p["heads"]["w"] = p["heads"]["w"] * 6.0
+        p = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), p)
+        jck.save_epoch(str(avg), e, p, s)
+    tr = _load("train_arpa", os.path.join(REPO, "tools", "train_arpa.py"))
+    refs = []
+    for root, _, files in os.walk(str(d / "corpus")):
+        for f in files:
+            if f.endswith(".trans.txt"):
+                with open(os.path.join(root, f)) as fh:
+                    refs += [ln.split(" ", 1)[1].lower().split() for ln in fh if ln.strip()]
+    tr.write_arpa(tr.train(refs, order=2), str(d / "lm.arpa"))
+    return d
+
+
+def _lines(out):
+    return [ln for ln in out.splitlines() if any(k in ln for k in KEEP)]
+
+
+CASES = {
+    "greedy": ["--timestamps", "true"],
+    "prefix_beam": ["--decode", "prefix_beam", "--beam_size", "4", "--timestamps", "true"],
+    "lexicon_beam_lm": ["--decode", "lexicon_beam", "--beam_size", "6",
+                        "--lm_path", "{d}/lm.arpa", "--lm_weight", "0.5"],
+    "gate": ["--exit_threshold", "0.277"],
+    "cascade": ["--exit_threshold", "0.277", "--cascade_k", "1", "--cascade_pack", "2"],
+    "gate_calibration": ["--gate_calibration", "{d}/calib.json", "--cascade_k", "1"],
+    "avg_models": ["--load_model_dir", "{d}/avg", "--avg_model_start", "0",
+                   "--avg_model_end", "1"],
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
+    d = setup
+    with open(d / "calib.json", "w") as f:
+        f.write('{"thresholds": [0.05, 2.0], "temperatures": [1.5, 1.0], '
+                '"score": "margin"}')
+    extra = [a.format(d=d) for a in CASES[case]]
+    load = ([] if case == "avg_models" else ["--load_model_path", str(d / "model")])
+    argv = ["--decoder_mode", "ctc", "--data_root", str(d / "corpus"),
+            "--eval_splits", "test-clean", *TINY, *load, *extra]
+    jax_inference.main(argv)
+    want = _lines(capsys.readouterr().out)
+    port_inference.main(argv + ["--device", "cpu"])
+    got = _lines(capsys.readouterr().out)
+    assert got == want
+    n_out = sum("BEAM_OUT_" in ln or "GATED_OUT" in ln for ln in got)
+    assert sum("EXPECTED:" in ln for ln in got) == 6
+    assert n_out == (6 if case.startswith(("gate", "cascade")) else 12)
+    hyps = [ln.split(":", 2)[-1].strip() for ln in got if "_OUT" in ln]
+    assert any(hyps), "every hypothesis is empty: the comparison would see nothing"
+    if "timestamps" in " ".join(extra):
+        assert sum("TIMESTAMPS:" in ln for ln in got) >= 1
+    if case in ("gate", "cascade", "gate_calibration"):
+        exits = {ln.split("(exit ")[1][0] for ln in got if "GATED_OUT" in ln}
+        assert exits == {"1", "2"}, exits          # both exits chosen somewhere
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--decoder_mode", "aed"], "AED"),
+    (["--streaming", "true"], "streaming"),
+    (["--model_type", "splitformer"], "early_conformer"),
+])
+def test_cli_unported_modes_raise_by_name(setup, flags, match):
+    argv = ["--decoder_mode", "ctc", "--synthetic_data", "true", "--device", "cpu",
+            "--load_model_path", str(setup / "model"), *TINY]
+    i = argv.index(flags[0]) if flags[0] in argv else None
+    if i is not None:
+        argv[i + 1] = flags[1]
+    else:
+        argv += flags
+    with pytest.raises(NotImplementedError, match=match):
+        port_inference.main(argv)
+
+
+def test_cli_needs_a_gpu_unless_told_cpu(setup, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_inference.main(["--decoder_mode", "ctc", "--synthetic_data", "true",
+                             "--load_model_path", str(setup / "model"), *TINY])
+
+
+def test_cli_synthetic_split_and_loading_errors(setup, capsys):
+    argv = ["--decoder_mode", "ctc", "--synthetic_data", "true", "--device", "cpu", *TINY]
+    port_inference.main(argv + ["--load_model_path", str(setup / "model")])
+    out = capsys.readouterr().out
+    assert "synthetic WER exit 2:" in out and "(8 utts)" in out
+    with pytest.raises(ValueError, match="Invalid model loading config"):
+        port_inference.main(argv)
+    with pytest.raises(SystemExit, match="Invalid data split"):
+        port_inference.main(["--decoder_mode", "ctc", "--device", "cpu", "--data_root",
+                             str(setup), "--load_model_path", str(setup / "model"), *TINY])

@@ -37,7 +37,7 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 24
+    assert int(n) >= 38
     assert bad.strip() == "[]"
 
 
@@ -102,3 +102,17 @@ def test_kernel_wrappers_refuse_other_devices():
         kcb.conformer_block({}, torch.empty(1, 4, 32, device=meta),
                             torch.empty(1, dtype=torch.int32, device=meta),
                             n_heads=1, kernel_size=3)
+
+
+def test_the_walk_reaches_the_inference_slice():
+    """The import probe walks the inference CLI's modules, the native
+    loader and its ctypes wrappers among them."""
+    import pkgutil
+    import early_exit_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(early_exit_tpu_torch.__path__,
+                                                   "early_exit_tpu_torch.")}
+    want = {"_native", "inference", "data.native", "data.flac", "data.librispeech",
+            "decoding.native", "decoding.lexicon", "decoding.ngram_lm",
+            "decoding.lexicon_beam", "decoding.prefix_beam", "decoding.forced_align",
+            "decoding.timestamps", "decoding.api", "utils.model_utils"}
+    assert {"early_exit_tpu_torch." + n for n in want} <= names

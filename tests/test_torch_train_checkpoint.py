@@ -29,7 +29,7 @@ from early_exit_tpu.optim import make_optimizer
 from early_exit_tpu.training import checkpoint as jck
 from early_exit_tpu.training import trainer as jtrainer
 from early_exit_tpu_torch import interop, train as port_train
-from early_exit_tpu_torch.checkpoint import load_tree
+from early_exit_tpu_torch.checkpoint import load_tree, save_tree
 from early_exit_tpu_torch.configs import ModelConfig, TrainConfig
 from early_exit_tpu_torch.models import conformer
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
@@ -166,6 +166,48 @@ def test_avg_prune_saved_epochs_and_resume_rule(tmp_path):
     assert not os.path.exists(ck.opt_ckpt_path(d, 2))
 
 
+@pytest.mark.parametrize("start,end", [(0, 1), (0, 3), (1, 3)])
+def test_avg_models_of_bf16_files_equal_the_jax_package(tmp_path, start, end):
+    """Files whose params are bf16 (as assets/flagship_ckpt) and whose BN
+    statistics are float32: each mean is rounded to its leaf's file dtype,
+    as the JAX package's avg_models does, and equals it bit for bit
+    (epoch 2 is missing and skipped)."""
+    d = str(tmp_path)
+    model = EarlyConformer(ModelConfig(**TINY)).init(torch.Generator().manual_seed(3))
+    g = torch.Generator().manual_seed(4)
+    for e in (0, 1, 3):
+        with torch.no_grad():
+            for prm in model.parameters():
+                prm.add_(0.1 * torch.randn(prm.shape, generator=g))
+            model.set_state({"blocks": {"conv_bn": {
+                k: torch.rand(v.shape, generator=g) + 0.5
+                for k, v in model.state()["blocks"]["conv_bn"].items()}}})
+        params, state = interop.to_jax_params(model)
+        params = jax.tree_util.tree_map(
+            lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16), params)
+        save_tree({"params": params, "model_state": state}, ck.model_ckpt_path(d, e))
+    avg = EarlyConformer(ModelConfig(**TINY))
+    ck.avg_models(avg, d, start, end)
+    mine_p, mine_s = interop.to_jax_params(avg)
+    p, s, _, _ = _templates()
+    jp, js = jax.device_get(jck.avg_models(d, start, end, p, s))
+    rounded = 0
+    for a, b in zip(jax.tree_util.tree_leaves(mine_p), jax.tree_util.tree_leaves(jp)):
+        assert b.dtype == jnp.bfloat16
+        np.testing.assert_array_equal(a, np.asarray(b, np.float32))
+        rounded += int((a != a.astype(jnp.bfloat16).astype(np.float32)).sum())
+    assert rounded == 0
+    for a, b in zip(jax.tree_util.tree_leaves(mine_s), jax.tree_util.tree_leaves(js)):
+        assert b.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    # the float32 mean of the bf16 files is not what the JAX package loads
+    files = [load_tree(ck.model_ckpt_path(d, e)) for e in (0, 1, 3) if start <= e <= end]
+    w = [f["params"]["heads"]["w"].double() for f in files]
+    exact = (sum(w) / len(w)).float().numpy()
+    assert (len(files) == 1 or
+            (exact != mine_p["heads"]["w"]).any())
+
+
 def _cli(tmp_path, *extra):
     return ["--decoder_mode", "ctc", "--synthetic_data", "true", "--device", "cpu",
             "--d_model", "32", "--n_enc_exits", "2", "--n_enc_layers_per_exit", "1",
@@ -197,7 +239,6 @@ def test_train_cli_two_epochs_then_resume(tmp_path, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--decoder_mode", "aed"], "AED"),
     (["--model_type", "splitformer"], "early_conformer"),
-    (["--synthetic_data", "false"], "LibriSpeech"),
     (["--tp", "2"], "parallelism"),
     (["--conv_norm", "group"], "conv_norm"),
 ])
