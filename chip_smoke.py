@@ -116,6 +116,31 @@ Phases (any failure exits non-zero, with no result line):
      audio-s/s of each whole CLI pass, the share of its wall spent in the
      decoders, and the device's busy share of a second, profiled pass.
 
+ 10. streaming serving of the flagship at the CLI's geometry (chunk 1.0 s,
+     left 3.0 s, right 0.5 s: windows of 112 sub frames) over phase 9's
+     corpus: (1) the attention kernel against its plain version at
+     (32, 8, 112, 32), bf16 and float32, on the windows' key masks (75
+     leading invalid keys, trailing invalid keys, both, wholly masked rows
+     that must give the mean of v), with its time, bound and SDPA's; (2)
+     `StreamPool` with every exit decoded, fed 1 s a round, with the XLA
+     path's attention and with the kernel (12 launches a dispatch, no
+     block or head kernel), each against the same code on the CPU over 8
+     streams and against each other within phase 3's token contract,
+     exit 6 within 30% WER, the per-exit streaming WER beside phase 9's;
+     (3) the pool against solo `StreamingRecognizer`s, and one utterance
+     as one chunk with no context against `Recognizer`'s unfused batch
+     path; (4) the gated pool at fast exit 2, its threshold in the widest
+     gap of the corpus's chunk confidences: part of the chunks escalated,
+     each stream's chunk exits equal to a solo gated recognizer's; (5)
+     causal windows, card against CPU over 16 streams (the card against
+     itself at two pool widths printed beside it); (6) the load test's
+     round loop (`serving.load_test.run_rounds`) at 16 and 64 streams,
+     ungated and gated, each with one profiled round; (7) the server
+     (`python -m early_exit_tpu_torch.serve` in a thread) with 4
+     concurrent loopback connections, each final's ids equal to a local
+     recognizer's; (8) `python -m early_exit_tpu_torch.inference
+     --streaming true` over the corpus, ungated and gated.
+
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
 last line is
@@ -125,8 +150,10 @@ last line is
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -136,6 +163,7 @@ PEAK_F32 = 67e12        # H100 SXM float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SANE_DENSE_WER = 30.0   # bench.py's in-distribution sanity bound
 N_CORPUS = 32          # phase 9's FLAC corpus, utterances
+LOAD_STREAMS, LOAD_ROUNDS = (16, 64), 30   # phase 10.6's pools
 # bf16 tolerance of the block kernel against its plain version, in bf16
 # ulps of the plain value (2^-7 below |y| = 1) and in the share of values
 # that differ at all. The two sum the softmax denominator over T' keys in
@@ -1121,10 +1149,17 @@ def main() -> None:
     # ---- 8. training on the card
     train_phase(dev, card, knobs, reset_counts, expect_counts)
 
-    # ---- 9. the inference CLI on the card
-    t9 = time.perf_counter()
-    infer_phase(dev, card, knobs, reset_counts, read_counts)
-    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    # ---- 9. the inference CLI on the card; 10. streaming, over its corpus
+    tmp = tempfile.mkdtemp(prefix="eet_infer_")
+    try:
+        t9 = time.perf_counter()
+        corp = infer_phase(dev, card, knobs, reset_counts, read_counts, tmp)
+        print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+        t10 = time.perf_counter()
+        streamed = streaming_phase(dev, card, reset_counts, read_counts, corp)
+        print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
     blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
@@ -1146,7 +1181,12 @@ def main() -> None:
              "all-exit path"),
             ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
-             f"(D) unfused, attention_impl='pallas', {n_cd} requests")):
+             f"(D) unfused, attention_impl='pallas', {n_cd} requests"),
+            ("attention_streaming", streamed["attention"], streamed["attention_err"],
+             "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51", streamed["launches"],
+             "StreamPool with attention_impl='pallas' over the corpus (10.2), 12 a "
+             "dispatch; timed at (32, 8, 112, 32) on streaming key masks")):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": line, "launches": n, "path": path,
                      "max_abs_err": err, "ms": t["ms"],
@@ -1190,16 +1230,16 @@ class _DecodeClock:
             setattr(obj, name, fn)
 
 
-def infer_phase(dev, card, knobs, reset_counts, read_counts) -> None:
+def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     """Phase 9: the inference CLI (`python -m early_exit_tpu_torch.inference`)
-    on the card over a LibriSpeech-layout FLAC corpus written beforehand:
-    greedy, the prefix beam, the lexicon beam with an ARPA LM, and the
-    gated cascade, with launch counts, WER, held results and times."""
+    on the card over a LibriSpeech-layout FLAC corpus written beforehand
+    under tmp: greedy, the prefix beam, the lexicon beam with an ARPA LM,
+    and the gated cascade, with launch counts, WER, held results and
+    times. Returns the corpus for phase 10: its root, the dataset, the
+    waveforms and greedy's WER at each exit."""
     import contextlib
     import importlib.util
     import io
-    import shutil
-    import tempfile
 
     import numpy as np
     import torch
@@ -1220,297 +1260,712 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts) -> None:
     from early_exit_tpu_torch.tokenizer import load_tokenizer
 
     tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
-    tmp = tempfile.mkdtemp(prefix="eet_infer_")
-    try:
-        # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
-        t0 = time.perf_counter()
-        ds = SyntheticDataset(n_items=N_CORPUS, seed=9090,
-                              min_words=knobs.get("min_words", 18),
-                              max_words=knobs.get("max_words", 22),
-                              noise=knobs.get("noise", 0.02), noise_hi=knobs.get("noise_hi"),
-                              speaker_warp=knobs.get("speaker_warp", 0.0),
-                              dur_jitter=knobs.get("dur_jitter", 0.0),
-                              amp_jitter=knobs.get("amp_jitter", 0.0))
-        src = {}
-        for sub, n in (("full", N_CORPUS), ("cpu8", 8)):
-            for i in range(n):
-                utt = ds[i]
-                spk, ch = str(100 + i % 4), str(10 + i // 4)
-                d = os.path.join(tmp, sub, "LibriSpeech", "test-clean", spk, ch)
-                os.makedirs(d, exist_ok=True)
-                stem = f"{spk}-{ch}-{i:04d}"
-                write_flac_verbatim(os.path.join(d, stem + ".flac"), utt.waveform)
-                with open(os.path.join(d, f"{spk}-{ch}.trans.txt"), "a") as f:
-                    f.write(f"{stem} {utt.transcript}\n")
-                quant = (np.clip(utt.waveform, -1, 1) * 32767).astype(np.int16)
-                src[stem] = (quant.astype(np.float32) / 32768.0, utt.transcript)
-        corpus = LibriSpeechDataset(os.path.join(tmp, "full"), "test-clean")
-        if len(corpus) != N_CORPUS:
-            fail(f"the corpus lists {len(corpus)} utterances, not {N_CORPUS}")
-        waves, refs_by_text = [], {}
-        for i in range(len(corpus)):
-            u = corpus[i]
-            want, transcript = src[u.utterance_id]
-            if u.transcript != transcript or not np.array_equal(u.waveform, want):
-                fail(f"{u.utterance_id} does not read back as its int16 source")
-            waves.append(u.waveform)
-        audio_s = sum(len(w) for w in waves) / 16000.0
-        _native.build()
-        print(f"inference corpus: {len(corpus)} utterances, {audio_s:.1f} s of audio, "
-              f"written as FLAC and read back equal to the int16 sources "
-              f"({time.perf_counter() - t0:.1f} s, native library built)")
-        spec = importlib.util.spec_from_file_location(
-            "train_arpa", os.path.join(HERE, "tools", "train_arpa.py"))
-        arpa_mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(arpa_mod)
-        arpa = os.path.join(tmp, "lm.arpa")
-        arpa_mod.write_arpa(arpa_mod.train(
-            [t.lower().split() for _, t in src.values()], order=2), arpa)
+    # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
+    t0 = time.perf_counter()
+    ds = SyntheticDataset(n_items=N_CORPUS, seed=9090,
+                          min_words=knobs.get("min_words", 18),
+                          max_words=knobs.get("max_words", 22),
+                          noise=knobs.get("noise", 0.02), noise_hi=knobs.get("noise_hi"),
+                          speaker_warp=knobs.get("speaker_warp", 0.0),
+                          dur_jitter=knobs.get("dur_jitter", 0.0),
+                          amp_jitter=knobs.get("amp_jitter", 0.0))
+    src = {}
+    for sub, n in (("full", N_CORPUS), ("cpu8", 8)):
+        for i in range(n):
+            utt = ds[i]
+            spk, ch = str(100 + i % 4), str(10 + i // 4)
+            d = os.path.join(tmp, sub, "LibriSpeech", "test-clean", spk, ch)
+            os.makedirs(d, exist_ok=True)
+            stem = f"{spk}-{ch}-{i:04d}"
+            write_flac_verbatim(os.path.join(d, stem + ".flac"), utt.waveform)
+            with open(os.path.join(d, f"{spk}-{ch}.trans.txt"), "a") as f:
+                f.write(f"{stem} {utt.transcript}\n")
+            quant = (np.clip(utt.waveform, -1, 1) * 32767).astype(np.int16)
+            src[stem] = (quant.astype(np.float32) / 32768.0, utt.transcript)
+    corpus = LibriSpeechDataset(os.path.join(tmp, "full"), "test-clean")
+    if len(corpus) != N_CORPUS:
+        fail(f"the corpus lists {len(corpus)} utterances, not {N_CORPUS}")
+    waves, refs_by_text = [], {}
+    for i in range(len(corpus)):
+        u = corpus[i]
+        want, transcript = src[u.utterance_id]
+        if u.transcript != transcript or not np.array_equal(u.waveform, want):
+            fail(f"{u.utterance_id} does not read back as its int16 source")
+        waves.append(u.waveform)
+    audio_s = sum(len(w) for w in waves) / 16000.0
+    _native.build()
+    print(f"inference corpus: {len(corpus)} utterances, {audio_s:.1f} s of audio, "
+          f"written as FLAC and read back equal to the int16 sources "
+          f"({time.perf_counter() - t0:.1f} s, native library built)")
+    spec = importlib.util.spec_from_file_location(
+        "train_arpa", os.path.join(HERE, "tools", "train_arpa.py"))
+    arpa_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(arpa_mod)
+    arpa = os.path.join(tmp, "lm.arpa")
+    arpa_mod.write_arpa(arpa_mod.train(
+        [t.lower().split() for _, t in src.values()], order=2), arpa)
 
-        # a calibration under which the cascade escalates part of the
-        # corpus (the committed one accepts it all at exit 2): exit 2's
-        # threshold in the middle of the widest gap between the corpus's
-        # exit-2 confidences in their middle half, so that no row lies
-        # within a bf16 schedule's reach of it
-        rec = Recognizer.from_flagship("cuda", fused=True)
-        wav = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
-        for i, w in enumerate(waves):
-            wav[i, :len(w)] = w
-        counts = np.array([len(w) for w in waves])
-        k_casc, gate = int(rec.calib["cascade_k"]), rec.gate_settings()
-        with torch.no_grad():
-            lp, sub_len = rec.model.encode_exit(*rec._features(wav, counts), k_casc)
-            m = torch.arange(lp.shape[1], device=dev)[None, :] < sub_len[:, None]
-            conf = scaled_confidence(lp, m, gate["score"],
-                                     gate["temperatures"][k_casc - 1]).sort().values
-        lo, hi = N_CORPUS // 4, 3 * N_CORPUS // 4
-        j = lo + int((conf[lo + 1:hi + 1] - conf[lo:hi]).argmax())
-        thr = list(gate["threshold"])
-        thr[k_casc - 1] = float(conf[j:j + 2].mean())
-        calib_esc = {**rec.calib, "thresholds": thr}
-        esc_path = os.path.join(tmp, "calib_escalating.json")
-        with open(esc_path, "w") as f:
-            json.dump(calib_esc, f)
-        print(f"escalating calibration: exit {k_casc}'s threshold {thr[k_casc - 1]:.6f}, "
-              f"in a gap of {float(conf[j + 1] - conf[j]):.3e} between the corpus's "
-              f"confidences; {j + 1} of {N_CORPUS} below it")
-        del lp, sub_len, m
+    # a calibration under which the cascade escalates part of the
+    # corpus (the committed one accepts it all at exit 2): exit 2's
+    # threshold in the middle of the widest gap between the corpus's
+    # exit-2 confidences in their middle half, so that no row lies
+    # within a bf16 schedule's reach of it
+    rec = Recognizer.from_flagship("cuda", fused=True)
+    wav = np.zeros((len(waves), max(len(w) for w in waves)), np.float32)
+    for i, w in enumerate(waves):
+        wav[i, :len(w)] = w
+    counts = np.array([len(w) for w in waves])
+    k_casc, gate = int(rec.calib["cascade_k"]), rec.gate_settings()
+    with torch.no_grad():
+        lp, sub_len = rec.model.encode_exit(*rec._features(wav, counts), k_casc)
+        m = torch.arange(lp.shape[1], device=dev)[None, :] < sub_len[:, None]
+        conf = scaled_confidence(lp, m, gate["score"],
+                                 gate["temperatures"][k_casc - 1]).sort().values
+    lo, hi = N_CORPUS // 4, 3 * N_CORPUS // 4
+    j = lo + int((conf[lo + 1:hi + 1] - conf[lo:hi]).argmax())
+    thr = list(gate["threshold"])
+    thr[k_casc - 1] = float(conf[j:j + 2].mean())
+    calib_esc = {**rec.calib, "thresholds": thr}
+    esc_path = os.path.join(tmp, "calib_escalating.json")
+    with open(esc_path, "w") as f:
+        json.dump(calib_esc, f)
+    print(f"escalating calibration: exit {k_casc}'s threshold {thr[k_casc - 1]:.6f}, "
+          f"in a gap of {float(conf[j + 1] - conf[j]):.3e} between the corpus's "
+          f"confidences; {j + 1} of {N_CORPUS} below it")
+    del lp, sub_len, m
 
-        base = ["--decoder_mode", "ctc", "--load_model_path",
-                os.path.join(HERE, "assets", "flagship_ckpt"), "--eval_splits",
-                "test-clean", "--fused_block", "true"]
-        modes = {
-            "greedy": [],
-            "prefix_beam": ["--decode", "prefix_beam", "--beam_size", "10"],
-            "lexicon_beam": ["--decode", "lexicon_beam", "--lm_path", arpa],
-            "cascade": ["--gate_calibration",
-                        os.path.join(HERE, "assets", "flagship_calib.json"),
-                        "--cascade_k", str(k_casc)],
-            "cascade_escalating": ["--gate_calibration", esc_path,
-                                   "--cascade_k", str(k_casc)],
-        }
+    base = ["--decoder_mode", "ctc", "--load_model_path",
+            os.path.join(HERE, "assets", "flagship_ckpt"), "--eval_splits",
+            "test-clean", "--fused_block", "true"]
+    modes = {
+        "greedy": [],
+        "prefix_beam": ["--decode", "prefix_beam", "--beam_size", "10"],
+        "lexicon_beam": ["--decode", "lexicon_beam", "--lm_path", arpa],
+        "cascade": ["--gate_calibration",
+                    os.path.join(HERE, "assets", "flagship_calib.json"),
+                    "--cascade_k", str(k_casc)],
+        "cascade_escalating": ["--gate_calibration", esc_path,
+                               "--cascade_k", str(k_casc)],
+    }
 
-        def cli(argv):
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                inference.main(argv)
-            return buf.getvalue()
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            inference.main(argv)
+        return buf.getvalue()
 
-        def wer_lines(out):
-            return {int(ln.split("WER exit ")[1].split(":")[0]):
-                    float(ln.split(": ")[1].split("%")[0])
-                    for ln in out.splitlines() if " WER exit " in ln}
+    def wer_lines(out):
+        return {int(ln.split("WER exit ")[1].split(":")[0]):
+                float(ln.split(": ")[1].split("%")[0])
+                for ln in out.splitlines() if " WER exit " in ln}
 
-        def sub_batches(root):
-            args, _, tcfg, acfg, tk = get_args(base + ["--data_root", root], mode="infer")
-            pipe = Pipeline(LibriSpeechDataset(root, "test-clean"), tk, acfg, tcfg,
-                            shuffle=False, infer_mode=True, device="cpu")
-            from concurrent.futures import ThreadPoolExecutor
-            with ThreadPoolExecutor(4) as pool:
-                return sum(len(s) for s in pipe._epoch_host(0, pool))
+    def sub_batches(root):
+        args, _, tcfg, acfg, tk = get_args(base + ["--data_root", root], mode="infer")
+        pipe = Pipeline(LibriSpeechDataset(root, "test-clean"), tk, acfg, tcfg,
+                        shuffle=False, infer_mode=True, device="cpu")
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(4) as pool:
+            return sum(len(s) for s in pipe._epoch_host(0, pool))
 
-        full = os.path.join(tmp, "full")
-        n_sub = sub_batches(full)
-        outs, rates = {}, {}
-        for mode, extra in modes.items():
-            t_mode = time.perf_counter()
-            argv = base + ["--data_root", full] + extra
-            targets = [(ctc, "greedy_decode_ids"), (ctc, "greedy_decode"),
-                       (prefix_beam, "prefix_beam_search"),
-                       (LexiconBeamDecoder, "decode_batch")]
-            reset_counts()
-            with _DecodeClock(targets) as clock:
-                t0 = time.perf_counter()
-                out = cli(argv)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            got = read_counts()
-            outs[mode] = out
-            blocks, heads = got["conformer_block_bf16"], got["head_argmax"]
-            others = {k: v for k, v in got.items()
-                      if k not in ("conformer_block_bf16", "head_argmax") and v}
-            print(f"CLI {mode}: launches {got} over {n_sub} sub-batches")
-            if others:
-                fail(f"CLI {mode}: unexpected launches {others}")
-            if mode == "greedy" and (blocks, heads) != (12 * n_sub, n_sub):
-                fail(f"CLI greedy: {blocks} block and {heads} head launches, expected "
-                     f"{12 * n_sub} and {n_sub}")
-            if mode in ("prefix_beam", "lexicon_beam") and (blocks, heads) != (12 * n_sub, 0):
-                fail(f"CLI {mode}: {blocks} block and {heads} head launches, expected "
-                     f"{12 * n_sub} and 0")
-            if mode.startswith("cascade"):
-                n_esc = int(out.split("cascade escalated: ")[1].split("/")[0])
-                # phase A: 2 exits x 2 blocks a sub-batch; phase B: 8 blocks
-                # a batch of escalated rows
-                a_blocks = 2 * k_casc * n_sub
-                if (heads or not a_blocks <= blocks <= 12 * n_sub
-                        or (blocks - a_blocks) % (12 - 2 * k_casc)
-                        or (blocks > a_blocks) != (n_esc > 0)):
-                    fail(f"CLI {mode}: {blocks} block and {heads} head launches with "
-                         f"{n_esc} rows escalated, expected {2 * k_casc} a sub-batch in "
-                         f"phase A and {12 - 2 * k_casc} a phase-B batch")
-                if mode == "cascade_escalating" and not n_esc:
-                    fail("CLI cascade_escalating: no row escalated")
-            # the device's busy share, from a second pass under the profiler:
-            # device activity only, tallied from the trace file (the prefix
-            # beam launches ~10^5 kernels, too many for key_averages)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t1 = time.perf_counter()
-                cli(argv)
-                torch.cuda.synchronize()
-                wall_p = time.perf_counter() - t1
-            trace = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(trace)
-            with open(trace) as f:
-                busy = sum(ev.get("dur", 0) for ev in json.load(f)["traceEvents"]
-                           if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
-            rates[mode] = audio_s / wall
-            summary = [ln for ln in out.splitlines()
-                       if " WER" in ln or "cascade" in ln or "shallow fusion" in ln]
-            for ln in summary:
-                print(f"CLI {mode}: {ln}")
-            print(f"CLI {mode} on {card}: {audio_s:.1f} s of audio in {wall:.3f} s of wall "
-                  f"= {audio_s / wall:.1f} audio-s/s (the whole main(): model load, FLAC "
-                  f"decode, pipeline, forward, decoding, detokenising); decoding {100 * clock.seconds / wall:.1f}% "
-                  f"of the wall ({clock.seconds:.3f} s); device busy {busy:.3f} s of a "
-                  f"profiled pass's {wall_p:.3f} s ({100 * busy / wall_p:.1f}%); both passes "
-                  f"and the profile's tally {time.perf_counter() - t_mode:.1f} s")
-
-        # ---- 9.3 held results
-        wers = {m: wer_lines(o) for m, o in outs.items() if not m.startswith("cascade")}
-        for m, w in wers.items():
-            if sorted(w) != list(range(1, 7)):
-                fail(f"CLI {m}: WER lines {w}")
-            # exit 1 (~90% WER on the flagship) does not transcribe
-            bad = {e: v for e, v in w.items() if e > 1 and v > SANE_DENSE_WER}
-            if bad:
-                fail(f"CLI {m}: exits above {SANE_DENSE_WER}% WER: {bad}")
-        if wers["prefix_beam"][6] > wers["greedy"][6] + 0.5:
-            fail(f"prefix beam exit-6 WER {wers['prefix_beam'][6]}% > greedy's "
-                 f"{wers['greedy'][6]}% + 0.5")
-        print(f"CLI exit-6 WER: greedy {wers['greedy'][6]}%, prefix beam "
-              f"{wers['prefix_beam'][6]}%, lexicon beam + LM {wers['lexicon_beam'][6]}%")
-
-        # greedy on the card against the same CLI on the CPU, 8 utterances
-        small = os.path.join(tmp, "cpu8")
-
-        def per_exit_hyps(out):
-            hyps = {}
-            for ln in out.splitlines():
-                if "BEAM_OUT_" in ln:
-                    e = int(ln.split("BEAM_OUT_")[1].split(":")[0])
-                    hyps.setdefault(e, []).append(ln.split(" : ", 1)[1]
-                                                  if " : " in ln else "")
-            return hyps
-
-        t0 = time.perf_counter()
-        out_c = cli(base + ["--data_root", small])
-        out_h = cli(base + ["--data_root", small, "--device", "cpu"])
-        print(f"CLI greedy on 8 utterances, card then CPU: {time.perf_counter() - t0:.1f} s")
-        hc, hh, w8 = per_exit_hyps(out_c), per_exit_hyps(out_h), wer_lines(out_c)
-        edits = total = 0
-        for e in sorted(hh):
-            ee = tt = 0
-            for a, b in zip(hc[e], hh[e]):
-                ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
-                ee += edit_distance(ta, tb)
-                tt += max(len(tb), 1)
-            print(f"CLI greedy, card vs CPU, 8 utterances, exit {e} (WER {w8[e]}%): "
-                  f"{ee}/{tt} tokens differ")
-            if w8[e] <= SANE_DENSE_WER and ee > TOKEN_DISAGREE * tt:
-                fail(f"CLI greedy: card and CPU disagree by > 1% at exit {e}")
-            edits, total = edits + ee, total + tt
-        print(f"CLI greedy, card vs CPU: pooled {100 * edits / total:.3f}%")
-        if edits > TOKEN_DISAGREE * total:
-            fail("CLI greedy: card and CPU disagree by > 1% pooled")
-
-        # the prefix beam on the card and on the CPU, the same log-probs
-        args, mcfg, tcfg, acfg, tk = get_args(base + ["--data_root", full], mode="infer")
-        model = inference.load_model(args, mcfg, dev)
-        pipe = Pipeline(corpus, tk, acfg, tcfg, shuffle=False, infer_mode=True, device=dev)
-        batch = next(iter(pipe.epoch(0)))
-        logp, _, sub_len = inference.exit_outputs(model, batch["feats"], batch["feat_lengths"],
-                                                  greedy=False, timestamps=False)
-        lp_h, len_h = logp.cpu(), sub_len.cpu()
-        worst, n_rows, t0 = 0.0, 0, time.perf_counter()
-        for e in range(logp.shape[0]):
-            a = prefix_beam.prefix_beam_search(logp[e], sub_len, beam_size=10)
-            b = prefix_beam.prefix_beam_search(lp_h[e], len_h, beam_size=10)
-            a = [t.cpu() for t in a]
-            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
-                fail(f"prefix beam: card and CPU tokens differ at exit {e + 1}")
-            worst = max(worst, float(((a[2] - b[2]).abs() / b[2].abs()).max()))
-            n_rows += a[0].shape[0]
-        print(f"prefix beam, card vs CPU on the same log-probs ({n_rows} rows of "
-              f"{logp.shape[2]} frames, beam 10): tokens equal, scores' max relative "
-              f"difference {worst:.3e} (tolerance 1e-4); {time.perf_counter() - t0:.1f} s")
-        if worst > 1e-4:
-            fail("prefix beam: card and CPU scores differ by more than 1e-4 relative")
-        del model, logp, lp_h
-
-        # the cascade's chosen exits and transcripts against
-        # Recognizer.transcribe_gated's under the same calibration
-        lex = inference._load_lexicon(args)
-        for mode, calib in (("cascade", rec.calib), ("cascade_escalating", calib_esc)):
-            chosen_cli, hyp_cli, ref = {}, {}, None
-            for ln in outs[mode].splitlines():
-                if "EXPECTED:" in ln:
-                    ref = ln.split("EXPECTED: ", 1)[1] if "EXPECTED: " in ln else ""
-                elif "GATED_OUT (exit " in ln:
-                    e, hyp = ln.split("GATED_OUT (exit ", 1)[1].split(")", 1)
-                    chosen_cli[ref], hyp_cli[ref] = int(e), hyp[2:]
-            rec.calib = calib
-            with torch.no_grad():
-                g = rec.transcribe_gated(wav, counts)
-            n_diff = n_esc = n_text = 0
-            tally = {"every row": [0, 0], "the escalated rows": [0, 0]}
-            for i in range(len(corpus)):
-                label = text.clean_infer_label(corpus.items[i][1])
-                key = tok.decode(text.encode_target(label, tok)[1:-1]).lower()
-                want = int(g.chosen_exit[i])
-                n_diff += chosen_cli.get(key) != want
-                a, b = hyp_cli.get(key, ""), lex.apply(g.texts[i].lower())
-                n_text += a != b
-                ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
-                for rows in ("every row",) + (("the escalated rows",) if want > k_casc else ()):
-                    tally[rows][0] += edit_distance(ta, tb)
-                    tally[rows][1] += max(len(tb), 1)
-                n_esc += want > k_casc
-            print(f"CLI {mode} vs Recognizer.transcribe_gated, {len(corpus)} utterances, "
-                  f"{n_esc} escalated: {n_diff} chosen exits differ; {n_text} transcripts "
-                  f"differ; tokens differing: " + ", ".join(
-                      f"{rows} {e}/{t}" for rows, (e, t) in tally.items()))
-            if n_diff or len(chosen_cli) != len(corpus):
-                fail(f"the CLI's {mode} chooses other exits than "
-                     f"Recognizer.transcribe_gated")
-            if any(e > TOKEN_DISAGREE * t for e, t in tally.values()):
-                fail(f"the CLI's {mode} transcribes other tokens than "
-                     f"Recognizer.transcribe_gated by > 1%")
+    full = os.path.join(tmp, "full")
+    n_sub = sub_batches(full)
+    outs, rates = {}, {}
+    for mode, extra in modes.items():
+        t_mode = time.perf_counter()
+        argv = base + ["--data_root", full] + extra
+        targets = [(ctc, "greedy_decode_ids"), (ctc, "greedy_decode"),
+                   (prefix_beam, "prefix_beam_search"),
+                   (LexiconBeamDecoder, "decode_batch")]
+        reset_counts()
+        with _DecodeClock(targets) as clock:
+            t0 = time.perf_counter()
+            out = cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got = read_counts()
+        outs[mode] = out
+        blocks, heads = got["conformer_block_bf16"], got["head_argmax"]
+        others = {k: v for k, v in got.items()
+                  if k not in ("conformer_block_bf16", "head_argmax") and v}
+        print(f"CLI {mode}: launches {got} over {n_sub} sub-batches")
+        if others:
+            fail(f"CLI {mode}: unexpected launches {others}")
+        if mode == "greedy" and (blocks, heads) != (12 * n_sub, n_sub):
+            fail(f"CLI greedy: {blocks} block and {heads} head launches, expected "
+                 f"{12 * n_sub} and {n_sub}")
+        if mode in ("prefix_beam", "lexicon_beam") and (blocks, heads) != (12 * n_sub, 0):
+            fail(f"CLI {mode}: {blocks} block and {heads} head launches, expected "
+                 f"{12 * n_sub} and 0")
+        if mode.startswith("cascade"):
+            n_esc = int(out.split("cascade escalated: ")[1].split("/")[0])
+            # phase A: 2 exits x 2 blocks a sub-batch; phase B: 8 blocks
+            # a batch of escalated rows
+            a_blocks = 2 * k_casc * n_sub
+            if (heads or not a_blocks <= blocks <= 12 * n_sub
+                    or (blocks - a_blocks) % (12 - 2 * k_casc)
+                    or (blocks > a_blocks) != (n_esc > 0)):
+                fail(f"CLI {mode}: {blocks} block and {heads} head launches with "
+                     f"{n_esc} rows escalated, expected {2 * k_casc} a sub-batch in "
+                     f"phase A and {12 - 2 * k_casc} a phase-B batch")
             if mode == "cascade_escalating" and not n_esc:
-                fail("transcribe_gated escalates no row under the escalating calibration")
-        print(f"CLI audio-s/s on {card}: " + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+                fail("CLI cascade_escalating: no row escalated")
+        # the device's busy share, from a second pass under the profiler:
+        # device activity only, tallied from the trace file (the prefix
+        # beam launches ~10^5 kernels, too many for key_averages)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            cli(argv)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t1
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            busy = sum(ev.get("dur", 0) for ev in json.load(f)["traceEvents"]
+                       if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+        rates[mode] = audio_s / wall
+        summary = [ln for ln in out.splitlines()
+                   if " WER" in ln or "cascade" in ln or "shallow fusion" in ln]
+        for ln in summary:
+            print(f"CLI {mode}: {ln}")
+        print(f"CLI {mode} on {card}: {audio_s:.1f} s of audio in {wall:.3f} s of wall "
+              f"= {audio_s / wall:.1f} audio-s/s (the whole main(): model load, FLAC "
+              f"decode, pipeline, forward, decoding, detokenising); decoding {100 * clock.seconds / wall:.1f}% "
+              f"of the wall ({clock.seconds:.3f} s); device busy {busy:.3f} s of a "
+              f"profiled pass's {wall_p:.3f} s ({100 * busy / wall_p:.1f}%); both passes "
+              f"and the profile's tally {time.perf_counter() - t_mode:.1f} s")
+
+    # ---- 9.3 held results
+    wers = {m: wer_lines(o) for m, o in outs.items() if not m.startswith("cascade")}
+    for m, w in wers.items():
+        if sorted(w) != list(range(1, 7)):
+            fail(f"CLI {m}: WER lines {w}")
+        # exit 1 (~90% WER on the flagship) does not transcribe
+        bad = {e: v for e, v in w.items() if e > 1 and v > SANE_DENSE_WER}
+        if bad:
+            fail(f"CLI {m}: exits above {SANE_DENSE_WER}% WER: {bad}")
+    if wers["prefix_beam"][6] > wers["greedy"][6] + 0.5:
+        fail(f"prefix beam exit-6 WER {wers['prefix_beam'][6]}% > greedy's "
+             f"{wers['greedy'][6]}% + 0.5")
+    print(f"CLI exit-6 WER: greedy {wers['greedy'][6]}%, prefix beam "
+          f"{wers['prefix_beam'][6]}%, lexicon beam + LM {wers['lexicon_beam'][6]}%")
+
+    # greedy on the card against the same CLI on the CPU, 8 utterances
+    small = os.path.join(tmp, "cpu8")
+
+    def per_exit_hyps(out):
+        hyps = {}
+        for ln in out.splitlines():
+            if "BEAM_OUT_" in ln:
+                e = int(ln.split("BEAM_OUT_")[1].split(":")[0])
+                hyps.setdefault(e, []).append(ln.split(" : ", 1)[1]
+                                              if " : " in ln else "")
+        return hyps
+
+    t0 = time.perf_counter()
+    out_c = cli(base + ["--data_root", small])
+    out_h = cli(base + ["--data_root", small, "--device", "cpu"])
+    print(f"CLI greedy on 8 utterances, card then CPU: {time.perf_counter() - t0:.1f} s")
+    hc, hh, w8 = per_exit_hyps(out_c), per_exit_hyps(out_h), wer_lines(out_c)
+    edits = total = 0
+    for e in sorted(hh):
+        ee = tt = 0
+        for a, b in zip(hc[e], hh[e]):
+            ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
+            ee += edit_distance(ta, tb)
+            tt += max(len(tb), 1)
+        print(f"CLI greedy, card vs CPU, 8 utterances, exit {e} (WER {w8[e]}%): "
+              f"{ee}/{tt} tokens differ")
+        if w8[e] <= SANE_DENSE_WER and ee > TOKEN_DISAGREE * tt:
+            fail(f"CLI greedy: card and CPU disagree by > 1% at exit {e}")
+        edits, total = edits + ee, total + tt
+    print(f"CLI greedy, card vs CPU: pooled {100 * edits / total:.3f}%")
+    if edits > TOKEN_DISAGREE * total:
+        fail("CLI greedy: card and CPU disagree by > 1% pooled")
+
+    # the prefix beam on the card and on the CPU, the same log-probs
+    args, mcfg, tcfg, acfg, tk = get_args(base + ["--data_root", full], mode="infer")
+    model = inference.load_model(args, mcfg, dev)
+    pipe = Pipeline(corpus, tk, acfg, tcfg, shuffle=False, infer_mode=True, device=dev)
+    batch = next(iter(pipe.epoch(0)))
+    logp, _, sub_len = inference.exit_outputs(model, batch["feats"], batch["feat_lengths"],
+                                              greedy=False, timestamps=False)
+    lp_h, len_h = logp.cpu(), sub_len.cpu()
+    worst, n_rows, t0 = 0.0, 0, time.perf_counter()
+    for e in range(logp.shape[0]):
+        a = prefix_beam.prefix_beam_search(logp[e], sub_len, beam_size=10)
+        b = prefix_beam.prefix_beam_search(lp_h[e], len_h, beam_size=10)
+        a = [t.cpu() for t in a]
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            fail(f"prefix beam: card and CPU tokens differ at exit {e + 1}")
+        worst = max(worst, float(((a[2] - b[2]).abs() / b[2].abs()).max()))
+        n_rows += a[0].shape[0]
+    print(f"prefix beam, card vs CPU on the same log-probs ({n_rows} rows of "
+          f"{logp.shape[2]} frames, beam 10): tokens equal, scores' max relative "
+          f"difference {worst:.3e} (tolerance 1e-4); {time.perf_counter() - t0:.1f} s")
+    if worst > 1e-4:
+        fail("prefix beam: card and CPU scores differ by more than 1e-4 relative")
+    del model, logp, lp_h
+
+    # the cascade's chosen exits and transcripts against
+    # Recognizer.transcribe_gated's under the same calibration
+    lex = inference._load_lexicon(args)
+    for mode, calib in (("cascade", rec.calib), ("cascade_escalating", calib_esc)):
+        chosen_cli, hyp_cli, ref = {}, {}, None
+        for ln in outs[mode].splitlines():
+            if "EXPECTED:" in ln:
+                ref = ln.split("EXPECTED: ", 1)[1] if "EXPECTED: " in ln else ""
+            elif "GATED_OUT (exit " in ln:
+                e, hyp = ln.split("GATED_OUT (exit ", 1)[1].split(")", 1)
+                chosen_cli[ref], hyp_cli[ref] = int(e), hyp[2:]
+        rec.calib = calib
+        with torch.no_grad():
+            g = rec.transcribe_gated(wav, counts)
+        n_diff = n_esc = n_text = 0
+        tally = {"every row": [0, 0], "the escalated rows": [0, 0]}
+        for i in range(len(corpus)):
+            label = text.clean_infer_label(corpus.items[i][1])
+            key = tok.decode(text.encode_target(label, tok)[1:-1]).lower()
+            want = int(g.chosen_exit[i])
+            n_diff += chosen_cli.get(key) != want
+            a, b = hyp_cli.get(key, ""), lex.apply(g.texts[i].lower())
+            n_text += a != b
+            ta, tb = tok.encode_as_ids(a), tok.encode_as_ids(b)
+            for rows in ("every row",) + (("the escalated rows",) if want > k_casc else ()):
+                tally[rows][0] += edit_distance(ta, tb)
+                tally[rows][1] += max(len(tb), 1)
+            n_esc += want > k_casc
+        print(f"CLI {mode} vs Recognizer.transcribe_gated, {len(corpus)} utterances, "
+              f"{n_esc} escalated: {n_diff} chosen exits differ; {n_text} transcripts "
+              f"differ; tokens differing: " + ", ".join(
+                  f"{rows} {e}/{t}" for rows, (e, t) in tally.items()))
+        if n_diff or len(chosen_cli) != len(corpus):
+            fail(f"the CLI's {mode} chooses other exits than "
+                 f"Recognizer.transcribe_gated")
+        if any(e > TOKEN_DISAGREE * t for e, t in tally.values()):
+            fail(f"the CLI's {mode} transcribes other tokens than "
+                 f"Recognizer.transcribe_gated by > 1%")
+        if mode == "cascade_escalating" and not n_esc:
+            fail("transcribe_gated escalates no row under the escalating calibration")
+    print(f"CLI audio-s/s on {card}: " + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
+    return dict(root=full, corpus=corpus, waves=waves, audio_s=audio_s,
+                greedy_wer=wers["greedy"])
+
+
+def _stream_ids(pool, n_exits: int):
+    """Per exit, per stream: the pool's ids ([exit][stream])."""
+    return [[r.ids_at(e) for r in pool.recs] for e in range(1, n_exits + 1)]
+
+
+def _ids_disagreement(got, want):
+    """Per exit (edits, reference tokens) of got's ids against want's
+    ([exit][stream] lists of ids)."""
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    return [(sum(edit_distance(a, b) for a, b in zip(ga, wa)),
+             sum(max(len(b), 1) for b in wa)) for ga, wa in zip(got, want)]
+
+
+def _hold_token_contract(what: str, dis, wers) -> None:
+    """<= 1% of tokens pooled and at every exit that transcribes."""
+    pooled = sum(e for e, _ in dis) / max(sum(t for _, t in dis), 1)
+    print(f"{what}: tokens differing per exit {[f'{e}/{t}' for e, t in dis]}, "
+          f"pooled {100 * pooled:.3f}%")
+    if pooled > TOKEN_DISAGREE:
+        fail(f"{what}: > 1% of tokens differ pooled")
+    for i, ((e, t), w) in enumerate(zip(dis, wers)):
+        if w <= SANE_DENSE_WER and e > TOKEN_DISAGREE * t:
+            fail(f"{what}: > 1% of tokens differ at exit {i + 1} (WER {w}%)")
+
+
+@contextlib.contextmanager
+def _window_dispatches(streaming, record_conf=None):
+    """Count the window programs' dispatches (rows of a batch count once);
+    with record_conf, append the gate confidence of every valid row of
+    every fast dispatch to it."""
+    import torch
+    counts = {"fast": 0, "deep": 0, "one_row": 0}
+    saved = streaming.window_forward, streaming.window_forward_all_exits
+
+    def single(*a, **k):
+        out = saved[0](*a, **k)
+        counts["fast" if k.get("with_confidence") else "deep"] += 1
+        counts["one_row"] += a[-1].shape[0] == 1
+        if record_conf is not None and k.get("with_confidence"):
+            n_valid = a[-1]
+            record_conf.extend(out[1][n_valid > 0].cpu().tolist())
+        return out
+
+    def every(*a, **k):
+        counts["deep"] += 1
+        counts["one_row"] += a[-1].shape[0] == 1
+        return saved[1](*a, **k)
+
+    streaming.window_forward, streaming.window_forward_all_exits = single, every
+    try:
+        yield counts
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        streaming.window_forward, streaming.window_forward_all_exits = saved
+        torch.cuda.synchronize()
+
+
+def streaming_phase(dev, card, reset_counts, read_counts, corp) -> dict:
+    """Phase 10: streaming serving of the flagship (`StreamPool`,
+    `StreamingRecognizer`, the server, the CLI's --streaming) over phase
+    9's corpus at the CLI's geometry; the attention kernel on the
+    windows' key masks. Returns the attention kernel's streaming row."""
+    import io
+    import itertools
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from early_exit_tpu_torch import inference, serve
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.serving import StreamingRecognizer, StreamPool, load_test
+    from early_exit_tpu_torch.serving import streaming
+    from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
+
+    GEO = dict(chunk_s=1.0, left_s=3.0, right_s=0.5)
+    waves, audio_s = corp["waves"], corp["audio_s"]
+    refs = [text.clean_infer_label(corp["corpus"][i].transcript).lower()
+            for i in range(len(waves))]
+    flagship = os.path.join(HERE, "assets", "flagship_ckpt")
+    n_cpu, n_causal = 8, 16
+    rec_x = Recognizer.from_flagship(dev.type, fused=True)
+    model, model_acfg, tok = rec_x.model, rec_x.acfg, rec_x.tokenizer
+    E, L = model.cfg.n_enc_exits, len(model.stack.blocks)
+
+    def feed_pass(model, ws, **kw):
+        """A pool over ws, fed 1 s a round round-robin, polled each round,
+        each tail flushed: (pool, wall s)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool = StreamPool(len(ws), model, model_acfg, **kw)
+        step = 16000
+        for s0 in range(0, max(len(w) for w in ws), step):
+            for i, w in enumerate(ws):
+                if s0 < len(w):
+                    pool.feed(i, w[s0:s0 + step])
+            pool.poll()
+        for i in range(len(ws)):
+            pool.finish(i)
+        torch.cuda.synchronize()
+        return pool, time.perf_counter() - t0
+
+    def ladder(per_exit_ids, n=None):
+        return [round(wer_pct(refs[:n or len(refs)], [tok.decode(ids) for ids in ex]), 2)
+                for ex in per_exit_ids]
+
+    # ---- 10.1 the attention kernel on the windows' key masks
+    S, H, T, dh = 32, 8, 112, 32
+    kind = torch.arange(S, device=dev) % 5
+    # full; 75 leading invalid keys (the stream's first window); a tail
+    # flush's 60 valid; both (a short stream's only window); an idle row
+    pos0 = torch.where((kind == 1) | (kind == 3), -75, 40)
+    n_valid = torch.tensor([T, T, 60, 100, 0], device=dev)[kind]
+    ar = torch.arange(T, device=dev)
+    mask = ((pos0[:, None] + ar) >= 0) & (ar < n_valid[:, None])
+    gen = torch.Generator(device="cpu").manual_seed(1010)
+    att_err = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = ((torch.randn(S, H, T, dh, generator=gen) * 3.0).to(dt).to(dev)
+                   for _ in range(3))
+        o_k = katt.fused_attention(q, k, v, mask)
+        o_p = katt.fused_attention_plain(q, k, v, mask)
+        torch.cuda.synchronize()
+        tol = ATT_RTOL * max(1.0, float(v.float().abs().max()))
+        err = float((o_k - o_p).abs().max())
+        idle = kind == 4
+        mean_v = v[idle].float().mean(2, keepdim=True).expand(-1, -1, T, -1)
+        idle_err = float((o_k[idle] - mean_v).abs().max())
+        per_kind = [float((o_k[kind == i] - o_p[kind == i]).abs().max()) for i in range(5)]
+        print(f"attention vs plain on streaming key masks (S={S}, H={H}, T={T}, dh={dh}, "
+              f"{dt}): max|d| {err} (full, leading 75 invalid, trailing 52 invalid, both, "
+              f"idle: {per_kind}); idle rows vs the mean of v {idle_err} (tolerance {tol:.3e})")
+        if not torch.isfinite(o_k).all() or err > tol or idle_err > tol:
+            fail(f"attention kernel disagrees with its plain version on streaming "
+                 f"key masks ({dt})")
+        att_err = max(att_err, err)
+    qb, kb, vb = (torch.randn(S, H, T, dh, generator=gen).to(torch.bfloat16).to(dev)
+                  for _ in range(3))      # the path hands the kernel bf16 q, k, v
+    qf, kf, vf = qb.float(), kb.float(), vb.float()
+    big = torch.empty(4096, 4096, device=dev).normal_()
+    blocker = lambda: torch.matmul(big, big)        # noqa: E731
+    att = dict(
+        ms=cuda_ms(lambda: katt.fused_attention(qb, kb, vb, mask), behind=blocker),
+        plain_ms=cuda_ms(lambda: katt.fused_attention_plain(qb, kb, vb, mask),
+                         behind=blocker),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qf, kf, vf, attn_mask=mask[:, None, None, :]), behind=blocker),
+        bound=(4 * S * H * T * T * dh / PEAK_F32,
+               (3 * qb.numel() * 2 + qb.numel() * 4 + mask.numel()) / PEAK_BYTES))
+    del big
+    att["bound_by"] = "operations" if att["bound"][0] >= att["bound"][1] else "bytes"
+    att["bound_ms"] = 1e3 * max(att["bound"])
+    print(f"attention at the streaming shape (S={S}, 8, 112, 32), bf16 q, k, v, on "
+          f"{card}: kernel {att['ms']:.4f} ms, plain {att['plain_ms']:.4f} ms, SDPA on "
+          f"float32 {att['library_ms']:.4f} ms, bound {att['bound_ms']:.4f} ms "
+          f"({att['bound_by']})")
+
+    # ---- 10.2 StreamPool, every exit, XLA-path attention and the kernel
+    rec_p = Recognizer.from_flagship(dev.type, fused=True, attention_impl="pallas")
+    card_ids, launches = {}, 0
+    for impl, rec in (("xla", rec_x), ("pallas", rec_p)):
+        reset_counts()
+        with _window_dispatches(streaming) as nd:
+            pool, wall = feed_pass(rec.model, waves, all_exits=True, **GEO)
+        got = read_counts()
+        want = {k: 0 for k in got}
+        if impl == "pallas":
+            want["attention"] = L * nd["deep"]
+            launches = got["attention"]
+        print(f"StreamPool ({impl} attention), {len(waves)} streams, {audio_s:.1f} s of "
+              f"audio: {nd['deep']} dispatches ({nd['one_row']} of one row: the tails' "
+              f"flushes), launches {got}; {wall:.3f} s of wall = "
+              f"{audio_s / wall:.1f} audio-s/s on {card}")
+        if got != want:
+            fail(f"StreamPool ({impl}): launches {got}, expected {want}")
+        card_ids[impl] = _stream_ids(pool, E)
+        wers = ladder(card_ids[impl])
+        print(f"StreamPool ({impl}) streaming WER per exit {wers}; phase 9's batch "
+              f"greedy WER {[corp['greedy_wer'][e] for e in range(1, E + 1)]}")
+        if wers[-1] > SANE_DENSE_WER:
+            fail(f"StreamPool ({impl}): exit-{E} streaming WER {wers[-1]}%")
+        # the same code on the CPU, the first n_cpu streams
+        t0 = time.perf_counter()
+        rec_c = Recognizer.from_flagship("cpu", fused=True, attention_impl=impl)
+        pool_c, _ = feed_pass(rec_c.model, waves[:n_cpu], all_exits=True, **GEO)
+        cpu_ids = _stream_ids(pool_c, E)
+        _hold_token_contract(
+            f"StreamPool ({impl}), card vs CPU, {n_cpu} streams",
+            _ids_disagreement([ex[:n_cpu] for ex in card_ids[impl]], cpu_ids),
+            ladder(cpu_ids, n_cpu))
+        print(f"  (CPU pass {time.perf_counter() - t0:.1f} s)")
+    _hold_token_contract("StreamPool, kernel attention vs XLA-path attention",
+                         _ids_disagreement(card_ids["pallas"], card_ids["xla"]),
+                         ladder(card_ids["xla"]))
+    del rec_p
+
+    # ---- 10.3 pool vs solo recognizers; chunk = whole utterance vs batch path
+    pool4, _ = feed_pass(model, waves[:4], all_exits=True, **GEO)
+    solo = []
+    for w in waves[:4]:
+        r = StreamingRecognizer(model, model_acfg, all_exits=True, **GEO)
+        for s0 in range(0, len(w), 16000):
+            r.accept_waveform(w[s0:s0 + 16000])
+        r.finish()
+        solo.append(r)
+    solo_ids = [[r.ids_at(e) for r in solo] for e in range(1, E + 1)]
+    _hold_token_contract("StreamPool (4 streams) vs 4 StreamingRecognizers",
+                         _ids_disagreement(_stream_ids(pool4, E), solo_ids),
+                         ladder(solo_ids, 4))
+    i_short = int(np.argmin([len(w) for w in waves]))
+    w = waves[i_short]
+    whole = StreamingRecognizer(model, model_acfg, all_exits=True,
+                                chunk_s=len(w) / 16000 + 1.0, left_s=0.0, right_s=0.0)
+    whole.accept_waveform(w)
+    whole.finish()
+    padded = np.zeros((1, whole.win_samples), np.float32)
+    padded[0, :len(w)] = w
+    rec_u = Recognizer.from_flagship(dev.type, fused=False)
+    with torch.no_grad():
+        out_u = rec_u.transcribe(torch.from_numpy(padded), torch.tensor([len(w)]))
+    batch_ids = [[out_u.tokens[e, 0, :int(out_u.n_tokens[e, 0])].tolist()]
+                 for e in range(E)]
+    whole_ids = [[whole.ids_at(e)] for e in range(1, E + 1)]
+    _hold_token_contract(f"one utterance ({len(w) / 16000:.2f} s) as one chunk with no "
+                         f"context vs Recognizer's unfused batch path",
+                         _ids_disagreement(whole_ids, batch_ids),
+                         [round(wer_pct([refs[i_short]], [tok.decode(x[0])]), 2)
+                          for x in batch_ids])
+    del rec_u
+
+    # ---- 10.4 the gated pool: fast exit 2, the threshold in the widest gap
+    k_fast = 2
+    confs = []
+    with _window_dispatches(streaming, record_conf=confs):
+        feed_pass(model, waves, exit_threshold=1.01, fast_exit=k_fast, **GEO)
+    confs = np.sort(np.asarray(confs))
+    lo, hi = len(confs) // 4, 3 * len(confs) // 4
+    j = lo + int(np.argmax(confs[lo + 1:hi + 1] - confs[lo:hi]))
+    thr = float(confs[j:j + 2].mean())
+    print(f"gated streaming: {len(confs)} chunks' exit-{k_fast} confidences; threshold "
+          f"{thr:.6f} in a gap of {float(confs[j + 1] - confs[j]):.3e}; {j + 1} below it")
+    gkw = dict(exit_threshold=thr, fast_exit=k_fast, **GEO)
+    with _window_dispatches(streaming) as nd:
+        gpool, gwall = feed_pass(model, waves, **gkw)
+    exits = [e for r in gpool.recs for e in r.exits_run]
+    hist = {e: exits.count(e) for e in sorted(set(exits))}
+    esc = exits.count(E) / len(exits)
+    gwer = round(wer_pct(refs, [tok.decode(r.ids) for r in gpool.recs]), 2)
+    print(f"gated StreamPool (fast exit {k_fast}, threshold {thr:.6f}): chunks per exit "
+          f"{hist}, escalated {100 * esc:.1f}%, {nd['fast']} fast and {nd['deep']} deep "
+          f"dispatches, WER {gwer}%, {audio_s / gwall:.1f} audio-s/s on {card}")
+    if esc in (0.0, 1.0):
+        fail(f"gated StreamPool escalated {100 * esc:.0f}% of the chunks")
+    n_diff = 0
+    gsolo = []
+    for i, w in enumerate(waves):
+        r = StreamingRecognizer(model, model_acfg, **gkw)
+        for s0 in range(0, len(w), 16000):
+            r.accept_waveform(w[s0:s0 + 16000])
+        r.finish()
+        n_diff += r.exits_run != gpool.recs[i].exits_run
+        gsolo.append(r.ids)
+    dis = _ids_disagreement([[r.ids for r in gpool.recs]], [gsolo])
+    print(f"gated StreamPool vs {len(waves)} gated StreamingRecognizers: {n_diff} streams' "
+          f"chunk exits differ; tokens differing {dis[0][0]}/{dis[0][1]}")
+    if n_diff:
+        fail("the gated StreamPool runs other exits than the solo recognizers")
+    _hold_token_contract("gated StreamPool vs solo recognizers", dis, [gwer])
+
+    # ---- 10.5 causal windows (pair mask; the plain attention path), card
+    # vs CPU over n_causal streams; beside it, the first n_cpu streams on
+    # the card at two pool widths, whose products cuBLAS may schedule
+    # apart: how far two bf16 schedules move these tokens
+    ckw = dict(all_exits=True, causal_attention=True, **GEO)
+    cpool, _ = feed_pass(model, waves[:n_causal], **ckw)
+    cpool8, _ = feed_pass(model, waves[:n_cpu], **ckw)
+    card_c = _stream_ids(cpool, E)
+    rec_c = Recognizer.from_flagship("cpu", fused=True)
+    cpool_c, _ = feed_pass(rec_c.model, waves[:n_causal], **ckw)
+    causal_ids = _stream_ids(cpool_c, E)
+    print(f"causal windows, streaming WER per exit {ladder(causal_ids, n_causal)} "
+          f"(the flagship was not trained with chunked attention)")
+    dis8 = _ids_disagreement([ex[:n_cpu] for ex in card_c],
+                             [ex[:n_cpu] for ex in causal_ids])
+    env8 = _ids_disagreement(_stream_ids(cpool8, E), [ex[:n_cpu] for ex in card_c])
+    print(f"causal windows, first {n_cpu} streams: card vs CPU per exit "
+          f"{[f'{e}/{t}' for e, t in dis8]}; the card at {n_cpu} streams vs at "
+          f"{n_causal} {[f'{e}/{t}' for e, t in env8]}")
+    _hold_token_contract(f"causal windows, card vs CPU, {n_causal} streams",
+                         _ids_disagreement(card_c, causal_ids),
+                         ladder(causal_ids, n_causal))
+    del rec_c
+
+    # ---- 10.6 load: the load test's round loop on flagship pools
+    load = []
+    for gated, S_ in [(g, n) for g in (False, True) for n in LOAD_STREAMS]:
+        rng = np.random.RandomState(S_)
+        bank = itertools.count()
+
+        def draw(n):
+            w_ = waves[next(bank) % len(waves)]
+            return w_[:n] if len(w_) >= n else np.pad(w_, (0, n - len(w_)))
+
+        def new_len():
+            return int((2.0 + 12.0 * rng.rand()) * 16000)
+
+        kw = dict(gkw) if gated else dict(GEO)
+        lpool = StreamPool(S_, model, model_acfg, **kw)
+        res = load_test.run_rounds(lpool, rounds=LOAD_ROUNDS, chunk_s=1.0, draw=draw,
+                                   new_len=new_len)
+        print(f"load (load_test.run_rounds) on {card}: {json.dumps(res)}")
+        load.append(res)
+
+        def one_round():
+            for i in range(S_):
+                lpool.feed(i, draw(16000))
+            lpool.poll()
+        profile_forward(one_round, f"{'gated ' if gated else ''}StreamPool round "
+                        f"(S={S_})", card, S_, iters=1, top=10,
+                        shape=f"S={S_} windows of 112 sub frames")
+
+    # ---- 10.7 the server: 4 concurrent loopback connections
+    holder = []
+    srv = serve.make_server(["--load_model_path", flagship, "--port", "0",
+                             "--device", dev.type], port_holder=holder)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    first_need = StreamingRecognizer(srv.model, srv.acfg, **srv.rec_kw)._window_bounds(0)[1]
+    results = [None] * 4
+
+    def client(i):
+        pcm = np.clip(waves[i] * 32768.0, -32768, 32767).astype(np.int16)
+        lines, t_full = [], None
+        t0 = time.perf_counter()
+        with socket.create_connection(("127.0.0.1", holder[0])) as s:
+            f = s.makefile("rb")
+
+            def reader():
+                for ln in f:
+                    lines.append((time.perf_counter(), json.loads(ln)))
+            rt = threading.Thread(target=reader)
+            rt.start()
+            s.sendall(b'{"sample_rate": 16000, "format": "s16le"}\n')
+            sent = 0
+            for p in range(0, len(pcm), 3331):
+                s.sendall(pcm[p:p + 3331].tobytes())
+                sent += len(pcm[p:p + 3331])
+                if t_full is None and sent >= first_need:
+                    t_full = time.perf_counter()
+            s.shutdown(socket.SHUT_WR)
+            rt.join(timeout=300)
+        results[i] = (pcm, lines, t_full, time.perf_counter() - t0)
+
+    clients = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(timeout=300)
+    srv.shutdown()
+    srv.server_close()
+    for i, res in enumerate(results):
+        if res is None:
+            fail(f"server: connection {i} did not finish")
+        pcm, lines, t_full, wall_c = res
+        finals = [m for _, m in lines if "final" in m]
+        partials = [(t, m) for t, m in lines if "partial" in m]
+        if len(finals) != 1:
+            fail(f"server: connection {i} got {len(finals)} final lines: {lines[-3:]}")
+        local = StreamingRecognizer(srv.model, srv.acfg, srv.tok, **srv.rec_kw)
+        local.accept_waveform(pcm.astype(np.float32) / 32768.0)
+        local.finish()
+        first = (f"{(partials[0][0] - t_full) * 1e3:.1f} ms" if partials and t_full
+                 else "no partial line")
+        print(f"server connection {i} ({len(pcm) / 16000:.2f} s of audio) on {card}: "
+              f"{wall_c:.3f} s of wall, {len(partials)} partial lines, first partial "
+              f"{first} after the last byte of the first full window; final ids "
+              f"{'equal' if finals[0]['ids'] == local.ids else 'DIFFER from'} a local "
+              f"StreamingRecognizer's")
+        if finals[0]["ids"] != local.ids:
+            fail(f"server: connection {i}'s final differs from a local recognizer's")
+
+    # ---- 10.8 the CLI's --streaming over the corpus, ungated and gated
+    base = ["--decoder_mode", "ctc", "--load_model_path", flagship, "--data_root",
+            corp["root"], "--eval_splits", "test-clean", "--streaming", "true",
+            "--device", dev.type]
+    for mode, extra in (("ungated", []),
+                        ("gated", ["--exit_threshold", repr(thr), "--fast_exit",
+                                   str(k_fast)])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            inference.main(base + extra)
+        wall = time.perf_counter() - t0
+        out = buf.getvalue().splitlines()
+        n_exp = sum("EXPECTED:" in ln for ln in out)
+        n_out = sum("STREAM_OUT (exit " in ln for ln in out)
+        wer_l = {int(ln.split("WER exit ")[1].split(":")[0]):
+                 float(ln.split(": ")[1].split("%")[0])
+                 for ln in out if "streaming WER exit " in ln}
+        for ln in out:
+            if "streaming WER" in ln or "histogram" in ln:
+                print(f"CLI --streaming ({mode}): {ln}")
+        print(f"CLI --streaming ({mode}) on {card}: {audio_s:.1f} s of audio in "
+              f"{wall:.3f} s = {audio_s / wall:.1f} audio-s/s (the whole main())")
+        want_out = len(waves) * (1 if extra else E)
+        if (n_exp != len(waves) or n_out != want_out
+                or sorted(wer_l) != ([E] if extra else list(range(1, E + 1)))
+                or (extra and not any("histogram" in ln for ln in out))):
+            fail(f"CLI --streaming ({mode}): {n_exp} EXPECTED, {n_out} STREAM_OUT lines, "
+                 f"WER lines {wer_l}")
+        if wer_l[E] > SANE_DENSE_WER:
+            fail(f"CLI --streaming ({mode}): exit-{E} WER {wer_l[E]}%")
+    return {"attention": att, "attention_err": att_err, "launches": launches,
+            "load": load}
 
 
 def _flat(tree, prefix=""):
@@ -1881,7 +2336,8 @@ def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
     busy = sum(r[1] for r in rows)
     print(f"profile of the {what} on {card} ({shape or f'B={B} x 10 s'}, "
           f"torch.profiler): wall {wall_ms:.3f} ms per call, device busy "
-          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%)")
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{sum(r[2] for r in rows)} kernel launches per call")
     print(f"{'ms/call':>11} {'calls':>6}  kernel")
     for name, ms, n in rows[:top]:
         print(f"{ms:11.4f} {n:6d}  {name[:110]}")

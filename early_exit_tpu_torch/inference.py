@@ -18,14 +18,18 @@ With --fused_block true the trunk runs through the Conformer block kernel
 and greedy decoding through the head + argmax kernel. --exit_threshold or
 --gate_calibration decodes each utterance at one exit instead: the
 batch-conservative gate, or with --cascade_k the two-phase cascade.
+--streaming true decodes each split through `StreamPool` instead: audio
+fed --streaming_chunk_s a round to --batch_size streams, every exit
+decoded from one trunk pass per window, or with --exit_threshold each
+chunk gated at --fast_exit (`serving/streaming.py`).
 
 The model comes from --load_model_path or the average of the epoch
 checkpoints --avg_model_start..--avg_model_end in --load_model_dir. Runs
 on CUDA unless --device cpu; raises without a GPU otherwise.
 
 Not ported, and raising by name: --decoder_mode aed (the AED model and
-its beam search), --streaming (the chunked streaming recognizer), model
-types other than early_conformer, and --conv_norm group.
+its beam search), model types other than early_conformer, and
+--conv_norm group.
 """
 
 from __future__ import annotations
@@ -60,12 +64,28 @@ def check_ported(args) -> None:
             "transformer_decoder) and its beam search are not ported; decode "
             "--decoder_mode ctc")
     if args.streaming:
-        raise NotImplementedError(
-            "--streaming: the streaming recognizer (serving/streaming.py) is "
-            "not ported; decode whole utterances")
+        check_streaming(args)
     if args.model_type != "early_conformer":
         raise NotImplementedError(
             f"--model_type {args.model_type}: only early_conformer is ported")
+
+
+def check_streaming(args) -> None:
+    """The JAX CLI's usage errors of --streaming."""
+    if args.model_type != "early_conformer":
+        sys.exit("--streaming: the chunked-window recognizer runs the "
+                 "early_conformer trunk (serving/streaming.py); "
+                 f"{args.model_type} checkpoints are batch-only")
+    if args.decode != "greedy" or args.lm_path:
+        sys.exit("--streaming decodes greedily per chunk; it does not "
+                 "combine with --decode beams or --lm_path (run without "
+                 "--streaming for those)")
+    if args.gate_calibration is not None:
+        sys.exit("--streaming gates per CHUNK at one fast exit "
+                 "(--exit_threshold [--gate_score]); the per-exit "
+                 "calibrated thresholds of --gate_calibration are fitted "
+                 "on whole-utterance confidence and do not apply — run "
+                 "without --streaming to use them")
 
 
 def _load_lexicon(args):
@@ -196,6 +216,83 @@ def run_ctc_gated(model, model_cfg, pipe, split, tokenizer, lex, args):
             acc.add(ref, hyp)
     print(f"{split} gated WER: {100 * acc.value:.2f}% "
           f"(mean exits run {np.mean(exits_run):.2f}/{model_cfg.n_enc_exits})")
+
+
+def run_ctc_streaming(model, model_cfg, dataset, split, tokenizer, lex, args,
+                      audio_cfg):
+    """Decode the split through `StreamPool`: --batch_size streams at a
+    time, fed --streaming_chunk_s of audio a round round-robin and polled
+    each round (one batched dispatch a round), each tail flushed at the
+    end. Ungated every exit is decoded from one trunk pass; with
+    --exit_threshold each chunk is gated at --fast_exit and decoded at
+    the deepest exit when it escalates."""
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.serving import StreamPool
+    S = max(int(args.batch_size), 1)
+    n_exit = model_cfg.n_enc_exits
+    gated = args.exit_threshold is not None
+    n_out = 1 if gated else n_exit
+    accs = [WerAccumulator() for _ in range(n_out)]
+    exits_run = []
+    kw = dict(chunk_s=args.streaming_chunk_s, left_s=args.streaming_left_s,
+              right_s=args.streaming_right_s,
+              causal_attention=(args.dynamic_chunk_training
+                                if args.streaming_causal == "auto"
+                                else args.streaming_causal == "true"))
+    if gated:
+        kw.update(exit_threshold=float(args.exit_threshold),
+                  gate_score=args.gate_score, fast_exit=args.fast_exit)
+    else:
+        kw["all_exits"] = True
+
+    def groups():
+        """Audio read one group of S utterances at a time."""
+        group = []
+        for i in range(len(dataset)):
+            utt = dataset[i]
+            ref = text.clean_infer_label(utt.transcript)
+            if ref is None:
+                continue
+            group.append((ref, utt.waveform))
+            if len(group) == S:
+                yield group
+                group = []
+        if group:
+            yield group
+
+    step = int(audio_cfg.sample_rate * max(args.streaming_chunk_s, 0.1))
+    for group in groups():
+        pool = StreamPool(len(group), model, audio_cfg, tokenizer, **kw)
+        longest = max(len(w) for _, w in group)
+        for s0 in range(0, longest, step):
+            for i, (_, w) in enumerate(group):
+                if s0 < len(w):
+                    pool.feed(i, w[s0:s0 + step])
+            pool.poll()
+        for i, (ref, _) in enumerate(group):
+            pool.finish(i)
+            rec = pool.recs[i]
+            print(split, "EXPECTED:", ref.lower())
+            for e in range(n_out):
+                hyp = (rec.transcript if gated else rec.transcript_at(e + 1))
+                hyp = hyp.strip().lower()
+                if lex is not None:
+                    hyp = lex.apply(hyp)
+                label = n_exit if gated else e + 1
+                print(split, f"STREAM_OUT (exit {label}):", hyp)
+                accs[e].add(ref.lower(), hyp)
+            exits_run.extend(rec.exits_run)
+    gate = ""
+    if exits_run:
+        er = np.asarray(exits_run)
+        hist = {e: int(np.sum(er == e)) for e in range(1, n_exit + 1)}
+        gate = (f" (gated: mean exit {np.mean(er):.2f}/{n_exit}, "
+                f"{100 * np.mean(er == 1):.0f}% of chunks at exit 1)")
+        print(f"{split} streaming exit histogram (chunks per exit): {hist}")
+    for e, acc in enumerate(accs):
+        label = n_exit if gated else e + 1
+        print(f"{split} streaming WER exit {label}: "
+              f"{100 * acc.value:.2f}% ({acc.utterances} utts){gate}")
 
 
 def _lexicon_beam(args):
@@ -336,7 +433,10 @@ def main(argv=None) -> None:
         pipe = Pipeline(ds, tokenizer, audio_cfg, train_cfg, bpe=args.bpe,
                         shuffle=False, infer_mode=True, workers=args.n_workers,
                         device=device)
-        if args.exit_threshold is not None or args.gate_calibration is not None:
+        if args.streaming:
+            run_ctc_streaming(model, model_cfg, ds, split, tokenizer, lex, args,
+                              audio_cfg)
+        elif args.exit_threshold is not None or args.gate_calibration is not None:
             if args.cascade_k is not None:
                 run_ctc_gated_cascade(model, model_cfg, pipe, split, tokenizer, lex, args)
             else:

@@ -298,11 +298,15 @@ class ConformerStack(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect_outputs: bool = False, collect_every: int = 1,
                 n_layers: Optional[int] = None, first_layer: int = 0,
-                attn_mask: Optional[torch.Tensor] = None):
+                attn_mask: Optional[torch.Tensor] = None,
+                prefix_mask: bool = True):
         """Inference over blocks first_layer .. n_layers-1 (default all).
         Returns y, or (y, outs) with collect_outputs: outs (L/k, B, T, D)
         holds every k-th output of the L layers run (their layers k-1,
-        2k-1, ...). An attn_mask takes the unfused path."""
+        2k-1, ...). An attn_mask takes the unfused path, and so does a
+        mask that is not a prefix of each row (prefix_mask=False: a
+        streaming window, whose frames before the stream start are
+        invalid), since the block kernel takes lengths."""
         last = len(self.blocks) if n_layers is None else n_layers
         if not 0 <= first_layer <= last <= len(self.blocks):
             raise ValueError(f"layers {first_layer}..{last} of "
@@ -315,7 +319,7 @@ class ConformerStack(nn.Module):
         if collect_outputs:
             outs = torch.empty((L // k,) + tuple(x.shape), dtype=self.cfg.rdtype,
                                device=x.device)
-        if (self.cfg.fused_block and attn_mask is None
+        if (self.cfg.fused_block and attn_mask is None and prefix_mask
                 and (x.device.type != "cpu" or x.shape[1] <= FUSED_MAX_T)):
             if mask is not None:
                 lengths = mask.sum(dim=1, dtype=torch.int32)

@@ -290,11 +290,19 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
 def sinusoidal_pe(max_len: int, d_model: int, *,
                   device=None) -> torch.Tensor:
     """(max_len, d_model) float32 sinusoidal table."""
-    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    return sinusoidal_pe_at(torch.arange(max_len, device=device), d_model)
+
+
+def sinusoidal_pe_at(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """(len(positions), d_model) float32 encodings at arbitrary positions,
+    negative ones included: a streaming window is placed at its global
+    stream offset (`serving/streaming.py`)."""
+    device = positions.device
+    pos = positions.to(torch.float32)[:, None]
     div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
                                  device=device)
                     * (-math.log(10000.0) / d_model))
-    pe = torch.zeros(max_len, d_model, dtype=torch.float32, device=device)
+    pe = torch.zeros(pos.shape[0], d_model, dtype=torch.float32, device=device)
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe

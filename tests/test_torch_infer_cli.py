@@ -9,11 +9,14 @@ utterances. Both CLIs run in process with the float32 profile
 transcript lines (EXPECTED, BEAM_OUT, GATED_OUT, TIMESTAMPS) and WER and
 gate summary lines must be equal, for greedy (with timestamps), the
 prefix beam (with timestamps), the lexicon beam with an ARPA LM trained
-from the corpus's transcripts, the while-loop gate, the cascade, and an
-`avg_models` range over two bf16 checkpoint files.
+from the corpus's transcripts, the while-loop gate, the cascade, an
+`avg_models` range over two bf16 checkpoint files, and --streaming
+(STREAM_OUT lines of every exit, and gated per chunk with its exit
+histogram).
 
-Also: the unported modes raise by name, and the CLI needs a GPU unless
-told --device cpu.
+Also: the unported modes raise by name, --streaming's usage errors exit
+with the JAX CLI's messages, and the CLI needs a GPU unless told
+--device cpu.
 """
 
 import importlib.util
@@ -36,7 +39,8 @@ TINY = ["--d_model", "32", "--n_enc_exits", "2", "--n_enc_layers_per_exit", "1",
         "--n_heads", "4", "--d_feed_forward", "64", "--depthwise_kernel_size", "7",
         "--batch_size", "4", "--n_batch_split", "1", "--n_workers", "2",
         "--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
-KEEP = ("EXPECTED:", "BEAM_OUT_", "GATED_OUT", "TIMESTAMPS:", "WER", "histogram",
+KEEP = ("EXPECTED:", "BEAM_OUT_", "GATED_OUT", "STREAM_OUT", "TIMESTAMPS:", "WER",
+        "histogram",
         "escalated:", "gate calibration", "shallow fusion", "trainable parameters")
 
 
@@ -95,6 +99,11 @@ CASES = {
     "gate_calibration": ["--gate_calibration", "{d}/calib.json", "--cascade_k", "1"],
     "avg_models": ["--load_model_dir", "{d}/avg", "--avg_model_start", "0",
                    "--avg_model_end", "1"],
+    "streaming": ["--streaming", "true", "--streaming_chunk_s", "0.5",
+                  "--streaming_left_s", "1.0", "--streaming_right_s", "0.2"],
+    "streaming_gated": ["--streaming", "true", "--streaming_chunk_s", "0.5",
+                        "--streaming_left_s", "1.0", "--streaming_right_s", "0.2",
+                        "--exit_threshold", "0.277", "--fast_exit", "1"],
 }
 
 
@@ -113,9 +122,9 @@ def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
     port_inference.main(argv + ["--device", "cpu"])
     got = _lines(capsys.readouterr().out)
     assert got == want
-    n_out = sum("BEAM_OUT_" in ln or "GATED_OUT" in ln for ln in got)
+    n_out = sum(k in ln for ln in got for k in ("BEAM_OUT_", "GATED_OUT", "STREAM_OUT"))
     assert sum("EXPECTED:" in ln for ln in got) == 6
-    assert n_out == (6 if case.startswith(("gate", "cascade")) else 12)
+    assert n_out == (6 if case.startswith(("gate", "cascade", "streaming_gated")) else 12)
     hyps = [ln.split(":", 2)[-1].strip() for ln in got if "_OUT" in ln]
     assert any(hyps), "every hypothesis is empty: the comparison would see nothing"
     if "timestamps" in " ".join(extra):
@@ -123,11 +132,13 @@ def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
     if case in ("gate", "cascade", "gate_calibration"):
         exits = {ln.split("(exit ")[1][0] for ln in got if "GATED_OUT" in ln}
         assert exits == {"1", "2"}, exits          # both exits chosen somewhere
+    if case == "streaming_gated":                  # chunks at both exits
+        hist = [ln for ln in got if "streaming exit histogram" in ln][0]
+        assert "{1: 0," not in hist and ", 2: 0}" not in hist, hist
 
 
 @pytest.mark.parametrize("flags,match", [
     (["--decoder_mode", "aed"], "AED"),
-    (["--streaming", "true"], "streaming"),
     (["--model_type", "splitformer"], "early_conformer"),
 ])
 def test_cli_unported_modes_raise_by_name(setup, flags, match):
@@ -140,6 +151,27 @@ def test_cli_unported_modes_raise_by_name(setup, flags, match):
         argv += flags
     with pytest.raises(NotImplementedError, match=match):
         port_inference.main(argv)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--decode", "prefix_beam"], "decodes greedily per chunk"),
+    (["--lm_path", "lm.arpa"], "decodes greedily per chunk"),
+    (["--gate_calibration", "calib.json"], "gates per CHUNK"),
+    (["--model_type", "splitformer"], "splitformer checkpoints are batch-only"),
+])
+def test_cli_streaming_usage_errors_equal_jax(setup, jax_inference, flags, match):
+    """--streaming with what it does not combine with exits with the JAX
+    CLI's message. (The JAX CLI loads the model first, so its splitformer
+    message needs a splitformer checkpoint: the port, which checks before
+    loading, is held to the message alone there.)"""
+    argv = ["--decoder_mode", "ctc", "--synthetic_data", "true", "--streaming", "true",
+            "--load_model_path", str(setup / "model"), *TINY, *flags]
+    with pytest.raises(SystemExit, match=match) as got:
+        port_inference.main(argv + ["--device", "cpu"])
+    if "--model_type" not in flags:
+        with pytest.raises(SystemExit, match=match) as want:
+            jax_inference.main(argv)
+        assert str(got.value) == str(want.value)
 
 
 def test_cli_needs_a_gpu_unless_told_cpu(setup, monkeypatch):
