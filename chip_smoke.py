@@ -141,6 +141,29 @@ Phases (any failure exits non-zero, with no result line):
      recognizer's; (8) `python -m early_exit_tpu_torch.inference
      --streaming true` over the corpus, ungated and gated.
 
+ 11. the serving export (`serving/export.py`): the flagship exported for
+     "cuda" at the bucket 8 x 160000 with the gated, cascade (the
+     committed calibration's k and temperatures) and poly (up to 320000
+     samples) programs, each compiled by AOTInductor (compile seconds and
+     bundle size printed, the bundle under a temp dir); the graphs hold
+     `eet::conformer_block` once per block run (12 all-exit, 2 in each
+     exit's cond of the gated program, 2k and 12-2k in the cascade
+     phases); the compiled program's mel features full float32 (and
+     TF32's outside the tolerance); then, from the bundle alone
+     (`ExportedRecognizer`, AOTInductor packages) over phase 3's 128
+     requests in 16 batches of 8: the all-exit program (12 block launches
+     a call) within phase 3's token contract of `Recognizer.transcribe`,
+     max|dconf| against the eager serve module printed; the gated program
+     at threshold 0 and at each batch's median exit-1 confidence, chosen
+     exits equal to eager `gated_apply`'s on every row; the cascade under
+     the committed calibration and with exit k's threshold at the median,
+     chosen exits equal to `Recognizer.transcribe_gated`'s on every row,
+     tokens within the contract, 2k launches in phase A and 12-2k per
+     packed phase-B batch; the poly program at 12.3 s and 17.9 s within
+     the contract of `Recognizer.transcribe`; times (CUDA events) of the
+     exported all-exit program and cascade against the eager ones, and
+     each path's device-busy share (torch.profiler).
+
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
 last line is
@@ -148,13 +171,16 @@ last line is
 """
 
 import contextlib
+import faulthandler
 import json
+import multiprocessing
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
@@ -164,6 +190,14 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s
 SANE_DENSE_WER = 30.0   # bench.py's in-distribution sanity bound
 N_CORPUS = 32          # phase 9's FLAC corpus, utterances
 LOAD_STREAMS, LOAD_ROUNDS = (16, 64), 30   # phase 10.6's pools
+# phase 11: the bucket (the JAX export tool's default), the poly program's
+# bound and two lengths no bucket covers (12.3 s and 17.9 s)
+EXPORT_BUCKET, EXPORT_POLY_MAX = (8, 160000), 320000
+EXPORT_POLY_LENGTHS = (196800, 286400)
+# the exported program's mel features against eager ones: both full
+# float32 (cuBLAS products in another blocking at most move the last
+# places); TF32 keeps about three decimal digits
+FEATURE_RTOL = 1e-5
 # bf16 tolerance of the block kernel against its plain version, in bf16
 # ulps of the plain value (2^-7 below |y| = 1) and in the share of values
 # that differ at all. The two sum the softmax denominator over T' keys in
@@ -323,6 +357,7 @@ def exact_key_sums():
 
 
 def main() -> None:
+    faulthandler.enable()
     if not os.path.isdir(os.path.join(HERE, "early_exit_tpu_torch")):
         fail("early_exit_tpu_torch/ not found beside chip_smoke.py; run it "
              "from a checkout of the repository")
@@ -1161,6 +1196,12 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 11. the serving export, served from the bundle alone
+    t11 = time.perf_counter()
+    exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
+                            out_k, ladder)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
     blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
     blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
     rows = []
@@ -1168,7 +1209,9 @@ def main() -> None:
             ("conformer_block", blk, blk_err, blk_src, blk_line,
              launches["conformer_block_bf16"],
              f"all-exit path; the cascade (A): {gated_launches['bf16'][0]} with no "
-             f"row escalated, {gated_launches['bf16'][1]} with half"),
+             f"row escalated, {gated_launches['bf16'][1]} with half; the exported "
+             f"all-exit program (phase 11): {exported['allexit_launches']} over "
+             f"{exported['calls']} calls, through the op eet::conformer_block"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1192,6 +1235,7 @@ def main() -> None:
                      "max_abs_err": err, "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    rows[0]["export_launches"] = exported["allexit_launches"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1966,6 +2010,255 @@ def streaming_phase(dev, card, reset_counts, read_counts, corp) -> dict:
             fail(f"CLI --streaming ({mode}): exit-{E} WER {wer_l[E]}%")
     return {"attention": att, "attention_err": att_err, "launches": launches,
             "load": load}
+
+
+def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
+                 ladder) -> dict:
+    """Phase 11: the serving export (`serving/export.py`). The flagship
+    (rec, bf16, fused block) is exported for "cuda" at the bucket 8 x
+    160000 with the gated, cascade and poly programs and compiled by
+    AOTInductor, the bundle written under a temp dir; then served from
+    the bundle alone (`ExportedRecognizer`) on phase 3's 128 requests in
+    16 batches of 8 and held against the eager paths. Returns the export
+    path's launch counts and times for the kernels line."""
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import runtime
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.serving import export as ex
+    from early_exit_tpu_torch.serving.packing import PACK_BATCH
+
+    model, acfg = rec.model, rec.acfg
+    gate = rec.gate_settings()
+    committed = rec.calib
+    k = int(committed.get("cascade_k") or 2)
+    E, npe = model.cfg.n_enc_exits, model.cfg.n_enc_layers_per_exit
+    L = E * npe
+    Bk, Sk = EXPORT_BUCKET
+    bkey = f"{Bk}x{Sk}"
+    B = wav.shape[0]
+    batches = [slice(i, i + Bk) for i in range(0, B, Bk)]
+    wav_np = wav.cpu().numpy()
+    cnt_np = counts.cpu().numpy().astype(np.int32)
+    counts32 = counts.to(torch.int32)
+
+    def launched(what, **want):
+        got = read_counts()
+        full = {name: want.get(name, 0) for name in got}
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return got
+
+    tmp = tempfile.mkdtemp(prefix="eet_export_")
+    try:
+        # ---- 11.1 export and compile; the features' program (11.3) compiles
+        # in a process of its own meanwhile
+        class Mel(torch.nn.Module):
+            def forward(self, w):
+                return frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
+
+        mel_ep_path = os.path.join(tmp, "mel.ep.pt2")
+        mel_path = os.path.join(tmp, "mel.pt2")
+        torch.export.save(ex._capture(Mel(), (wav[:Bk],)), mel_ep_path)
+        mel_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+        mel_job = mel_pool.submit(ex._compile_file, mel_ep_path, mel_path, 1)
+        t0 = time.perf_counter()
+        bundle = ex.export_recognizer(
+            model, acfg, [EXPORT_BUCKET], platforms=("cuda",),
+            gate_score=gate["score"], symbolic_max_samples=EXPORT_POLY_MAX,
+            gated=True, cascade_k=k, gate_temperatures=gate["temperatures"])
+        path = os.path.join(tmp, "flagship.eetx")
+        ex.save_bundle(path, bundle)
+        export_s = time.perf_counter() - t0
+        mel_s = mel_job.result()
+        mel_pool.shutdown()
+        man = bundle.manifest
+        print(f"export on {card}: {len(bundle.packages)} programs captured and "
+              f"compiled in {export_s:.1f} s; bundle {os.path.getsize(path) / 1e6:.1f} MB "
+              f"(ops called: {man['ops']}); the features' program compiled in "
+              f"{mel_s:.1f} s beside it")
+        for key, secs in man["aoti_compile_s"].items():
+            print(f"  {key}: AOTInductor compile {secs:.1f} s, package "
+                  f"{len(bundle.packages[key]) / 1e6:.1f} MB, exported program "
+                  f"{len(bundle.programs['cuda'][key]) / 1e6:.1f} MB")
+        # ---- 11.2 the graphs hold the block op, once per block run
+        want = {bkey: L, "gated/" + bkey: L, "poly": L, "gated/poly": L,
+                "cascade_a/" + bkey: k * npe, "cascade_b/" + bkey: (E - k) * npe}
+        nodes = {key: c.get("eet::conformer_block", 0)
+                 for key, c in man["op_nodes"]["cuda"].items()}
+        print(f"eet::conformer_block nodes per exported graph: {nodes} (the gated "
+              f"graphs: {npe} in each of the {E} exits' cond branches)")
+        if nodes != want:
+            fail(f"exported graphs: block op nodes {nodes}, expected {want}")
+        del bundle
+
+        rec_x = ex.ExportedRecognizer(path)
+        serve = ex.make_serve_fn(model, acfg, gate_score=gate["score"])
+        gserve = ex.make_gated_serve_fn(model, acfg, gate_score=gate["score"])
+
+        # ---- 11.3 the program's features, full float32 (TF32 off)
+        with torch.no_grad():
+            f_x = torch._inductor.aoti_load_package(mel_path)(wav[:Bk])
+            f_e = Mel()(wav[:Bk])
+            torch.backends.cuda.matmul.allow_tf32 = True
+            f_t = Mel()(wav[:Bk])
+            runtime.exact_float32()
+        scale = float(f_e.abs().max())
+        rel_x = float((f_x - f_e).abs().max()) / scale
+        rel_t = float((f_t - f_e).abs().max()) / scale
+        print(f"mel features, AOTInductor program vs eager ({Bk} x {Sk}): max|d| / "
+              f"max|f| {rel_x:.3e} (tolerance {FEATURE_RTOL}); eager with TF32 on "
+              f"vs off {rel_t:.3e}")
+        if rel_x > FEATURE_RTOL:
+            fail("the exported program's mel features are not full float32")
+        if rel_t <= FEATURE_RTOL:
+            fail("the feature tolerance cannot tell TF32 from float32")
+
+        # ---- 11.4 all-exit parity, 16 batches of 8
+        toks, ntok, conf_x, conf_e = [], [], [], []
+        reset_counts()
+        for sl in batches:
+            t, n, c = rec_x(wav_np[sl], cnt_np[sl])
+            toks.append(torch.from_numpy(t))
+            ntok.append(torch.from_numpy(n))
+            conf_x.append(torch.from_numpy(c))
+        allexit = launched("exported all-exit program",
+                           conformer_block_bf16=L * len(batches))
+        with torch.no_grad():
+            for sl in batches:
+                conf_e.append(serve(wav[sl], counts32[sl])[2].cpu())
+        toks, ntok = torch.cat(toks, 1), torch.cat(ntok, 1)
+        conf_x, conf_e = torch.cat(conf_x, 1), torch.cat(conf_e, 1)
+        dis = disagreement(toks, ntok, out_k.tokens, out_k.n_tokens)
+        _hold_token_contract("exported all-exit program vs Recognizer.transcribe "
+                             f"({B} requests)", dis, ladder)
+        same = sum(bool(torch.equal(toks[e, i, :ntok[e, i]],
+                                    out_k.tokens[e, i, :out_k.n_tokens[e, i]]))
+                   for e in range(E) for i in range(B))
+        dconf = float((conf_x - conf_e).abs().max())
+        print(f"exported all-exit program: {allexit['conformer_block_bf16']} block "
+              f"launches over {len(batches)} calls; {same}/{E * B} (exit, request) "
+              f"rows equal to Recognizer.transcribe's; max|dconf| vs the eager serve "
+              f"module {dconf:.3e}")
+
+        # ---- 11.5 gated parity: threshold 0 and each batch's median exit-1 conf
+        for name in ("0.0", "the batch's median exit-1 confidence"):
+            n_eq = 0
+            for sl in batches:
+                # the median of an even count: halfway between the two middle
+                # rows, never at a row's own confidence
+                mid = conf_e[0, sl].sort().values[Bk // 2 - 1:Bk // 2 + 1]
+                thr = 0.0 if name == "0.0" else float(mid.mean())
+                reset_counts()
+                _, _, ch = rec_x.gated(wav_np[sl], cnt_np[sl], thr)
+                got = read_counts()
+                with torch.no_grad():
+                    ch_e = gserve(wav[sl], counts32[sl],
+                                  torch.tensor(thr, device=dev))[2].cpu().numpy()
+                n_eq += int((ch == ch_e).sum())
+                if name == "0.0" and (got["conformer_block_bf16"] != npe
+                                      or (ch != 1).any()):
+                    fail(f"gated program at threshold 0: launches {got}, exits {ch}")
+                if got["conformer_block_bf16"] != npe * int(ch.max()):
+                    fail(f"gated program: {got} block launches for exits {ch}")
+            print(f"exported gated program, threshold {name}: chosen exits equal to "
+                  f"eager gated_apply's on {n_eq}/{B} rows")
+            if n_eq != B:
+                fail(f"exported gated program (threshold {name}) chooses other "
+                     f"exits than gated_apply")
+
+        # ---- 11.6 cascade parity: the committed calibration, exit k at the median
+        with torch.no_grad():
+            lp, sub_len = model.encode_exit(*rec._features(wav, counts), k)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sub_len[:, None]
+            conf_k = scaled_confidence(lp, m, gate["score"], gate["temperatures"][k - 1])
+        thr_m = list(gate["threshold"])
+        thr_m[k - 1] = float(conf_k.sort().values[B // 2 - 1:B // 2 + 1].mean())
+        casc = {}
+        for name, calib in (("committed calibration", committed),
+                            (f"exit {k}'s threshold at the median",
+                             {**committed, "thresholds": thr_m})):
+            rec.calib = calib
+            thr = np.asarray(calib["thresholds"], np.float32)
+            n_eq, n_esc, t_x, n_x, t_g, n_g = 0, 0, [], [], [], []
+            for sl in batches:
+                reset_counts()
+                tx, nx, ch, esc = rec_x.cascade(wav_np[sl], cnt_np[sl], thr)
+                want_n = k * npe + ((E - k) * npe if esc.any() else 0)
+                launched(f"exported cascade ({name})", conformer_block_bf16=want_n)
+                g = rec.transcribe_gated(wav[sl], counts[sl])
+                n_eq += int((ch == g.chosen_exit.numpy()).sum())
+                n_esc += int(esc.sum())
+                t_x.append(torch.from_numpy(tx))
+                n_x.append(torch.from_numpy(nx))
+                t_g.append(g.tokens)
+                n_g.append(g.n_tokens)
+            dis = disagreement(torch.cat(t_x)[None], torch.cat(n_x)[None],
+                               torch.cat(t_g)[None], torch.cat(n_g)[None])
+            print(f"exported cascade, {name}: chosen exits equal to "
+                  f"Recognizer.transcribe_gated's on {n_eq}/{B} rows; {n_esc} rows "
+                  f"escalated (phase B at {PACK_BATCH} packed rows a batch)")
+            _hold_token_contract(f"exported cascade vs transcribe_gated ({name})",
+                                 dis, [0.0])
+            if n_eq != B:
+                fail(f"exported cascade ({name}) chooses other exits than "
+                     f"Recognizer.transcribe_gated")
+            casc[name] = n_esc
+        rec.calib = committed
+        if not casc[f"exit {k}'s threshold at the median"]:
+            fail("the median threshold escalated no row: phase B never ran")
+
+        # ---- 11.7 poly parity at lengths no bucket covers
+        for n_samp in EXPORT_POLY_LENGTHS:
+            w = wav[:2 * Bk].reshape(Bk, -1)[:, :n_samp].contiguous()
+            c = torch.full((Bk,), n_samp, dtype=torch.int32, device=dev)
+            reset_counts()
+            t, n, _ = rec_x(w.cpu().numpy(), c.cpu().numpy())
+            launched(f"poly program at {n_samp} samples", conformer_block_bf16=L)
+            ref = rec.transcribe(w, c)
+            dis = disagreement(torch.from_numpy(t), torch.from_numpy(n),
+                               ref.tokens, ref.n_tokens)
+            _hold_token_contract(f"exported poly program vs Recognizer.transcribe at "
+                                 f"{n_samp / acfg.sample_rate:.1f} s", dis, ladder)
+
+        # ---- 11.8 times
+        run = rec_x._fn(bkey)
+        w8, c8 = wav[:Bk].contiguous(), counts32[:Bk].contiguous()
+        audio_s = Bk * Sk / acfg.sample_rate
+        with torch.no_grad():
+            t_x = cuda_ms(lambda: run(w8, c8), 20, 3)
+            t_e = cuda_ms(lambda: serve(w8, c8), 20, 3)
+            thr = np.asarray(committed["thresholds"], np.float32)
+            t_cx = cuda_ms(lambda: rec_x.cascade(wav_np[:Bk], cnt_np[:Bk], thr), 20, 3)
+            t_ce = cuda_ms(lambda: rec.cascade_pass(wav[:Bk], counts[:Bk]), 20, 3)
+        true_s = float(counts[:Bk].sum()) / acfg.sample_rate
+        print(f"times on {card} ({Bk} x {Sk / acfg.sample_rate:.0f} s, CUDA events): "
+              f"exported all-exit program {t_x:.3f} ms = {audio_s / t_x * 1e3:.1f} "
+              f"audio-s/s, the eager serve module {t_e:.3f} ms = "
+              f"{audio_s / t_e * 1e3:.1f} audio-s/s; exported cascade (numpy in and "
+              f"out) {t_cx:.3f} ms = {true_s / t_cx * 1e3:.1f} audio-s/s, "
+              f"Recognizer.cascade_pass {t_ce:.3f} ms = {true_s / t_ce * 1e3:.1f}")
+        busy = {
+            "exported all-exit": profile_forward(lambda: run(w8, c8),
+                                                 "exported all-exit program", card,
+                                                 Bk, iters=5, top=8),
+            "eager all-exit": profile_forward(lambda: serve(w8, c8),
+                                              "eager serve module", card, Bk,
+                                              iters=5, top=8),
+            "exported cascade": profile_forward(
+                lambda: rec_x.cascade(wav_np[:Bk], cnt_np[:Bk], thr),
+                "exported cascade", card, Bk, iters=5, top=8),
+            "eager cascade": profile_forward(
+                lambda: rec.cascade_pass(wav[:Bk], counts[:Bk]),
+                "Recognizer.cascade_pass", card, Bk, iters=5, top=8)}
+        print(f"device-busy share per path: "
+              f"{ {key: round(100 * v, 1) for key, v in busy.items()} } %")
+        rec_x.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"allexit_launches": allexit["conformer_block_bf16"],
+            "calls": len(batches), "ms": t_x, "eager_ms": t_e}
 
 
 def _flat(tree, prefix=""):

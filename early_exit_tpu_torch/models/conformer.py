@@ -30,7 +30,9 @@ through the block kernel (`ops/kernels/conformer_block.py`) when
 `fused_block` is set. On the CPU, where the kernel's plain version runs,
 it mirrors the JAX dispatch: the kernel up to T' = 512 (the TPU kernel's
 VMEM budget), the unfused blocks beyond. On the GPU it always launches
-the kernel, at any T'.
+the kernel, at any T'. The kernel layout is folded from the weights
+when they change (`ConformerStack.folded`); an exported program pins
+its own copy, held as buffers (`pin_folded`).
 """
 
 from __future__ import annotations
@@ -268,6 +270,7 @@ class ConformerStack(nn.Module):
         self._folded: List[dict] = []
         self._folded_key = None
         self._slots: List[tuple] = []
+        self._pinned: Optional[List[dict]] = None
 
     def init(self, gen: torch.Generator) -> None:
         for b in self.blocks:
@@ -280,7 +283,10 @@ class ConformerStack(nn.Module):
         """Per-block kernel layout (`fold_block_params`), rebuilt whenever
         the device, quantize, compute dtype or any weight or running
         statistic changed: every in-place write (an optimizer step, a
-        load) moves a tensor's version counter."""
+        load) moves a tensor's version counter. A pinned layout is
+        returned as it is."""
+        if self._pinned is not None:
+            return self._pinned
         if not self._slots:         # (dict, name) of every parameter and buffer
             self._slots = [(d, n) for m in self.modules()
                            for d in (m._parameters, m._buffers) for n in d]
@@ -294,6 +300,14 @@ class ConformerStack(nn.Module):
                             for b in self.blocks]
             self._folded_key = key
         return self._folded
+
+    def pin_folded(self, layers: Optional[List[dict]]) -> None:
+        """Run the block kernel on `layers` (one layout per block, from
+        `folded()` or an exported program's buffers of it) instead of
+        folding; None unpins."""
+        if layers is not None and len(layers) != len(self.blocks):
+            raise ValueError(f"{len(layers)} layouts for {len(self.blocks)} blocks")
+        self._pinned = layers
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                 collect_outputs: bool = False, collect_every: int = 1,
@@ -315,10 +329,7 @@ class ConformerStack(nn.Module):
         k = collect_every if collect_outputs else 1
         if L % k:
             raise ValueError(f"{L} layers are not a multiple of {k}")
-        outs = None
-        if collect_outputs:
-            outs = torch.empty((L // k,) + tuple(x.shape), dtype=self.cfg.rdtype,
-                               device=x.device)
+        outs = []          # every k-th output, stacked once at the end
         if (self.cfg.fused_block and attn_mask is None and prefix_mask
                 and (x.device.type != "cpu" or x.shape[1] <= FUSED_MAX_T)):
             if mask is not None:
@@ -328,21 +339,22 @@ class ConformerStack(nn.Module):
                                      dtype=torch.int32, device=x.device)
             h = x.to(self.cfg.rdtype).contiguous()
             for i, f in enumerate(self.folded()[first_layer:last]):
-                dest = outs[i // k] if outs is not None and (i + 1) % k == 0 else None
                 h = kcb.conformer_block(
                     f, h, lengths, n_heads=self.cfg.n_heads,
                     kernel_size=self.cfg.kernel_size,
                     compute_dtype=self.cfg.dtype,
                     residual_dtype=self.cfg.rdtype,
                     attn_softmax_dtype=self.cfg.sm_dtype,
-                    quantize=self.cfg.quant, out=dest)
+                    quantize=self.cfg.quant)
+                if collect_outputs and (i + 1) % k == 0:
+                    outs.append(h)
         else:
             h = x
             for i, block in enumerate(self.blocks[first_layer:last]):
                 h = block(h, mask, attn_mask=attn_mask)
-                if outs is not None and (i + 1) % k == 0:
-                    outs[i // k] = h
-        return (h, outs) if collect_outputs else h
+                if collect_outputs and (i + 1) % k == 0:
+                    outs.append(h)
+        return (h, torch.stack(outs)) if collect_outputs else h
 
     def train_forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                       seeds: Optional[List[int]] = None, collect_every: int = 1,

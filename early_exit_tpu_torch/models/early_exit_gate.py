@@ -6,8 +6,13 @@ once every item of the batch has cleared its threshold. Confidence is a
 masked mean over valid frames of a per-frame statistic of the exit's CTC
 posterior. The loop is batch-conservative: it goes on while any item is
 below threshold, and each item keeps the log-probs of the first exit
-that satisfied it. The JAX package's `lax.while_loop` is a Python loop
-here that ends on `done.all()`.
+that satisfied it. The JAX package's `lax.while_loop` is one
+`torch.cond(done.all(), skip, run_exit_e, carry)` per exit in sequence,
+each over its own stack and head: eagerly the predicate is read on the
+host (one sync an exit, as a loop ending on `done.all()`) and only the
+branch taken runs; a program captured by `torch.export` keeps both
+branches and reads it at run time. The threshold may be a runtime
+tensor.
 
 `early_conformer` only: the splitformer's parallel branches are not
 ported.
@@ -61,6 +66,14 @@ def per_exit(value: Union[float, Sequence[float], None], n_exits: int):
     return [float(value)] * n_exits
 
 
+def exit_thresholds(threshold, n_exits: int, device) -> torch.Tensor:
+    """A scalar, a per-exit sequence, or a 0-d or (n_exits,) tensor (a
+    runtime argument of an exported program) -> (n_exits,) float32."""
+    if isinstance(threshold, torch.Tensor):
+        return threshold.to(device=device, dtype=torch.float32).expand(n_exits)
+    return torch.tensor(per_exit(threshold, n_exits), device=device)
+
+
 def head_logp_conf(model: EarlyConformer, h: torch.Tensor, mask: torch.Tensor,
                    e: int, score: str, temperature: Optional[float],
                    with_conf: bool = True):
@@ -82,9 +95,10 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
                 lengths: torch.Tensor, *, threshold, item_mask=None,
                 score: str = "maxprob", temperatures=None):
     """Returns (log_probs (B, T', V) of each item's chosen exit,
-    chosen_exit (B,) 1-based, sub_len (B,), n_exits_run).
+    chosen_exit (B,) 1-based, sub_len (B,), n_exits_run () int32).
 
-    threshold: a scalar or a per-exit sequence. item_mask: optional (B,)
+    threshold: a scalar, a per-exit sequence, or a 0-d or (E,) tensor
+    (`exit_thresholds`). item_mask: optional (B,)
     0/1; rows with 0 pad the batch and count as already satisfied.
     temperatures: optional per-exit sequence; exit e's confidence is
     computed from softmax(logits / temperatures[e]), while the returned
@@ -100,23 +114,42 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
     temps = per_exit(temperatures, E)
     h, sub_len, mask = model.frontend_embed(feats, lengths)
-    thr = torch.tensor(per_exit(threshold, E), device=h.device)
+    thr = exit_thresholds(threshold, E, h.device)
     B, Tp, _ = h.shape
-    chosen_lp = torch.zeros(B, Tp, cfg.vocab_size, device=h.device)
-    chosen_exit = torch.zeros(B, dtype=torch.int32, device=h.device)
     if item_mask is None:
         done = torch.zeros(B, dtype=torch.bool, device=h.device)
     else:
         done = torch.as_tensor(item_mask, device=h.device) < 0.5
-    e = 0
-    while e < E and not bool(done.all()):
-        h = model.stack(h, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
-        logp, conf = head_logp_conf(model, h, mask, e, score,
-                                    None if temps is None else temps[e])
-        ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
-        newly = ~done & ok
-        chosen_lp = torch.where(newly[:, None, None], logp, chosen_lp)
-        chosen_exit = torch.where(newly, e + 1, chosen_exit).to(torch.int32)
-        done = done | ok
-        e += 1
-    return chosen_lp, chosen_exit, sub_len, e
+    # the carry flat: a cond's branches must agree on their outputs'
+    # strides, which a symbolic T' inside a shape would leave unprovable
+    V = cfg.vocab_size
+    carry = (h.reshape(-1), torch.zeros(B * Tp * V, device=h.device),
+             torch.zeros(B, dtype=torch.int32, device=h.device), done,
+             torch.zeros((), dtype=torch.int32, device=h.device))
+
+    def skip(*carry):
+        return tuple(t.clone() for t in carry[:5])
+
+    def run_exit(e):
+        def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr):
+            shape = mask.shape
+            h = model.stack(h.view(*shape, -1), mask, first_layer=e * npe,
+                            n_layers=(e + 1) * npe)
+            logp, conf = head_logp_conf(model, h, mask, e, score,
+                                        None if temps is None else temps[e])
+            ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
+            newly = ~done & ok
+            chosen_lp = torch.where(newly[:, None, None], logp,
+                                    chosen_lp.view(*shape, V))
+            chosen_exit = torch.where(newly, e + 1, chosen_exit).to(torch.int32)
+            return (h.reshape(-1), chosen_lp.reshape(-1), chosen_exit, done | ok,
+                    n_run + 1)
+        return run
+
+    for e in range(E):
+        pred = carry[3].all()
+        if not torch.compiler.is_compiling():
+            pred = bool(pred)
+        carry = torch.cond(pred, skip, run_exit(e), carry + (mask, thr))
+    _, chosen_lp, chosen_exit, _, n_run = carry
+    return chosen_lp.view(B, Tp, V), chosen_exit, sub_len, n_run

@@ -51,7 +51,12 @@ def greedy_decode_ids(best: torch.Tensor, lengths: torch.Tensor, *,
     prev = torch.cat([torch.full((B, 1), -1, dtype=best.dtype,
                                  device=best.device), best[:, :-1]], dim=1)
     keep = (best != blank) & (best != prev) & valid
-    pos = torch.cumsum(keep.to(torch.int64), dim=1) - 1
+    # the running count of kept frames as a product with the (T, T)
+    # upper-triangular ones, exact (0/1 operands, float32 sums far below
+    # 2^24, TF32 or not): AOTInductor (torch 2.11) cannot generate the
+    # split scan it compiles a cumsum over a few rows into
+    upto = (t_idx.T <= t_idx).to(torch.float32)                # (T, T)
+    pos = torch.matmul(keep.to(torch.float32), upto).to(torch.int64) - 1
     n_tokens = keep.sum(dim=1)
     # discarded frames land in a spare column T, cut off below
     dest = torch.where(keep, pos, torch.full_like(pos, T))

@@ -6,3 +6,6 @@ launches in a plain int (`launches`).
 """
 
 KERNEL_SOURCES = ("conformer_block", "head_argmax", "attention")
+
+# registers the `eet::` ops; the wrapper modules call them
+from early_exit_tpu_torch.ops.kernels import library  # noqa: E402,F401

@@ -9,6 +9,9 @@ memory; the output is (B, H, T, dh) float32. A row whose keys are all
 masked gets uniform probabilities (the mean of v), not zeros or NaN.
 The kernel (register-tiled float32 products over streamed K and V
 tiles, any T), its bound and design notes are in `csrc/attention_f32.cuh`.
+The wrapper calls the op `eet::fused_attention`
+(`ops/kernels/library.py`): the plain version on the CPU, the launch
+(`_fused_attention_cuda`) on CUDA.
 """
 
 from __future__ import annotations
@@ -48,10 +51,16 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes dh = 32 and any T > 0 (K and V are streamed) and raises
     on anything else."""
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, mask)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
+    return torch.ops.eet.fused_attention(q, k, v, mask.to(torch.bool))
+
+
+def _fused_attention_fake(q, k, v, mask):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+def _fused_attention_cuda(q, k, v, mask):
     B, H, T, dh = q.shape
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_attention kernel takes bf16 or float32 "
@@ -62,7 +71,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if T <= 0:
         raise ValueError(f"fused_attention kernel needs T > 0, got {T}")
     lib = _lib()
-    mask = mask.to(torch.bool)
     for name, t, dtype, shape in (("q", q, q.dtype, (B, H, T, dh)),
                                   ("k", k, q.dtype, (B, H, T, dh)),
                                   ("v", v, q.dtype, (B, H, T, dh)),

@@ -15,13 +15,19 @@ through its int8 instantiation (`csrc/gemm_s8.cuh`); `block_gemm` and
 `block_gemm_s8` expose them on their own for checks and timing, and
 `layer_norm_quantize` the W8A8 entry's LayerNorm + quantize kernel.
 Bounds and design notes are in the sources.
+
+Each wrapper calls its `torch.library` op (`eet::conformer_block`,
+`eet::block_gemm`, `eet::block_gemm_s8`, `eet::layer_norm_quantize`;
+`ops/kernels/library.py`), whose CPU implementation is the plain version
+and whose CUDA implementation is the launch below (`_*_cuda`), so that
+`torch.export` captures a kernel as one node.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +54,11 @@ _MATMULS = {"ffn1_w1": "ffn1_b1", "ffn1_w2": "ffn1_b2", "wqkv": "bqkv",
 PARAM_ORDER_INT8 = tuple(
     n for name in PARAM_ORDER
     for n in ((name, name + "_s") if name in _MATMULS else (name,)))
+# the op's `params` list in the W8A8 layout: each product weight as the
+# (N, K) twin the kernel reads, then its scale row
+OP_ORDER_INT8 = tuple(
+    n for name in PARAM_ORDER
+    for n in ((name + "_t", name + "_s") if name in _MATMULS else (name,)))
 _FLOAT32 = {n for n in PARAM_ORDER if "_ln_" in n} | {
     "dw_b", "bn_scale", "bn_shift"}
 _FLOAT32_INT8 = _FLOAT32 | set(_MATMULS.values()) | {
@@ -204,12 +215,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
             f"{tuple(t.shape)} on {t.device}")
 
 
-def _into(out: Optional[torch.Tensor], y: torch.Tensor) -> torch.Tensor:
-    """y, written into `out` when one is given (the CPU paths)."""
-    if out is None:
-        return y
-    out.copy_(y)
-    return out
+def _device_ok(name: str, t: torch.Tensor) -> None:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
 
 
 def _check_epilogue(name: str, epilogue: str, res: Optional[torch.Tensor]) -> None:
@@ -239,6 +247,25 @@ def _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize) -> str:
         "quantize='int8') or float32 throughout without quantization")
 
 
+def op_params(f: Mapping[str, torch.Tensor],
+              quantize: Optional[str] = None) -> List[torch.Tensor]:
+    """A block's layout as the op's `params` list: `PARAM_ORDER`, or
+    `OP_ORDER_INT8` with quantize="int8". The one place the order is
+    fixed; the C entries read it through their pointer arrays."""
+    return [f[n] for n in (OP_ORDER_INT8 if quantize == "int8" else PARAM_ORDER)]
+
+
+def _layout(params: List[torch.Tensor], quantize: str) -> Dict[str, torch.Tensor]:
+    """The op's `params` list -> the layout by name (`op_params` undone;
+    a W8A8 product weight's (K, N) view beside its `_t` twin)."""
+    if quantize != "int8":
+        return dict(zip(PARAM_ORDER, params))
+    f = dict(zip(OP_ORDER_INT8, params))
+    for name in _MATMULS:
+        f[name] = f[name + "_t"].t()
+    return f
+
+
 def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                     lengths: torch.Tensor, *, n_heads: int, kernel_size: int,
                     compute_dtype: torch.dtype = torch.bfloat16,
@@ -248,21 +275,51 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """One inference Conformer block. x: (B, T, D); lengths: (B,) int32;
     f: from `fold_block_params` (with the same `quantize`). Returns
-    (B, T, D) in the residual dtype (written into `out` when given).
+    (B, T, D) in the residual dtype (copied into `out` when given).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel: the bf16 entry, the W8A8 entry (`quantize="int8"`, bf16
-    compute and residual, d_model <= 256) or the float32 entry, each at
-    any T > 0 (their attention streams the keys through shared memory in
-    tiles). Any other dtype mix, width or head width raises."""
-    if x.device.type == "cpu":
-        return _into(out, conformer_block_plain(
-            f, x, lengths, n_heads=n_heads, kernel_size=kernel_size,
-            compute_dtype=compute_dtype, residual_dtype=residual_dtype,
-            attn_softmax_dtype=attn_softmax_dtype, quantize=quantize))
-    if x.device.type != "cuda":
-        raise ValueError(f"conformer_block: unsupported device {x.device}")
+    Calls the op `eet::conformer_block`. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel: the bf16 entry, the W8A8
+    entry (`quantize="int8"`, bf16 compute and residual, d_model <= 256)
+    or the float32 entry, each at any T > 0 (their attention streams the
+    keys through shared memory in tiles). Any other dtype mix, width or
+    head width raises."""
+    _device_ok("conformer_block", x)
+    y = torch.ops.eet.conformer_block(
+        x, lengths, op_params(f, quantize), n_heads, kernel_size,
+        *(str(dt).removeprefix("torch.") for dt in
+          (compute_dtype, residual_dtype, attn_softmax_dtype)), quantize or "none")
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+# The op takes its dtypes by name ("bfloat16", "float32"): a compiled
+# program's call through the dispatcher carries a ScalarType argument in
+# the export format's numbering, which torch 2.11 reads as another type.
+
+def _conformer_block_cpu(x, lengths, params, n_heads, kernel_size, compute_dtype,
+                         residual_dtype, attn_softmax_dtype, quantize):
+    return conformer_block_plain(
+        _layout(params, quantize), x, lengths, n_heads=n_heads,
+        kernel_size=kernel_size, compute_dtype=getattr(torch, compute_dtype),
+        residual_dtype=getattr(torch, residual_dtype),
+        attn_softmax_dtype=getattr(torch, attn_softmax_dtype), quantize=quantize)
+
+
+def _conformer_block_fake(x, lengths, params, n_heads, kernel_size, compute_dtype,
+                          residual_dtype, attn_softmax_dtype, quantize):
+    return x.new_empty(x.shape, dtype=getattr(torch, residual_dtype))
+
+
+def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtype,
+                          residual_dtype, attn_softmax_dtype, quantize):
+    """The kernel launch: checks, scratch, the C entry of the profile."""
+    compute_dtype, residual_dtype, attn_softmax_dtype = (
+        getattr(torch, name) for name in (compute_dtype, residual_dtype,
+                                          attn_softmax_dtype))
     entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
+    f = _layout(params, quantize)
     B, T, D = x.shape
     Fd = f["ffn1_w1"].shape[1]
     if D % 128 or Fd % 128 or D // n_heads != 32 or D % n_heads:
@@ -298,10 +355,7 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         _check(f[name], name, dtype, shape, dev)
         ptrs.append(f[name].data_ptr())
         scale_ptrs.append(None)
-    y = torch.empty_like(x) if out is None else out
-    _check(y, "out", xdt, (B, T, D), dev)
-    if y.data_ptr() == x.data_ptr():
-        raise ValueError("conformer_block: out must not alias x")
+    y = torch.empty_like(x)
     R = B * T
     s_ln = torch.empty(R, D, dtype=xdt, device=dev)
     s_big = torch.empty(R, max(Fd, 3 * D), dtype=xdt, device=dev)
@@ -370,29 +424,41 @@ def block_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     runs it: epilogue(bf16(a (M, K) @ w (K, N)) + bias (N)), all bf16,
     with epilogue "bias", "silu", "res" (res + y) or "res_half"
     (res + 0.5 y); `out` may be `res`, as in the block. For checks and
-    timing: the block never calls it. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    timing: the block never calls it. Calls the op `eet::block_gemm`,
+    which writes `out` (allocated when not given): a CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     _check_epilogue("block_gemm", epilogue, res)
-    if a.device.type == "cpu":
-        return _into(out, block_gemm_plain(a, w, bias, res, epilogue))
-    if a.device.type != "cuda":
-        raise ValueError(f"block_gemm: unsupported device {a.device}")
+    _device_ok("block_gemm", a)
+    if out is None:
+        out = torch.empty(a.shape[0], w.shape[1], dtype=torch.bfloat16,
+                          device=a.device)
+    torch.ops.eet.block_gemm(a, w, bias, res, epilogue, out)
+    return out
+
+
+def _block_gemm_cpu(a, w, bias, res, epilogue, out):
+    out.copy_(block_gemm_plain(a, w, bias, res, epilogue))
+
+
+def _block_gemm_cuda(a, w, bias, res, epilogue, out):
     (M, K), N = a.shape, w.shape[1]
     if M <= 0 or K % 8 or N % 8:
         raise ValueError(f"block_gemm kernel needs M > 0 and K, N multiples "
                          f"of 8; got M={M} K={K} N={N}")
-    y = torch.empty(M, N, dtype=torch.bfloat16, device=a.device) if out is None else out
     for name, t, shape in (("a", a, (M, K)), ("w", w, (K, N)), ("bias", bias, (N,)),
-                           ("res", res, (M, N)), ("out", y, (M, N))):
+                           ("res", res, (M, N)), ("out", out, (M, N))):
         if t is not None:
             _check(t, name, torch.bfloat16, shape, a.device)
     lib = _lib()
     err = lib.eet_gemm_bf16(
         _build.ptr(a), _build.ptr(w), _build.ptr(bias),
-        None if res is None else _build.ptr(res), _build.ptr(y), M, N, K,
+        None if res is None else _build.ptr(res), _build.ptr(out), M, N, K,
         GEMM_EPILOGUES.index(epilogue), _build.stream_ptr(a.device))
     _build.check(lib, err, "block_gemm kernel")
-    return y
+    block_gemm.launches += 1
+
+
+block_gemm.launches = 0
 
 
 def block_gemm_s8_plain(aq: torch.Tensor, sx: torch.Tensor, wt: torch.Tensor,
@@ -426,33 +492,41 @@ def block_gemm_s8(aq: torch.Tensor, sx: torch.Tensor, wt: torch.Tensor,
     sw (N)) + bias (N))), aq and wt int8 (wt the `<name>_t` twin of
     `fold_block_params`), sx, sw and bias float32, res and out bf16; the
     epilogues as `block_gemm`'s, and `out` may be `res`. For checks and
-    timing: the block never calls it. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    timing: the block never calls it. Calls the op `eet::block_gemm_s8`,
+    which writes `out` (allocated when not given): a CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     _check_epilogue("block_gemm_s8", epilogue, res)
-    if aq.device.type == "cpu":
-        return _into(out, block_gemm_s8_plain(aq, sx, wt, sw, bias, res, epilogue))
-    if aq.device.type != "cuda":
-        raise ValueError(f"block_gemm_s8: unsupported device {aq.device}")
+    _device_ok("block_gemm_s8", aq)
+    if out is None:
+        out = torch.empty(aq.shape[0], wt.shape[0], dtype=torch.bfloat16,
+                          device=aq.device)
+    torch.ops.eet.block_gemm_s8(aq, sx, wt, sw, bias, res, epilogue, out)
+    return out
+
+
+def _block_gemm_s8_cpu(aq, sx, wt, sw, bias, res, epilogue, out):
+    out.copy_(block_gemm_s8_plain(aq, sx, wt, sw, bias, res, epilogue))
+
+
+def _block_gemm_s8_cuda(aq, sx, wt, sw, bias, res, epilogue, out):
     (M, K), N = aq.shape, wt.shape[0]
     if M <= 0 or K % 16 or N % 8:
         raise ValueError(f"block_gemm_s8 kernel needs M > 0, K a multiple of 16 "
                          f"and N of 8; got M={M} K={K} N={N}")
-    y = torch.empty(M, N, dtype=torch.bfloat16, device=aq.device) if out is None else out
     for name, t, dtype, shape in (
             ("aq", aq, torch.int8, (M, K)), ("sx", sx, torch.float32, (M,)),
             ("wt", wt, torch.int8, (N, K)), ("sw", sw, torch.float32, (N,)),
             ("bias", bias, torch.float32, (N,)), ("res", res, torch.bfloat16, (M, N)),
-            ("out", y, torch.bfloat16, (M, N))):
+            ("out", out, torch.bfloat16, (M, N))):
         if t is not None:
             _check(t, name, dtype, shape, aq.device)
     lib = _lib()
     err = lib.eet_gemm_s8(
         _build.ptr(aq), _build.ptr(sx), _build.ptr(wt), _build.ptr(sw),
-        _build.ptr(bias), None if res is None else _build.ptr(res), _build.ptr(y),
+        _build.ptr(bias), None if res is None else _build.ptr(res), _build.ptr(out),
         M, N, K, GEMM_EPILOGUES.index(epilogue), _build.stream_ptr(aq.device))
     _build.check(lib, err, "block_gemm_s8 kernel")
     block_gemm_s8.launches += 1
-    return y
 
 
 block_gemm_s8.launches = 0
@@ -503,13 +577,20 @@ def layer_norm_quantize(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     """The W8A8 entry's LayerNorm + quantize on its own: x (R, D) bf16, g
     and b (D,) float32 -> (q int8 (R, D), sx float32 (R,)), the int8 rows
     of the float32 LayerNorm and their scales. For checks: the block
-    never calls it. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (D a multiple of 8 up to 256: a warp holds a row
-    in registers, 8 values a lane) or raises."""
-    if x.device.type == "cpu":
-        return layer_norm_quantize_plain(x, g, b, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm_quantize: unsupported device {x.device}")
+    never calls it. Calls the op `eet::layer_norm_quantize`: a CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (D a
+    multiple of 8 up to 256: a warp holds a row in registers, 8 values a
+    lane) or raises."""
+    _device_ok("layer_norm_quantize", x)
+    return torch.ops.eet.layer_norm_quantize(x, g, b, eps)
+
+
+def _layer_norm_quantize_fake(x, g, b, eps):
+    return (x.new_empty(x.shape, dtype=torch.int8),
+            x.new_empty(x.shape[:1], dtype=torch.float32))
+
+
+def _layer_norm_quantize_cuda(x, g, b, eps):
     R, D = x.shape
     if R <= 0 or D % 8 or D > LNQ_MAX_D:
         raise ValueError(f"layer_norm_quantize kernel needs rows > 0 and D a "

@@ -5,7 +5,9 @@ Replaces `early_exit_tpu/ops/pallas/head_argmax.py::head_argmax` (body
 `_kernel`): per exit, a bf16 product with float32 accumulation, rounded
 to bf16, plus the bf16 bias, then the argmax with the lowest index
 winning ties. Only the (E, B, T) int32 ids are written. Its bound and
-design notes are in the source.
+design notes are in the source. The wrapper calls the op
+`eet::head_argmax` (`ops/kernels/library.py`): the plain version on the
+CPU, the launch (`_head_argmax_cuda`) on CUDA.
 """
 
 from __future__ import annotations
@@ -40,10 +42,16 @@ def head_argmax(hidden: torch.Tensor, w: torch.Tensor,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel (bf16 operands, V == 256, D a multiple of 64 up to 256: the
     kernel keeps an exit's whole head in shared memory) or raises."""
-    if hidden.device.type == "cpu":
-        return head_argmax_plain(hidden, w, b)
-    if hidden.device.type != "cuda":
+    if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head_argmax: unsupported device {hidden.device}")
+    return torch.ops.eet.head_argmax(hidden, w, b)
+
+
+def _head_argmax_fake(hidden, w, b):
+    return hidden.new_empty(hidden.shape[:3], dtype=torch.int32)
+
+
+def _head_argmax_cuda(hidden, w, b):
     E, B, T, D = hidden.shape
     dev = hidden.device
     want = {"hidden": (hidden, (E, B, T, D)), "w": (w, (E, D, VOCAB)),

@@ -27,12 +27,13 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
-from early_exit_tpu_torch.models.early_exit_gate import head_logp_conf, per_exit
+from early_exit_tpu_torch.models.early_exit_gate import (exit_thresholds,
+                                                         head_logp_conf, per_exit)
+from early_exit_tpu_torch.serving.packing import pack_escalation_indices  # noqa: F401
 
 
 def _check_model(cfg: ModelConfig) -> None:
@@ -53,8 +54,10 @@ def _reachable(threshold, e0: int, M: int) -> List[bool]:
     """Which of exits e0..e0+M-1 can ever accept. Every confidence score
     lies in [0, 1], so a per-exit threshold above 1.0 (the calibrator
     writes 2.0 for "never accept here") makes that exit's head, softmax
-    and confidence dead compute. A scalar threshold keeps every exit."""
-    if not hasattr(threshold, "__len__"):
+    and confidence dead compute. A scalar threshold keeps every exit, and
+    so does a tensor (a runtime argument of an exported program, whose
+    value the program cannot know)."""
+    if isinstance(threshold, torch.Tensor) or not hasattr(threshold, "__len__"):
         return [True] * M
     return [float(threshold[e0 + i]) <= 1.0 for i in range(M)]
 
@@ -119,7 +122,7 @@ def shallow_apply(model: EarlyConformer, feats: torch.Tensor,
     x, sub_len, mask = model.frontend_embed(feats, lengths)
     h_k, exit_h = model.stack(x, mask, n_layers=k * npe, collect_outputs=True,
                               collect_every=npe)             # (k, B, T', D)
-    thr = torch.tensor(per_exit(threshold, E), device=x.device)
+    thr = exit_thresholds(threshold, E, x.device)
     logp, conf = _exit_logp_conf(model, exit_h, mask, e0=0, score=score,
                                  temperatures=temperatures,
                                  reachable=_reachable(threshold, 0, k))
@@ -150,31 +153,12 @@ def continue_apply(model: EarlyConformer, h_k: torch.Tensor,
     mask = torch.arange(Tp, device=h_k.device)[None, :] < sub_len[:, None]
     _, exit_h = model.stack(h_k, mask, first_layer=k * npe, n_layers=E * npe,
                             collect_outputs=True, collect_every=npe)
-    thr = torch.tensor(per_exit(threshold, E), device=h_k.device)
+    thr = exit_thresholds(threshold, E, h_k.device)
     logp, conf = _exit_logp_conf(model, exit_h, mask, e0=k, score=score,
                                  temperatures=temperatures,
                                  reachable=_reachable(threshold, k, E - k))
     chosen_rel, _ = _earliest_ok(conf, thr[k:], fallback_last=True)
     return _select(logp, chosen_rel), (k + 1 + chosen_rel).to(torch.int32)
-
-
-def pack_escalation_indices(accepted, pack_batch: int):
-    """Host-side re-batching plan. accepted: (B,) bool, the only thing of
-    phase A that crosses to the host. Returns (idx (M,) int32, item_mask
-    (M,) float32) with M the escalated count rounded up to a multiple of
-    `pack_batch` (both empty when no row escalates, and phase B is then
-    skipped). Padding repeats index 0 with item_mask 0."""
-    accepted = np.asarray(accepted, bool)
-    esc = np.nonzero(~accepted)[0].astype(np.int32)
-    n = len(esc)
-    if n == 0:
-        return np.zeros((0,), np.int32), np.zeros((0,), np.float32)
-    m = ((n + pack_batch - 1) // pack_batch) * pack_batch
-    idx = np.zeros((m,), np.int32)
-    idx[:n] = esc
-    item_mask = np.zeros((m,), np.float32)
-    item_mask[:n] = 1.0
-    return idx, item_mask
 
 
 def choose_k(accept_shares, n_exits: int) -> int:

@@ -45,6 +45,7 @@ from early_exit_tpu_torch.models.early_exit_gate import gated_apply
 from early_exit_tpu_torch.ops import ctc, frontend
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
 from early_exit_tpu_torch.serving import cascade
+from early_exit_tpu_torch.serving.packing import PACK_BATCH
 from early_exit_tpu_torch.tokenizer import SentencePieceDecoder, load_decoder
 
 
@@ -63,9 +64,6 @@ class GatedTranscripts:
     chosen_exit: torch.Tensor   # (B,) 1-based
     escalated_share: float      # rows that went through phase B (cascade)
     rows_packed: int            # phase-B rows computed, padding included
-
-
-PACK_BATCH = 8   # phase-B rows are padded up to a multiple of this
 
 
 class Recognizer:
