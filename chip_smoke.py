@@ -164,6 +164,26 @@ Phases (any failure exits non-zero, with no result line):
      exported all-exit program and cascade against the eager ones, and
      each path's device-busy share (torch.profiler).
 
+ 12. the AED mode (`--decoder_mode aed`) at the flagship's widths, a
+     seeded `full_conformer` (6 decoder layers an exit, ~89 M parameters):
+     (a) one joint-loss train step on the card against the CPU in float32
+     with TF32 off, dropout 0, no SpecAugment (phase 8a's tolerances, the
+     decoders' key biases among the zero-gradient leaves); (b) LEARN_STEPS
+     steps of a fresh model in the train profile on one sub-batch of 16:
+     every loss finite, the last < LEARN_RATIO x the first; (c) that model
+     served through `inference.main --decoder_mode aed --fused_block true`
+     over phase 9's corpus, without and with --rescore_ctc_weight 0.5: 12
+     block launches a batch and no other launch, a BEAM_OUT line per
+     utterance and exit; the float32 beam (--compute_dtype float32) card
+     against CPU on the card's memory at exits 2 and 6 (best hypotheses
+     equal on every row, best scores within AED_RTOL) and the rescoring's
+     CTC lane scores within AED_RTOL with the chosen lanes equal; the
+     bf16 beam on the kernel-encoded memory against the plain-encoded
+     memory (agreement and per-exit AED WER printed, not held: the model
+     does not transcribe); times (encode, beam per exit, the rescoring,
+     the CLI's audio-s/s) and a profiled beam's launches a step and
+     device-busy share.
+
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
 last line is
@@ -262,6 +282,14 @@ CHAOS_NOISE, CHAOS_DRAWS = 1e-5, 4
 ZERO_GRAD_LEAVES = ("['blocks']['attn']['mha']['k']['b']", "['blocks']['conv']['dw']['b']")
 ZERO_GRAD_SHARE = 1e-5
 LEARN_STEPS, LEARN_RATIO = 40, 0.6   # the JAX package's criterion, tests/test_trainer.py
+# phase 12 (AED): the decoders' key biases have zero gradient as the
+# trunk's does; the float32 beam and the rescoring's CTC lane scores on the
+# card against the CPU, relative (both sum in other orders); the beam's
+# width (the CLI's default), the utterances and exits compared
+AED_ZERO_GRAD_LEAVES = ZERO_GRAD_LEAVES + (
+    "['decoders']['self_attn']['k']['b']", "['decoders']['cross_attn']['k']['b']")
+AED_RTOL = 1e-4
+AED_BEAM, AED_CMP_UTTS, AED_CMP_EXITS = 10, 4, (2, 6)
 
 
 def fail(msg: str) -> None:
@@ -1184,7 +1212,9 @@ def main() -> None:
     # ---- 8. training on the card
     train_phase(dev, card, knobs, reset_counts, expect_counts)
 
-    # ---- 9. the inference CLI on the card; 10. streaming, over its corpus
+    # ---- 9. the inference CLI on the card; 10. streaming, over its corpus;
+    # 11. the serving export, served from the bundle alone; 12. the AED
+    # mode, served over phase 9's corpus
     tmp = tempfile.mkdtemp(prefix="eet_infer_")
     try:
         t9 = time.perf_counter()
@@ -1193,14 +1223,13 @@ def main() -> None:
         t10 = time.perf_counter()
         streamed = streaming_phase(dev, card, reset_counts, read_counts, corp)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+        t11 = time.perf_counter()
+        exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
+                                out_k, ladder)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+        aed = aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # ---- 11. the serving export, served from the bundle alone
-    t11 = time.perf_counter()
-    exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
-                            out_k, ladder)
-    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     blk_src = "early_exit_tpu_torch/csrc/conformer_block.cu"
     blk_line = "early_exit_tpu/ops/pallas/conformer_block.py:368"
@@ -1211,7 +1240,9 @@ def main() -> None:
              f"all-exit path; the cascade (A): {gated_launches['bf16'][0]} with no "
              f"row escalated, {gated_launches['bf16'][1]} with half; the exported "
              f"all-exit program (phase 11): {exported['allexit_launches']} over "
-             f"{exported['calls']} calls, through the op eet::conformer_block"),
+             f"{exported['calls']} calls, through the op eet::conformer_block; the "
+             f"AED CLI's trunk (phase 12): {aed['launches']} over {aed['batches']} "
+             f"batches, twice"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1236,6 +1267,7 @@ def main() -> None:
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     rows[0]["export_launches"] = exported["allexit_launches"]
+    rows[0]["aed_launches"] = aed["launches"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2604,6 +2636,295 @@ def train_phase(dev, card, knobs, reset_counts, expect_counts) -> None:
           f"{tr.step_count}) read back equal: {same}")
     if not same:
         fail("the checkpoint pair did not read back equal")
+
+
+def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
+    """Phase 12: the AED mode at the flagship's widths (a seeded
+    `full_conformer`: d 256, 8 heads, ffn 2048, k 31, 6 x 2 blocks, 6
+    decoder layers per exit, BPE-256). (a) One joint-loss train step on
+    the card against the CPU in float32; (b) LEARN_STEPS steps in the train
+    profile on one sub-batch of 16 must learn; (c) the trained model served
+    through `python -m early_exit_tpu_torch.inference --decoder_mode aed
+    --fused_block true` over phase 9's corpus, without and with
+    --rescore_ctc_weight 0.5, with launch counts (12 block launches a
+    batch, no head launch); the float32 beam and the rescoring's CTC lane
+    scores card against CPU; the bf16 beam on the kernel-encoded memory
+    against the plain-version-encoded memory; times. Returns the CLI's
+    block launches and batches (one pass)."""
+    import copy
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from early_exit_tpu_torch import checkpoint, inference, interop
+    from early_exit_tpu_torch.cli import get_args
+    from early_exit_tpu_torch.configs import AudioConfig, ModelConfig, TrainConfig, train_profile
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.decoding import aed_beam, rescore
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    from early_exit_tpu_torch.models.full_conformer import FullConformer
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.optim.noam import global_norm
+    from early_exit_tpu_torch.serving.recognizer import wer_pct
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+    from early_exit_tpu_torch.training import checkpoint as tck
+    from early_exit_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    acfg, tcfg = AudioConfig(), TrainConfig(decoder_mode="aed")
+    cpu_pipe = Pipeline([], tok, acfg, tcfg, device="cpu")
+
+    def requests(n, seed):
+        """A sub-batch of n requests of bench_eval's distribution, mel on
+        the CPU."""
+        wav, counts, refs = synth_batch(knobs, n, seed)
+        items = []
+        for i in range(n):
+            label = text.clean_train_label(refs[i])
+            items.append((wav[i, :counts[i]], text.encode_target(label, tok), label))
+        host = {k: torch.from_numpy(v) for k, v in cpu_pipe.host_subbatch(items).items()}
+        return cpu_pipe.to_device(host)
+
+    # -- 12a. one joint-loss step, card against CPU, float32, same features
+    f32 = ModelConfig(model_type="full_conformer", compute_dtype="float32", drop_prob=0.0)
+    seeded = FullConformer(f32).init(torch.Generator().manual_seed(12))
+    n_params = sum(p.numel() for p in seeded.parameters())
+    batch_cpu = requests(4, seed=1212)
+    batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
+
+    def one_step(device, batch):
+        model = copy.deepcopy(seeded).requires_grad_(True).to(device)
+        total, per_exit, _ = trainer.loss_fn(model, tcfg, batch)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(total, params)
+        leaves = {k: np.asarray(v, np.float64) for k, v in
+                  _flat(interop.jax_tree(model, dict(zip(params, grads)))).items()}
+        return float(total.detach()), float(global_norm(grads)), leaves
+
+    t0 = time.perf_counter()
+    on_card = one_step(dev, batch_dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = one_step(torch.device("cpu"), batch_cpu)
+    t_cpu = time.perf_counter() - t0
+    rel = {k: np.linalg.norm(on_card[2][k] - h) / np.linalg.norm(h)
+           for k, h in host[2].items() if k not in AED_ZERO_GRAD_LEAVES}
+    zero = max(max(np.linalg.norm(on_card[2][k]), np.linalg.norm(host[2][k])) / host[1]
+               for k in AED_ZERO_GRAD_LEAVES)
+    worst = max(rel, key=rel.get)
+    d_loss = abs(on_card[0] - host[0]) / abs(host[0])
+    d_norm = abs(on_card[1] - host[1]) / host[1]
+    print(f"12a. AED train step, seeded full_conformer ({n_params:,} parameters), float32, "
+          f"TF32 off, B=4, T={batch_cpu['feats'].shape[1]}, L={batch_cpu['labels'].shape[1]}, "
+          f"card vs CPU: joint loss {on_card[0]:.6f} vs {host[0]:.6f} (relative "
+          f"{d_loss:.3e}); grad_norm {on_card[1]:.6f} vs {host[1]:.6f} ({d_norm:.3e}); "
+          f"worst leaf relative L2 {rel[worst]:.3e} ({worst}); zero-gradient leaves at most "
+          f"{zero:.3e} of the norm; {t_dev:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+    if not np.isfinite([on_card[0], on_card[1]]).all():
+        fail("non-finite AED train step on the card")
+    if (d_loss > TRAIN_F32_LOSS or d_norm > TRAIN_F32_NORM or rel[worst] > TRAIN_F32_LEAF
+            or zero > ZERO_GRAD_SHARE):
+        fail("the AED train step on the card disagrees with the CPU")
+    del seeded, batch_cpu, batch_dev, on_card, host
+
+    # -- 12b. a fresh model learns one sub-batch (joint loss, train profile)
+    model = FullConformer(train_profile(model_type="full_conformer")).to(dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = {k: v.to(dev) for k, v in requests(16, seed=4343).items()}
+    tr = trainer.Trainer(model, dataclasses.replace(tcfg, specaugment=True), warmup=10)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(LEARN_STEPS):
+        losses.append(float(tr.step(batch)["loss"]))
+    t_learn = time.perf_counter() - t0
+    print(f"12b. AED learning: {LEARN_STEPS} joint-loss steps on one sub-batch of 16 "
+          f"(T={batch['feats'].shape[1]}), fresh init, train profile, dropout 0.1, "
+          f"SpecAugment, warmup 10, {t_learn:.2f} s ({1e3 * t_learn / LEARN_STEPS:.1f} ms a "
+          f"step of wall): loss {[round(v, 4) for v in losses[:3]]} ... "
+          f"{[round(v, 4) for v in losses[-3:]]}, last / first {losses[-1] / losses[0]:.4f} "
+          f"(must be < {LEARN_RATIO})")
+    if not np.isfinite(losses).all() or losses[-1] >= LEARN_RATIO * losses[0]:
+        fail("AED training on the card did not learn the sub-batch")
+    ck_dir = os.path.join(tmp, "aed_ck")
+    tck.save_epoch(ck_dir, 0, model)
+    del model, tr, batch
+
+    # -- 12c. the trained model through the inference CLI, both modes
+    argv = ["--decoder_mode", "aed", "--load_model_path", tck.model_ckpt_path(ck_dir, 0),
+            "--data_root", corp["root"], "--eval_splits", "test-clean",
+            "--fused_block", "true", "--beam_size", str(AED_BEAM)]
+
+    def cli(a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            inference.main(a)
+        return buf.getvalue()
+
+    n_batches = [0]
+    encode = FullConformer.encode
+
+    def counted(self, *a, **k):
+        n_batches[0] += 1
+        return encode(self, *a, **k)
+
+    FullConformer.encode = counted
+    outs, passes = {}, {}
+    try:
+        for mode, extra in (("beam", []), ("rescored", ["--rescore_ctc_weight", "0.5"])):
+            n_batches[0] = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            outs[mode] = out
+            blocks = got["conformer_block_bf16"]
+            others = {k: v for k, v in got.items() if k != "conformer_block_bf16" and v}
+            wers = [ln.split(": ", 1)[1] for ln in out.splitlines() if " WER exit " in ln]
+            n_out = sum("BEAM_OUT_" in ln for ln in out.splitlines())
+            passes[mode] = (blocks, n_batches[0], wall)
+            print(f"12c. AED CLI ({mode}): launches {got} over {n_batches[0]} batches; "
+                  f"{n_out} BEAM_OUT lines; WER per exit {wers}; {corp['audio_s']:.1f} s of "
+                  f"audio in {wall:.3f} s of wall = {corp['audio_s'] / wall:.1f} audio-s/s "
+                  f"on {card}")
+            if others or blocks != 12 * n_batches[0]:
+                fail(f"AED CLI ({mode}): {blocks} block launches over {n_batches[0]} "
+                     f"batches and {others}, expected 12 a batch and nothing else")
+            if n_out != 6 * len(corp["corpus"]) or len(wers) != 6:
+                fail(f"AED CLI ({mode}): {n_out} BEAM_OUT lines, {len(wers)} WER lines")
+    finally:
+        FullConformer.encode = encode
+
+    # the models and one batch of the corpus, as the CLI builds them
+    args, mcfg, tcfg_i, acfg_i, tk = get_args(argv, mode="infer")
+    model_k = inference.load_model(args, mcfg, dev)
+    args32, mcfg32, _, _, _ = get_args(argv + ["--fused_block", "false", "--compute_dtype",
+                                               "float32", "--attn_softmax_dtype", "float32"],
+                                       mode="infer")
+    m32 = inference.load_model(args32, mcfg32, dev)
+    pipe = Pipeline(corp["corpus"], tk, acfg_i, tcfg_i, shuffle=False, infer_mode=True,
+                    device=dev)
+    batch = next(iter(pipe.epoch(0)))
+    feats, flen = batch["feats"], batch["feat_lengths"]
+    refs = [r for r in inference._references(batch, tk)[0]]
+
+    def limits(fl):
+        lens = [inference._aed_max_lengths(int(n)) for n in fl.cpu().tolist()]
+        return (inference._bucket(max(m for m, _ in lens)),
+                torch.tensor([mn for _, mn in lens]))
+
+    def best_ids(out):
+        toks, lens, _, best = (t.cpu() for t in out)
+        return [aed_beam.trim_hypothesis(toks[r][best[r]], lens[r][best[r]],
+                                         eos_id=mcfg.eos_id, bos_id=mcfg.bos_id)
+                for r in range(toks.shape[0])]
+
+    # the float32 beam and the rescoring, card against CPU, the same memory
+    n = min(AED_CMP_UTTS, feats.shape[0])
+    max_len, min_lens = limits(flen[:n])
+    m32_cpu = copy.deepcopy(m32).to("cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        hid32, sub32 = m32.encode(feats[:n], flen[:n])
+        for e in AED_CMP_EXITS:
+            kw = dict(n_exit=e, beam_size=AED_BEAM, max_length=max_len)
+            a = aed_beam.beam_search_exit_batch(m32, hid32[e - 1], min_lens, **kw)
+            b = aed_beam.beam_search_exit_batch(m32_cpu, hid32[e - 1].cpu(), min_lens, **kw)
+            ia, ib = best_ids(a), best_ids(b)
+            sa = a[2].cpu().gather(1, a[3].cpu()[:, None])[:, 0]
+            sb = b[2].gather(1, b[3][:, None])[:, 0]
+            d_s = float(((sa - sb).abs() / sb.abs()).max())
+            lanes = float((a[0].cpu() == b[0]).all(-1).float().mean())
+            lp = m32.apply_heads(hid32[e - 1:e])[0]
+            ra = rescore.rescore_batch(lp, sub32, *a[:3], ctc_weight=0.5)
+            rb = rescore.rescore_batch(lp.cpu(), sub32.cpu(), *(t.cpu() for t in a[:3]),
+                                       ctc_weight=0.5)
+            d_c = float(((ra[2].cpu() - rb[2]).abs() / rb[2].abs()).max())
+            print(f"12c. float32 beam (K={AED_BEAM}, max_length {max_len}), exit {e}, "
+                  f"{n} utterances, card vs CPU on the card's memory: best hypotheses equal "
+                  f"on {sum(x == y for x, y in zip(ia, ib))}/{n} rows (lengths "
+                  f"{[len(x) for x in ia]}), best scores' max relative difference {d_s:.3e}, "
+                  f"lanes equal {100 * lanes:.0f}%; rescoring's CTC lane scores (in "
+                  f"[{float(rb[2].min()):.4g}, {float(rb[2].max()):.4g}]) max relative "
+                  f"difference {d_c:.3e}, chosen lanes {ra[0].cpu().tolist()} vs "
+                  f"{rb[0].tolist()} (the beam's {a[3].cpu().tolist()})")
+            if ia != ib or d_s > AED_RTOL:
+                fail(f"the float32 beam at exit {e} differs between the card and the CPU")
+            if d_c > AED_RTOL or not torch.equal(ra[0].cpu(), rb[0]):
+                fail(f"the rescoring at exit {e} differs between the card and the CPU")
+    print(f"12c. float32 comparisons: {time.perf_counter() - t0:.1f} s")
+    del m32, m32_cpu, hid32
+
+    # bf16: the beam on the kernel-encoded memory against the plain-encoded
+    max_len, min_lens = limits(flen)
+    with torch.no_grad():
+        reset_counts()
+        hk, sub_k = model_k.encode(feats, flen)
+        got = read_counts()
+        if got["conformer_block_bf16"] != 12:
+            fail(f"AED encode: {got}, expected 12 block launches")
+        with plain_versions(kcb, katt):
+            hp, _ = model_k.encode(feats, flen)
+        t_enc = cuda_ms(lambda: model_k.encode(feats, flen), 5, 1)
+        beam_ms, rows_eq, edits, total, wers_k = [], 0, 0, 0, []
+        real = [i for i, r in enumerate(refs) if r is not None]
+        for e in range(1, 7):
+            kw = dict(n_exit=e, beam_size=AED_BEAM, max_length=max_len)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            ok = aed_beam.beam_search_exit_batch(model_k, hk[e - 1], min_lens, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            beam_ms.append(start.elapsed_time(end))
+            op = aed_beam.beam_search_exit_batch(model_k, hp[e - 1], min_lens, **kw)
+            ik, ip = best_ids(ok), best_ids(op)
+            for i in real:
+                rows_eq += ik[i] == ip[i]
+                edits += edit_distance(ik[i], ip[i])
+                total += max(len(ip[i]), 1)
+            hyps = [inference._hyp(tk, None, ik[i]) for i in real]
+            wers_k.append(round(wer_pct([refs[i] for i in real], hyps), 2))
+        lp = model_k.apply_heads(hk)
+        t_res = cuda_ms(lambda: rescore.rescore_batch(lp[-1], sub_k, *ok[:3], ctc_weight=0.5),
+                        3, 1)
+        trace = os.path.join(tmp, "aed_trace.json")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            aed_beam.beam_search_exit_batch(model_k, hk[5], min_lens, n_exit=6,
+                                            beam_size=AED_BEAM, max_length=max_len)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t1
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            evs = [ev for ev in json.load(f)["traceEvents"]
+                   if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        busy = sum(ev.get("dur", 0) for ev in evs) / 1e6
+    B = feats.shape[0]
+    rates = ", ".join(f"{m} {corp['audio_s'] / w:.1f}" for m, (_, _, w) in passes.items())
+    print(f"12c. bf16 beam (K={AED_BEAM}, max_length {max_len}) on {len(real)} utterances of "
+          f"the corpus (B={B}): kernel-encoded vs plain-encoded memory, best hypotheses "
+          f"equal on {rows_eq}/{6 * len(real)} (exit, row) pairs, {edits}/{total} tokens "
+          f"differ; AED WER per exit (kernel-encoded) {wers_k}")
+    print(f"12c. AED times on {card} (B={B}, T'={hk.shape[2]}, CUDA events): encode "
+          f"{t_enc:.3f} ms (12 block launches); beam per exit "
+          f"{[round(t, 1) for t in beam_ms]} ms ({max_len} steps, "
+          f"{sum(beam_ms) / (6 * max_len):.3f} ms a step); the rescoring at exit 6 "
+          f"{t_res:.3f} ms; the CLI {rates} audio-s/s")
+    print(f"12c. profile of one beam (exit 6, B={B}, K={AED_BEAM}, {max_len} steps, "
+          f"torch.profiler): {len(evs)} device operations = {len(evs) / max_len:.1f} a step "
+          f"({len(evs) / (max_len * mcfg.n_dec_layers):.1f} a step and decoder layer); device "
+          f"busy {busy:.3f} s of {wall_p:.3f} s ({100 * busy / wall_p:.1f}%)")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    blocks, batches, _ = passes["beam"]
+    return {"launches": blocks, "batches": batches}
 
 
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,

@@ -70,7 +70,7 @@ class TrainConfig:
     weight_decay: float = 5e-4
     clip: float = 1.0
     max_utterance_length: int = 360
-    decoder_mode: str = "ctc"            # ctc | aed (the port trains ctc)
+    decoder_mode: str = "ctc"            # ctc | aed
     aed_ce_weight: float = 0.7
     aed_ctc_weight: float = 0.3
     # feed the padded frame count as every row's CTC input length (the

@@ -1,4 +1,4 @@
-"""One front door over the port's CTC decoders (counterpart of
+"""One front door over the port's decoders (counterpart of
 `early_exit_tpu/decoding/api.py`, the reference's `BeamInference`
 surface, util/beam_infer.py:34-82):
 
@@ -7,10 +7,8 @@ surface, util/beam_infer.py:34-82):
     suite.greedy(log_probs, lengths)          # greedy CTC
     suite.ctc_prefix(log_probs, lengths)      # prefix beam, on the device
     suite.ctc_lexicon(log_probs, lengths)     # lexicon beam (C++, host)
+    suite.aed_beam(model, memory, n_exit, ...)  # AED beam, KV-cached
     suite.align(emission, tokens)             # forced alignment
-
-`aed_beam` raises: the AED model is not ported, and with it the JAX
-suite's `pen_alpha` (the AED beam's length penalty).
 """
 
 from __future__ import annotations
@@ -21,19 +19,20 @@ import numpy as np
 import torch
 
 from early_exit_tpu_torch.configs import ModelConfig
-from early_exit_tpu_torch.decoding import forced_align, prefix_beam
+from early_exit_tpu_torch.decoding import aed_beam, forced_align, prefix_beam
 from early_exit_tpu_torch.ops import ctc
 
 
 class DecoderSuite:
     def __init__(self, model_cfg: ModelConfig, *, beam_size: int = 10,
-                 blank_skip_threshold: float = 0.95,
+                 pen_alpha: float = 1.0, blank_skip_threshold: float = 0.95,
                  word_score: float = 0.0, nbest: int = 1,
                  lexicon_path: Optional[str] = None,
                  tokens_path: Optional[str] = None,
                  lm_path: Optional[str] = None, lm_weight: float = 1.0):
         self.cfg = model_cfg
         self.beam_size = beam_size
+        self.pen_alpha = pen_alpha
         self.blank_skip_threshold = blank_skip_threshold
         self.nbest = nbest
         self._trie = None
@@ -63,10 +62,13 @@ class DecoderSuite:
         return self._trie.decode_batch(lp, None if lengths is None
                                        else np.asarray(torch.as_tensor(lengths).cpu()))
 
-    def aed_beam(self, *args, **kwargs):
-        raise NotImplementedError(
-            "aed_beam: the AED model (full_conformer + transformer_decoder) "
-            "is not ported")
+    def aed_beam(self, model, memory: torch.Tensor, n_exit: int, *,
+                 max_length: int, min_length: int):
+        """One utterance's beam at exit n_exit of a `FullConformer`: memory
+        (1, T', D) -> (tokens (K, max_length+1), lengths, scores, best)."""
+        return aed_beam.beam_search_exit(
+            model, memory, n_exit=n_exit, beam_size=self.beam_size,
+            max_length=max_length, min_length=min_length, pen_alpha=self.pen_alpha)
 
     def align(self, emission, tokens):
         """Forced alignment -> (start frames, end frames, path score)."""

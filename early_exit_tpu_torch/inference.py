@@ -1,5 +1,5 @@
-"""Inference entry point of the port: CTC decoding of every exit of the
-early-exit Conformer, the same surface as the JAX package's
+"""Inference entry point of the port: decoding of every exit of the
+early-exit Conformer, CTC or AED, the same surface as the JAX package's
 `inference.py`.
 
     python -m early_exit_tpu_torch.inference --decoder_mode ctc \\
@@ -23,13 +23,19 @@ fed --streaming_chunk_s a round to --batch_size streams, every exit
 decoded from one trunk pass per window, or with --exit_threshold each
 chunk gated at --fast_exit (`serving/streaming.py`).
 
+--decoder_mode aed decodes a `full_conformer`: per batch the trunk once
+for all exits (through the block kernel with --fused_block true), then
+per exit the KV-cached beam over the whole batch (--beam_size,
+--pen_alpha, the reference's max-length heuristic), with
+--rescore_ctc_weight > 0 the n-best re-ranked by the joint CTC +
+attention score of that exit's CTC head.
+
 The model comes from --load_model_path or the average of the epoch
 checkpoints --avg_model_start..--avg_model_end in --load_model_dir. Runs
 on CUDA unless --device cpu; raises without a GPU otherwise.
 
-Not ported, and raising by name: --decoder_mode aed (the AED model and
-its beam search), model types other than early_conformer, and
---conv_norm group.
+Not ported, and raising by name: the model types splitformer and
+early_zipformer, and --conv_norm group.
 """
 
 from __future__ import annotations
@@ -46,7 +52,8 @@ from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
 from early_exit_tpu_torch.data.pipeline import Pipeline
 from early_exit_tpu_torch.decoding.lexicon import LexiconCorrector, load_dict
-from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
+from early_exit_tpu_torch.models.registry import build_model
 from early_exit_tpu_torch.ops import ctc
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
 from early_exit_tpu_torch.training import checkpoint
@@ -58,16 +65,13 @@ SPM = os.path.join(REPO, "assets", "spm")
 
 
 def check_ported(args) -> None:
-    if args.decoder_mode != "ctc":
-        raise NotImplementedError(
-            "--decoder_mode aed: the AED model (full_conformer + "
-            "transformer_decoder) and its beam search are not ported; decode "
-            "--decoder_mode ctc")
+    """The JAX CLI's usage errors, before any model is built (the
+    registry raises by name for a model type that is not ported)."""
+    if args.streaming and args.decoder_mode != "ctc":
+        sys.exit("--streaming is a CTC serving path; AED decoding "
+                 "is whole-utterance only")
     if args.streaming:
         check_streaming(args)
-    if args.model_type != "early_conformer":
-        raise NotImplementedError(
-            f"--model_type {args.model_type}: only early_conformer is ported")
 
 
 def check_streaming(args) -> None:
@@ -391,8 +395,67 @@ def run_ctc(model, model_cfg, pipe, split, tokenizer, lex, args):
               f"({acc.utterances} utts)")
 
 
-def load_model(args, model_cfg, device) -> EarlyConformer:
-    model = EarlyConformer(model_cfg).to(device)
+def _aed_max_lengths(n_frames: int):
+    """The reference's heuristic (inference.py:20-41): (max_len, min_len)
+    of an utterance of n_frames mel frames."""
+    if n_frames < 200:
+        max_len = int(30 - n_frames * (5 / 200.0))
+    else:
+        max_len = int(n_frames / 12)
+    max_len = max(max_len, 4)
+    return max_len, int(max_len * 0.6)
+
+
+def _bucket(n: int, g: int = 8) -> int:
+    return ((n + g - 1) // g) * g
+
+
+def run_aed(model, model_cfg, pipe, split, tokenizer, lex, args):
+    """Per batch: the trunk once for all exits, then per exit the batched
+    KV-cached beam (max_length the batch's longest heuristic length,
+    bucketed to 8; min_length per utterance); with --rescore_ctc_weight
+    > 0 the best lane chosen by the joint rescoring instead."""
+    from early_exit_tpu_torch.decoding import aed_beam, rescore
+    rescore_w = float(args.rescore_ctc_weight)
+    wers = [WerAccumulator() for _ in range(model_cfg.n_enc_exits)]
+    for batch in pipe.epoch(0):
+        with torch.no_grad():
+            exit_hidden, sub_len = model.encode(batch["feats"], batch["feat_lengths"])
+        refs, mask = _references(batch, tokenizer)
+        lengths = [_aed_max_lengths(int(n)) for n in batch["feat_lengths"].cpu().tolist()]
+        for ref in refs:
+            if ref is not None:
+                print(split, "EXPECTED:", ref)
+        max_len = _bucket(max(ml for ml, _ in lengths))
+        min_lens = torch.tensor([mn for _, mn in lengths])
+        ctc_logp = model.apply_heads(exit_hidden) if rescore_w > 0.0 else None
+        for n in range(1, model_cfg.n_enc_exits + 1):
+            toks, lens, scores, best = aed_beam.beam_search_exit_batch(
+                model, exit_hidden[n - 1], min_lens, n_exit=n,
+                beam_size=args.beam_size, max_length=max_len, pen_alpha=args.pen_alpha)
+            if rescore_w > 0.0:
+                best = rescore.rescore_batch(ctc_logp[n - 1], sub_len, toks, lens, scores,
+                                             ctc_weight=rescore_w,
+                                             blank=model_cfg.blank_id)[0]
+            toks, lens, best = toks.cpu().numpy(), lens.cpu().numpy(), best.cpu().numpy()
+            for b, ref in enumerate(refs):
+                if ref is None:
+                    continue
+                ids = aed_beam.trim_hypothesis(toks[b][best[b]], lens[b][best[b]],
+                                               eos_id=model_cfg.eos_id,
+                                               bos_id=model_cfg.bos_id)
+                hyp = _hyp(tokenizer, lex, ids)
+                print(split, "BEAM_OUT_", n, ":", hyp)
+                wers[n - 1].add(ref, hyp)
+    for e, acc in enumerate(wers):
+        print(f"{split} WER exit {e + 1}: {100 * acc.value:.2f}% "
+              f"({acc.utterances} utts)")
+
+
+def load_model(args, model_cfg, device) -> ConformerTrunk:
+    """The model of model_cfg.model_type (`registry.build_model`), from
+    the checkpoint file or the average the arguments name."""
+    model = build_model(model_cfg).to(device)
     model.init(torch.Generator(device=device).manual_seed(args.seed))
     if args.load_model_path is not None:
         checkpoint.load_model_file(model, args.load_model_path)
@@ -433,7 +496,9 @@ def main(argv=None) -> None:
         pipe = Pipeline(ds, tokenizer, audio_cfg, train_cfg, bpe=args.bpe,
                         shuffle=False, infer_mode=True, workers=args.n_workers,
                         device=device)
-        if args.streaming:
+        if args.decoder_mode == "aed":
+            run_aed(model, model_cfg, pipe, split, tokenizer, lex, args)
+        elif args.streaming:
             run_ctc_streaming(model, model_cfg, ds, split, tokenizer, lex, args,
                               audio_cfg)
         elif args.exit_threshold is not None or args.gate_calibration is not None:

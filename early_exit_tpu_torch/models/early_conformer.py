@@ -6,7 +6,9 @@ n_layers Conformer blocks -> per-exit Linear(d, V) heads. The exit hidden
 states are the outputs of layers k-1, 2k-1, ... (k =
 n_enc_layers_per_exit). `init` draws fresh weights; `apply_train` is the
 training forward, whose BatchNorm statistics the caller assigns with
-`set_state` once the step is done.
+`set_state` once the step is done. `ConformerTrunk` is what the AED
+model (`full_conformer.FullConformer`) shares with this one: everything
+up to and including the per-exit CTC heads.
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ def conformer_cfg(cfg: ModelConfig) -> conformer.ConformerConfig:
         quantize=cfg.quantize)
 
 
-class EarlyConformer(nn.Module):
+class ConformerTrunk(nn.Module):
+    """Conv subsampling, PE, the Conformer stack and the per-exit CTC
+    heads: the part the CTC and the AED models share."""
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
@@ -51,7 +56,7 @@ class EarlyConformer(nn.Module):
         self.heads_b = nn.Parameter(
             torch.zeros(cfg.n_enc_exits, cfg.vocab_size))
 
-    def init(self, generator: torch.Generator) -> "EarlyConformer":
+    def init(self, generator: torch.Generator) -> "ConformerTrunk":
         """Fresh weights in place, drawn from `generator` (on the
         parameters' device): Xavier-uniform products and convolutions,
         zero biases, unit norm scales, BatchNorm statistics (0, 1)."""
@@ -101,28 +106,25 @@ class EarlyConformer(nn.Module):
             return logits
         return torch.log_softmax(logits.float(), dim=-1)
 
-    def apply(self, feats: torch.Tensor, lengths: torch.Tensor, *,
-              log_probs: bool = True):
-        """feats (B, T, n_mels), lengths (B,) -> (per-exit outputs
-        (E, B, T', V), sub_lengths (B,))."""
-        hidden, sub_len = self.apply_hidden(feats, lengths)
-        return self.apply_heads(hidden, log_probs=log_probs), sub_len
-
-    def apply_train(self, feats: torch.Tensor, lengths: torch.Tensor, *,
-                    seed: Optional[int] = None,
-                    attn_mask: Optional[torch.Tensor] = None):
-        """The training forward, with autograd: no kernel, unquantized,
-        BatchNorm on the batch, and dropout (rate drop_prob) whose masks
-        derive from `seed` (no dropout without one). attn_mask: (T', T')
-        bool over the subsampled frames. Returns (log_probs (E, B, T', V)
-        float32, sub_lengths (B,), new_state), new_state holding the
-        BatchNorm running statistics as the JAX package's state tree does
-        ({"blocks": {"conv_bn": {"mean", "var"}}}, (L, D) each)."""
+    def train_hidden(self, feats: torch.Tensor, lengths: torch.Tensor, *,
+                     seed: Optional[int] = None,
+                     attn_mask: Optional[torch.Tensor] = None, extra_seeds: int = 0):
+        """The trunk's training forward, with autograd: no kernel,
+        unquantized, BatchNorm on the batch, and dropout (rate drop_prob)
+        whose masks derive from `seed` (no dropout without one). attn_mask:
+        (T', T') bool over the subsampled frames. Returns (hidden
+        (E, B, T', D), sub_lengths (B,), new_state, seeds): new_state holds
+        the BatchNorm running statistics as the JAX package's state tree
+        does ({"blocks": {"conv_bn": {"mean", "var"}}}, (L, D) each);
+        seeds are `extra_seeds` more seeds drawn after the trunk's, for the
+        caller's own dropout (None without dropout)."""
         n_layers = len(self.stack.blocks)
-        seeds = None
+        seeds, extra = None, None
         if seed is not None and self.cfg.drop_prob > 0.0:
             host = torch.Generator().manual_seed(seed)
             seeds = torch.randint(0, 2 ** 62, (n_layers + 1,),
+                                  generator=host).tolist()
+            extra = torch.randint(0, 2 ** 62, (extra_seeds,),
                                   generator=host).tolist()
         pe_gen = (None if seeds is None else
                   torch.Generator(device=feats.device).manual_seed(seeds[-1]))
@@ -131,7 +133,7 @@ class EarlyConformer(nn.Module):
             x, mask, seeds=seeds, attn_mask=attn_mask,
             collect_every=self.cfg.n_enc_layers_per_exit)
         new_state = {"blocks": {"conv_bn": {"mean": mean, "var": var}}}
-        return self.apply_heads(hidden), sub_len, new_state
+        return hidden, sub_len, new_state, extra
 
     def state(self) -> dict:
         """The BatchNorm running statistics as `apply_train` returns them."""
@@ -143,6 +145,24 @@ class EarlyConformer(nn.Module):
     def set_state(self, state: dict) -> None:
         bn = state["blocks"]["conv_bn"]
         self.stack.set_bn_state(bn["mean"], bn["var"])
+
+
+class EarlyConformer(ConformerTrunk):
+    def apply(self, feats: torch.Tensor, lengths: torch.Tensor, *,
+              log_probs: bool = True):
+        """feats (B, T, n_mels), lengths (B,) -> (per-exit outputs
+        (E, B, T', V), sub_lengths (B,))."""
+        hidden, sub_len = self.apply_hidden(feats, lengths)
+        return self.apply_heads(hidden, log_probs=log_probs), sub_len
+
+    def apply_train(self, feats: torch.Tensor, lengths: torch.Tensor, *,
+                    seed: Optional[int] = None,
+                    attn_mask: Optional[torch.Tensor] = None):
+        """The training forward (`train_hidden`) and the heads. Returns
+        (log_probs (E, B, T', V) float32, sub_lengths (B,), new_state)."""
+        hidden, sub_len, new_state, _ = self.train_hidden(
+            feats, lengths, seed=seed, attn_mask=attn_mask)
+        return self.apply_heads(hidden), sub_len, new_state
 
     def encode_exit(self, feats: torch.Tensor, lengths: torch.Tensor,
                     n_exit: int):

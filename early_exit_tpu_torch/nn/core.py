@@ -77,6 +77,17 @@ def norm_init_(g: torch.Tensor, b: torch.Tensor) -> None:
         b.zero_()
 
 
+def embedding_init_(table: torch.Tensor, generator: torch.Generator) -> None:
+    """The (vocab, d) table in place: standard normal."""
+    with torch.no_grad():
+        table.normal_(generator=generator)
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table at ids (any shape) -> ids.shape + (d,)."""
+    return table[ids.long()]
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout: keep each value with probability 1 - rate, scaled
@@ -239,6 +250,7 @@ def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:
 def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         kv_in: torch.Tensor, n_heads: int, *,
         key_mask: Optional[torch.Tensor] = None,
+        causal: bool = False,
         pair_mask: Optional[torch.Tensor] = None,
         compute_dtype: Optional[torch.dtype] = None,
         softmax_dtype: torch.dtype = torch.float32,
@@ -246,7 +258,8 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
     """Multi-head attention on (B, Tq, D) / (B, Tk, D).
 
     p maps "q", "k", "v", "o" to (w, b). key_mask: (B, Tk) bool, True
-    where the key is valid. pair_mask: (Tq, Tk) or (B, Tq, Tk) bool, True
+    where the key is valid. causal: the lower-triangular mask (decoder
+    self-attention), applied after the key mask. pair_mask: (Tq, Tk) or (B, Tq, Tk) bool, True
     where q may attend to k (dynamic-chunk training). With a bf16 softmax
     dtype the scores stay in bf16: scaled in bf16 and masked to -30000.
     quantize="int8" quantizes the four projections; scores and P V stay
@@ -272,6 +285,9 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         neg = NEG_INF
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, :], neg)
+    if causal:
+        cm = torch.ones(Tq, Tk, dtype=torch.bool, device=scores.device).tril()
+        scores = scores.masked_fill(~cm, neg)
     if pair_mask is not None:
         pm = pair_mask if pair_mask.dim() == 3 else pair_mask[None]
         scores = scores.masked_fill(~pm[:, None], neg)

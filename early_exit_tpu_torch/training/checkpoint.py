@@ -2,7 +2,8 @@
 `early_exit_tpu/training/checkpoint.py`).
 
 - `mod{epoch:03d}-transformer`: {"params", "model_state"} in the JAX
-  package's layout (`interop.to_jax_params`);
+  package's layout (`interop.to_jax_params`) of an `early_conformer` or
+  a `full_conformer`;
 - `lr{epoch:03d}-transformer`: {"opt_state", "step"}, the optimizer in
   optax's own tree for `optax.chain(clip_by_global_norm, adamw)`:
   {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}},
@@ -27,7 +28,7 @@ import torch
 
 from early_exit_tpu_torch import interop
 from early_exit_tpu_torch.checkpoint import load_tree, save_tree
-from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.optim.noam import NoamAdamW
 
 
@@ -39,7 +40,7 @@ def opt_ckpt_path(directory: str, epoch: int) -> str:
     return os.path.join(directory, f"lr{epoch:03d}-transformer")
 
 
-def opt_tree(model: EarlyConformer, opt: NoamAdamW) -> dict:
+def opt_tree(model: ConformerTrunk, opt: NoamAdamW) -> dict:
     """{"opt_state", "step"} in optax's tree."""
     count = np.asarray(opt.count, np.int32)
     params = list(model.parameters())
@@ -50,7 +51,7 @@ def opt_tree(model: EarlyConformer, opt: NoamAdamW) -> dict:
             "step": count}
 
 
-def load_opt_tree(model: EarlyConformer, opt: NoamAdamW, tree: dict) -> None:
+def load_opt_tree(model: ConformerTrunk, opt: NoamAdamW, tree: dict) -> None:
     """Restores mu, nu and the count from an optax tree (as `opt_tree`
     writes it or the JAX package saves it)."""
     adam = tree["opt_state"]["1"]["0"]
@@ -66,7 +67,7 @@ def load_opt_tree(model: EarlyConformer, opt: NoamAdamW, tree: dict) -> None:
                          f"{opt.count} in the checkpoint")
 
 
-def load_model_tree(model: EarlyConformer, tree: dict) -> None:
+def load_model_tree(model: ConformerTrunk, tree: dict) -> None:
     """{"params", "model_state"} in the JAX layout -> the model, in place."""
     src = interop.from_jax_tree(model, tree["params"])
     bn = tree["model_state"]["blocks"]["conv_bn"]
@@ -78,7 +79,7 @@ def load_model_tree(model: EarlyConformer, tree: dict) -> None:
             "var": torch.as_tensor(np.asarray(bn["var"], np.float32))}}})
 
 
-def save_epoch(directory: str, epoch: int, model: EarlyConformer,
+def save_epoch(directory: str, epoch: int, model: ConformerTrunk,
                opt: Optional[NoamAdamW] = None) -> None:
     params, state = interop.to_jax_params(model)
     save_tree({"params": params, "model_state": state},
@@ -87,11 +88,11 @@ def save_epoch(directory: str, epoch: int, model: EarlyConformer,
         save_tree(opt_tree(model, opt), opt_ckpt_path(directory, epoch))
 
 
-def load_model_file(model: EarlyConformer, path: str) -> None:
+def load_model_file(model: ConformerTrunk, path: str) -> None:
     load_model_tree(model, load_tree(path))
 
 
-def avg_models(model: EarlyConformer, directory: str, start: int,
+def avg_models(model: ConformerTrunk, directory: str, start: int,
                end: int) -> None:
     """The model <- leaf-wise average of the epoch checkpoints in
     [start, end], accumulated in float64 (int64 for integer leaves);

@@ -1,18 +1,23 @@
-"""CTC training step of the early-exit Conformer (counterpart of
-`early_exit_tpu/training/trainer.py`, CTC mode).
+"""Training step of the early-exit Conformer, CTC and AED modes
+(counterpart of `early_exit_tpu/training/trainer.py`).
 
 One step: SpecAugment (optional) -> the training forward of every exit
 -> the sum over exits of each exit's CTC loss (per row divided by its
 label length, then the mean over the real rows) -> plus self-distillation
-(optional) -> backward -> global-norm clip -> AdamW under the Noam
-schedule -> the new BatchNorm statistics. Plain PyTorch with autograd:
-no TPU kernel lies on the JAX package's training path.
+(optional, CTC mode) -> backward -> global-norm clip -> AdamW under the
+Noam schedule -> the new BatchNorm statistics. In AED mode
+(`FullConformer`) the decoders read labels[:, :-1] and the loss is
+aed_ce_weight x (the sum over exits of the cross-entropy against
+labels[:, 1:], every position counted, pad included, averaged per row
+then over the real rows) + aed_ctc_weight x the CTC loss above. Plain
+PyTorch with autograd: no TPU kernel lies on the JAX package's training
+path.
 
 Randomness: step n's seed is drawn from a CPU `torch.Generator` seeded
 with (seed + 1, n), so a resumed run continues the same stream; from it
 derive the SpecAugment uniforms (drawn on the features' device), the
 dynamic-chunk choice (drawn on the host) and every dropout mask (see
-`EarlyConformer.apply_train`).
+`ConformerTrunk.train_hidden`).
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ from typing import Dict, Optional
 import torch
 
 from early_exit_tpu_torch.configs import ModelConfig, TrainConfig
-from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.ops import ctc, specaugment
 from early_exit_tpu_torch.optim.noam import NoamAdamW
 
@@ -101,18 +106,30 @@ def _child_seed(host: torch.Generator) -> int:
     return int(torch.randint(0, 2 ** 62, (), generator=host))
 
 
-def loss_fn(model: EarlyConformer, train_cfg: TrainConfig,
+def aed_cross_entropy(dec_logits: torch.Tensor, trg_expect: torch.Tensor,
+                      item_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sum over exits of the decoder cross-entropy of (E, B, L, V) raw
+    logits against (B, L) ids: every position counts (pad included, the
+    reference's CrossEntropyLoss()), averaged per row, then the mean over
+    the rows (the real rows, with item_mask)."""
+    logp = torch.log_softmax(dec_logits.float(), dim=-1)
+    idx = trg_expect.long()[None, ..., None].expand(logp.shape[0], -1, -1, 1)
+    per_item = -logp.gather(-1, idx)[..., 0].mean(-1)             # (E, B)
+    if item_mask is None:
+        return per_item.mean(-1).sum()
+    m = item_mask.float()
+    return ((per_item * m).sum(-1) / m.sum().clamp_min(1.0)).sum()
+
+
+def loss_fn(model: ConformerTrunk, train_cfg: TrainConfig,
             batch: Dict[str, torch.Tensor], seed: Optional[int] = None):
     """The training loss of one batch ({"feats", "feat_lengths", "labels",
     "label_lengths"[, "item_mask"]}). seed None: no dropout, no
-    SpecAugment and full attention. Returns (total, per_exit (E,),
-    new_state)."""
+    SpecAugment and full attention. Returns (total, per_exit CTC losses
+    (E,), new_state)."""
     mcfg: ModelConfig = model.cfg
     tcfg = train_cfg
-    if tcfg.decoder_mode != "ctc":
-        raise NotImplementedError(
-            f"decoder_mode={tcfg.decoder_mode!r}: the port trains CTC mode only "
-            "(the AED decoder is not ported)")
+    aed = tcfg.decoder_mode == "aed"
     item_mask = batch.get("item_mask")
     feats, feat_len = batch["feats"], batch["feat_lengths"]
     host = None if seed is None else torch.Generator().manual_seed(seed)
@@ -122,6 +139,17 @@ def loss_fn(model: EarlyConformer, train_cfg: TrainConfig,
             gen, feats, feat_len, n_freq_masks=tcfg.sa_freq_masks,
             freq_mask_width=tcfg.sa_freq_width, n_time_masks=tcfg.sa_time_masks,
             time_mask_frac=tcfg.sa_time_frac)
+    if aed:
+        labels = batch["labels"]
+        dec_logits, log_probs, sub_len, new_state = model.apply_train(
+            feats, feat_len, labels[:, :-1],
+            seed=None if host is None else _child_seed(host))
+        loss_ctc, per_exit = ctc_multi_exit_loss(
+            log_probs, sub_len, labels, batch["label_lengths"], blank=mcfg.blank_id,
+            padded_lengths=tcfg.ctc_compat_padded_lengths, item_mask=item_mask)
+        total = (tcfg.aed_ce_weight * aed_cross_entropy(dec_logits, labels[:, 1:], item_mask)
+                 + tcfg.aed_ctc_weight * loss_ctc)
+        return total, per_exit, new_state
     attn_mask = None
     if tcfg.dynamic_chunk and host is not None:
         attn_mask = sample_attn_mask(subsampled_frames(feats.shape[1]), host,
@@ -146,7 +174,7 @@ class Trainer:
     loss, loss_per_exit, grad_norm (of the unclipped gradients) and the
     step count (an int)."""
 
-    def __init__(self, model: EarlyConformer, train_cfg: TrainConfig, *,
+    def __init__(self, model: ConformerTrunk, train_cfg: TrainConfig, *,
                  warmup: int):
         self.model = model
         self.cfg = train_cfg

@@ -138,7 +138,7 @@ def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--decoder_mode", "aed"], "AED"),
+    (["--model_type", "early_zipformer"], "early_zipformer"),
     (["--model_type", "splitformer"], "early_conformer"),
 ])
 def test_cli_unported_modes_raise_by_name(setup, flags, match):

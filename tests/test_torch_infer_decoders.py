@@ -258,5 +258,3 @@ def test_decoder_suite():
     assert len(starts) == 2 and np.isfinite(score)
     with pytest.raises(RuntimeError, match="lexicon"):
         suite.ctc_lexicon(lp, lens)
-    with pytest.raises(NotImplementedError, match="AED"):
-        suite.aed_beam(None, None, 1, max_length=4, min_length=1)

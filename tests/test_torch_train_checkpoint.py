@@ -237,7 +237,7 @@ def test_train_cli_two_epochs_then_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--decoder_mode", "aed"], "AED"),
+    (["--model_type", "early_zipformer"], "early_zipformer"),
     (["--model_type", "splitformer"], "early_conformer"),
     (["--tp", "2"], "parallelism"),
     (["--conv_norm", "group"], "conv_norm"),

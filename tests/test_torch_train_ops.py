@@ -1,6 +1,6 @@
 """The port's training ops against the JAX package's, on the CPU at small
 sizes: CTC loss (with infeasible rows, label length 0 and input length 0,
-also held against a plain recursion written out here) and its
+also held against the port's own recursion) and its
 gradients, the per-exit and
 distillation losses, chunk masks, SpecAugment fed JAX's uniforms, the
 Noam schedule and the clipped AdamW against optax, dropout's keep rate
@@ -44,39 +44,6 @@ def _close(got, ref, rtol=1e-5):
                                atol=rtol * max(np.abs(ref).max(), 1.0))
 
 
-NEG = -1e30
-
-
-def _ctc_nll_reference(log_probs, input_lengths, labels, label_lengths, blank=0):
-    """Per-example CTC negative log-likelihood by the plain forward
-    recursion over the blank-interleaved label states, one vectorised
-    step per frame, with the JAX package's semantics: frame 0 always
-    counts and an infeasible alignment reads ~1e30."""
-    B, T, V = log_probs.shape
-    L = labels.shape[1]
-    S = 2 * L + 1
-    z = torch.full((B, S), blank, dtype=torch.long)
-    z[:, 1::2] = labels.long()
-    lp_z = log_probs.float().gather(2, z[:, None, :].expand(B, T, S))   # (B, T, S)
-    z_prev2 = torch.cat([torch.full((B, 2), blank, dtype=torch.long), z[:, :-2]], dim=1)
-    can_skip = (z != blank) & (z != z_prev2)
-    can_skip[:, :2] = False
-    neg = torch.full((B, S), NEG)
-    has_label = label_lengths > 0
-    alpha = neg.clone()
-    alpha[:, 0] = lp_z[:, 0, 0]
-    alpha[:, 1] = torch.where(has_label, lp_z[:, 0, 1], neg[:, 1])
-    for t in range(1, T):
-        move = torch.cat([neg[:, :1], alpha[:, :-1]], dim=1)
-        skip = torch.where(can_skip, torch.cat([neg[:, :2], alpha[:, :-2]], dim=1), neg)
-        new = torch.logaddexp(torch.logaddexp(alpha, move), skip) + lp_z[:, t]
-        alpha = torch.where((t < input_lengths)[:, None], new, alpha)
-    ll = label_lengths.long()
-    a_last = alpha.gather(1, (2 * ll - 1).clamp(0, S - 1)[:, None])[:, 0]
-    a_blank = alpha.gather(1, (2 * ll).clamp(0, S - 1)[:, None])[:, 0]
-    return -torch.where(has_label, torch.logaddexp(a_last, a_blank), a_blank)
-
-
 def _ctc_case(seed=0):
     r = np.random.RandomState(seed)
     B, T, V, L = 7, 12, 7, 5
@@ -93,15 +60,15 @@ def _ctc_case(seed=0):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_ctc_neg_log_likelihood_and_loss_match_jax(seed):
-    """The recursion above against JAX's, and the port's `ctc_loss`
-    (F.ctc_loss) against both: infeasible rows read ~1e30 in the
+    """The port's recursion (`ops/ctc.py::ctc_neg_log_likelihood`) against
+    JAX's, and the port's `ctc_loss` (F.ctc_loss) against both: infeasible rows read ~1e30 in the
     recursions and 0 in the loss."""
     logits, labels, il, ll = _ctc_case(seed)
     lp = np.array(jax.nn.log_softmax(jnp.asarray(logits), -1))
     j = [jnp.asarray(a) for a in (lp, il, labels, ll)]
     t = [torch.from_numpy(a) for a in (lp, il, labels, ll)]
     nll_j = np.asarray(jctc.ctc_neg_log_likelihood(*j))
-    nll_r = _ctc_nll_reference(*t).numpy()
+    nll_r = ctc.ctc_neg_log_likelihood(*t).numpy()
     assert (nll_j[[2, 5]] > 1e29).all() and (nll_r[[2, 5]] > 1e29).all()
     ok = nll_j < 1e29
     _close(nll_r[ok], nll_j[ok])
