@@ -184,6 +184,38 @@ Phases (any failure exits non-zero, with no result line):
      the CLI's audio-s/s) and a profiled beam's launches a step and
      device-busy share.
 
+ 13. the model zoo at the flagship's widths: the splitformer (6 x 2
+     blocks and its two branch blocks) and the early_zipformer (19 x 1
+     blocks, one exit), seeded: (a) one float32 train step of each on the
+     card against the CPU (phase 8a's conditions and tolerances, the
+     branch blocks' BatchNorm statistics among those held); (b)
+     ZOO_STEPS steps of `python -m early_exit_tpu_torch.train` each on the
+     synthetic corpus, 16 requests a step: the last loss < LEARN_RATIO x
+     the first, ms a step (CUDA events and wall), peak memory; (c) that
+     checkpoint through `python -m early_exit_tpu_torch.inference
+     --fused_block true` over phase 9's corpus: 12 (19) block launches and
+     1 head launch a sub-batch and nothing else, no launch from the
+     splitformer's branch blocks (they run unfused, as in the JAX
+     package), each exit's WER (no bound: no trained checkpoint), the bf16
+     kernel path against the plain-version path (reported), the float32
+     CLI (row 1c, 12 (19) launches a sub-batch) card against CPU on 8
+     utterances within 1% of tokens at every exit; (d) at B=128 x 10 s
+     the block kernel on each of the zipformer's six stacks' inputs (as
+     its plain path gives them, T' = 500, 250, 125, 63) against its plain
+     version: the pre stack (fed the embedding, as phase 2's block) within
+     phase 2's tolerance, each stage (fed a block's output) within twice
+     the ulps the plain version moves by when every product is summed
+     exactly (at least phase 2's), its share of values printed as phase
+     8b prints a trained trunk's later blocks'; and the head kernel at E=1
+     equal to its plain version; (e) the splitformer's gate in float32 on 32 of
+     those requests: threshold 0 runs 1 exit, 1.01 all 6, and at the
+     median of exit 1's confidences the chosen exits equal those the
+     all-exit forward's confidences give on every row, the chosen
+     log-probs within 1e-4 of its; (f) the four legacy Transformer models
+     (no kernel) in float32, card against CPU within 1e-4; times: the
+     all-exit forward of each family beside the flagship's at B=128 x
+     10 s, a profile of the zipformer's, each CLI's audio-s/s.
+
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
 last line is
@@ -290,6 +322,12 @@ AED_ZERO_GRAD_LEAVES = ZERO_GRAD_LEAVES + (
     "['decoders']['self_attn']['k']['b']", "['decoders']['cross_attn']['k']['b']")
 AED_RTOL = 1e-4
 AED_BEAM, AED_CMP_UTTS, AED_CMP_EXITS = 10, 4, (2, 6)
+# phase 13 (the zoo): the zero-gradient leaves wherever their blocks sit
+# (the stack, the splitformer's branches, the zipformer's stacks); the
+# training CLI's steps and requests a step (64 synthetic utterances an
+# epoch); the rows of the gate's batch
+ZOO_ZERO_GRAD = ("['attn']['mha']['k']['b']", "['conv']['dw']['b']")
+ZOO_STEPS, ZOO_BATCH, ZOO_GATE_ROWS = 40, 16, 32
 
 
 def fail(msg: str) -> None:
@@ -368,6 +406,20 @@ def plain_versions(kcb, katt):
         yield
     finally:
         kcb.conformer_block, katt.fused_attention = saved
+
+
+@contextlib.contextmanager
+def exact_product_sums():
+    """Within the block's plain version, every product's sum (the ten
+    matrix products and the attention's two) is taken in float64 and
+    rounded once to float32: the products' sum order taken out."""
+    import torch
+    matmul = torch.matmul
+    torch.matmul = lambda a, b: matmul(a.double(), b.double()).to(a.dtype)
+    try:
+        yield
+    finally:
+        torch.matmul = matmul
 
 
 @contextlib.contextmanager
@@ -1228,6 +1280,8 @@ def main() -> None:
                                 out_k, ladder)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s")
         aed = aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp)
+        zoo = zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, model,
+                        wav, counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1242,7 +1296,8 @@ def main() -> None:
              f"all-exit program (phase 11): {exported['allexit_launches']} over "
              f"{exported['calls']} calls, through the op eet::conformer_block; the "
              f"AED CLI's trunk (phase 12): {aed['launches']} over {aed['batches']} "
-             f"batches, twice"),
+             f"batches, twice; the zoo's inference CLIs (phase 13): " + ", ".join(
+                 f"{n} {b} over {nb} sub-batches" for n, (b, _, nb) in zoo["launches"].items())),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1252,7 +1307,9 @@ def main() -> None:
              f"{gated_launches['w8a8'][0]} with none"),
             ("head_argmax", head, head_err, "early_exit_tpu_torch/csrc/head_argmax.cu",
              "early_exit_tpu/ops/pallas/head_argmax.py:53", launches["head_argmax"],
-             "all-exit path"),
+             "all-exit path; the zoo's inference CLIs (phase 13): " + ", ".join(
+                 f"{n} {h} over {nb} sub-batches (E={6 if n == 'splitformer' else 1})"
+                 for n, (_, h, nb) in zoo["launches"].items())),
             ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
              f"(D) unfused, attention_impl='pallas', {n_cd} requests"),
@@ -1268,6 +1325,9 @@ def main() -> None:
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     rows[0]["export_launches"] = exported["allexit_launches"]
     rows[0]["aed_launches"] = aed["launches"]
+    rows[0]["zoo_launches"] = {n: b for n, (b, _, _) in zoo["launches"].items()}
+    rows[1]["zoo_launches"] = zoo["f32_launches"]
+    rows[3]["zoo_launches"] = {n: h for n, (_, h, _) in zoo["launches"].items()}
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1306,37 +1366,18 @@ class _DecodeClock:
             setattr(obj, name, fn)
 
 
-def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
-    """Phase 9: the inference CLI (`python -m early_exit_tpu_torch.inference`)
-    on the card over a LibriSpeech-layout FLAC corpus written beforehand
-    under tmp: greedy, the prefix beam, the lexicon beam with an ARPA LM,
-    and the gated cascade, with launch counts, WER, held results and
-    times. Returns the corpus for phase 10: its root, the dataset, the
-    waveforms and greedy's WER at each exit."""
-    import contextlib
-    import importlib.util
-    import io
-
+def make_corpus(knobs, tmp) -> dict:
+    """Phase 9's corpus: N_CORPUS utterances of bench_eval's distribution
+    in the LibriSpeech layout under tmp/full (and the first 8 under
+    tmp/cpu8), written with the port's FLAC writer and read back equal to
+    their int16 sources; the native library built. Returns its root, the
+    dataset, the waveforms, the seconds of audio and the sources."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from early_exit_tpu_torch import _native, checkpoint, inference
-    from early_exit_tpu_torch.cli import get_args
-    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch import _native
     from early_exit_tpu_torch.data.flac import write_flac_verbatim
     from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
-    from early_exit_tpu_torch.data.pipeline import Pipeline
     from early_exit_tpu_torch.data.synthetic import SyntheticDataset
-    from early_exit_tpu_torch.decoding import prefix_beam
-    from early_exit_tpu_torch.decoding.lexicon import edit_distance
-    from early_exit_tpu_torch.decoding.lexicon_beam import LexiconBeamDecoder
-    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
-    from early_exit_tpu_torch.ops import ctc
-    from early_exit_tpu_torch.serving.recognizer import Recognizer
-    from early_exit_tpu_torch.tokenizer import load_tokenizer
 
-    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
-    # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
     t0 = time.perf_counter()
     ds = SyntheticDataset(n_items=N_CORPUS, seed=9090,
                           min_words=knobs.get("min_words", 18),
@@ -1361,7 +1402,7 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     corpus = LibriSpeechDataset(os.path.join(tmp, "full"), "test-clean")
     if len(corpus) != N_CORPUS:
         fail(f"the corpus lists {len(corpus)} utterances, not {N_CORPUS}")
-    waves, refs_by_text = [], {}
+    waves = []
     for i in range(len(corpus)):
         u = corpus[i]
         want, transcript = src[u.utterance_id]
@@ -1373,6 +1414,41 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     print(f"inference corpus: {len(corpus)} utterances, {audio_s:.1f} s of audio, "
           f"written as FLAC and read back equal to the int16 sources "
           f"({time.perf_counter() - t0:.1f} s, native library built)")
+    return dict(root=os.path.join(tmp, "full"), corpus=corpus, waves=waves,
+                audio_s=audio_s, src=src)
+
+
+def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
+    """Phase 9: the inference CLI (`python -m early_exit_tpu_torch.inference`)
+    on the card over a LibriSpeech-layout FLAC corpus written beforehand
+    under tmp: greedy, the prefix beam, the lexicon beam with an ARPA LM,
+    and the gated cascade, with launch counts, WER, held results and
+    times. Returns the corpus for phase 10: its root, the dataset, the
+    waveforms and greedy's WER at each exit."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from early_exit_tpu_torch import checkpoint, inference
+    from early_exit_tpu_torch.cli import get_args
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.decoding import prefix_beam
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    from early_exit_tpu_torch.decoding.lexicon_beam import LexiconBeamDecoder
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops import ctc
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+
+    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
+    corp = make_corpus(knobs, tmp)
+    corpus, waves, audio_s, src = corp["corpus"], corp["waves"], corp["audio_s"], corp["src"]
     spec = importlib.util.spec_from_file_location(
         "train_arpa", os.path.join(HERE, "tools", "train_arpa.py"))
     arpa_mod = importlib.util.module_from_spec(spec)
@@ -2925,6 +3001,447 @@ def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
     blocks, batches, _ = passes["beam"]
     return {"launches": blocks, "batches": batches}
+
+
+def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
+              wav, counts) -> dict:
+    """Phase 13: the model zoo at the flagship's widths (d 256, 8 heads,
+    ffn 2048, k 31, BPE-256): the splitformer (6 exits x 2 blocks and its
+    two branch blocks) and the early_zipformer (19 x 1 blocks, one exit).
+    (a) One float32 train step of each, seeded, on the card against the
+    CPU; (b) ZOO_STEPS steps of `python -m early_exit_tpu_torch.train` each
+    on the synthetic corpus must learn; (c) the trained models through
+    `python -m early_exit_tpu_torch.inference --fused_block true` over
+    phase 9's corpus, with launch counts, the float32 CLI card against CPU
+    and the bf16 kernel path against the plain-version path; (d) the block
+    kernel at each of the zipformer's six stacks' inputs and the head
+    kernel at E=1, B=128 x 10 s; (e) the splitformer's gate on the card;
+    (f) the four legacy models, card against CPU; times. Returns the
+    launches of the CLIs' passes."""
+    import copy
+    import io
+
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import checkpoint, inference, interop, train
+    from early_exit_tpu_torch.cli import get_args
+    from early_exit_tpu_torch.configs import AudioConfig, ModelConfig, TrainConfig
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    from early_exit_tpu_torch.models import legacy_transformer as lt
+    from early_exit_tpu_torch.models.early_exit_gate import exit_confidence, gated_apply
+    from early_exit_tpu_torch.models.registry import build_model
+    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    from early_exit_tpu_torch.optim.noam import global_norm
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+    from early_exit_tpu_torch.training import checkpoint as tck
+    from early_exit_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    acfg, tcfg = AudioConfig(), TrainConfig()
+    cpu_pipe = Pipeline([], tok, acfg, tcfg, device="cpu")
+    shapes = {"splitformer": dict(model_type="splitformer"),
+              "early_zipformer": dict(model_type="early_zipformer", n_enc_exits=19,
+                                      n_enc_layers_per_exit=1)}
+    zoo = {name: [a for k, v in over.items() for a in (f"--{k}", str(v))]
+           for name, over in shapes.items()}
+    n_blocks = {"splitformer": 12, "early_zipformer": 19}
+    n_out = {"splitformer": 6, "early_zipformer": 1}
+
+    def requests(n, seed):
+        """A sub-batch of n requests of bench_eval's distribution, mel on
+        the CPU."""
+        w, c, refs = synth_batch(knobs, n, seed)
+        items = []
+        for i in range(n):
+            label = text.clean_train_label(refs[i])
+            items.append((w[i, :c[i]], text.encode_target(label, tok), label))
+        host = {k: torch.from_numpy(v) for k, v in cpu_pipe.host_subbatch(items).items()}
+        return cpu_pipe.to_device(host)
+
+    def cli(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        return buf.getvalue()
+
+    # -- 13a. one float32 step of each family, card against CPU
+    batch_cpu = requests(4, seed=1313)
+    batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
+    for name in zoo:
+        f32 = ModelConfig(compute_dtype="float32", attn_softmax_dtype="float32",
+                          drop_prob=0.0, **shapes[name])
+        seeded = build_model(f32).init(torch.Generator().manual_seed(13))
+        n_params = sum(p.numel() for p in seeded.parameters())
+
+        def one_step(device, batch):
+            model = copy.deepcopy(seeded).requires_grad_(True).to(device)
+            total, _, new_state = trainer.loss_fn(model, tcfg, batch)
+            params = list(model.parameters())
+            grads = torch.autograd.grad(total, params)
+            leaves = {k: np.asarray(v, np.float64) for k, v in
+                      _flat(interop.jax_tree(model, dict(zip(params, grads)))).items()}
+            bn = {k: np.asarray(v, np.float64)
+                  for k, v in _flat(interop.numpy_tree(new_state)).items()}
+            return float(total.detach()), float(global_norm(grads)), leaves, bn
+
+        t0 = time.perf_counter()
+        on_card = one_step(dev, batch_dev)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = one_step(torch.device("cpu"), batch_cpu)
+        t_cpu = time.perf_counter() - t0
+        zero_keys = [k for k in host[2] if k.endswith(ZOO_ZERO_GRAD)]
+        rel = {k: np.linalg.norm(on_card[2][k] - h) / np.linalg.norm(h)
+               for k, h in host[2].items() if k not in zero_keys}
+        zero = max(max(np.linalg.norm(on_card[2][k]), np.linalg.norm(host[2][k])) / host[1]
+                   for k in zero_keys)
+        bn = max(float(np.abs(on_card[3][k] - h).max()) / max(1.0, float(np.abs(h).max()))
+                 for k, h in host[3].items())
+        worst = max(rel, key=rel.get)
+        d_loss = abs(on_card[0] - host[0]) / abs(host[0])
+        d_norm = abs(on_card[1] - host[1]) / host[1]
+        print(f"13a. {name} train step, seeded ({n_params:,} parameters), float32, TF32 "
+              f"off, dropout 0, no SpecAugment, B=4, T={batch_cpu['feats'].shape[1]}, card "
+              f"vs CPU: loss {on_card[0]:.6f} vs {host[0]:.6f} (relative {d_loss:.3e}); "
+              f"grad_norm {on_card[1]:.6f} vs {host[1]:.6f} (relative gap {d_norm:.3e}); "
+              f"worst leaf relative L2 {rel[worst]:.3e} ({worst}); zero-gradient leaves at "
+              f"most {zero:.3e} of the norm; BN running statistics ({len(host[3])} leaves) "
+              f"max|d| {bn:.3e}; {t_dev:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+        if not np.isfinite([on_card[0], on_card[1]]).all():
+            fail(f"non-finite {name} train step on the card")
+        if (d_loss > TRAIN_F32_LOSS or rel[worst] > TRAIN_F32_LEAF or zero > ZERO_GRAD_SHARE
+                or bn > TRAIN_F32_BN):
+            fail(f"the {name} train step on the card disagrees with the CPU")
+        del seeded, on_card, host
+    del batch_cpu, batch_dev
+
+    # -- 13b. ZOO_STEPS steps of the training CLI on the synthetic corpus
+    ckpt, learn = {}, {}
+    step = trainer.Trainer.step
+    for name in zoo:
+        ck_dir = os.path.join(tmp, f"zoo_{name}")
+        argv = (["--decoder_mode", "ctc", "--synthetic_data", "true", "--batch_size",
+                 str(ZOO_BATCH), "--n_batch_split", "1", "--n_epochs",
+                 str(ZOO_STEPS * ZOO_BATCH // 64), "--warmup", "10", "--seed", "13",
+                 "--save_model_dir", ck_dir, "--log_dir", ck_dir + "_runs"] + zoo[name])
+        losses, events = [], []
+
+        def timed(self, batch, _losses=losses, _events=events):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(self, batch)
+            b.record()
+            _events.append((a, b))
+            _losses.append(out["loss"])
+            return out
+
+        trainer.Trainer.step = timed
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            out = cli(train.main, argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            trainer.Trainer.step = step
+        losses = [float(v) for v in losses]
+        ms = [a.elapsed_time(b) for a, b in events]
+        epoch = tck.latest_epoch(ck_dir)
+        ckpt[name] = tck.model_ckpt_path(ck_dir, epoch)
+        count = [ln for ln in out.splitlines() if "trainable parameters" in ln]
+        learn[name] = (losses, ms, wall)
+        print(f"13b. {name}: `python -m early_exit_tpu_torch.train "
+              f"{' '.join(argv).replace(tmp, '<tmp>')}`: "
+              f"{count[0] if count else 'no parameter line'}; {len(losses)} steps of "
+              f"{ZOO_BATCH} requests; loss {[round(v, 3) for v in losses[:3]]} ... "
+              f"{[round(v, 3) for v in losses[-3:]]}, last / first "
+              f"{losses[-1] / losses[0]:.4f} (must be < {LEARN_RATIO}); "
+              f"{np.mean(ms[2:]):.1f} ms a step on the card (CUDA events, steps 3..), "
+              f"{1e3 * wall / len(losses):.1f} ms a step of the CLI's wall ({wall:.1f} s, "
+              f"data synthesis and checkpoints included); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; checkpoint epoch {epoch}; "
+              f"on {card}")
+        if len(losses) != ZOO_STEPS:
+            fail(f"{name}: the training CLI took {len(losses)} steps, not {ZOO_STEPS}")
+        if not np.isfinite(losses).all() or losses[-1] >= LEARN_RATIO * losses[0]:
+            fail(f"{name}: the training CLI did not learn")
+
+    # -- 13c. the trained models through the inference CLI
+    launches, f32_launches, rates = {}, {}, {}
+    small = os.path.join(tmp, "cpu8")
+    f32_flags = ["--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
+    n_batches = [0]
+    exit_outputs = inference.exit_outputs
+
+    def counted(*a, **k):
+        n_batches[0] += 1
+        return exit_outputs(*a, **k)
+
+    def per_exit_ids(out):
+        ids = {}
+        for ln in out.splitlines():
+            if "BEAM_OUT_" in ln:
+                e = int(ln.split("BEAM_OUT_")[1].split(":")[0])
+                ids.setdefault(e, []).append(tok.encode_as_ids(
+                    ln.split(" : ", 1)[1] if " : " in ln else ""))
+        return ids
+
+    def token_gaps(a, b):
+        """Per exit (edits, tokens) of a's transcripts against b's."""
+        ia, ib = per_exit_ids(a), per_exit_ids(b)
+        if sorted(ia) != sorted(ib) or any(len(ia[e]) != len(ib[e]) for e in ia):
+            fail("two CLI passes print different BEAM_OUT lines")
+        return {e: (sum(edit_distance(x, y) for x, y in zip(ia[e], ib[e])),
+                    sum(max(len(y), 1) for y in ib[e])) for e in sorted(ib)}
+
+    @contextlib.contextmanager
+    def plain_path():
+        """The block and head wrappers run their plain versions."""
+        saved = inference.head_argmax
+        inference.head_argmax = kha.head_argmax_plain
+        try:
+            with plain_versions(kcb, katt):
+                yield
+        finally:
+            inference.head_argmax = saved
+
+    inference.exit_outputs = counted
+    try:
+        for name in zoo:
+            base = (["--decoder_mode", "ctc", "--load_model_path", ckpt[name],
+                     "--eval_splits", "test-clean", "--fused_block", "true"] + zoo[name])
+            n_batches[0] = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli(inference.main, base + ["--data_root", corp["root"]])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            nb, L = n_batches[0], n_blocks[name]
+            blocks, heads = got["conformer_block_bf16"], got["head_argmax"]
+            others = {k: v for k, v in got.items()
+                      if k not in ("conformer_block_bf16", "head_argmax") and v}
+            wers = [ln.split(": ", 1)[1] for ln in out.splitlines() if " WER exit " in ln]
+            n_lines = sum("BEAM_OUT_" in ln for ln in out.splitlines())
+            launches[name] = (blocks, heads, nb)
+            rates[name] = corp["audio_s"] / wall
+            print(f"13c. {name} inference CLI, bf16, --fused_block true: launches {got} over "
+                  f"{nb} sub-batches ({blocks / max(nb, 1):.0f} block and "
+                  f"{heads / max(nb, 1):.0f} head launches a sub-batch, expected {L} and 1); "
+                  f"{n_lines} BEAM_OUT lines; WER per exit {wers}; {corp['audio_s']:.1f} s of "
+                  f"audio in {wall:.3f} s = {rates[name]:.1f} audio-s/s on {card}")
+            if others or blocks != L * nb or heads != nb or nb == 0:
+                fail(f"{name} CLI: {blocks} block and {heads} head launches over {nb} "
+                     f"sub-batches and {others}, expected {L} and 1 a sub-batch")
+            if n_lines != n_out[name] * len(corp["corpus"]) or len(wers) != n_out[name]:
+                fail(f"{name} CLI: {n_lines} BEAM_OUT lines and {len(wers)} WER lines")
+            # bf16: the kernel path against the plain-version path, the same CLI
+            with plain_path():
+                out_p = cli(inference.main, base + ["--data_root", corp["root"]])
+            gaps = token_gaps(out, out_p)
+            print(f"13c. {name}, bf16 kernel path vs plain-version path on the card "
+                  f"(reported, not held: a model {ZOO_STEPS} steps from its init has "
+                  f"near-tie logits): tokens differing per exit "
+                  f"{[f'{e}/{t}' for e, t in gaps.values()]} (predicted <= 5% at every exit)")
+            # float32 (row 1c), card against CPU on 8 utterances
+            n_batches[0] = 0
+            reset_counts()
+            out_c = cli(inference.main, base + ["--data_root", small] + f32_flags)
+            got = read_counts()
+            f32_launches[name] = got["conformer_block_f32"]
+            if got["conformer_block_f32"] != L * n_batches[0] or any(
+                    v for k, v in got.items() if k != "conformer_block_f32"):
+                fail(f"{name} float32 CLI: launches {got} over {n_batches[0]} sub-batches, "
+                     f"expected {L} float32 block launches a sub-batch and nothing else")
+            t0 = time.perf_counter()
+            out_h = cli(inference.main, base + ["--data_root", small, "--device", "cpu"]
+                        + f32_flags)
+            gaps = token_gaps(out_c, out_h)
+            print(f"13c. {name}, float32 (--compute_dtype float32 --attn_softmax_dtype "
+                  f"float32), card vs CPU on 8 utterances: launches {got}; tokens differing "
+                  f"per exit {[f'{e}/{t}' for e, t in gaps.values()]} (held <= 1% at every "
+                  f"exit); the CPU pass {time.perf_counter() - t0:.1f} s")
+            if any(e > TOKEN_DISAGREE * t for e, t in gaps.values()):
+                fail(f"{name}: the float32 CLI on the card disagrees with the CPU by > 1%")
+            # the same forward frame by frame (the 40-step models emit few
+            # tokens): the CLI's exit_outputs on one sub-batch's features
+            args, mcfg, tcfg_i, acfg_i, tk = get_args(base + f32_flags, mode="infer")
+            m_card = inference.load_model(args, mcfg, dev)
+            m_cpu = copy.deepcopy(m_card).to("cpu")
+            pipe = Pipeline(LibriSpeechDataset(small, "test-clean"), tk, acfg_i, tcfg_i,
+                            shuffle=False, infer_mode=True, device="cpu")
+            b = next(iter(pipe.epoch(0)))
+            ids_h, _, sub_h = exit_outputs(m_cpu, b["feats"], b["feat_lengths"],
+                                           greedy=True, timestamps=False)
+            ids_c = exit_outputs(m_card, b["feats"].to(dev), b["feat_lengths"].to(dev),
+                                 greedy=True, timestamps=False)[0].cpu()
+            valid = torch.arange(ids_h.shape[2])[None, :] < sub_h[:, None]
+            frames = [float((ids_c[e] != ids_h[e])[valid].float().mean())
+                      for e in range(ids_h.shape[0])]
+            blank = float((ids_h[:, valid] == mcfg.blank_id).float().mean())
+            print(f"13c. {name}, float32, card vs CPU frame by frame ({int(valid.sum())} "
+                  f"valid frames of {b['feats'].shape[0]} rows, {100 * blank:.1f}% blank): "
+                  f"argmax ids differing per exit {[round(f, 5) for f in frames]} (held <= 1%)")
+            if max(frames) > TOKEN_DISAGREE:
+                fail(f"{name}: the float32 forward on the card disagrees with the CPU's "
+                     f"frame ids by > 1%")
+            del m_card, m_cpu
+    finally:
+        inference.exit_outputs = exit_outputs
+
+    # the models as the CLI builds them, and phase 3's requests (B=128, 10 s)
+    models = {}
+    for name in zoo:
+        args, mcfg, _, acfg_i, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
+                                             ckpt[name], "--fused_block", "true"] + zoo[name],
+                                            mode="infer")
+        models[name] = inference.load_model(args, mcfg, dev)
+    with torch.no_grad():
+        feats = frontend.mel_spectrogram(wav, acfg_i, method=acfg_i.mel_method)
+        lengths = frontend.mel_lengths(counts, acfg_i.hop_length)
+
+    # -- 13d. the block kernel at the zipformer's six stacks, B=128 x 10 s
+    zm = models["early_zipformer"]
+    kw = dict(n_heads=zm.cfg.n_heads, kernel_size=zm.cfg.depthwise_kernel_size,
+              compute_dtype=zm.cfg.dtype, residual_dtype=zm.cfg.rdtype,
+              attn_softmax_dtype=zm.cfg.sm_dtype)
+    inputs = []
+
+    def record(i, stack, x, mask):
+        inputs.append((x.contiguous(), mask.sum(1, dtype=torch.int32)))
+        return stack(x, mask)
+
+    with torch.no_grad(), plain_path():
+        hidden, _ = zm._forward(feats, lengths, record)
+    with torch.no_grad():
+        for i, (x, lens) in enumerate(inputs):
+            f0 = zm.stacks()[i].folded()[0]
+            y_k = kcb.conformer_block(f0, x, lens, **kw)
+            y_p = kcb.conformer_block_plain(f0, x, lens, **kw)
+            torch.cuda.synchronize()
+            with exact_product_sums():
+                y_e = kcb.conformer_block_plain(f0, x, lens, **kw)
+            err, mean, ulps, frac = bf16_figures(y_k, y_p)
+            ulps_e, frac_e = bf16_figures(y_e, y_p)[2:]
+            # phase 2 calibrated its tolerance on a block fed the embedding,
+            # as the pre stack is. A stage is fed a block's output, where the
+            # block's bf16 rounding points lie closer to its float32 sums:
+            # the plain version moves by up to ulps_e on frac_e of values when
+            # only its products' sum order changes. So a stage's kernel is
+            # held to twice that (each of the two orders within ulps_e of the
+            # exact sums), at least phase 2's ulps, its share printed (8b)
+            bound = BLOCK_MAX_ULPS if i == 0 else max(BLOCK_MAX_ULPS, 2 * ulps_e)
+            where = "pre" if i == 0 else f"stage {i}"
+            print(f"13d. early_zipformer {where}, its first block, kernel vs plain on the plain "
+                  f"path's input (B={x.shape[0]}, T'={x.shape[1]}, lengths "
+                  f"{int(lens.min())}..{int(lens.max())}): max|d| {err} mean|d| {mean} max "
+                  f"ulps {ulps} values differing {frac}; the plain version with every product "
+                  f"summed exactly vs itself: max ulps {ulps_e} values differing {frac_e} "
+                  f"(tolerance {bound} ulps" +
+                  (f" and {BLOCK_DIFFERING} of values, fed the embedding)" if i == 0 else
+                   ", fed a block's output)"))
+            if (not torch.isfinite(y_k.float()).all() or ulps > bound
+                    or (i == 0 and frac > BLOCK_DIFFERING)):
+                fail(f"the block kernel at the zipformer's {where} (T'={x.shape[1]}) "
+                     f"disagrees with its plain version")
+        hb = hidden.to(torch.bfloat16).contiguous()
+        wb, bb = zm.heads_w.to(torch.bfloat16), zm.heads_b.to(torch.bfloat16)
+        ids_k, ids_p = kha.head_argmax(hb, wb, bb), kha.head_argmax_plain(hb, wb, bb)
+        n_diff = int((ids_k != ids_p).sum())
+        print(f"13d. head_argmax at E=1, {tuple(hb.shape)}, vs its plain version: {n_diff} "
+              f"of {ids_p.numel()} ids differ (held: none)")
+        if n_diff:
+            fail("head_argmax at E=1 disagrees with its plain version")
+    t_sizes = [x.shape[1] for x, _ in inputs]
+    del inputs, hidden, hb
+
+    # -- 13e. the splitformer's gate on the card, float32
+    args, mcfg, _, _, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
+                                    ckpt["splitformer"], "--fused_block", "true"]
+                                   + zoo["splitformer"] + f32_flags, mode="infer")
+    sm = inference.load_model(args, mcfg, dev)
+    fb, lb = feats[:ZOO_GATE_ROWS], lengths[:ZOO_GATE_ROWS]
+    with torch.no_grad():
+        lp_all, sub = sm.apply(fb, lb)
+        mask = torch.arange(lp_all.shape[2], device=dev)[None, :] < sub[:, None]
+        conf = torch.stack([exit_confidence(lp_all[e], mask) for e in range(6)])
+        c1 = conf[0].sort().values
+        lo, hi = ZOO_GATE_ROWS // 4, 3 * ZOO_GATE_ROWS // 4
+        j = lo + int((c1[lo + 1:hi + 1] - c1[lo:hi]).argmax())
+        median = float(c1[j:j + 2].mean())
+        for label, thr in (("0", 0.0), ("1.01", 1.01), ("median", median)):
+            lp, chosen, sl, n_run = gated_apply(sm, fb, lb, threshold=thr)
+            ok = conf >= thr
+            ok[-1] = True
+            want = ok.float().argmax(0) + 1                       # first exit clearing thr
+            want_run = int(want.max())
+            got_lp = lp_all[chosen.long() - 1, torch.arange(ZOO_GATE_ROWS, device=dev)]
+            d_lp = float((lp - got_lp).abs().max())
+            n_bad = int((chosen != want).sum())
+            print(f"13e. splitformer gate, float32, B={ZOO_GATE_ROWS} x 10 s, threshold "
+                  f"{label} ({thr:.6f}): {int(n_run)} exits run, chosen exits "
+                  f"{torch.bincount(chosen.long(), minlength=7)[1:].tolist()} (per exit), "
+                  f"{n_bad} rows differ from the all-exit forward's confidences; chosen "
+                  f"log-probs vs the all-exit forward's max|d| {d_lp:.3e} (held 1e-4)")
+            if n_bad or d_lp > 1e-4 or not torch.equal(sl, sub) or int(n_run) != want_run:
+                fail(f"the splitformer's gate at threshold {label} disagrees with its "
+                     f"all-exit forward")
+            if label == "0" and want_run != 1 or label == "1.01" and want_run != 6:
+                fail(f"the splitformer's gate at threshold {label} ran {int(n_run)} exits")
+    del sm, lp_all
+
+    # -- 13f. the legacy family, card against CPU, float32, seeded
+    lcfg = ModelConfig(compute_dtype="float32", attn_softmax_dtype="float32", drop_prob=0.0)
+    batch = requests(4, seed=1616)
+    lf, trg = batch["feats"], batch["labels"][:, :-1]
+    for kind in ("CTCSelfAttention", "EarlyEncoder", "EarlyTransformer", "LegacyTransformer"):
+        m = getattr(lt, kind)(lcfg).init(torch.Generator().manual_seed(16))
+        m_dev = copy.deepcopy(m).to(dev)
+        with torch.no_grad():
+            args_c = (lf,) if kind in ("CTCSelfAttention", "EarlyEncoder") else (lf, trg)
+            a = m_dev.apply(*(t.to(dev) for t in args_c))
+            b = m.apply(*args_c)
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        d = max(float((x.cpu() - y).abs().max()) for x, y in zip(a, b))
+        print(f"13f. {kind} ({sum(p.numel() for p in m.parameters()):,} parameters), float32, "
+              f"B=4, T={lf.shape[1]}: outputs {[tuple(x.shape) for x in b]}, card vs CPU "
+              f"max|d| {d:.3e} (held 1e-4)")
+        if d > 1e-4:
+            fail(f"the legacy {kind} on the card disagrees with the CPU")
+        del m, m_dev
+
+    # -- times: the all-exit forward at B=128 x 10 s, beside the flagship's
+    B = wav.shape[0]
+    audio_s = B * wav.shape[1] / acfg_i.sample_rate
+    fwd = {}
+    with torch.no_grad():
+        for name, m in (("early_conformer (the flagship)", flagship), *models.items()):
+            ms = cuda_ms(lambda: inference.exit_outputs(m, feats, lengths, greedy=True,
+                                                        timestamps=False), 5, 1)
+            fwd[name] = ms
+        print(f"13. all-exit forward (blocks + head kernel, greedy ids), B={B} x 10 s, on "
+              f"{card}: " + ", ".join(f"{n} {ms:.3f} ms = {audio_s / (ms / 1e3):.0f} audio-s/s"
+                                      for n, ms in fwd.items()))
+        busy = profile_forward(lambda: inference.exit_outputs(
+            zm, feats, lengths, greedy=True, timestamps=False),
+            "early_zipformer all-exit forward (six stacks at T' " + ", ".join(
+                map(str, t_sizes)) + ")", card, B, top=12)
+    print(f"13. CLI audio-s/s on {card}: " + ", ".join(
+        f"{n} {r:.1f}" for n, r in rates.items()) + f"; zipformer forward device busy "
+        f"{100 * busy:.1f}%")
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "f32_launches": f32_launches}
 
 
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,

@@ -21,6 +21,8 @@ The model flags are the inference CLI's (`python -m
 early_exit_tpu_torch.inference`); the weights come from
 --load_model_path or the average of --load_model_dir's epochs
 --avg_model_start..--avg_model_end. Exporting for "cuda" needs a GPU.
+The programs are the flagship trunk's: --model_type splitformer and
+early_zipformer raise by name (their export is not ported yet).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import sys
 from early_exit_tpu_torch import runtime
 from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.inference import load_model
+from early_exit_tpu_torch.models.registry import require_flagship
 from early_exit_tpu_torch.serving import export as exp
 
 
@@ -76,6 +79,7 @@ def main(argv=None):
             args.load_model_dir, args.avg_model_start, args.avg_model_end):
         sys.exit("export: need --load_model_path or --load_model_dir "
                  "with --avg_model_start/--avg_model_end")
+    require_flagship(model_cfg, "the serving export")
     platforms = mine.export_platforms.split(",")
     model = load_model(args, model_cfg,
                        runtime.resolve_device("cuda" if "cuda" in platforms else "cpu"))

@@ -30,12 +30,19 @@ per exit the KV-cached beam over the whole batch (--beam_size,
 --rescore_ctc_weight > 0 the n-best re-ranked by the joint CTC +
 attention score of that exit's CTC head.
 
+--model_type splitformer or early_zipformer (with --n_enc_exits 19
+--n_enc_layers_per_exit 1) decodes those models as the flagship: every
+exit from one forward (the zipformer has one), with --fused_block true
+their stacks through the block kernel and greedy decoding through the
+head + argmax kernel; --exit_threshold gates the splitformer. As in the
+JAX CLI, the zipformer has nothing to gate, and --cascade_k and
+--streaming run the early_conformer only.
+
 The model comes from --load_model_path or the average of the epoch
 checkpoints --avg_model_start..--avg_model_end in --load_model_dir. Runs
 on CUDA unless --device cpu; raises without a GPU otherwise.
 
-Not ported, and raising by name: the model types splitformer and
-early_zipformer, and --conv_norm group.
+Not ported, and raising by name: --conv_norm group.
 """
 
 from __future__ import annotations
@@ -52,7 +59,6 @@ from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
 from early_exit_tpu_torch.data.pipeline import Pipeline
 from early_exit_tpu_torch.decoding.lexicon import LexiconCorrector, load_dict
-from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.models.registry import build_model
 from early_exit_tpu_torch.ops import ctc
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
@@ -65,8 +71,7 @@ SPM = os.path.join(REPO, "assets", "spm")
 
 
 def check_ported(args) -> None:
-    """The JAX CLI's usage errors, before any model is built (the
-    registry raises by name for a model type that is not ported)."""
+    """The JAX CLI's usage errors, before any model is built."""
     if args.streaming and args.decoder_mode != "ctc":
         sys.exit("--streaming is a CTC serving path; AED decoding "
                  "is whole-utterance only")
@@ -200,6 +205,11 @@ def run_ctc_gated(model, model_cfg, pipe, split, tokenizer, lex, args):
     """Confidence-gated early exit: each batch stops at the first exit
     where every row's confidence has cleared its threshold."""
     from early_exit_tpu_torch.models import early_exit_gate
+    if model_cfg.model_type not in early_exit_gate.GATED_MODEL_TYPES:
+        sys.exit(f"--exit_threshold: gating needs a multi-exit encoder "
+                 f"({', '.join(early_exit_gate.GATED_MODEL_TYPES)}); "
+                 f"{model_cfg.model_type} emits a single exit "
+                 "(reference README.md:61)")
     thr, score, temps = _gate_operating_point(model_cfg, args)
     acc = WerAccumulator()
     exits_run = []
@@ -452,7 +462,7 @@ def run_aed(model, model_cfg, pipe, split, tokenizer, lex, args):
               f"({acc.utterances} utts)")
 
 
-def load_model(args, model_cfg, device) -> ConformerTrunk:
+def load_model(args, model_cfg, device) -> torch.nn.Module:
     """The model of model_cfg.model_type (`registry.build_model`), from
     the checkpoint file or the average the arguments name."""
     model = build_model(model_cfg).to(device)

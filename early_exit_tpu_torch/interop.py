@@ -1,18 +1,20 @@
 """Carry parameter trees between the JAX package's layout and the port's
 modules.
 
-`from_jax_params(params, state, cfg)` takes the `early_conformer` or
-`full_conformer` parameter and state trees -- as the JAX package builds
-them, or as the port's checkpoint reader returns them -- with numpy or
-tensor leaves, and returns an `EarlyConformer` or `FullConformer` (by
-cfg.model_type) on the CPU with float32 weights (the compute-dtype casts
-happen per op, as in the JAX package).
+`from_jax_params(params, state, cfg)` takes the parameter and state
+trees of an `early_conformer`, `splitformer`, `early_zipformer` or
+`full_conformer` -- as the JAX package builds them, or as the port's
+checkpoint reader returns them -- with numpy or tensor leaves, and
+returns the model of cfg.model_type on the CPU with float32 weights (the
+compute-dtype casts happen per op, as in the JAX package).
 `to_jax_params(model)` goes the other way, to numpy trees of the JAX
 layout (block leaves stacked on a leading layer axis, decoder leaves on
-leading (exit, layer) axes, the two subsampling convolutions a list).
+leading (exit, layer) axes, the subsampling convolutions, the
+splitformer's two branch blocks and the zipformer's five stages lists).
 `jax_tree(model, values)` lays out any per-parameter tensors (gradients,
 Adam moments) the same way, and `from_jax_tree` reads such a tree back
-into one tensor per parameter.
+into one tensor per parameter; `state_tensors` reads a state tree. Each
+model type has its own list of paths (`_PATHS`).
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ import torch
 from early_exit_tpu_torch.checkpoint import to_torch
 from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models.conformer import ConformerStack
-from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
-from early_exit_tpu_torch.models.full_conformer import FullConformer
 from early_exit_tpu_torch.models.registry import build_model
 
 # port block tensor name -> path in the JAX block tree
@@ -91,16 +91,34 @@ def load_stack(stack: ConformerStack, params, state, *,
     return stack
 
 
-def from_jax_params(params, state, cfg: ModelConfig, *,
-                    trainable: bool = False) -> ConformerTrunk:
-    """trainable=False (serving) freezes the parameters: no graph is built
-    even outside `torch.no_grad`."""
-    model = build_model(cfg).requires_grad_(trainable)
-    load_stack(model.stack, params["blocks"], state["blocks"], trainable=trainable)
+def state_tensors(tree):
+    """A state tree (numpy or tensor leaves, lists perhaps saved as maps
+    keyed "0", "1") -> the same tree of float32 CPU tensors, with lists."""
+    if isinstance(tree, Mapping):
+        if tree and all(isinstance(k, str) and k.isdigit() for k in tree):
+            return [state_tensors(tree[str(i)]) for i in range(len(tree))]
+        return {k: state_tensors(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [state_tensors(v) for v in tree]
+    return _f32(tree)
+
+
+def load_params(model, params, state=None) -> None:
+    """The JAX trees -> the model's parameters and running statistics (if
+    it has any), in place."""
     src = from_jax_tree(model, params)
     with torch.no_grad():
         for p in model.parameters():
             p.copy_(src[p])
+    if state is not None:
+        model.set_state(state_tensors(state))
+
+
+def from_jax_params(params, state, cfg: ModelConfig, *, trainable: bool = False):
+    """trainable=False (serving) freezes the parameters: no graph is built
+    even outside `torch.no_grad`."""
+    model = build_model(cfg).requires_grad_(trainable)
+    load_params(model, params, state)
     return model
 
 
@@ -109,30 +127,141 @@ def _attr(module, name: str):
     return getattr(module if mod is None else getattr(module, mod), attr)
 
 
-def _param_paths(model: ConformerTrunk):
-    """(JAX path, [port parameters], leading axes) per leaf of the JAX
-    params tree: a block leaf lists the L blocks' tensors, stacked on one
-    axis (L,); a decoder leaf the E x n_dec layers', on (E, n_dec)."""
-    out = []
-    for i in range(2):
-        out.append((("subsample", "convs", i, "w"), [model.sub_w[i]], ()))
-        out.append((("subsample", "convs", i, "b"), [model.sub_b[i]], ()))
-    blocks = list(model.stack.blocks)
-    for name, path in _BLOCK_PATHS.items():
-        out.append((("blocks",) + path, [_attr(b, name) for b in blocks], (len(blocks),)))
-    out.append((("heads", "w"), [model.heads_w], ()))
-    out.append((("heads", "b"), [model.heads_b], ()))
-    if isinstance(model, FullConformer):
-        layers = [layer for dec in model.decoders for layer in dec.layers]
-        lead = (len(model.decoders), len(model.decoders[0].layers))
-        for name, path in _DECODER_PATHS.items():
-            out.append((("decoders",) + path, [_attr(l, name) for l in layers], lead))
-        out += [(("emb", "table"), [model.emb], ()),
-                (("out_linear", "w"), [model.out_w], ()),
-                (("out_linear", "b"), [model.out_b], ()),
-                (("final_ln", "g"), [model.final_ln_g], ()),
-                (("final_ln", "b"), [model.final_ln_b], ())]
+# (JAX path, [port parameters], leading axes) per leaf of the JAX params
+# tree: a stacked block leaf lists the L blocks' tensors, stacked on one
+# axis (L,); a decoder leaf the E x n_dec layers', on (E, n_dec)
+
+def _linear(prefix, w, b):
+    return [(prefix + ("w",), [w], ()), (prefix + ("b",), [b], ())]
+
+
+def _norm(prefix, g, b):
+    return [(prefix + ("g",), [g], ()), (prefix + ("b",), [b], ())]
+
+
+def _subsample_paths(model):
+    return [(("subsample", "convs", i, n), [t], ())
+            for i, (w, b) in enumerate(zip(model.sub_w, model.sub_b))
+            for n, t in (("w", w), ("b", b))]
+
+
+def _stack_paths(prefix, stack: ConformerStack):
+    blocks = list(stack.blocks)
+    return [(prefix + path, [_attr(b, name) for b in blocks], (len(blocks),))
+            for name, path in _BLOCK_PATHS.items()]
+
+
+def _early_conformer_paths(model):
+    return (_subsample_paths(model) + _stack_paths(("blocks",), model.stack)
+            + _linear(("heads",), model.heads_w, model.heads_b))
+
+
+def _full_conformer_paths(model):
+    layers = [layer for dec in model.decoders for layer in dec.layers]
+    lead = (len(model.decoders), len(model.decoders[0].layers))
+    return (_early_conformer_paths(model)
+            + [(("decoders",) + path, [_attr(l, name) for l in layers], lead)
+               for name, path in _DECODER_PATHS.items()]
+            + _linear(("out_linear",), model.out_w, model.out_b)
+            + _shared_decoder_paths(model))
+
+
+def _splitformer_paths(model):
+    """The flagship's tree and the two branch blocks, unstacked."""
+    return _early_conformer_paths(model) + [
+        (("parallel", i) + path, [_attr(block, name)], ())
+        for i, block in enumerate(model.parallel) for name, path in _BLOCK_PATHS.items()]
+
+
+def _zipformer_paths(model):
+    out = _subsample_paths(model) + _stack_paths(("pre",), model.pre)
+    for i, stage in enumerate(model.stages):
+        out += _stack_paths(("stages", i), stage)
+    return out + _linear(("head",), model.head_w, model.head_b)
+
+
+# the legacy family's encoder layer: port tensor name -> path in its tree
+_ENC_LAYER_PATHS = {"ln1_g": ("ln1", "g"), "ln1_b": ("ln1", "b"),
+                    "ln2_g": ("ln2", "g"), "ln2_b": ("ln2", "b"),
+                    "w1": ("w1", "w"), "b1": ("w1", "b"), "w2": ("w2", "w"), "b2": ("w2", "b")}
+for _n in ("q", "k", "v", "o"):
+    _ENC_LAYER_PATHS[f"attn.w{_n}"] = ("attn", _n, "w")
+    _ENC_LAYER_PATHS[f"attn.b{_n}"] = ("attn", _n, "b")
+
+
+def _encoder_paths(prefix, stack):
+    layers = list(stack.layers)
+    return ([(prefix + ("layers",) + path, [_attr(l, name) for l in layers], (len(layers),))
+             for name, path in _ENC_LAYER_PATHS.items()]
+            + _norm(prefix + ("final_ln",), stack.final_ln_g, stack.final_ln_b))
+
+
+def _decoder_paths(prefix, dec):
+    layers = list(dec.layers)
+    return [(prefix + path, [_attr(l, name) for l in layers], (len(layers),))
+            for name, path in _DECODER_PATHS.items()]
+
+
+def _shared_decoder_paths(model):
+    return ([(("emb", "table"), [model.emb], ())]
+            + _norm(("final_ln",), model.final_ln_g, model.final_ln_b))
+
+
+def _ctc_self_attention_paths(model):
+    return (_subsample_paths(model) + _encoder_paths(("encoder",), model.encoder)
+            + _linear(("head",), model.head_w, model.head_b))
+
+
+def _early_encoder_paths(model):
+    out = _subsample_paths(model)
+    for e, enc in enumerate(model.encoders):
+        out += _encoder_paths(("encoders", e), enc)
+        out += _linear(("heads", e), model.heads_w[e], model.heads_b[e])
     return out
+
+
+def _early_transformer_paths(model):
+    out = _subsample_paths(model)
+    for e, (enc, dec) in enumerate(zip(model.encoders, model.decoders)):
+        out += _encoder_paths(("encoders", e), enc)
+        out += _linear(("ctc_heads", e), model.ctc_w[e], model.ctc_b[e])
+        out += _linear(("out_heads", e), model.out_w[e], model.out_b[e])
+        out += _decoder_paths(("decoders", e), dec)
+    return out + _shared_decoder_paths(model)
+
+
+def _legacy_transformer_paths(model):
+    return (_subsample_paths(model) + _encoder_paths(("encoder",), model.encoder)
+            + _decoder_paths(("decoder",), model.decoder)
+            + _linear(("ctc_head",), model.ctc_w, model.ctc_b)
+            + _linear(("out_head",), model.out_w, model.out_b)
+            + _shared_decoder_paths(model))
+
+
+# model class -> its paths
+_PATHS = {"EarlyConformer": _early_conformer_paths,
+          "FullConformer": _full_conformer_paths,
+          "Splitformer": _splitformer_paths,
+          "EarlyZipformer": _zipformer_paths,
+          "CTCSelfAttention": _ctc_self_attention_paths,
+          "EarlyEncoder": _early_encoder_paths,
+          "EarlyTransformer": _early_transformer_paths,
+          "LegacyTransformer": _legacy_transformer_paths}
+
+
+def _param_paths(model):
+    return _PATHS[type(model).__name__](model)
+
+
+def legacy_from_jax(kind: str, params, cfg: ModelConfig):
+    """A legacy model (`models/legacy_transformer.py`: "CTCSelfAttention",
+    "EarlyEncoder", "EarlyTransformer" or "LegacyTransformer") from the
+    JAX package's params tree of it (it has no state), frozen, float32,
+    on the CPU."""
+    from early_exit_tpu_torch.models import legacy_transformer
+    model = getattr(legacy_transformer, kind)(cfg).requires_grad_(False)
+    load_params(model, params)
+    return model
 
 
 def _set(tree, path, value) -> None:
@@ -153,7 +282,7 @@ def _np(t: torch.Tensor):
     return t.detach().float().cpu().numpy().copy()
 
 
-def jax_tree(model: ConformerTrunk, values=None) -> dict:
+def jax_tree(model, values=None) -> dict:
     """The JAX params tree of `values` (a dict from parameter to tensor;
     default the parameters themselves), float32 numpy leaves."""
     tree: dict = {}
@@ -165,15 +294,22 @@ def jax_tree(model: ConformerTrunk, values=None) -> dict:
     return tree
 
 
-def to_jax_params(model: ConformerTrunk):
+def numpy_tree(tree):
+    """A tree of tensors (dicts and lists) -> the same tree of float32
+    numpy copies."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [numpy_tree(v) for v in tree]
+    return _np(tree)
+
+
+def to_jax_params(model):
     """(params, state) numpy trees in the JAX package's layout."""
-    bn = model.state()["blocks"]["conv_bn"]
-    state = {"blocks": {"conv_bn": {"mean": _np(bn["mean"]),
-                                    "var": _np(bn["var"])}}}
-    return jax_tree(model), state
+    return jax_tree(model), numpy_tree(model.state())
 
 
-def from_jax_tree(model: ConformerTrunk, tree) -> dict:
+def from_jax_tree(model, tree) -> dict:
     """A tree in the JAX params layout -> {parameter: float32 CPU tensor}."""
     out = {}
     for path, params, lead in _param_paths(model):

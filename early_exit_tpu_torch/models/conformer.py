@@ -358,15 +358,19 @@ class ConformerStack(nn.Module):
 
     def train_forward(self, x: torch.Tensor, mask: Optional[torch.Tensor], *,
                       seeds: Optional[List[int]] = None, collect_every: int = 1,
-                      attn_mask: Optional[torch.Tensor] = None
+                      attn_mask: Optional[torch.Tensor] = None,
+                      first_layer: int = 0, n_layers: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Training over every block, with autograd: block i's dropout
-        from seeds[i] (no dropout without seeds); with cfg.remat each block
-        is recomputed in backward. Returns (outs (L/k, B, T, D), the new
+        """Training over blocks first_layer .. n_layers-1 (default all),
+        with autograd: block i's dropout from seeds[i] (no dropout without
+        seeds); with cfg.remat each block is recomputed in backward.
+        Returns (outs (L/k, B, T, D) of the L blocks run, their new
         BatchNorm running means (L, D) and variances (L, D))."""
+        last = len(self.blocks) if n_layers is None else n_layers
         outs, means, variances = [], [], []
         h = x
-        for i, block in enumerate(self.blocks):
+        for i in range(first_layer, last):
+            block = self.blocks[i]
             seed = None if seeds is None else seeds[i]
             if self.cfg.remat:
                 h, m, v = torch.utils.checkpoint.checkpoint(
@@ -377,9 +381,16 @@ class ConformerStack(nn.Module):
                                 attn_mask=attn_mask)
             means.append(m)
             variances.append(v)
-            if (i + 1) % collect_every == 0:
+            if (i - first_layer + 1) % collect_every == 0:
                 outs.append(h)
         return torch.stack(outs), torch.stack(means), torch.stack(variances)
+
+    def bn_state(self) -> dict:
+        """The blocks' BatchNorm running statistics in the JAX package's
+        stack layout: {"conv_bn": {"mean", "var"}}, (L, D) each."""
+        convs = [b.conv for b in self.blocks]
+        return {"conv_bn": {"mean": torch.stack([c.bn_mean for c in convs]),
+                            "var": torch.stack([c.bn_var for c in convs])}}
 
     def set_bn_state(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """Assign every block's BatchNorm running statistics ((L, D) each)."""

@@ -44,11 +44,7 @@ class ConformerTrunk(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        self.sub_w = nn.ParameterList([
-            nn.Parameter(torch.zeros(3, cfg.n_mels, d)),
-            nn.Parameter(torch.zeros(3, d, d))])
-        self.sub_b = nn.ParameterList([nn.Parameter(torch.zeros(d))
-                                       for _ in range(2)])
+        self.sub_w, self.sub_b = subsampling.conv_subsample_params(cfg.n_mels, d)
         self.stack = conformer.ConformerStack(
             conformer_cfg(cfg), cfg.n_enc_exits * cfg.n_enc_layers_per_exit)
         self.heads_w = nn.Parameter(
@@ -99,12 +95,12 @@ class ConformerTrunk(nn.Module):
                     log_probs: bool = True) -> torch.Tensor:
         """(E, B, T, D) -> (E, B, T, V): float32 log-probs, or the raw
         compute-dtype logits with log_probs=False."""
-        logits = core.linear(hidden, self.heads_w[:, None],
-                             self.heads_b[:, None, None],
-                             compute_dtype=self.cfg.dtype)
-        if not log_probs:
-            return logits
-        return torch.log_softmax(logits.float(), dim=-1)
+        return heads_apply(self.heads_w, self.heads_b, hidden, self.cfg.dtype,
+                           log_probs=log_probs)
+
+    # blocks outside the stack whose dropout draws a seed of its own in
+    # training (the splitformer's two branch blocks)
+    n_extra_blocks = 0
 
     def train_hidden(self, feats: torch.Tensor, lengths: torch.Tensor, *,
                      seed: Optional[int] = None,
@@ -115,36 +111,51 @@ class ConformerTrunk(nn.Module):
         (T', T') bool over the subsampled frames. Returns (hidden
         (E, B, T', D), sub_lengths (B,), new_state, seeds): new_state holds
         the BatchNorm running statistics as the JAX package's state tree
-        does ({"blocks": {"conv_bn": {"mean", "var"}}}, (L, D) each);
-        seeds are `extra_seeds` more seeds drawn after the trunk's, for the
-        caller's own dropout (None without dropout)."""
-        n_layers = len(self.stack.blocks)
+        does (`state()`); seeds are `extra_seeds` more seeds drawn after
+        the trunk's, for the caller's own dropout (None without dropout)."""
+        n_seeds = len(self.stack.blocks) + self.n_extra_blocks + 1
         seeds, extra = None, None
         if seed is not None and self.cfg.drop_prob > 0.0:
             host = torch.Generator().manual_seed(seed)
-            seeds = torch.randint(0, 2 ** 62, (n_layers + 1,),
-                                  generator=host).tolist()
+            seeds = torch.randint(0, 2 ** 62, (n_seeds,), generator=host).tolist()
             extra = torch.randint(0, 2 ** 62, (extra_seeds,),
                                   generator=host).tolist()
         pe_gen = (None if seeds is None else
                   torch.Generator(device=feats.device).manual_seed(seeds[-1]))
         x, sub_len, mask = self.frontend_embed(feats, lengths, generator=pe_gen)
+        hidden, new_state = self.train_blocks(x, mask, lengths, sub_len,
+                                              seeds=seeds, attn_mask=attn_mask)
+        return hidden, sub_len, new_state, extra
+
+    def train_blocks(self, x, mask, lengths, sub_len, *, seeds, attn_mask):
+        """The blocks of the training forward on the embedded frames:
+        (hidden (E, B, T', D), new_state). Block i of the stack draws its
+        dropout from seeds[i]."""
         hidden, mean, var = self.stack.train_forward(
             x, mask, seeds=seeds, attn_mask=attn_mask,
             collect_every=self.cfg.n_enc_layers_per_exit)
-        new_state = {"blocks": {"conv_bn": {"mean": mean, "var": var}}}
-        return hidden, sub_len, new_state, extra
+        return hidden, {"blocks": {"conv_bn": {"mean": mean, "var": var}}}
 
     def state(self) -> dict:
-        """The BatchNorm running statistics as `apply_train` returns them."""
-        convs = [b.conv for b in self.stack.blocks]
-        return {"blocks": {"conv_bn": {
-            "mean": torch.stack([c.bn_mean for c in convs]),
-            "var": torch.stack([c.bn_var for c in convs])}}}
+        """The BatchNorm running statistics as `apply_train` returns them:
+        {"blocks": {"conv_bn": {"mean", "var"}}}, (L, D) each."""
+        return {"blocks": self.stack.bn_state()}
 
     def set_state(self, state: dict) -> None:
         bn = state["blocks"]["conv_bn"]
         self.stack.set_bn_state(bn["mean"], bn["var"])
+
+
+def heads_apply(w: torch.Tensor, b: torch.Tensor, hidden: torch.Tensor,
+                compute_dtype: torch.dtype, *, log_probs: bool = True) -> torch.Tensor:
+    """Per-exit heads w (E, D, V), b (E, V) on (E, B, T, D) -> (E, B, T, V):
+    float32 log-probs, or the raw compute-dtype logits with
+    log_probs=False."""
+    logits = core.linear(hidden, w[:, None], b[:, None, None],
+                         compute_dtype=compute_dtype)
+    if not log_probs:
+        return logits
+    return torch.log_softmax(logits.float(), dim=-1)
 
 
 class EarlyConformer(ConformerTrunk):

@@ -14,8 +14,10 @@ branch taken runs; a program captured by `torch.export` keeps both
 branches and reads it at run time. The threshold may be a runtime
 tensor.
 
-`early_conformer` only: the splitformer's parallel branches are not
-ported.
+Gated encoders: `early_conformer` and `splitformer`, whose first and last
+exits add the parallel downsampled branch on the hidden state before
+their stack (inside that exit's `run`, so later exits pay nothing). The
+zipformer has a single exit: nothing to gate, a ValueError.
 """
 
 from __future__ import annotations
@@ -108,10 +110,8 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
         raise ValueError(
             f"gated_apply supports {GATED_MODEL_TYPES}; {cfg.model_type!r} "
             "has a single output exit, nothing to gate")
-    if cfg.model_type == "splitformer":
-        raise NotImplementedError(
-            "gated_apply: the splitformer's parallel branches are not ported")
     E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
+    branches = model.branch_exits() if cfg.model_type == "splitformer" else {}
     temps = per_exit(temperatures, E)
     h, sub_len, mask = model.frontend_embed(feats, lengths)
     thr = exit_thresholds(threshold, E, h.device)
@@ -123,6 +123,8 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     # the carry flat: a cond's branches must agree on their outputs'
     # strides, which a symbolic T' inside a shape would leave unprovable
     V = cfg.vocab_size
+    # the branch's mask needs the frame and sub-frame counts
+    branch_lengths = (lengths, sub_len) if branches else ()
     carry = (h.reshape(-1), torch.zeros(B * Tp * V, device=h.device),
              torch.zeros(B, dtype=torch.int32, device=h.device), done,
              torch.zeros((), dtype=torch.int32, device=h.device))
@@ -131,10 +133,12 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
         return tuple(t.clone() for t in carry[:5])
 
     def run_exit(e):
-        def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr):
+        def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr, *lengths):
             shape = mask.shape
-            h = model.stack(h.view(*shape, -1), mask, first_layer=e * npe,
-                            n_layers=(e + 1) * npe)
+            h_in = h.view(*shape, -1)
+            h = model.stack(h_in, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
+            if e in branches:
+                h = model.add_branch(branches[e], h_in, h, mask, *lengths)
             logp, conf = head_logp_conf(model, h, mask, e, score,
                                         None if temps is None else temps[e])
             ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
@@ -150,6 +154,6 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
         pred = carry[3].all()
         if not torch.compiler.is_compiling():
             pred = bool(pred)
-        carry = torch.cond(pred, skip, run_exit(e), carry + (mask, thr))
+        carry = torch.cond(pred, skip, run_exit(e), carry + (mask, thr) + branch_lengths)
     _, chosen_lp, chosen_exit, _, n_run = carry
     return chosen_lp.view(B, Tp, V), chosen_exit, sub_len, n_run

@@ -1,16 +1,25 @@
 """Model registry: ModelConfig.model_type -> the model (counterpart of
 `early_exit_tpu/models/registry.py`).
 
-`full_conformer` is what both CLIs build for --decoder_mode aed
-(`cli.get_args`). The zoo's other models are not ported and raise by
-name; an unknown name raises the JAX package's ValueError.
+The CTC models `early_conformer`, `splitformer` and `early_zipformer`
+(--model_type), and `full_conformer`, which both CLIs build for
+--decoder_mode aed (`cli.get_args`). An unknown name raises the JAX
+package's ValueError.
 """
 
 from __future__ import annotations
 
+import importlib
+
 from early_exit_tpu_torch.configs import ModelConfig
 
-_MODELS = ("early_conformer", "splitformer", "early_zipformer", "full_conformer")
+# name -> (module, class)
+_MODELS = {
+    "early_conformer": ("early_exit_tpu_torch.models.early_conformer", "EarlyConformer"),
+    "splitformer": ("early_exit_tpu_torch.models.splitformer", "Splitformer"),
+    "early_zipformer": ("early_exit_tpu_torch.models.zipformer", "EarlyZipformer"),
+    "full_conformer": ("early_exit_tpu_torch.models.full_conformer", "FullConformer"),
+}
 
 
 def build_model(cfg: ModelConfig):
@@ -19,12 +28,15 @@ def build_model(cfg: ModelConfig):
     name = cfg.model_type
     if name not in _MODELS:
         raise ValueError(f"unknown model_type: {name} (choices: {sorted(_MODELS)})")
-    if name == "early_conformer":
-        from early_exit_tpu_torch.models.early_conformer import EarlyConformer
-        return EarlyConformer(cfg)
-    if name == "full_conformer":
-        from early_exit_tpu_torch.models.full_conformer import FullConformer
-        return FullConformer(cfg)
-    raise NotImplementedError(
-        f"--model_type {name}: not ported; the port builds early_conformer "
-        "(--decoder_mode ctc) and full_conformer (--decoder_mode aed)")
+    module, cls = _MODELS[name]
+    return getattr(importlib.import_module(module), cls)(cfg)
+
+
+def require_flagship(cfg: ModelConfig, what: str) -> None:
+    """Raises by name unless cfg is an `early_conformer`: `what` serves
+    the flagship's trunk only, and would silently drop the splitformer's
+    branches or misread the zipformer's stacks."""
+    if cfg.model_type != "early_conformer":
+        raise NotImplementedError(
+            f"{what} serves early_conformer models; --model_type "
+            f"{cfg.model_type} is not served by it yet")

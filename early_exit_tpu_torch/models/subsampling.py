@@ -1,12 +1,26 @@
-"""Conv1d subsampling x4 (counterpart of `early_exit_tpu/models/subsampling.py`)."""
+"""Time subsampling and resampling (counterpart of
+`early_exit_tpu/models/subsampling.py`): the stride-2 VALID k=3
+convolutions (two, x4, for the Conformer trunk; one, x2, for the
+zipformer), and the U-Net's repeat-upsample and strided downsample."""
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+from torch import nn
 
 from early_exit_tpu_torch.nn import core
+
+
+def conv_subsample_params(c_in: int, c_out: int, n_convs: int = 2
+                          ) -> Tuple[nn.ParameterList, nn.ParameterList]:
+    """The weights (3, c_in, c_out), (3, c_out, c_out), ... and biases of
+    n_convs convolutions, zero (`conv_subsample_init_` draws them)."""
+    ws = nn.ParameterList([nn.Parameter(torch.zeros(3, c_in if i == 0 else c_out, c_out))
+                           for i in range(n_convs)])
+    bs = nn.ParameterList([nn.Parameter(torch.zeros(c_out)) for _ in range(n_convs)])
+    return ws, bs
 
 
 def conv_subsample_init_(convs: List[Tuple[torch.Tensor, torch.Tensor]],
@@ -41,3 +55,22 @@ def reference_subsampled_length(lengths: torch.Tensor, factor: int,
                                 max_t: int) -> torch.Tensor:
     """The reference's rule: float division, truncation, then at most T'."""
     return (lengths.float() / factor).to(torch.int32).clamp(max=max_t)
+
+
+def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Each frame repeated `factor` times over time (B, T, D)."""
+    return torch.repeat_interleave(x, factor, dim=1)
+
+
+def downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Every `factor`-th frame (B, T, D), from the first."""
+    return x[:, ::factor]
+
+
+def pad_time(x: torch.Tensor, factor: int) -> Tuple[torch.Tensor, int]:
+    """(B, T, D) zero-padded at the end to a multiple of `factor`, and the
+    pad."""
+    pad = (factor - x.shape[1] % factor) % factor
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return x, pad

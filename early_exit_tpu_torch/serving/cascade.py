@@ -40,9 +40,9 @@ def _check_model(cfg: ModelConfig) -> None:
     if cfg.model_type != "early_conformer":
         raise ValueError(
             "cascade serving supports early_conformer (the flagship); "
-            f"got {cfg.model_type!r}: splitformer's exit-1/exit-E parallel "
-            "branches make the layer-k hidden non-resumable, use "
-            "gated_apply for it")
+            f"got {cfg.model_type!r} — splitformer's exit-1/exit-E "
+            "parallel branches make the layer-k hidden non-resumable, "
+            "use gated_apply for it")
 
 
 def _check_k(cfg: ModelConfig, k: int) -> None:

@@ -336,7 +336,9 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     cascade_k: also the two cascade programs at that phase-A depth, for
     each bucket (not for the poly program), with gate_temperatures baked.
     """
+    from early_exit_tpu_torch.models.registry import require_flagship
     cfg = model.cfg
+    require_flagship(cfg, "export_recognizer")
     E = cfg.n_enc_exits
     hop = int(audio_cfg.hop_length)
     s_min = hop * 14

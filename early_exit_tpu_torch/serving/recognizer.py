@@ -41,6 +41,7 @@ from early_exit_tpu_torch.configs import AudioConfig, inference_profile
 from early_exit_tpu_torch.data.synthetic import synth_batch
 from early_exit_tpu_torch.decoding.lexicon import edit_distance
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.models.registry import require_flagship
 from early_exit_tpu_torch.models.early_exit_gate import gated_apply
 from early_exit_tpu_torch.ops import ctc, frontend
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
@@ -70,6 +71,7 @@ class Recognizer:
     def __init__(self, model: EarlyConformer, tokenizer: SentencePieceDecoder,
                  *, acfg: AudioConfig = AudioConfig(mel_method="dft"),
                  device=None, calib: Optional[dict] = None):
+        require_flagship(model.cfg, "Recognizer")
         self.device = runtime.resolve_device(device)
         if self.device.type == "cuda":
             runtime.exact_float32()

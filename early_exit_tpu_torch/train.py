@@ -18,12 +18,16 @@ the newest complete pair in --save_model_dir. Runs on CUDA unless
 The corpus is --train_split of the LibriSpeech layout under --data_root,
 or the synthetic corpus with --synthetic_data true.
 
---decoder_mode aed trains a `full_conformer` on the joint loss
-aed_ce_weight x decoder cross-entropy + aed_ctc_weight x CTC.
+--model_type picks the CTC model: early_conformer, splitformer (its two
+branch blocks trained with the trunk) or early_zipformer (which needs
+--n_enc_exits 19 --n_enc_layers_per_exit 1: 19 blocks, one exit).
+--dynamic_chunk trains the early_conformer only, as the JAX package; the
+zoo trains with full attention. --decoder_mode aed trains a
+`full_conformer` on the joint loss aed_ce_weight x decoder cross-entropy
++ aed_ctc_weight x CTC.
 
-Not ported, and raising by name: the model types splitformer and
-early_zipformer, --conv_norm group, --dp/--tp above 1, and
---attention_impl pallas in training.
+Not ported, and raising by name: --conv_norm group, --dp/--tp above 1,
+and --attention_impl pallas in training.
 """
 
 from __future__ import annotations
@@ -38,7 +42,6 @@ from early_exit_tpu_torch import runtime
 from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.pipeline import Pipeline
 from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
-from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.models.registry import build_model
 from early_exit_tpu_torch.ops import ctc
 from early_exit_tpu_torch.training import checkpoint
@@ -51,8 +54,7 @@ DECODE_EVERY = 500
 
 
 def check_ported(args) -> None:
-    """Raises by name for what the port does not train (the registry does
-    so for a model type that is not ported)."""
+    """Raises by name for what the port does not train."""
     if (args.dp or 1) > 1 or args.tp > 1:
         raise NotImplementedError(
             "--dp/--tp above 1: data and tensor parallelism are not ported; "
@@ -70,7 +72,7 @@ def build_dataset(args):
 
 
 @torch.no_grad()
-def sample_decode(model: ConformerTrunk, batch, tokenizer) -> None:
+def sample_decode(model: torch.nn.Module, batch, tokenizer) -> None:
     """Greedy decode of the sub-batch's first utterance at the last exit,
     with the inference path (the block and head kernels with
     --fused_block on CUDA)."""

@@ -2,8 +2,8 @@
 `early_exit_tpu/training/checkpoint.py`).
 
 - `mod{epoch:03d}-transformer`: {"params", "model_state"} in the JAX
-  package's layout (`interop.to_jax_params`) of an `early_conformer` or
-  a `full_conformer`;
+  package's layout (`interop.to_jax_params`) of any model of the
+  registry;
 - `lr{epoch:03d}-transformer`: {"opt_state", "step"}, the optimizer in
   optax's own tree for `optax.chain(clip_by_global_norm, adamw)`:
   {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}},
@@ -28,7 +28,6 @@ import torch
 
 from early_exit_tpu_torch import interop
 from early_exit_tpu_torch.checkpoint import load_tree, save_tree
-from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.optim.noam import NoamAdamW
 
 
@@ -40,7 +39,7 @@ def opt_ckpt_path(directory: str, epoch: int) -> str:
     return os.path.join(directory, f"lr{epoch:03d}-transformer")
 
 
-def opt_tree(model: ConformerTrunk, opt: NoamAdamW) -> dict:
+def opt_tree(model: torch.nn.Module, opt: NoamAdamW) -> dict:
     """{"opt_state", "step"} in optax's tree."""
     count = np.asarray(opt.count, np.int32)
     params = list(model.parameters())
@@ -51,7 +50,7 @@ def opt_tree(model: ConformerTrunk, opt: NoamAdamW) -> dict:
             "step": count}
 
 
-def load_opt_tree(model: ConformerTrunk, opt: NoamAdamW, tree: dict) -> None:
+def load_opt_tree(model: torch.nn.Module, opt: NoamAdamW, tree: dict) -> None:
     """Restores mu, nu and the count from an optax tree (as `opt_tree`
     writes it or the JAX package saves it)."""
     adam = tree["opt_state"]["1"]["0"]
@@ -67,19 +66,12 @@ def load_opt_tree(model: ConformerTrunk, opt: NoamAdamW, tree: dict) -> None:
                          f"{opt.count} in the checkpoint")
 
 
-def load_model_tree(model: ConformerTrunk, tree: dict) -> None:
+def load_model_tree(model: torch.nn.Module, tree: dict) -> None:
     """{"params", "model_state"} in the JAX layout -> the model, in place."""
-    src = interop.from_jax_tree(model, tree["params"])
-    bn = tree["model_state"]["blocks"]["conv_bn"]
-    with torch.no_grad():
-        for p in model.parameters():
-            p.copy_(src[p])
-        model.set_state({"blocks": {"conv_bn": {
-            "mean": torch.as_tensor(np.asarray(bn["mean"], np.float32)),
-            "var": torch.as_tensor(np.asarray(bn["var"], np.float32))}}})
+    interop.load_params(model, tree["params"], tree["model_state"])
 
 
-def save_epoch(directory: str, epoch: int, model: ConformerTrunk,
+def save_epoch(directory: str, epoch: int, model: torch.nn.Module,
                opt: Optional[NoamAdamW] = None) -> None:
     params, state = interop.to_jax_params(model)
     save_tree({"params": params, "model_state": state},
@@ -88,11 +80,11 @@ def save_epoch(directory: str, epoch: int, model: ConformerTrunk,
         save_tree(opt_tree(model, opt), opt_ckpt_path(directory, epoch))
 
 
-def load_model_file(model: ConformerTrunk, path: str) -> None:
+def load_model_file(model: torch.nn.Module, path: str) -> None:
     load_model_tree(model, load_tree(path))
 
 
-def avg_models(model: ConformerTrunk, directory: str, start: int,
+def avg_models(model: torch.nn.Module, directory: str, start: int,
                end: int) -> None:
     """The model <- leaf-wise average of the epoch checkpoints in
     [start, end], accumulated in float64 (int64 for integer leaves);

@@ -2,10 +2,11 @@
 (counterpart of `early_exit_tpu/training/trainer.py`).
 
 One step: SpecAugment (optional) -> the training forward of every exit
--> the sum over exits of each exit's CTC loss (per row divided by its
-label length, then the mean over the real rows) -> plus self-distillation
-(optional, CTC mode) -> backward -> global-norm clip -> AdamW under the
-Noam schedule -> the new BatchNorm statistics. In AED mode
+(the zipformer has one) -> the sum over exits of each exit's CTC loss
+(per row divided by its label length, then the mean over the real rows)
+-> plus self-distillation (optional, CTC mode, more than one exit) ->
+backward -> global-norm clip -> AdamW under the Noam schedule -> the new
+BatchNorm statistics. In AED mode
 (`FullConformer`) the decoders read labels[:, :-1] and the loss is
 aed_ce_weight x (the sum over exits of the cross-entropy against
 labels[:, 1:], every position counted, pad included, averaged per row
@@ -16,7 +17,8 @@ path.
 Randomness: step n's seed is drawn from a CPU `torch.Generator` seeded
 with (seed + 1, n), so a resumed run continues the same stream; from it
 derive the SpecAugment uniforms (drawn on the features' device), the
-dynamic-chunk choice (drawn on the host) and every dropout mask (see
+dynamic-chunk choice (drawn on the host, `early_conformer` only, as in
+the JAX package) and every dropout mask (see
 `ConformerTrunk.train_hidden`).
 """
 
@@ -27,7 +29,6 @@ from typing import Dict, Optional
 import torch
 
 from early_exit_tpu_torch.configs import ModelConfig, TrainConfig
-from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.ops import ctc, specaugment
 from early_exit_tpu_torch.optim.noam import NoamAdamW
 
@@ -121,7 +122,7 @@ def aed_cross_entropy(dec_logits: torch.Tensor, trg_expect: torch.Tensor,
     return ((per_item * m).sum(-1) / m.sum().clamp_min(1.0)).sum()
 
 
-def loss_fn(model: ConformerTrunk, train_cfg: TrainConfig,
+def loss_fn(model: torch.nn.Module, train_cfg: TrainConfig,
             batch: Dict[str, torch.Tensor], seed: Optional[int] = None):
     """The training loss of one batch ({"feats", "feat_lengths", "labels",
     "label_lengths"[, "item_mask"]}). seed None: no dropout, no
@@ -151,7 +152,10 @@ def loss_fn(model: ConformerTrunk, train_cfg: TrainConfig,
                  + tcfg.aed_ctc_weight * loss_ctc)
         return total, per_exit, new_state
     attn_mask = None
-    if tcfg.dynamic_chunk and host is not None:
+    # the JAX package samples chunk masks for the flagship only: the
+    # splitformer's branch and the zipformer's stages run at other frame
+    # rates, so they train with full attention whatever --dynamic_chunk says
+    if tcfg.dynamic_chunk and host is not None and mcfg.model_type == "early_conformer":
         attn_mask = sample_attn_mask(subsampled_frames(feats.shape[1]), host,
                                      tcfg.chunk_left, feats.device)
     log_probs, sub_len, new_state = model.apply_train(
@@ -174,7 +178,7 @@ class Trainer:
     loss, loss_per_exit, grad_norm (of the unclipped gradients) and the
     step count (an int)."""
 
-    def __init__(self, model: ConformerTrunk, train_cfg: TrainConfig, *,
+    def __init__(self, model: torch.nn.Module, train_cfg: TrainConfig, *,
                  warmup: int):
         self.model = model
         self.cfg = train_cfg

@@ -155,8 +155,10 @@ def test_parameter_trees_both_ways(weights):
 def test_registry():
     assert isinstance(build_model(ModelConfig(**KW)), FullConformer)
     assert type(build_model(ModelConfig())).__name__ == "EarlyConformer"
-    for name in ("splitformer", "early_zipformer"):
-        with pytest.raises(NotImplementedError, match=name):
-            build_model(dataclasses.replace(ModelConfig(), model_type=name))
+    assert type(build_model(dataclasses.replace(
+        ModelConfig(), model_type="splitformer"))).__name__ == "Splitformer"
+    assert type(build_model(dataclasses.replace(
+        ModelConfig(), model_type="early_zipformer", n_enc_exits=19,
+        n_enc_layers_per_exit=1))).__name__ == "EarlyZipformer"
     with pytest.raises(ValueError, match="unknown model_type"):
         build_model(dataclasses.replace(ModelConfig(), model_type="lstm"))

@@ -156,9 +156,6 @@ def test_gated_apply_rejects_what_it_cannot_gate(bundle):
     b = bundle
     model = interop.from_jax_params(b["params"], b["state"], ModelConfig(**KW))
     args = (torch.from_numpy(b["feats"]), torch.from_numpy(b["lengths"]))
-    model.cfg = dataclasses.replace(model.cfg, model_type="splitformer")
-    with pytest.raises(NotImplementedError, match="splitformer"):
-        gate.gated_apply(model, *args, threshold=0.5)
     model.cfg = dataclasses.replace(model.cfg, model_type="early_zipformer")
     with pytest.raises(ValueError, match="nothing to gate"):
         gate.gated_apply(model, *args, threshold=0.5)
