@@ -144,8 +144,9 @@ Phases (any failure exits non-zero, with no result line):
  11. the serving export (`serving/export.py`): the flagship exported for
      "cuda" at the bucket 8 x 160000 with the gated, cascade (the
      committed calibration's k and temperatures) and poly (up to 320000
-     samples) programs, each compiled by AOTInductor (compile seconds and
-     bundle size printed, the bundle under a temp dir); the graphs hold
+     samples) programs, each compiled by AOTInductor in one parallel batch
+     with phase 14's three (compile seconds and bundle size printed, the
+     bundle under a temp dir); the graphs hold
      `eet::conformer_block` once per block run (12 all-exit, 2 in each
      exit's cond of the gated program, 2k and 12-2k in the cascade
      phases); the compiled program's mel features full float32 (and
@@ -188,11 +189,17 @@ Phases (any failure exits non-zero, with no result line):
      blocks and its two branch blocks) and the early_zipformer (19 x 1
      blocks, one exit), seeded: (a) one float32 train step of each on the
      card against the CPU (phase 8a's conditions and tolerances, the
-     branch blocks' BatchNorm statistics among those held); (b)
+     branch blocks' BatchNorm statistics among those held; the
+     zipformer's grad norm to ZIP_F32_NORM), and the zipformer's float32
+     steps on the card (with cuDNN's default and its deterministic
+     algorithms) and on the CPU each against the same step in float64 on
+     the CPU (`float64_math`): the norm's gap and the 10 worst leaves; (b)
      ZOO_STEPS steps of `python -m early_exit_tpu_torch.train` each on the
      synthetic corpus, 16 requests a step: the last loss < LEARN_RATIO x
-     the first, ms a step (CUDA events and wall), peak memory; (c) that
-     checkpoint through `python -m early_exit_tpu_torch.inference
+     the first, ms a step (CUDA events and wall), peak memory; (c)
+     checkpoints of the flagship's trained blocks in the zoo's layouts
+     (`interop.flagship_zoo_tree`: 13b's models emit ~2 tokens an
+     utterance) through `python -m early_exit_tpu_torch.inference
      --fused_block true` over phase 9's corpus: 12 (19) block launches and
      1 head launch a sub-batch and nothing else, no launch from the
      splitformer's branch blocks (they run unfused, as in the JAX
@@ -200,8 +207,9 @@ Phases (any failure exits non-zero, with no result line):
      kernel path against the plain-version path (reported), the float32
      CLI (row 1c, 12 (19) launches a sub-batch) card against CPU on 8
      utterances within 1% of tokens at every exit; (d) at B=128 x 10 s
-     the block kernel on each of the zipformer's six stacks' inputs (as
-     its plain path gives them, T' = 500, 250, 125, 63) against its plain
+     the block kernel on each of 13b's zipformer's six stacks' inputs (as
+     its plain path gives them, T' = 500, 250, 125, 63; the same readings
+     of 13c's model printed beside them, not held) against its plain
      version: the pre stack (fed the embedding, as phase 2's block) within
      phase 2's tolerance, each stage (fed a block's output) within twice
      the ulps the plain version moves by when every product is summed
@@ -215,6 +223,35 @@ Phases (any failure exits non-zero, with no result line):
      (no kernel) in float32, card against CPU within 1e-4; times: the
      all-exit forward of each family beside the flagship's at B=128 x
      10 s, a profile of the zipformer's, each CLI's audio-s/s.
+
+ 14. the calibrate -> export -> serve path on the flagship and the zoo
+     models of its trained blocks: (a) `python -m
+     early_exit_tpu_torch.calibrate_gate --fused_block true` over phase
+     9's corpus for the flagship and the splitformer (12 block launches a
+     batch): every score's simulated gated WER within its target
+     (GATE_DELTA_PP over the final exit's); the inference CLI under the
+     written --gate_calibration choosing simulate_gate's exit for every
+     utterance (those within GATE_NEAR of a threshold counted, not held);
+     in float32 on 8 utterances the tool on the card and on the CPU with
+     equal exit WERs, temperatures, mean exit and gated WER, thresholds
+     within GATE_THR_ATOL; (b) `python -m
+     early_exit_tpu_torch.escalation_report --fused_block` at the settings
+     of `reports/escalation_v3_seed1.json` (the flagship, its calibration,
+     seed 9999, 256 utterances): the record's utterances (its noise-sigma
+     buckets), exits 2-6 and the gated WER within ESC_WER_PP points of the
+     record, the accept histogram within ESC_HIST, the sweep printed; (c)
+     the splitformer's all-exit and gated programs and the zipformer's
+     all-exit program exported at EXPORT_BUCKET (captured before phase 11
+     and compiled by AOTInductor in its batch, `compile_bundles`): 12, 12 (2 in each exit's
+     cond) and 19 `eet::conformer_block` nodes, the manifests' n_exits 6
+     and 1; phase 3's first ZOO_EXPORT_ROWS requests served from each
+     bundle in batches of 8, 12 (19) launches a call, within phase 3's
+     token contract of the eager `Recognizer.transcribe` (12 (19) block
+     launches and one head launch); the gated program's chosen exits equal
+     to `gated_apply`'s on every row at thresholds 0, 1.01 and each
+     batch's median exit-1 confidence, 2 launches an exit run; compile
+     seconds and MB per program, ms a call and audio-s/s against the eager
+     `Recognizer`.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -295,6 +332,12 @@ ROWS_DIFFER_AT_MEDIAN = 0.05
 # backward with atomics); in bf16 their products round differently
 TRAIN_F32_LOSS = 1e-4       # relative
 TRAIN_F32_NORM = 1e-4       # relative, the global norm of the gradients
+# the zipformer's (phase 13a): its seeded model's CTC loss is ~1,000 a row
+# on phase 13a's batch, where the float32 CTC gradient lies 3.8e-4
+# (relative L2) from the float64 one on either device, and so does each
+# run's gradient norm from the float64 step's at most: twice that bounds
+# the card against the CPU (phase 13a's float64 yardstick prints each)
+ZIP_F32_NORM = 8e-4
 TRAIN_F32_LEAF = 1e-3       # relative L2 of each gradient leaf
 TRAIN_F32_BN = 1e-5         # BN running statistics, of max(1, max|ref|)
 TRAIN_BF16_LOSS = 2e-2
@@ -328,6 +371,15 @@ AED_BEAM, AED_CMP_UTTS, AED_CMP_EXITS = 10, 4, (2, 6)
 # epoch); the rows of the gate's batch
 ZOO_ZERO_GRAD = ("['attn']['mha']['k']['b']", "['conv']['dw']['b']")
 ZOO_STEPS, ZOO_BATCH, ZOO_GATE_ROWS = 40, 16, 32
+# phase 14: calibrate_gate's quality slack (the committed calibration's
+# provenance); the rows whose calibrated confidence lies this close to a
+# threshold, where the gate's own pass and the tool's may round apart;
+# thresholds in float32, card against CPU; escalation_report against the
+# committed record (its WERs in percentage points, its accept shares); the
+# requests served from the zoo's bundles
+GATE_DELTA_PP, GATE_NEAR, GATE_THR_ATOL = 0.5, 1e-3, 1e-5
+ESC_WER_PP, ESC_HIST = 0.5, 0.01
+ZOO_EXPORT_ROWS = 32
 
 
 def fail(msg: str) -> None:
@@ -1276,12 +1328,15 @@ def main() -> None:
         streamed = streaming_phase(dev, card, reset_counts, read_counts, corp)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s")
         t11 = time.perf_counter()
+        zoo_export = capture_zoo_bundles(dev, card)
         exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
-                                out_k, ladder)
+                                out_k, ladder, zoo_export["bundles"])
         print(f"phase 11: {time.perf_counter() - t11:.1f} s")
         aed = aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp)
         zoo = zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, model,
                         wav, counts)
+        gate = gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts, refs,
+                          zoo_export)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1297,7 +1352,11 @@ def main() -> None:
              f"{exported['calls']} calls, through the op eet::conformer_block; the "
              f"AED CLI's trunk (phase 12): {aed['launches']} over {aed['batches']} "
              f"batches, twice; the zoo's inference CLIs (phase 13): " + ", ".join(
-                 f"{n} {b} over {nb} sub-batches" for n, (b, _, nb) in zoo["launches"].items())),
+                 f"{n} {b} over {nb} sub-batches" for n, (b, _, nb) in zoo["launches"].items())
+             + f"; calibrate_gate's gated CLIs (phase 14): {gate['gate_launches']}; "
+             f"escalation_report (phase 14): {gate['escalation_launches']}; the zoo's "
+             f"exported all-exit programs (phase 14): {gate['export_launches']} over "
+             f"{ZOO_EXPORT_ROWS // EXPORT_BUCKET[0]} calls each"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1328,6 +1387,7 @@ def main() -> None:
     rows[0]["zoo_launches"] = {n: b for n, (b, _, _) in zoo["launches"].items()}
     rows[1]["zoo_launches"] = zoo["f32_launches"]
     rows[3]["zoo_launches"] = {n: h for n, (_, h, _) in zoo["launches"].items()}
+    rows[0]["zoo_export_launches"] = gate["export_launches"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -2121,14 +2181,16 @@ def streaming_phase(dev, card, reset_counts, read_counts, corp) -> dict:
 
 
 def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
-                 ladder) -> dict:
+                 ladder, zoo_bundles) -> dict:
     """Phase 11: the serving export (`serving/export.py`). The flagship
     (rec, bf16, fused block) is exported for "cuda" at the bucket 8 x
     160000 with the gated, cascade and poly programs and compiled by
-    AOTInductor, the bundle written under a temp dir; then served from
-    the bundle alone (`ExportedRecognizer`) on phase 3's 128 requests in
-    16 batches of 8 and held against the eager paths. Returns the export
-    path's launch counts and times for the kernels line."""
+    AOTInductor, in one batch with the programs of zoo_bundles (phase
+    14's, captured by `capture_zoo_bundles`), the bundle written under a
+    temp dir; then served from the bundle alone (`ExportedRecognizer`) on
+    phase 3's 128 requests in 16 batches of 8 and held against the eager
+    paths. Returns the export path's launch counts and times for the
+    kernels line."""
     import numpy as np
     import torch
     from early_exit_tpu_torch import runtime
@@ -2175,17 +2237,20 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
         bundle = ex.export_recognizer(
             model, acfg, [EXPORT_BUCKET], platforms=("cuda",),
             gate_score=gate["score"], symbolic_max_samples=EXPORT_POLY_MAX,
-            gated=True, cascade_k=k, gate_temperatures=gate["temperatures"])
+            gated=True, cascade_k=k, gate_temperatures=gate["temperatures"],
+            compile_aoti=False)
+        ex.compile_bundles({"flagship": bundle, **zoo_bundles})
         path = os.path.join(tmp, "flagship.eetx")
         ex.save_bundle(path, bundle)
         export_s = time.perf_counter() - t0
         mel_s = mel_job.result()
         mel_pool.shutdown()
         man = bundle.manifest
+        n_zoo = sum(len(b.packages) for b in zoo_bundles.values())
         print(f"export on {card}: {len(bundle.packages)} programs captured and "
-              f"compiled in {export_s:.1f} s; bundle {os.path.getsize(path) / 1e6:.1f} MB "
-              f"(ops called: {man['ops']}); the features' program compiled in "
-              f"{mel_s:.1f} s beside it")
+              f"compiled in {export_s:.1f} s, in one batch with phase 14's {n_zoo}; "
+              f"bundle {os.path.getsize(path) / 1e6:.1f} MB (ops called: {man['ops']}); "
+              f"the features' program compiled in {mel_s:.1f} s beside it")
         for key, secs in man["aoti_compile_s"].items():
             print(f"  {key}: AOTInductor compile {secs:.1f} s, package "
                   f"{len(bundle.packages[key]) / 1e6:.1f} MB, exported program "
@@ -2367,6 +2432,39 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
         shutil.rmtree(tmp, ignore_errors=True)
     return {"allexit_launches": allexit["conformer_block_bf16"],
             "calls": len(batches), "ms": t_x, "eager_ms": t_e}
+
+
+@contextlib.contextmanager
+def float64_math():
+    """The port's float32 training path computed in float64: every compute,
+    residual and softmax dtype, and every float32 cast of its ops
+    (`Tensor.float`), widened; a yardstick that float32 runs on either
+    device are measured against (the sinusoidal PE and the masks keep
+    their float32 values)."""
+    import torch
+    from early_exit_tpu_torch import configs
+    from early_exit_tpu_torch.models import conformer
+    saved = torch.Tensor.float, configs._dt, conformer._dt
+    torch.Tensor.float = lambda v, *a, **k: v.double()
+    configs._dt = conformer._dt = (
+        lambda name: torch.bfloat16 if name == "bfloat16" else torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float, configs._dt, conformer._dt = saved
+
+
+@contextlib.contextmanager
+def float64_ctc():
+    """The port's CTC loss taken in float64 (its log-probs widened, its
+    loss rounded back): the rest of the step stays float32."""
+    import torch.nn.functional as F
+    ctc_loss = F.ctc_loss
+    F.ctc_loss = lambda lp, *a, **k: ctc_loss(lp.double(), *a, **k).to(lp.dtype)
+    try:
+        yield
+    finally:
+        F.ctc_loss = ctc_loss
 
 
 def _flat(tree, prefix=""):
@@ -3009,8 +3107,10 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
     ffn 2048, k 31, BPE-256): the splitformer (6 exits x 2 blocks and its
     two branch blocks) and the early_zipformer (19 x 1 blocks, one exit).
     (a) One float32 train step of each, seeded, on the card against the
-    CPU; (b) ZOO_STEPS steps of `python -m early_exit_tpu_torch.train` each
-    on the synthetic corpus must learn; (c) the trained models through
+    CPU (the zipformer's also against a float64 yardstick); (b) ZOO_STEPS
+    steps of `python -m early_exit_tpu_torch.train` each on the synthetic
+    corpus must learn; (c) checkpoints of the flagship's trained blocks in
+    the zoo's layouts through
     `python -m early_exit_tpu_torch.inference --fused_block true` over
     phase 9's corpus, with launch counts, the float32 CLI card against CPU
     and the bf16 kernel path against the plain-version path; (d) the block
@@ -3034,7 +3134,7 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
     from early_exit_tpu_torch.models import legacy_transformer as lt
     from early_exit_tpu_torch.models.early_exit_gate import exit_confidence, gated_apply
     from early_exit_tpu_torch.models.registry import build_model
-    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.ops import ctc, frontend
     from early_exit_tpu_torch.ops.kernels import attention as katt
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     from early_exit_tpu_torch.ops.kernels import head_argmax as kha
@@ -3072,7 +3172,8 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
             main(argv)
         return buf.getvalue()
 
-    # -- 13a. one float32 step of each family, card against CPU
+    # -- 13a. one float32 step of each family, card against CPU; the
+    # zipformer's also against a float64 yardstick on the CPU
     batch_cpu = requests(4, seed=1313)
     batch_dev = {k: v.to(dev) for k, v in batch_cpu.items()}
     for name in zoo:
@@ -3081,8 +3182,12 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         seeded = build_model(f32).init(torch.Generator().manual_seed(13))
         n_params = sum(p.numel() for p in seeded.parameters())
 
-        def one_step(device, batch):
+        def one_step(device, batch, wide=False):
             model = copy.deepcopy(seeded).requires_grad_(True).to(device)
+            if wide:
+                model = model.double()
+                batch = {k: v.double() if v.is_floating_point() else v
+                         for k, v in batch.items()}
             total, _, new_state = trainer.loss_fn(model, tcfg, batch)
             params = list(model.parameters())
             grads = torch.autograd.grad(total, params)
@@ -3100,27 +3205,85 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         host = one_step(torch.device("cpu"), batch_cpu)
         t_cpu = time.perf_counter() - t0
         zero_keys = [k for k in host[2] if k.endswith(ZOO_ZERO_GRAD)]
-        rel = {k: np.linalg.norm(on_card[2][k] - h) / np.linalg.norm(h)
-               for k, h in host[2].items() if k not in zero_keys}
+
+        def gaps(a, ref):
+            """(relative norm gap, relative L2 of each leaf) of run a to ref."""
+            return abs(a[1] - ref[1]) / ref[1], {
+                k: np.linalg.norm(a[2][k] - h) / np.linalg.norm(h)
+                for k, h in ref[2].items() if k not in zero_keys}
+
+        d_norm, rel = gaps(on_card, host)
         zero = max(max(np.linalg.norm(on_card[2][k]), np.linalg.norm(host[2][k])) / host[1]
                    for k in zero_keys)
         bn = max(float(np.abs(on_card[3][k] - h).max()) / max(1.0, float(np.abs(h).max()))
                  for k, h in host[3].items())
         worst = max(rel, key=rel.get)
         d_loss = abs(on_card[0] - host[0]) / abs(host[0])
-        d_norm = abs(on_card[1] - host[1]) / host[1]
+        norm_bound = ZIP_F32_NORM if name == "early_zipformer" else TRAIN_F32_NORM
         print(f"13a. {name} train step, seeded ({n_params:,} parameters), float32, TF32 "
               f"off, dropout 0, no SpecAugment, B=4, T={batch_cpu['feats'].shape[1]}, card "
               f"vs CPU: loss {on_card[0]:.6f} vs {host[0]:.6f} (relative {d_loss:.3e}); "
-              f"grad_norm {on_card[1]:.6f} vs {host[1]:.6f} (relative gap {d_norm:.3e}); "
-              f"worst leaf relative L2 {rel[worst]:.3e} ({worst}); zero-gradient leaves at "
-              f"most {zero:.3e} of the norm; BN running statistics ({len(host[3])} leaves) "
-              f"max|d| {bn:.3e}; {t_dev:.2f} s on the card, {t_cpu:.2f} s on the CPU")
+              f"grad_norm {on_card[1]:.6f} vs {host[1]:.6f} (relative gap {d_norm:.3e}, "
+              f"held {norm_bound:g}); worst leaf relative L2 {rel[worst]:.3e} ({worst}); "
+              f"zero-gradient leaves at most {zero:.3e} of the norm; BN running statistics "
+              f"({len(host[3])} leaves) max|d| {bn:.3e}; {t_dev:.2f} s on the card, "
+              f"{t_cpu:.2f} s on the CPU")
         if not np.isfinite([on_card[0], on_card[1]]).all():
             fail(f"non-finite {name} train step on the card")
-        if (d_loss > TRAIN_F32_LOSS or rel[worst] > TRAIN_F32_LEAF or zero > ZERO_GRAD_SHARE
-                or bn > TRAIN_F32_BN):
+        if (d_loss > TRAIN_F32_LOSS or d_norm > norm_bound or rel[worst] > TRAIN_F32_LEAF
+                or zero > ZERO_GRAD_SHARE or bn > TRAIN_F32_BN):
             fail(f"the {name} train step on the card disagrees with the CPU")
+        if name == "early_zipformer":
+            # C4: where each float32 run lies from the same step in float64,
+            # whether cuDNN's choice of algorithm moves the card's, and what
+            # is left of each with the CTC loss alone taken in float64
+            t0 = time.perf_counter()
+            with float64_math():
+                wide = one_step(torch.device("cpu"), batch_cpu, wide=True)
+            t_wide = time.perf_counter() - t0
+            torch.backends.cudnn.deterministic = True
+            try:
+                det = one_step(dev, batch_dev)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            with float64_ctc():
+                runs = {"card": on_card, "CPU": host, "card, cudnn deterministic": det,
+                        "card, its CTC loss in float64": one_step(dev, batch_dev),
+                        "CPU, its CTC loss in float64": one_step(torch.device("cpu"),
+                                                                 batch_cpu)}
+            for what, run in runs.items():
+                g_norm, g_rel = gaps(run, wide)
+                top = sorted(g_rel, key=g_rel.get, reverse=True)
+                print(f"13a. {name}, float32 {what} vs the float64 step on the CPU "
+                      f"({t_wide:.1f} s): loss relative {abs(run[0] - wide[0]) / wide[0]:.3e}, "
+                      f"grad_norm relative gap {g_norm:.3e}; leaves' relative L2 median "
+                      f"{g_rel[top[len(top) // 2]]:.3e}, the 10 worst: " + ", ".join(
+                          f"{k} {g_rel[k]:.3e}" for k in top[:10]))
+            print(f"13a. {name}, card with cudnn deterministic vs CPU: grad_norm relative "
+                  f"gap {gaps(det, host)[0]:.3e} (the default card's {d_norm:.3e})")
+            # the CTC loss's gradient alone, on the float64 model's log-probs
+            with float64_math():
+                m64 = copy.deepcopy(seeded).double()
+                lp64 = m64.apply(batch_cpu["feats"].double(), batch_cpu["feat_lengths"])[0]
+            ctc_grads = {}
+            for where, device, dtype in (("CPU", torch.device("cpu"), torch.float64),
+                                         ("card", dev, torch.float32),
+                                         ("CPU", torch.device("cpu"), torch.float32)):
+                x = lp64.detach()[0].to(device, dtype).requires_grad_(True)
+                with float64_math() if dtype == torch.float64 else contextlib.nullcontext():
+                    nll = ctc.ctc_loss(x, torch.full((x.shape[0],), x.shape[1], device=device),
+                                       batch_cpu["labels"].to(device),
+                                       batch_cpu["label_lengths"].to(device), reduction="none")
+                    nll.sum().backward()
+                ctc_grads[(where, dtype)] = (nll.detach().double().cpu(),
+                                             x.grad.double().cpu())
+            nll_ref, g_ref = ctc_grads[("CPU", torch.float64)]
+            print(f"13a. {name}, the CTC loss's gradient alone on the float64 step's "
+                  f"log-probs (B=4, T''={lp64.shape[2]}, NLL "
+                  f"{[round(v, 1) for v in nll_ref.tolist()]}), float32 "
+                  f"vs float64 on the CPU, relative L2: " + ", ".join(
+                      f"{where} {float((g - g_ref).norm() / g_ref.norm()):.3e}"
+                      for (where, dt), (_, g) in ctc_grads.items() if dt == torch.float32))
         del seeded, on_card, host
     del batch_cpu, batch_dev
 
@@ -3176,7 +3339,15 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         if not np.isfinite(losses).all() or losses[-1] >= LEARN_RATIO * losses[0]:
             fail(f"{name}: the training CLI did not learn")
 
-    # -- 13c. the trained models through the inference CLI
+    # -- 13c. the inference CLI on checkpoints of the flagship's trained
+    # blocks in the zoo's layouts (`interop.flagship_zoo_tree`): 13b's
+    # models, 40 steps from their init, emit ~2 tokens an utterance, too few
+    # for the token checks below; these emit 10 to 50
+    flagship_ckpt = {}
+    for name in zoo:
+        params, state = interop.flagship_zoo_tree(name)
+        flagship_ckpt[name] = os.path.join(tmp, f"zoo_{name}_flagship")
+        checkpoint.save_tree({"params": params, "model_state": state}, flagship_ckpt[name])
     launches, f32_launches, rates = {}, {}, {}
     small = os.path.join(tmp, "cpu8")
     f32_flags = ["--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
@@ -3218,7 +3389,7 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
     inference.exit_outputs = counted
     try:
         for name in zoo:
-            base = (["--decoder_mode", "ctc", "--load_model_path", ckpt[name],
+            base = (["--decoder_mode", "ctc", "--load_model_path", flagship_ckpt[name],
                      "--eval_splits", "test-clean", "--fused_block", "true"] + zoo[name])
             n_batches[0] = 0
             reset_counts()
@@ -3250,8 +3421,9 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
                 out_p = cli(inference.main, base + ["--data_root", corp["root"]])
             gaps = token_gaps(out, out_p)
             print(f"13c. {name}, bf16 kernel path vs plain-version path on the card "
-                  f"(reported, not held: a model {ZOO_STEPS} steps from its init has "
-                  f"near-tie logits): tokens differing per exit "
+                  f"(reported, not held: the flagship's blocks in another layout "
+                  f"transcribe at 30-150% WER, where two bf16 schedules part at near "
+                  f"ties): edits / tokens compared per exit "
                   f"{[f'{e}/{t}' for e, t in gaps.values()]} (predicted <= 5% at every exit)")
             # float32 (row 1c), card against CPU on 8 utterances
             n_batches[0] = 0
@@ -3268,13 +3440,13 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
                         + f32_flags)
             gaps = token_gaps(out_c, out_h)
             print(f"13c. {name}, float32 (--compute_dtype float32 --attn_softmax_dtype "
-                  f"float32), card vs CPU on 8 utterances: launches {got}; tokens differing "
-                  f"per exit {[f'{e}/{t}' for e, t in gaps.values()]} (held <= 1% at every "
-                  f"exit); the CPU pass {time.perf_counter() - t0:.1f} s")
+                  f"float32), card vs CPU on 8 utterances: launches {got}; edits / tokens "
+                  f"compared per exit {[f'{e}/{t}' for e, t in gaps.values()]} (held <= 1% "
+                  f"at every exit); the CPU pass {time.perf_counter() - t0:.1f} s")
             if any(e > TOKEN_DISAGREE * t for e, t in gaps.values()):
                 fail(f"{name}: the float32 CLI on the card disagrees with the CPU by > 1%")
-            # the same forward frame by frame (the 40-step models emit few
-            # tokens): the CLI's exit_outputs on one sub-batch's features
+            # the same forward frame by frame: the CLI's exit_outputs on one
+            # sub-batch's features
             args, mcfg, tcfg_i, acfg_i, tk = get_args(base + f32_flags, mode="infer")
             m_card = inference.load_model(args, mcfg, dev)
             m_cpu = copy.deepcopy(m_card).to("cpu")
@@ -3310,60 +3482,73 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         feats = frontend.mel_spectrogram(wav, acfg_i, method=acfg_i.mel_method)
         lengths = frontend.mel_lengths(counts, acfg_i.hop_length)
 
-    # -- 13d. the block kernel at the zipformer's six stacks, B=128 x 10 s
+    # -- 13d. the block kernel at the zipformer's six stacks, B=128 x 10 s:
+    # held on 13b's trained model; on the model of the flagship's blocks
+    # (13c's) printed beside it (ROADMAP Queue C, C6)
+    def stack_readings(zm, what, hold):
+        """The block kernel against its plain version on the first block of
+        each of zm's six stacks, fed the plain path's input; the head
+        kernel at E=1. Returns the stacks' T'."""
+        kw = dict(n_heads=zm.cfg.n_heads, kernel_size=zm.cfg.depthwise_kernel_size,
+                  compute_dtype=zm.cfg.dtype, residual_dtype=zm.cfg.rdtype,
+                  attn_softmax_dtype=zm.cfg.sm_dtype)
+        inputs = []
+
+        def record(i, stack, x, mask):
+            inputs.append((x.contiguous(), mask.sum(1, dtype=torch.int32)))
+            return stack(x, mask)
+
+        with torch.no_grad(), plain_path():
+            hidden, _ = zm._forward(feats, lengths, record)
+        with torch.no_grad():
+            for i, (x, lens) in enumerate(inputs):
+                f0 = zm.stacks()[i].folded()[0]
+                y_k = kcb.conformer_block(f0, x, lens, **kw)
+                y_p = kcb.conformer_block_plain(f0, x, lens, **kw)
+                torch.cuda.synchronize()
+                with exact_product_sums():
+                    y_e = kcb.conformer_block_plain(f0, x, lens, **kw)
+                err, mean, ulps, frac = bf16_figures(y_k, y_p)
+                ulps_e, frac_e = bf16_figures(y_e, y_p)[2:]
+                # phase 2 calibrated its tolerance on a block fed the
+                # embedding, as the pre stack is. A stage is fed a block's
+                # output, where the block's bf16 rounding points lie closer to
+                # its float32 sums: the plain version moves by up to ulps_e on
+                # frac_e of values when only its products' sum order changes.
+                # So a stage's kernel is held to twice that (each of the two
+                # orders within ulps_e of the exact sums), at least phase 2's
+                # ulps, its share printed (8b)
+                bound = BLOCK_MAX_ULPS if i == 0 else max(BLOCK_MAX_ULPS, 2 * ulps_e)
+                where = "pre" if i == 0 else f"stage {i}"
+                print(f"13d. early_zipformer ({what}) {where}, its first block, kernel vs "
+                      f"plain on the plain path's input (B={x.shape[0]}, T'={x.shape[1]}, "
+                      f"lengths {int(lens.min())}..{int(lens.max())}): max|d| {err} "
+                      f"mean|d| {mean} max ulps {ulps} values differing {frac}; the plain "
+                      f"version with every product summed exactly vs itself: max ulps "
+                      f"{ulps_e} values differing {frac_e} (tolerance {bound} ulps" +
+                      (f" and {BLOCK_DIFFERING} of values, fed the embedding" if i == 0 else
+                       ", fed a block's output") + ("" if hold else "; printed, not held")
+                      + ")")
+                if not torch.isfinite(y_k.float()).all() or hold and (
+                        ulps > bound or (i == 0 and frac > BLOCK_DIFFERING)):
+                    fail(f"the block kernel at the zipformer's {where} (T'={x.shape[1]}) "
+                         f"disagrees with its plain version")
+            hb = hidden.to(torch.bfloat16).contiguous()
+            wb, bb = zm.heads_w.to(torch.bfloat16), zm.heads_b.to(torch.bfloat16)
+            ids_k, ids_p = kha.head_argmax(hb, wb, bb), kha.head_argmax_plain(hb, wb, bb)
+            n_diff = int((ids_k != ids_p).sum())
+            print(f"13d. head_argmax at E=1 ({what}), {tuple(hb.shape)}, vs its plain "
+                  f"version: {n_diff} of {ids_p.numel()} ids differ (held: none)")
+            if n_diff:
+                fail("head_argmax at E=1 disagrees with its plain version")
+        return [x.shape[1] for x, _ in inputs]
+
     zm = models["early_zipformer"]
-    kw = dict(n_heads=zm.cfg.n_heads, kernel_size=zm.cfg.depthwise_kernel_size,
-              compute_dtype=zm.cfg.dtype, residual_dtype=zm.cfg.rdtype,
-              attn_softmax_dtype=zm.cfg.sm_dtype)
-    inputs = []
-
-    def record(i, stack, x, mask):
-        inputs.append((x.contiguous(), mask.sum(1, dtype=torch.int32)))
-        return stack(x, mask)
-
-    with torch.no_grad(), plain_path():
-        hidden, _ = zm._forward(feats, lengths, record)
-    with torch.no_grad():
-        for i, (x, lens) in enumerate(inputs):
-            f0 = zm.stacks()[i].folded()[0]
-            y_k = kcb.conformer_block(f0, x, lens, **kw)
-            y_p = kcb.conformer_block_plain(f0, x, lens, **kw)
-            torch.cuda.synchronize()
-            with exact_product_sums():
-                y_e = kcb.conformer_block_plain(f0, x, lens, **kw)
-            err, mean, ulps, frac = bf16_figures(y_k, y_p)
-            ulps_e, frac_e = bf16_figures(y_e, y_p)[2:]
-            # phase 2 calibrated its tolerance on a block fed the embedding,
-            # as the pre stack is. A stage is fed a block's output, where the
-            # block's bf16 rounding points lie closer to its float32 sums:
-            # the plain version moves by up to ulps_e on frac_e of values when
-            # only its products' sum order changes. So a stage's kernel is
-            # held to twice that (each of the two orders within ulps_e of the
-            # exact sums), at least phase 2's ulps, its share printed (8b)
-            bound = BLOCK_MAX_ULPS if i == 0 else max(BLOCK_MAX_ULPS, 2 * ulps_e)
-            where = "pre" if i == 0 else f"stage {i}"
-            print(f"13d. early_zipformer {where}, its first block, kernel vs plain on the plain "
-                  f"path's input (B={x.shape[0]}, T'={x.shape[1]}, lengths "
-                  f"{int(lens.min())}..{int(lens.max())}): max|d| {err} mean|d| {mean} max "
-                  f"ulps {ulps} values differing {frac}; the plain version with every product "
-                  f"summed exactly vs itself: max ulps {ulps_e} values differing {frac_e} "
-                  f"(tolerance {bound} ulps" +
-                  (f" and {BLOCK_DIFFERING} of values, fed the embedding)" if i == 0 else
-                   ", fed a block's output)"))
-            if (not torch.isfinite(y_k.float()).all() or ulps > bound
-                    or (i == 0 and frac > BLOCK_DIFFERING)):
-                fail(f"the block kernel at the zipformer's {where} (T'={x.shape[1]}) "
-                     f"disagrees with its plain version")
-        hb = hidden.to(torch.bfloat16).contiguous()
-        wb, bb = zm.heads_w.to(torch.bfloat16), zm.heads_b.to(torch.bfloat16)
-        ids_k, ids_p = kha.head_argmax(hb, wb, bb), kha.head_argmax_plain(hb, wb, bb)
-        n_diff = int((ids_k != ids_p).sum())
-        print(f"13d. head_argmax at E=1, {tuple(hb.shape)}, vs its plain version: {n_diff} "
-              f"of {ids_p.numel()} ids differ (held: none)")
-        if n_diff:
-            fail("head_argmax at E=1 disagrees with its plain version")
-    t_sizes = [x.shape[1] for x, _ in inputs]
-    del inputs, hidden, hb
+    t_sizes = stack_readings(zm, f"{ZOO_STEPS} steps from its seeded init", hold=True)
+    args, mcfg, _, _, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
+                                    flagship_ckpt["early_zipformer"], "--fused_block", "true"]
+                                   + zoo["early_zipformer"], mode="infer")
+    stack_readings(inference.load_model(args, mcfg, dev), "the flagship's blocks", hold=False)
 
     # -- 13e. the splitformer's gate on the card, float32
     args, mcfg, _, _, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
@@ -3442,6 +3627,373 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         f"{100 * busy:.1f}%")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "f32_launches": f32_launches}
+
+
+def capture_zoo_bundles(dev, card) -> dict:
+    """Phase 14c's programs, captured before phase 11 so that they compile
+    in its batch: the splitformer's all-exit and gated programs and the
+    zipformer's all-exit program at EXPORT_BUCKET, the models of the
+    flagship's trained blocks (`interop.flagship_zoo_tree`) in the bf16
+    inference profile. Returns {"models", "bundles"} (uncompiled)."""
+    import dataclasses
+
+    from early_exit_tpu_torch import interop
+    from early_exit_tpu_torch.configs import AudioConfig, inference_profile
+    from early_exit_tpu_torch.serving import export as ex
+
+    t0 = time.perf_counter()
+    prof = inference_profile(fused_block=True)
+    models = {}
+    for name, over in (("splitformer", {}),
+                       ("early_zipformer", dict(n_enc_exits=19, n_enc_layers_per_exit=1))):
+        params, state = interop.flagship_zoo_tree(name)
+        models[name] = interop.from_jax_params(
+            params, state, dataclasses.replace(prof, model_type=name, **over)).to(dev).eval()
+    acfg = AudioConfig(mel_method="dft")
+    bundles = {name: ex.export_recognizer(m, acfg, [EXPORT_BUCKET], platforms=("cuda",),
+                                          gated=name == "splitformer", compile_aoti=False)
+               for name, m in models.items()}
+    print(f"14c. the zoo's three programs captured in {time.perf_counter() - t0:.1f} s on "
+          f"{card}, to compile in phase 11's batch")
+    return {"models": models, "bundles": bundles}
+
+
+def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
+               refs, zoo_export) -> dict:
+    """Phase 14: the calibrate -> export -> serve path on the card, on the
+    flagship (`assets/flagship_ckpt`) and the zoo models built from its
+    trained blocks (`interop.flagship_zoo_tree`). (a) `calibrate_gate`
+    over phase 9's corpus (bf16 inference profile, --fused_block true) for
+    the flagship and the splitformer: the simulated gated WER of every
+    score within its target, recomputed from the tool's own pass; the
+    inference CLI under the written --gate_calibration choosing, per
+    utterance, simulate_gate's exit (rows within GATE_NEAR of a threshold
+    counted, not held); in float32 on 8 utterances the tool on the card and
+    on the CPU: per-exit WERs, temperatures, mean exit and gated WER equal,
+    thresholds within GATE_THR_ATOL. (b) `escalation_report` at the
+    settings of `reports/escalation_v3_seed1.json` held to that record.
+    (c) the bundles of zoo_export (`capture_zoo_bundles`: the
+    splitformer's all-exit and gated programs and the zipformer's all-exit
+    program at EXPORT_BUCKET, compiled in phase 11's batch); phase 3's
+    first ZOO_EXPORT_ROWS requests served from each bundle in batches of 8
+    against the eager `Recognizer` (block and head kernels) and
+    `gated_apply`. Returns the launch counts for the kernels line."""
+    import io
+
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import calibrate_gate, checkpoint, escalation_report
+    from early_exit_tpu_torch import inference, interop
+    from early_exit_tpu_torch.cli import get_args
+    from early_exit_tpu_torch.configs import AudioConfig
+    from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.models import gate_calibration as gc
+    from early_exit_tpu_torch.models.early_exit_gate import exit_confidence, gated_apply
+    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.serving import export as ex
+    from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
+    from early_exit_tpu_torch.tokenizer import load_decoder
+
+    t_phase = time.perf_counter()
+
+    def cli(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        return buf.getvalue()
+
+    def launched(what, **want):
+        got = read_counts()
+        full = {name: want.get(name, 0) for name in got}
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return got
+
+    zoo_ck = {}
+    for name in ("splitformer", "early_zipformer"):
+        params, state = interop.flagship_zoo_tree(name)
+        zoo_ck[name] = os.path.join(tmp, f"gate_{name}")
+        checkpoint.save_tree({"params": params, "model_state": state}, zoo_ck[name])
+
+    # -- 14a. calibrate_gate, then the inference CLI under what it wrote
+    n_batches = [0]
+    figures = calibrate_gate._batch_figures
+
+    def counted(*a, **k):
+        n_batches[0] += 1
+        return figures(*a, **k)
+
+    gate_launches = {}
+    f32 = ["--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
+    for name, ck in (("early_conformer", checkpoint.FLAGSHIP_CKPT),
+                     ("splitformer", zoo_ck["splitformer"])):
+        base = ["--decoder_mode", "ctc", "--load_model_path", ck, "--eval_splits",
+                "test-clean", "--fused_block", "true", "--model_type", name]
+        out_json = os.path.join(tmp, f"calib_{name}.json")
+        calibrate_gate._batch_figures = counted
+        try:
+            n_batches[0] = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            log = cli(calibrate_gate.main, ["--out", out_json, "--target_wer_delta",
+                                            str(GATE_DELTA_PP), "--data_root", corp["root"]]
+                      + base)
+            wall = time.perf_counter() - t0
+            # the trunk's 12 blocks a batch (the splitformer's branch
+            # blocks run unfused)
+            got = launched(f"calibrate_gate ({name})",
+                           conformer_block_bf16=12 * n_batches[0])
+        finally:
+            calibrate_gate._batch_figures = figures
+        with open(out_json) as f:
+            report = json.load(f)
+        print(f"14a. {name}: `python -m early_exit_tpu_torch.calibrate_gate --target_wer_delta "
+              f"{GATE_DELTA_PP} --fused_block true` over phase 9's corpus "
+              f"({report['eval_utts']} utterances, {corp['audio_s']:.1f} s) in {wall:.1f} s "
+              f"on {card}; launches {got} over {n_batches[0]} batches; exit WERs "
+              f"{[p['exit_wer_pct'] for p in report['per_score']['maxprob']['per_exit']]}; "
+              + "; ".join(f"{s_}: temperatures {[round(t, 3) for t in e['temperatures']]} "
+                          f"thresholds {[round(t, 6) for t in e['thresholds']]} mean exit "
+                          f"{e['mean_exit']} gated WER {e['gated_wer_pct']}%"
+                          for s_, e in report["per_score"].items())
+              + f"; recommended {report['score']}")
+        # the tool's pass again, per utterance: each score's gated WER
+        # against its target, and the exits the gate must choose
+        args, mcfg, tcfg, acfg_i, tk = get_args(base, mode="infer")
+        model = inference.load_model(args, mcfg, dev)
+        pipe = Pipeline(LibriSpeechDataset(corp["root"], "test-clean"), tk, acfg_i, tcfg,
+                        shuffle=False, infer_mode=True, device=dev)
+        temps = list(gc.DEFAULT_TEMP_GRID)
+        scores = list(report["per_score"])
+        conf, errors, words = calibrate_gate.calibration_set(model, pipe, tk, scores, temps,
+                                                             mcfg.blank_id)
+        target = errors[-1].sum() / words.sum() + GATE_DELTA_PP / 100.0
+        chosen = {}
+        for si, s_ in enumerate(scores):
+            e_ = report["per_score"][s_]
+            cal = np.stack([conf[si, temps.index(t), e] for e, t in
+                            enumerate(e_["temperatures"])])
+            mean_exit, gated, chosen[s_] = gc.simulate_gate(cal, e_["thresholds"], errors,
+                                                            words)
+            if gated > target + 1e-12 or round(100 * gated, 2) != e_["gated_wer_pct"]:
+                fail(f"calibrate_gate ({name}, {s_}): simulated gated WER {100 * gated:.4f}% "
+                     f"against the target {100 * target:.4f}% (the report says "
+                     f"{e_['gated_wer_pct']}%)")
+        s_ = report["score"]
+        cal = np.stack([conf[scores.index(s_), temps.index(t), e]
+                        for e, t in enumerate(report["temperatures"])])
+        near = (np.abs(cal[:-1] - np.asarray(report["thresholds"][:-1])[:, None])
+                <= GATE_NEAR).any(0)
+        reset_counts()
+        out = cli(inference.main, base + ["--data_root", corp["root"], "--gate_calibration",
+                                          out_json])
+        got = read_counts()
+        gate_launches[name] = got["conformer_block_bf16"]
+        if any(v for k, v in got.items() if k != "conformer_block_bf16") or not got[
+                "conformer_block_bf16"]:
+            fail(f"the gated CLI ({name}): launches {got}")
+        cli_exits = np.asarray([int(ln.split("GATED_OUT (exit ", 1)[1].split(")")[0])
+                                for ln in out.splitlines() if "GATED_OUT (exit " in ln])
+        summary = [ln for ln in out.splitlines() if "gated WER" in ln]
+        if cli_exits.shape != chosen[s_].shape:
+            fail(f"the gated CLI ({name}) printed {cli_exits.size} GATED_OUT lines for "
+                 f"{chosen[s_].size} utterances")
+        n_diff = int((cli_exits[~near] != chosen[s_][~near]).sum())
+        print(f"14a. {name}: the inference CLI with --gate_calibration: {summary}; launches "
+              f"{got}; chosen exits per exit {np.bincount(cli_exits, minlength=7)[1:].tolist()}"
+              f", simulate_gate's {np.bincount(chosen[s_], minlength=7)[1:].tolist()}; "
+              f"{int(near.sum())} rows within {GATE_NEAR} of a threshold (not held), "
+              f"{n_diff} of the other {int((~near).sum())} differ (held: none)")
+        if n_diff:
+            fail(f"the inference CLI under the calibration of {name} chooses other exits "
+                 f"than simulate_gate")
+        del model
+        # float32, card against CPU, on 8 utterances
+        small = os.path.join(tmp, "cpu8")
+        runs = {}
+        for where, extra in (("card", []), ("CPU", ["--device", "cpu"])):
+            path = os.path.join(tmp, f"calib_{name}_{where}.json")
+            t0 = time.perf_counter()
+            cli(calibrate_gate.main, ["--out", path, "--target_wer_delta", str(GATE_DELTA_PP),
+                                      "--data_root", small] + base + f32 + extra)
+            with open(path) as f:
+                runs[where] = (json.load(f), time.perf_counter() - t0)
+        a, b = runs["card"][0], runs["CPU"][0]
+        bad = []
+        for s_, eb in b["per_score"].items():
+            ea = a["per_score"][s_]
+            if [p["exit_wer_pct"] for p in ea["per_exit"]] != [
+                    p["exit_wer_pct"] for p in eb["per_exit"]]:
+                bad.append(f"{s_} exit WERs")
+            if ea["temperatures"] != eb["temperatures"]:
+                bad.append(f"{s_} temperatures")
+            if (ea["mean_exit"], ea["gated_wer_pct"]) != (eb["mean_exit"], eb["gated_wer_pct"]):
+                bad.append(f"{s_} mean exit / gated WER")
+            if np.abs(np.subtract(ea["thresholds"], eb["thresholds"])).max() > GATE_THR_ATOL:
+                bad.append(f"{s_} thresholds")
+        d_thr = max(float(np.abs(np.subtract(a["per_score"][k]["thresholds"],
+                                             b["per_score"][k]["thresholds"])).max())
+                    for k in b["per_score"])
+        print(f"14a. {name}: calibrate_gate in float32 (--compute_dtype float32 "
+              f"--attn_softmax_dtype float32) on 8 utterances, card ({runs['card'][1]:.1f} s) "
+              f"vs CPU ({runs['CPU'][1]:.1f} s): exit WERs "
+              f"{[p['exit_wer_pct'] for p in a['per_score']['maxprob']['per_exit']]} and "
+              f"{[p['exit_wer_pct'] for p in b['per_score']['maxprob']['per_exit']]}; "
+              f"thresholds max|d| {d_thr:.3e} (held {GATE_THR_ATOL}); differing: "
+              f"{bad or 'nothing'}")
+        if bad:
+            fail(f"calibrate_gate ({name}) in float32 on the card disagrees with the CPU: "
+                 f"{bad}")
+
+    # -- 14b. escalation_report at the committed record's settings
+    with open(os.path.join(HERE, "reports", "escalation_v3_seed1.json")) as f:
+        record = json.load(f)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli(escalation_report.main, ["--ckpt", checkpoint.FLAGSHIP_CKPT, "--calib",
+                                 checkpoint.FLAGSHIP_CALIB, "--out",
+                                 os.path.join(tmp, "escalation.json"), "--n_utts",
+                                 str(record["n_utts"]), "--seed", str(record["seed"]),
+                                 "--sweep", "0.8,0.9,0.95", "--fused_block"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "escalation.json")) as f:
+        rep = json.load(f)
+    esc = launched("escalation_report",
+                   conformer_block_bf16=12 * -(-record["n_utts"] // 32))
+    print(f"14b. `python -m early_exit_tpu_torch.escalation_report --fused_block --sweep "
+          f"0.8,0.9,0.95` ({rep['n_utts']} utterances, seed {rep['seed']}) in {wall:.1f} s "
+          f"on {card}; launches {esc}; exit WER ladder {rep['exit_wer_ladder']} (the record "
+          f"{record['exit_wer_ladder']}); sigma/conf Pearson at the first reachable exit "
+          f"{rep['sigma_conf_pearson_first_reachable']} "
+          f"({record['sigma_conf_pearson_first_reachable']})")
+    for pt, rp in zip(rep["operating_points"], record["operating_points"]):
+        print(f"14b.   {pt['point']}: thresholds {pt['thresholds']}, accept histogram "
+              f"{pt['accept_histogram']}, mean exits {pt['mean_exits']}, escalated "
+              f"{pt['escalated_share']}, gated WER {pt['gated_wer_pct']}% (the record "
+              f"{rp['accept_histogram']}, {rp['mean_exits']}, {rp['gated_wer_pct']}%); SNR "
+              f"buckets " + ", ".join(f"{b_['sigma_range']}: exit {b_['mean_chosen_exit']} "
+                                     f"WER {b_['gated_wer_pct']}%" for b_ in pt["snr_buckets"]))
+    same_utts = (rep["seed"] == record["seed"] and rep["n_utts"] == record["n_utts"]
+                 and [b_["sigma_range"] for b_ in rep["snr_buckets"]]
+                 == [b_["sigma_range"] for b_ in record["snr_buckets"]])
+    ladder_gap = max(abs(rep["exit_wer_ladder"][f"exit{e}"]
+                         - record["exit_wer_ladder"][f"exit{e}"]) for e in range(2, 7))
+    hist_gap = max(abs(rep["accept_histogram"][k] - v)
+                   for k, v in record["accept_histogram"].items())
+    gated_gap = abs(rep["gated_wer_pct"] - record["gated_wer_pct"])
+    print(f"14b. against the record: the same utterances {same_utts}; exits 2-6 WER within "
+          f"{ladder_gap:.2f} points (held {ESC_WER_PP}); accept histogram within "
+          f"{hist_gap:.4f} (held {ESC_HIST}); gated WER {rep['gated_wer_pct']}% vs "
+          f"{record['gated_wer_pct']}% (held {ESC_WER_PP} points)")
+    if not same_utts or ladder_gap > ESC_WER_PP or hist_gap > ESC_HIST or gated_gap > ESC_WER_PP:
+        fail("escalation_report on the card departs from reports/escalation_v3_seed1.json")
+
+    # -- 14c. the zoo's bundles (compiled in phase 11's batch), served
+    acfg = AudioConfig(mel_method="dft")
+    tok = load_decoder(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    models, bundles = zoo_export["models"], zoo_export["bundles"]
+    Bk, Sk = EXPORT_BUCKET
+    bkey = f"{Bk}x{Sk}"
+    paths = {}
+    for name, bundle in bundles.items():
+        paths[name] = os.path.join(tmp, f"{name}.eetx")
+        ex.save_bundle(paths[name], bundle)
+        man = bundle.manifest
+        print(f"14c. {name} exported for cuda at {bkey}: bundle "
+              f"{os.path.getsize(paths[name]) / 1e6:.1f} MB, n_exits {man['n_exits']}, "
+              f"shapes {man['shapes']}; " + "; ".join(
+                  f"{key}: AOTInductor {secs:.1f} s (in phase 11's batch), package "
+                  f"{len(bundle.packages[key]) / 1e6:.1f} MB" for key, secs in
+                  man["aoti_compile_s"].items()))
+    nodes = {f"{name}/{key}": c.get("eet::conformer_block", 0)
+             for name, b in bundles.items() for key, c in b.manifest["op_nodes"]["cuda"].items()}
+    want = {f"splitformer/{bkey}": 12, f"splitformer/gated/{bkey}": 12,
+            f"early_zipformer/{bkey}": 19}
+    print(f"14c. eet::conformer_block nodes per graph: {nodes} (the gated graph: 2 in each "
+          f"of the 6 exits' cond branches; the branch blocks unfused)")
+    if nodes != want:
+        fail(f"the zoo's exported graphs: block op nodes {nodes}, expected {want}")
+    n_exits = {name: b.manifest["n_exits"] for name, b in bundles.items()}
+    if n_exits != {"splitformer": 6, "early_zipformer": 1}:
+        fail(f"the zoo bundles' manifests say n_exits {n_exits}")
+    zoo_export["bundles"] = {}
+
+    R = ZOO_EXPORT_ROWS
+    w, c = wav[:R].contiguous(), counts[:R].to(torch.int32).contiguous()
+    w_np, c_np = w.cpu().numpy(), c.cpu().numpy()
+    batches = [slice(i, i + Bk) for i in range(0, R, Bk)]
+    export_launches = {}
+    for name, m in models.items():
+        L, E = (12, 6) if name == "splitformer" else (19, 1)
+        rec_e = Recognizer(m, tok, acfg=acfg, device=dev)
+        reset_counts()
+        eager = rec_e.transcribe(w, c)
+        launched(f"Recognizer.transcribe ({name})", conformer_block_bf16=L, head_argmax=1)
+        ladder = [round(wer_pct(refs[:R], t), 2) for t in eager.texts]
+        rec_x = ex.ExportedRecognizer(paths[name])
+        toks, ntok = [], []
+        reset_counts()
+        for sl in batches:
+            t, n, _ = rec_x(w_np[sl], c_np[sl])
+            toks.append(torch.from_numpy(t))
+            ntok.append(torch.from_numpy(n))
+        got = launched(f"exported all-exit program ({name})",
+                       conformer_block_bf16=L * len(batches))
+        export_launches[name] = got["conformer_block_bf16"]
+        dis = disagreement(torch.cat(toks, 1), torch.cat(ntok, 1), eager.tokens,
+                           eager.n_tokens)
+        print(f"14c. {name}: the eager Recognizer's WER per exit {ladder}; tokens per "
+              f"utterance {[round(float(eager.n_tokens[e].float().mean()), 1) for e in range(E)]}")
+        _hold_token_contract(f"14c. {name} exported all-exit program vs Recognizer.transcribe "
+                             f"({R} requests)", dis, ladder)
+        if name == "splitformer":
+            feats = frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
+            lengths = frontend.mel_lengths(c, acfg.hop_length)
+            for label in ("0", "1.01", "median"):
+                n_eq, hist = 0, np.zeros(6, int)
+                for sl in batches:
+                    if label == "median":
+                        with torch.no_grad():
+                            lp, sub = m.encode_exit(feats[sl], lengths[sl], 1)
+                            mask = (torch.arange(lp.shape[1], device=dev)[None, :]
+                                    < sub[:, None])
+                            c1 = exit_confidence(lp, mask).sort().values
+                        # the widest gap among the middle rows, away from any row
+                        lo, hi = Bk // 4, 3 * Bk // 4
+                        j = lo + int((c1[lo + 1:hi + 1] - c1[lo:hi]).argmax())
+                        thr = float(c1[j:j + 2].mean())
+                    else:
+                        thr = float(label)
+                    reset_counts()
+                    _, _, ch = rec_x.gated(w_np[sl], c_np[sl], thr)
+                    got = launched(f"exported gated program ({label})",
+                                   conformer_block_bf16=2 * int(ch.max()))
+                    _, ch_e, _, _ = gated_apply(m, feats[sl], lengths[sl], threshold=thr)
+                    n_eq += int((ch == ch_e.cpu().numpy()).sum())
+                    hist += np.bincount(ch, minlength=7)[1:]
+                print(f"14c. splitformer exported gated program, threshold {label}: chosen "
+                      f"exits per exit {hist.tolist()}, equal to eager gated_apply's on "
+                      f"{n_eq}/{R} rows")
+                if n_eq != R:
+                    fail(f"the splitformer's exported gated program (threshold {label}) "
+                         f"chooses other exits than gated_apply")
+        run = rec_x._fn(bkey)
+        w8, c8 = w[:Bk], c[:Bk]
+        audio_s = Bk * Sk / acfg.sample_rate
+        with torch.no_grad():
+            t_x = cuda_ms(lambda: run(w8, c8), 20, 3)
+            t_n = cuda_ms(lambda: rec_x(w_np[:Bk], c_np[:Bk]), 20, 3)
+            t_e = cuda_ms(lambda: rec_e.transcribe(w8, c8), 20, 3)
+        print(f"14c. {name} times on {card} ({Bk} x {Sk / acfg.sample_rate:.0f} s, CUDA "
+              f"events): the exported all-exit program {t_x:.3f} ms a call = "
+              f"{audio_s / t_x * 1e3:.1f} audio-s/s ({t_n:.3f} ms with numpy in and out); "
+              f"the eager Recognizer.transcribe {t_e:.3f} ms = {audio_s / t_e * 1e3:.1f} "
+              f"audio-s/s")
+        rec_x.close()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"gate_launches": gate_launches, "export_launches": export_launches,
+            "escalation_launches": esc["conformer_block_bf16"]}
 
 
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,

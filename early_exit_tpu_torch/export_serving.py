@@ -21,8 +21,11 @@ The model flags are the inference CLI's (`python -m
 early_exit_tpu_torch.inference`); the weights come from
 --load_model_path or the average of --load_model_dir's epochs
 --avg_model_start..--avg_model_end. Exporting for "cuda" needs a GPU.
-The programs are the flagship trunk's: --model_type splitformer and
-early_zipformer raise by name (their export is not ported yet).
+Any CTC --model_type exports its all-exit program (early_zipformer: one
+exit; --export_symbolic_max the flagship only); --export_gated true takes
+early_conformer and splitformer, and
+--export_cascade_k early_conformer only: other models raise the JAX
+package's ValueError before the model is loaded.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import sys
 from early_exit_tpu_torch import runtime
 from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.inference import load_model
-from early_exit_tpu_torch.models.registry import require_flagship
+from early_exit_tpu_torch.models import registry
 from early_exit_tpu_torch.serving import export as exp
 
 
@@ -79,7 +82,11 @@ def main(argv=None):
             args.load_model_dir, args.avg_model_start, args.avg_model_end):
         sys.exit("export: need --load_model_path or --load_model_dir "
                  "with --avg_model_start/--avg_model_end")
-    require_flagship(model_cfg, "the serving export")
+    gated = mine.export_gated.lower() in ("true", "1", "yes")
+    if gated:
+        registry.require_gated(model_cfg)
+    if mine.export_cascade_k is not None:
+        registry.require_cascade(model_cfg)
     platforms = mine.export_platforms.split(",")
     model = load_model(args, model_cfg,
                        runtime.resolve_device("cuda" if "cuda" in platforms else "cpu"))
@@ -94,7 +101,7 @@ def main(argv=None):
     bundle = exp.export_recognizer(
         model, audio_cfg, shapes, platforms=platforms, gate_score=gate,
         symbolic_max_samples=mine.export_symbolic_max,
-        gated=mine.export_gated.lower() in ("true", "1", "yes"),
+        gated=gated,
         cascade_k=mine.export_cascade_k, gate_temperatures=temps,
         tokenizer=tokenizer)
     exp.save_bundle(mine.export_path, bundle)

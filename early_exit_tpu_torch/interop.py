@@ -14,7 +14,8 @@ splitformer's two branch blocks and the zipformer's five stages lists).
 `jax_tree(model, values)` lays out any per-parameter tensors (gradients,
 Adam moments) the same way, and `from_jax_tree` reads such a tree back
 into one tensor per parameter; `state_tensors` reads a state tree. Each
-model type has its own list of paths (`_PATHS`).
+model type has its own list of paths (`_PATHS`). `flagship_zoo_tree`
+builds the zoo's trees from the committed flagship's trained blocks.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from early_exit_tpu_torch.checkpoint import to_torch
+from early_exit_tpu_torch.checkpoint import FLAGSHIP_CKPT, load_tree, to_torch
 from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models.conformer import ConformerStack
 from early_exit_tpu_torch.models.registry import build_model
@@ -324,3 +325,46 @@ def from_jax_tree(model, tree) -> dict:
         for i, p in enumerate(params):
             out[p] = leaf[i]
     return out
+
+
+def _map(fn, tree):
+    """fn on every leaf of a tree of dicts."""
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flagship_zoo_tree(model_type: str, path: str = FLAGSHIP_CKPT):
+    """(params, state) trees, float32 numpy leaves in the JAX package's
+    layout, of a zoo model at the flagship's widths whose blocks,
+    convolution and heads are the committed flagship's trained ones: the
+    splitformer's trunk and heads are the flagship's, its branches blocks
+    1 and 12; the zipformer's 19 blocks are blocks 1..12 in turn, its
+    convolution the flagship's first and its head exit 6's. A seeded init
+    gives near-tie logits, and a model trained a few steps emits almost no
+    tokens; these transcribe."""
+    tree = load_tree(path)
+    fp, fs = (_map(lambda a: _f32(a).numpy(), tree[k]) for k in ("params", "model_state"))
+    convs = [_item(fp["subsample"]["convs"], i) for i in (0, 1)]
+
+    def stacked(blocks, idx):
+        return _map(lambda a: a[np.asarray(idx)], blocks)
+
+    if model_type == "splitformer":
+        return ({"subsample": {"convs": convs}, "blocks": fp["blocks"],
+                 "heads": fp["heads"],
+                 "parallel": [stacked(fp["blocks"], 0), stacked(fp["blocks"], 11)]},
+                {"blocks": fs["blocks"],
+                 "parallel": [stacked(fs["blocks"], 0), stacked(fs["blocks"], 11)]})
+    if model_type != "early_zipformer":
+        raise ValueError(f"flagship_zoo_tree: splitformer or early_zipformer, "
+                         f"not {model_type!r}")
+    from early_exit_tpu_torch.models.zipformer import STACK
+    idx = [i % 12 for i in range(2 + sum(STACK))]
+    bounds = np.cumsum([2, *STACK])
+    parts = [idx[a:b] for a, b in zip([0, *bounds[:-1]], bounds)]
+    return ({"subsample": {"convs": convs[:1]}, "pre": stacked(fp["blocks"], parts[0]),
+             "stages": [stacked(fp["blocks"], q) for q in parts[1:]],
+             "head": {"w": fp["heads"]["w"][5], "b": fp["heads"]["b"][5]}},
+            {"pre": stacked(fs["blocks"], parts[0]),
+             "stages": [stacked(fs["blocks"], q) for q in parts[1:]]})

@@ -63,6 +63,11 @@ class ConformerTrunk(nn.Module):
             core.linear_init_(self.heads_w[e], self.heads_b[e], generator)
         return self
 
+    def stacks(self):
+        """The fused stacks in the order they run: the trunk's one (the
+        splitformer's branch blocks run unfused and are none of them)."""
+        return [self.stack]
+
     def frontend_embed(self, feats: torch.Tensor, lengths: torch.Tensor, *,
                        generator: Optional[torch.Generator] = None):
         """Subsample + PE (added in float32) -> dropout (with a generator)

@@ -17,7 +17,8 @@ tensor.
 Gated encoders: `early_conformer` and `splitformer`, whose first and last
 exits add the parallel downsampled branch on the hidden state before
 their stack (inside that exit's `run`, so later exits pay nothing). The
-zipformer has a single exit: nothing to gate, a ValueError.
+zipformer has a single exit: nothing to gate, the JAX package's
+ValueError (`registry.require_gated`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
+from early_exit_tpu_torch.models.registry import require_gated
 from early_exit_tpu_torch.nn import core
 
 GATED_MODEL_TYPES = ("early_conformer", "splitformer")
@@ -106,10 +108,7 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     computed from softmax(logits / temperatures[e]), while the returned
     log-probs stay unscaled."""
     cfg = model.cfg
-    if cfg.model_type not in GATED_MODEL_TYPES:
-        raise ValueError(
-            f"gated_apply supports {GATED_MODEL_TYPES}; {cfg.model_type!r} "
-            "has a single output exit, nothing to gate")
+    require_gated(cfg)
     E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
     branches = model.branch_exits() if cfg.model_type == "splitformer" else {}
     temps = per_exit(temperatures, E)

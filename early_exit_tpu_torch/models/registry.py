@@ -4,7 +4,8 @@
 The CTC models `early_conformer`, `splitformer` and `early_zipformer`
 (--model_type), and `full_conformer`, which both CLIs build for
 --decoder_mode aed (`cli.get_args`). An unknown name raises the JAX
-package's ValueError.
+package's ValueError; so do the serving modes a model cannot take (the
+gate, the cascade, streaming), each with the JAX package's text.
 """
 
 from __future__ import annotations
@@ -32,11 +33,33 @@ def build_model(cfg: ModelConfig):
     return getattr(importlib.import_module(module), cls)(cfg)
 
 
-def require_flagship(cfg: ModelConfig, what: str) -> None:
-    """Raises by name unless cfg is an `early_conformer`: `what` serves
-    the flagship's trunk only, and would silently drop the splitformer's
-    branches or misread the zipformer's stacks."""
+def require_gated(cfg: ModelConfig) -> None:
+    """The gate runs the models of `GATED_MODEL_TYPES`; others raise the
+    JAX package's ValueError (`gated_apply`)."""
+    from early_exit_tpu_torch.models.early_exit_gate import GATED_MODEL_TYPES
+    if cfg.model_type not in GATED_MODEL_TYPES:
+        raise ValueError(
+            f"gated_apply supports {GATED_MODEL_TYPES}; "
+            f"{cfg.model_type!r} has a single output exit — nothing to "
+            "gate (reference README.md:61)")
+
+
+def require_cascade(cfg: ModelConfig) -> None:
+    """The two-phase cascade resumes the flagship's trunk at layer k; other
+    models raise the JAX package's ValueError (`serving/cascade.py`)."""
     if cfg.model_type != "early_conformer":
-        raise NotImplementedError(
-            f"{what} serves early_conformer models; --model_type "
-            f"{cfg.model_type} is not served by it yet")
+        raise ValueError(
+            "cascade serving supports early_conformer (the flagship); "
+            f"got {cfg.model_type!r} — splitformer's exit-1/exit-E "
+            "parallel branches make the layer-k hidden non-resumable, "
+            "use gated_apply for it")
+
+
+def require_streaming(cfg: ModelConfig) -> None:
+    """The chunked-window recognizer runs the early_conformer trunk; other
+    models raise with the JAX CLI's message for --streaming."""
+    if cfg.model_type != "early_conformer":
+        raise ValueError(
+            "--streaming: the chunked-window recognizer runs the "
+            "early_conformer trunk (serving/streaming.py); "
+            f"{cfg.model_type} checkpoints are batch-only")

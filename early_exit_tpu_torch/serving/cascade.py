@@ -33,16 +33,11 @@ from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
 from early_exit_tpu_torch.models.early_exit_gate import (exit_thresholds,
                                                          head_logp_conf, per_exit)
+from early_exit_tpu_torch.models.registry import require_cascade
 from early_exit_tpu_torch.serving.packing import pack_escalation_indices  # noqa: F401
 
 
-def _check_model(cfg: ModelConfig) -> None:
-    if cfg.model_type != "early_conformer":
-        raise ValueError(
-            "cascade serving supports early_conformer (the flagship); "
-            f"got {cfg.model_type!r} — splitformer's exit-1/exit-E "
-            "parallel branches make the layer-k hidden non-resumable, "
-            "use gated_apply for it")
+_check_model = require_cascade      # the JAX package's name for the rule
 
 
 def _check_k(cfg: ModelConfig, k: int) -> None:

@@ -90,10 +90,12 @@ def _shape_key(b: int, s: int) -> str:
 class _Program(nn.Module):
     """A serving program over `model`, which it closes over (it is not a
     submodule): only the tensors the program reads become constants of
-    the captured graph. A fused stack's kernel layout, folded once here,
-    is held as buffers (of the blocks in `layers` only, default all) and
-    pinned into the stack while the program runs, so the graph holds no
-    folding ops."""
+    the captured graph. The kernel layout of every fused stack of the
+    model (`model.stacks()`: the flagship's and the splitformer's one, the
+    zipformer's six), folded once here, is held as buffers and pinned into
+    the stacks while the program runs, so the graph holds no folding ops.
+    `layers` keeps the blocks of the first stack that a cascade phase runs
+    (default all)."""
 
     def __init__(self, model, audio_cfg, gate_score: str, layers=None):
         super().__init__()
@@ -101,27 +103,32 @@ class _Program(nn.Module):
         self.acfg = audio_cfg
         self.gate_score = gate_score
         self.layout = None
-        stack = model.stack
         if model.cfg.fused_block:
-            names = kcb.OP_ORDER_INT8 if stack.cfg.quant == "int8" else kcb.PARAM_ORDER
-            used = range(len(stack.blocks)) if layers is None else layers
             self.layout = nn.ModuleList()
-            for i, f in enumerate(stack.folded()):
-                m = nn.Module()
-                for n in names if i in used else ():
-                    m.register_buffer(n, f[n])
-                self.layout.append(m)
+            for s, stack in enumerate(model.stacks()):
+                names = kcb.OP_ORDER_INT8 if stack.cfg.quant == "int8" else kcb.PARAM_ORDER
+                used = range(len(stack.blocks)) if layers is None or s else layers
+                blocks = nn.ModuleList()
+                for i, f in enumerate(stack.folded()):
+                    m = nn.Module()
+                    for n in names if i in used else ():
+                        m.register_buffer(n, f[n])
+                    blocks.append(m)
+                self.layout.append(blocks)
 
     @contextlib.contextmanager
     def _pinned(self):
         if self.layout is None:
             yield
             return
-        self.model.stack.pin_folded([dict(m.named_buffers()) for m in self.layout])
+        stacks = self.model.stacks()
+        for stack, blocks in zip(stacks, self.layout):
+            stack.pin_folded([dict(m.named_buffers()) for m in blocks])
         try:
             yield
         finally:
-            self.model.stack.pin_folded(None)
+            for stack in stacks:
+                stack.pin_folded(None)
 
     def _features(self, wav, n_samples):
         feats = frontend.mel_spectrogram(wav, self.acfg, method=self.acfg.mel_method)
@@ -318,7 +325,8 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
                       gated: bool = False,
                       cascade_k: Optional[int] = None,
                       gate_temperatures=None,
-                      tokenizer=None) -> ExportBundle:
+                      tokenizer=None,
+                      compile_aoti: bool = True) -> ExportBundle:
     """Capture the serving programs for each (B, S) bucket, on each
     platform ("cpu", "cuda"), and compile them with AOTInductor for
     "cuda" (which needs a GPU). shapes: padded (batch, samples) buckets; a
@@ -326,22 +334,36 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
 
     symbolic_max_samples: also one program over symbolic (b, s) with
     hop_length*14 <= s <= symbolic_max_samples (and its gated variant
-    with gated); from 14 hops up T' >= 3, where every size check the
-    capture adds as a runtime guard (sizes other than 1 and 2) holds, so
-    nothing is specialized. A runner pads shorter input. On the CPU a fused stack runs the block kernel's plain
-    version only up to T' = 512, as the JAX package: the bound must keep
-    the poly program's T' there, or export raises.
+    with gated), for the flagship; from 14 hops up T' >= 3, where every
+    size check the capture adds as a runtime guard (sizes other than 1
+    and 2) holds, so nothing is specialized. A runner pads shorter input.
+    On the CPU a fused stack runs the block kernel's plain version only
+    up to T' = 512, as the JAX package: the bound must keep the poly
+    program's T' there, or export raises.
 
-    gated: also the gated programs (threshold a runtime scalar).
-    cascade_k: also the two cascade programs at that phase-A depth, for
+    Any CTC model of the registry exports its all-exit program (the
+    zipformer's has one exit). gated: also the gated programs (threshold
+    a runtime scalar), for `GATED_MODEL_TYPES`. cascade_k: also the two
+    cascade programs (the flagship only) at that phase-A depth, for
     each bucket (not for the poly program), with gate_temperatures baked.
+    compile_aoti=False leaves the "cuda" programs uncompiled, for
+    `compile_bundles` to compile several bundles' at once.
     """
-    from early_exit_tpu_torch.models.registry import require_flagship
+    from early_exit_tpu_torch.models import registry
     cfg = model.cfg
-    require_flagship(cfg, "export_recognizer")
+    if gated:
+        registry.require_gated(cfg)
+    if cascade_k is not None:
+        registry.require_cascade(cfg)
     E = cfg.n_enc_exits
     hop = int(audio_cfg.hop_length)
     s_min = hop * 14
+    if symbolic_max_samples is not None and cfg.model_type != "early_conformer":
+        raise NotImplementedError(
+            f"export_recognizer: the shape-polymorphic program is ported for "
+            f"early_conformer; {cfg.model_type}'s padding of T' to its "
+            f"downsampling factor specializes the symbolic length (export "
+            f"buckets with shapes instead)")
     if not shapes and symbolic_max_samples is None:
         raise ValueError("export_recognizer: need shapes and/or "
                          "symbolic_max_samples")
@@ -361,8 +383,6 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
                 f"(the JAX package's rule), so the poly program's bound must "
                 f"stay within {hop * (4 * FUSED_MAX_T + 6) - 1} samples")
     programs: Dict[str, Dict[str, bytes]] = {}
-    packages: Dict[str, bytes] = {}
-    compile_s: Dict[str, float] = {}
     meta_shapes: Dict[str, dict] = {}
     ops: Dict[str, Dict[str, int]] = {}
     for plat in platforms:
@@ -412,15 +432,13 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
                                              ({0: nb, 1: ns}, {0: nb}, None))
         programs[plat] = {k: _saved(ep) for k, ep in eps.items()}
         ops[plat] = {k: _ops_called(ep) for k, ep in eps.items()}
-        if dev.type == "cuda":
-            with tempfile.TemporaryDirectory(prefix="eet_aoti_") as tmp:
-                for k, (blob, secs) in _compile_all(programs[plat], tmp).items():
-                    packages[k], compile_s[k] = blob, secs
-    # shapes per bucket from one platform's captured outputs
+    # shapes per bucket, and the exits, from the captured all-exit
+    # programs' outputs (the zipformer has one exit over its own T'')
     for b, s in shapes:
-        Tp = _sub_frames(s, hop)
+        toks, n_tok, conf = _out_shapes(eps[_shape_key(b, s)])
         meta_shapes[_shape_key(b, s)] = {
-            "wav": [b, s], "tokens": [E, b, Tp], "n_tok": [E, b], "conf": [E, b]}
+            "wav": [b, s], "tokens": toks, "n_tok": n_tok, "conf": conf}
+    n_exits = _out_shapes(eps[_shape_key(*shapes[0]) if shapes else "poly"])[2][0]
     if symbolic_max_samples is not None:
         meta_shapes["poly"] = {"wav": ["b", "s"], "min_samples": s_min,
                                "max_samples": int(symbolic_max_samples)}
@@ -434,7 +452,7 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
         "gated": bool(gated),
         "cascade_k": int(cascade_k) if cascade_k is not None else None,
         "blank_id": int(cfg.blank_id),
-        "n_exits": E,
+        "n_exits": int(n_exits),
         "sample_rate": int(audio_cfg.sample_rate),
         "hop_length": hop,
         "shapes": meta_shapes,
@@ -442,16 +460,41 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
         "ops": sorted({name for per in ops.values() for c in per.values()
                        for name in c}),
         "op_nodes": ops,
-        "aoti_compile_s": compile_s,
+        "aoti_compile_s": {},
         "has_vocab": vocab is not None,
     }
-    return ExportBundle(manifest=manifest, programs=programs, packages=packages,
-                        vocab=vocab)
+    bundle = ExportBundle(manifest=manifest, programs=programs, packages={},
+                          vocab=vocab)
+    if "cuda" in platforms and compile_aoti:
+        compile_bundles({"": bundle})
+    return bundle
+
+
+def compile_bundles(bundles: Dict[str, ExportBundle]) -> None:
+    """The AOTInductor packages of the "cuda" programs of several bundles
+    (name -> bundle), compiled at once (`_compile_all`: one spawned
+    process a program), into each bundle and its manifest's
+    `aoti_compile_s`."""
+    saved = {f"{name}:{key}": blob for name, b in bundles.items()
+             for key, blob in b.programs["cuda"].items()}
+    with tempfile.TemporaryDirectory(prefix="eet_aoti_") as tmp:
+        for k, (blob, secs) in _compile_all(saved, tmp).items():
+            name, key = k.split(":", 1)
+            bundles[name].packages[key] = blob
+            bundles[name].manifest["aoti_compile_s"][key] = secs
+
+
+def _out_shapes(ep):
+    """The shapes of a captured program's outputs (a symbolic size as its
+    name)."""
+    out = next(n for n in ep.graph.nodes if n.op == "output").args[0]
+    return [[d if isinstance(d, int) else str(d) for d in n.meta["val"].shape]
+            for n in out]
 
 
 def _sub_frames(s: int, hop: int) -> int:
-    """T' of an s-sample input: centred mel frames, then two VALID k=3
-    stride-2 convolutions."""
+    """T' of an s-sample input to the flagship's trunk: centred mel frames,
+    then two VALID k=3 stride-2 convolutions."""
     t = 1 + s // hop
     for _ in range(2):
         t = (t - 3) // 2 + 1

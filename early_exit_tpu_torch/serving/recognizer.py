@@ -5,11 +5,11 @@ confidence-gated cascade serving.
     out = rec.transcribe(wav, sample_counts)     # every exit, greedy CTC
     out = rec.transcribe_gated(wav, sample_counts)   # one exit per request
 
-The path: waveform -> DFT log-mel frontend (no log) -> conv subsampling
-x4 + PE -> 12 Conformer blocks (the block kernel when `fused`) -> the 6
-exit hiddens -> heads + argmax (the head kernel when `fused`, else
-float logits + argmax) -> greedy CTC collapse of every exit -> BPE
-detokenisation. It decodes every exit, the reference's inference
+The flagship's path: waveform -> DFT log-mel frontend (no log) -> conv
+subsampling x4 + PE -> 12 Conformer blocks (the block kernel when
+`fused`) -> the 6 exit hiddens -> heads + argmax (the head kernel when
+`fused`, else float logits + argmax) -> greedy CTC collapse of every exit
+-> BPE detokenisation. It decodes every exit, the reference's inference
 semantics.
 
 The gated path (`transcribe_gated`) is the flagship's serving mode: the
@@ -17,6 +17,12 @@ two-phase cascade of `serving/cascade.py` under the committed calibration
 (`assets/flagship_calib.json`: score, per-exit thresholds and
 temperatures, `cascade_k`), each request decoded at the earliest exit
 whose calibrated confidence clears its threshold.
+
+`Recognizer(model, tokenizer)` serves any CTC model of the registry:
+the splitformer decodes its six exits, the early_zipformer its one,
+through the same head kernel. The gate runs `GATED_MODEL_TYPES` (the
+zipformer has nothing to gate) and the cascade the flagship only; the
+others raise the JAX package's ValueError.
 
 `from_flagship` also takes the serving configurations that select the
 other kernels: `quantize="int8"` (the W8A8 block kernel),
@@ -40,8 +46,6 @@ from early_exit_tpu_torch import checkpoint, interop, runtime
 from early_exit_tpu_torch.configs import AudioConfig, inference_profile
 from early_exit_tpu_torch.data.synthetic import synth_batch
 from early_exit_tpu_torch.decoding.lexicon import edit_distance
-from early_exit_tpu_torch.models.early_conformer import EarlyConformer
-from early_exit_tpu_torch.models.registry import require_flagship
 from early_exit_tpu_torch.models.early_exit_gate import gated_apply
 from early_exit_tpu_torch.ops import ctc, frontend
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
@@ -68,10 +72,9 @@ class GatedTranscripts:
 
 
 class Recognizer:
-    def __init__(self, model: EarlyConformer, tokenizer: SentencePieceDecoder,
+    def __init__(self, model: torch.nn.Module, tokenizer: SentencePieceDecoder,
                  *, acfg: AudioConfig = AudioConfig(mel_method="dft"),
                  device=None, calib: Optional[dict] = None):
-        require_flagship(model.cfg, "Recognizer")
         self.device = runtime.resolve_device(device)
         if self.device.type == "cuda":
             runtime.exact_float32()
@@ -180,9 +183,10 @@ class Recognizer:
                          strategy: str = "cascade") -> GatedTranscripts:
         """Each request decoded at the earliest exit whose calibrated
         confidence clears its threshold (the final exit otherwise).
-        strategy "cascade": the two-phase cascade; "whileloop": the
-        batch-conservative gate `gated_apply`, whose per-row decisions the
-        cascade reproduces."""
+        strategy "cascade": the two-phase cascade (the flagship only);
+        "whileloop": the batch-conservative gate `gated_apply`, whose
+        per-row decisions the cascade reproduces (the flagship and the
+        splitformer)."""
         if strategy == "cascade":
             toks, n, chosen, n_esc, n_packed = self.cascade_pass(wav, sample_counts)
         elif strategy == "whileloop":

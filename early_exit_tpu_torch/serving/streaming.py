@@ -40,7 +40,7 @@ import torch
 from early_exit_tpu_torch.configs import AudioConfig
 from early_exit_tpu_torch.models import subsampling
 from early_exit_tpu_torch.models.early_conformer import EarlyConformer
-from early_exit_tpu_torch.models.registry import require_flagship
+from early_exit_tpu_torch.models.registry import require_streaming
 from early_exit_tpu_torch.models.early_exit_gate import exit_confidence
 from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.ops import frontend
@@ -176,7 +176,7 @@ class StreamingRecognizer:
                  blank: Optional[int] = None, causal_attention: bool = False,
                  exit_threshold: Optional[float] = None, fast_exit: int = 1,
                  gate_score: str = "maxprob", all_exits: bool = False):
-        require_flagship(model.cfg, "StreamingRecognizer")
+        require_streaming(model.cfg)
         self.model = model
         self.mcfg = model.cfg
         self.acfg = audio_cfg or AudioConfig()

@@ -1,8 +1,9 @@
 """Word error rate and the training metrics stream (counterpart of
 `early_exit_tpu/utils/metrics.py`).
 
-`WerAccumulator`: substitutions + insertions + deletions over the
-reference words of a corpus. `MetricsLogger` appends
+`edit_ops`: the word-level Levenshtein distance the tools score with (the
+JAX package's `_edit_ops`). `WerAccumulator`: substitutions + insertions
++ deletions over the reference words of a corpus. `MetricsLogger` appends
 one JSON object per `log` call to `<log_dir>/metrics.jsonl`: {"step",
 "time", <metric>: float, ...}. The JAX package's logger also writes
 TensorBoard events when `torch.utils.tensorboard` imports; the port
@@ -14,9 +15,14 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict
+from typing import Dict, List
 
 from early_exit_tpu_torch.decoding.lexicon import edit_distance
+
+
+def edit_ops(ref: List[str], hyp: List[str]) -> int:
+    """Levenshtein distance over word lists."""
+    return edit_distance(ref, hyp)
 
 
 class WerAccumulator:
@@ -29,7 +35,7 @@ class WerAccumulator:
 
     def add(self, reference: str, hypothesis: str) -> None:
         ref = reference.split()
-        self.errors += edit_distance(ref, hypothesis.split())
+        self.errors += edit_ops(ref, hypothesis.split())
         self.words += len(ref)
         self.utterances += 1
 

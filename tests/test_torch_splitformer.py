@@ -155,6 +155,20 @@ def bf16_token_disagreement(model_type: str, **over):
     return differ.mean(), differ.size
 
 
+@pytest.mark.parametrize("model_type", ["splitformer", "early_zipformer"])
+def test_interop_flagship_zoo_tree_equals_the_helper(model_type):
+    """`interop.flagship_zoo_tree`, the numpy version `chip_smoke.py`
+    builds its zoo checkpoints from, equals `flagship_zoo_trees` leaf for
+    leaf."""
+    got, want = interop.flagship_zoo_tree(model_type), flagship_zoo_trees(model_type)
+    g = jax.tree_util.tree_flatten_with_path(got)
+    w = jax.tree_util.tree_flatten_with_path(want)
+    assert g[1] == w[1]
+    for (key, a), (_, b) in zip(g[0], w[0]):
+        assert a.dtype == b.dtype == np.float32, jax.tree_util.keystr(key)
+        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(key))
+
+
 def test_bf16_tokens_match_jax():
     share, n = bf16_token_disagreement("splitformer")
     assert n >= 6 * 60 and share <= 0.01, (share, n)

@@ -13,9 +13,8 @@ splitformer 3 exits x 1 block, the zipformer --n_enc_exits 19
   one epoch on the CPU writes a pair the JAX package reads, and the
   inference CLI decodes from it (with the block and head kernels' plain
   versions, --fused_block true) one line per utterance and exit.
-- the serving entries that serve the flagship's trunk only (`Recognizer`,
-  `StreamingRecognizer` and so `StreamPool`, `export_recognizer`, the
-  export CLI) refuse a zoo model by name.
+- the serving modes the JAX package refuses a zoo model (streaming, the
+  cascade, the zipformer's gate) refuse it in the port with its text.
 """
 
 import importlib.util
@@ -162,19 +161,39 @@ def test_train_then_infer(tmp_path, jax_cli, capsys, name):
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))
 def test_serving_entries_refuse_the_zoo_by_name(tmp_path, ckpts, name):
+    """What the JAX package refuses a zoo model, the port refuses with its
+    text: streaming (`StreamingRecognizer`, and so `StreamPool`), the
+    cascade (`Recognizer.transcribe_gated`, `export_recognizer`, the
+    export CLI) and, for the zipformer, the gate. `Recognizer` and the
+    all-exit export take both families (`tests/test_torch_zoo_export.py`)."""
     cfg = ModelConfig(model_type=name, d_model=32, n_heads=4, d_feed_forward=64,
                       n_enc_exits=FAMILIES[name][1], n_enc_layers_per_exit=1,
                       depthwise_kernel_size=7)
     model = build_model(cfg)
     tok = load_decoder(checkpoint.bound_tokenizer(checkpoint.load_calib()))
-    for what, call in (
-            ("Recognizer", lambda: Recognizer(model, tok, device="cpu")),
-            ("StreamingRecognizer", lambda: StreamingRecognizer(model, AudioConfig(), tok)),
-            ("StreamingRecognizer", lambda: StreamPool(2, model, AudioConfig(), tok)),
-            ("export_recognizer", lambda: exp.export_recognizer(
-                model, AudioConfig(), [(1, 16000)], platforms=("cpu",))),
-            ("the serving export", lambda: port_export.main(
+    rec = Recognizer(model, tok, device="cpu")
+    wav, n = torch.zeros(1, 16000), torch.tensor([16000])
+    streaming = f"{name} checkpoints are batch-only"
+    cascade = "cascade serving supports early_conformer"
+    cases = [
+        (streaming, lambda: StreamingRecognizer(model, AudioConfig(), tok)),
+        (streaming, lambda: StreamPool(2, model, AudioConfig(), tok)),
+        (cascade, lambda: rec.transcribe_gated(wav, n)),
+        (cascade, lambda: exp.export_recognizer(
+            model, AudioConfig(), [(1, 16000)], platforms=("cpu",), cascade_k=1)),
+        (cascade, lambda: port_export.main(
+            _infer(name, ckpts) + ["--export_path", str(tmp_path / "m.eetx"),
+                                   "--export_platforms", "cpu", "--export_cascade_k", "1"]))]
+    if name == "early_zipformer":
+        gate = "has a single output exit"
+        cases += [
+            (gate, lambda: rec.transcribe_gated(wav, n, strategy="whileloop")),
+            (gate, lambda: exp.export_recognizer(
+                model, AudioConfig(), [(1, 16000)], platforms=("cpu",), gated=True)),
+            (gate, lambda: port_export.main(
                 _infer(name, ckpts) + ["--export_path", str(tmp_path / "m.eetx"),
-                                       "--export_platforms", "cpu"]))):
-        with pytest.raises(NotImplementedError, match=f"{what} .*--model_type {name}"):
+                                       "--export_platforms", "cpu", "--export_gated", "true"]))]
+    for match, call in cases:
+        with pytest.raises(ValueError, match=match):
             call()
+    assert not (tmp_path / "m.eetx").exists()

@@ -145,6 +145,65 @@ def test_loss_grads_and_bn_state_match_jax(fam):
         np.testing.assert_allclose(p, j, rtol=1e-5, atol=1e-6, err_msg=key)
 
 
+def step_gap(name, batch, **over):
+    """One float32 step of family `name` (its configuration here, `over`
+    replacing fields) on `batch` (numpy: feats, feat_lengths, labels,
+    label_lengths), the port's `trainer.loss_fn` under autograd against
+    the JAX package's train step from the same seeded init: the loss's and
+    the gradients' global norm's relative gaps and the worst gradient
+    leaf's relative L2, with its key (the zero-gradient leaves aside).
+    At the full width of `chip_smoke.py` phase 13a (d 256, 8 heads, ffn
+    2048, k 31, its four requests from `bench_batch`) it tells whether
+    the port departs from JAX there, with no card in the comparison."""
+    mod, kw = FAMILIES[name]
+    kw = dict(kw, **over)
+    jcfg = JModelConfig(**kw)
+    params, state = _host(mod.init(jax.random.PRNGKey(3), jcfg))
+    step = jax.jit(jtrainer.make_train_step(mod, jcfg, JTrainConfig(), _grad_store()))
+    st = {"params": params, "model_state": state, "opt_state": _grad_store().init(params),
+          "step": jnp.zeros((), jnp.int32)}
+    new, m = step(st, {k: jnp.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1))
+    want = _leaves(_host(new["opt_state"]))
+    model = interop.from_jax_params(params, state, ModelConfig(**kw), trainable=True)
+    total, _, _ = trainer.loss_fn(model, TrainConfig(), _tb(batch))
+    plist = list(model.parameters())
+    grads = torch.autograd.grad(total, plist)
+    got = _leaves(interop.jax_tree(model, dict(zip(plist, grads))))
+    rel = {k: float(np.linalg.norm(p - j) / np.linalg.norm(j))
+           for (k, j), (_, p) in zip(want, got) if not k.endswith(ZERO_GRAD)}
+    worst = max(rel, key=rel.get)
+    norm = float(m["grad_norm"])
+    return (abs(float(total.detach()) - float(m["loss"])) / abs(float(m["loss"])),
+            abs(float(global_norm(list(grads))) - norm) / norm, rel[worst], worst)
+
+
+def bench_batch(n=4, seed=1313):
+    """`chip_smoke.py` phase 13a's batch: n requests of the flagship calib
+    file's `bench_eval` distribution through the training pipeline on the
+    CPU (FFT mel, BPE-256), as numpy."""
+    from early_exit_tpu_torch import checkpoint
+    from early_exit_tpu_torch.configs import AudioConfig
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+    calib = checkpoint.load_calib()
+    tok = load_tokenizer(checkpoint.bound_tokenizer(calib))
+    pipe = Pipeline([], tok, AudioConfig(), TrainConfig(), device="cpu")
+    wav, counts, refs = synth_batch(calib.get("bench_eval", {}), n, seed)
+    items = [(wav[i, :counts[i]], text.encode_target(text.clean_train_label(refs[i]), tok),
+              text.clean_train_label(refs[i])) for i in range(n)]
+    host = {k: torch.from_numpy(v) for k, v in pipe.host_subbatch(items).items()}
+    batch = pipe.to_device(host)
+    return {k: batch[k].numpy() for k in ("feats", "feat_lengths", "labels", "label_lengths")}
+
+
+def test_step_gap_of_the_zipformer():
+    """`step_gap` at this file's size: the gaps the fixture's test holds."""
+    d_loss, d_norm, leaf, key = step_gap("early_zipformer", _batch())
+    assert d_loss <= 1e-5 and d_norm <= 1e-5 and leaf <= 1e-4, (d_loss, d_norm, leaf, key)
+
+
 def test_dynamic_chunk_is_ignored_for_the_zoo(fam):
     """JAX samples chunk masks for the early_conformer only: with
     --dynamic_chunk the zoo's loss is the one of full attention."""
