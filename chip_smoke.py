@@ -208,15 +208,20 @@ Phases (any failure exits non-zero, with no result line):
      CLI (row 1c, 12 (19) launches a sub-batch) card against CPU on 8
      utterances within 1% of tokens at every exit; (d) at B=128 x 10 s
      the block kernel on each of 13b's zipformer's six stacks' inputs (as
-     its plain path gives them, T' = 500, 250, 125, 63; the same readings
-     of 13c's model printed beside them, not held) against its plain
-     version: the pre stack (fed the embedding, as phase 2's block) within
-     phase 2's tolerance, each stage (fed a block's output) within twice
-     the ulps the plain version moves by when every product is summed
-     exactly (at least phase 2's), its share of values printed as phase
-     8b prints a trained trunk's later blocks'; and the head kernel at E=1
-     equal to its plain version; (e) the splitformer's gate in float32 on 32 of
-     those requests: threshold 0 runs 1 exit, 1.01 all 6, and at the
+     its plain path gives them, T' = 500, 250, 125, 63; and on 13c's model)
+     against its plain version: the pre stack (fed the embedding, as phase
+     2's block) within phase 2's tolerance, each stage (fed a block's
+     output) within twice the ulps the plain version moves by when every
+     product is summed exactly (at least phase 2's), its share of values
+     printed as phase 8b prints a trained trunk's later blocks'; the head
+     kernel at E=1 equal to its plain version. On 13c's model the pre stack
+     is held by ROADMAP Queue C's C6 readings (`c6_readings`): the kernel
+     within phase 2's tolerance of its plain version run with the kernel's
+     own products and LayerNorms, every other sum exact, and each of the
+     block's products, rounded to bf16, within 1 ulp of the float64 product
+     on at most twice the share cuBLAS's bf16 product moves; (e) the
+     splitformer's gate in float32 on 32 of those requests: threshold 0
+     runs 1 exit, 1.01 all 6, and at the
      median of exit 1's confidences the chosen exits equal those the
      all-exit forward's confidences give on every row, the chosen
      log-probs within 1e-4 of its; (f) the four legacy Transformer models
@@ -252,6 +257,22 @@ Phases (any failure exits non-zero, with no result line):
      batch's median exit-1 confidence, 2 launches an exit run; compile
      seconds and MB per program, ms a call and audio-s/s against the eager
      `Recognizer`.
+
+ 15. reference checkpoints and the whole tokenizer (`reference_phase`):
+     (a) the flagship through `interop.to_reference_state_dict` and
+     `torch.save` into `python -m
+     early_exit_tpu_torch.import_reference_checkpoint --fused_block true`
+     on the card, the imported tree equal to the flagship's leaf for leaf,
+     and its `Recognizer.transcribe` over 32 of phase 3's requests giving
+     the flagship's tokens at every exit, 0 apart, in 12 block launches
+     and one head launch; (b) seeded splitformer, early_zipformer and
+     full_conformer at the flagship's widths: exact reference round trips
+     and the forwards of the models read back bit-equal on the card; (c)
+     nmt_nfkc BPE-256 and unigram-256 tokenizers with the reference
+     recipe's ids trained over phase 9's transcripts, their native and
+     Python engines' ids equal (sentences a second printed), and 5 steps
+     of `python -m early_exit_tpu_torch.train` with the BPE model, the
+     loss finite and falling. Its seconds are printed.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -486,6 +507,69 @@ def exact_key_sums():
         yield
     finally:
         torch.Tensor.sum = tsum
+
+
+@contextlib.contextmanager
+def exact_sums():
+    """Within the block's plain version, every sum in float64, rounded once
+    to float32: the products' and the softmax denominator's (as in
+    `exact_product_sums` and `exact_key_sums`) and the LayerNorms'
+    statistics. The conv's 31 taps keep their float32 order."""
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    one_pass = kcb._ln_one_pass
+
+    def ln(v, g, b, eps):
+        v64 = v.double()
+        mu = v64.mean(-1, keepdim=True)
+        var = (v64.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0.0)
+        return (v.float() - mu.float()) * (var.float() + eps).rsqrt() * g + b
+    kcb._ln_one_pass = ln
+    try:
+        with exact_product_sums(), exact_key_sums():
+            yield
+    finally:
+        kcb._ln_one_pass = one_pass
+
+
+@contextlib.contextmanager
+def kernel_products_and_norms():
+    """Within the block's plain version, its ten products run through the
+    bf16 block's own product (`block_gemm`, bias added after, as the plain
+    version adds it) and its LayerNorms through the block's own LayerNorm
+    (`block_layer_norm`); every other sum (the attention's, the softmax
+    denominator's) in float64, as `exact_sums` takes them."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    one_pass, matmul = kcb._ln_one_pass, torch.matmul
+
+    def ln(v, g, b, eps):
+        kcb._ln_one_pass = one_pass      # the CPU's block_layer_norm is plain
+        try:
+            y = kcb.block_layer_norm(v.to(torch.bfloat16).reshape(-1, v.shape[-1])
+                                     .contiguous(), g, b, eps)
+        finally:
+            kcb._ln_one_pass = ln
+        return y.reshape(v.shape).float()
+
+    def mm(a, b):
+        if b.dim() != 2:                 # the attention's products
+            return matmul(a.double(), b.double()).to(a.dtype)
+        a2 = a.reshape(-1, a.shape[-1]).to(torch.bfloat16).contiguous()
+        zero = torch.zeros(b.shape[1], dtype=torch.bfloat16, device=a.device)
+        torch.matmul = matmul            # the CPU's block_gemm is plain
+        try:
+            y = kcb.block_gemm(a2, b.to(torch.bfloat16).contiguous(), zero)
+        finally:
+            torch.matmul = mm
+        return y.float().reshape(*a.shape[:-1], b.shape[1])
+    kcb._ln_one_pass = ln
+    try:
+        with exact_key_sums():
+            torch.matmul = mm
+            yield
+    finally:
+        torch.matmul = matmul
+        kcb._ln_one_pass = one_pass
 
 
 def main() -> None:
@@ -1337,6 +1421,8 @@ def main() -> None:
                         wav, counts)
         gate = gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts, refs,
                           zoo_export)
+        ref = reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
+                              counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1356,7 +1442,9 @@ def main() -> None:
              + f"; calibrate_gate's gated CLIs (phase 14): {gate['gate_launches']}; "
              f"escalation_report (phase 14): {gate['escalation_launches']}; the zoo's "
              f"exported all-exit programs (phase 14): {gate['export_launches']} over "
-             f"{ZOO_EXPORT_ROWS // EXPORT_BUCKET[0]} calls each"),
+             f"{ZOO_EXPORT_ROWS // EXPORT_BUCKET[0]} calls each; the flagship imported "
+             f"from its reference state_dict (phase 15): "
+             f"{ref['launches']['conformer_block_bf16']} over one call"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1368,7 +1456,9 @@ def main() -> None:
              "early_exit_tpu/ops/pallas/head_argmax.py:53", launches["head_argmax"],
              "all-exit path; the zoo's inference CLIs (phase 13): " + ", ".join(
                  f"{n} {h} over {nb} sub-batches (E={6 if n == 'splitformer' else 1})"
-                 for n, (_, h, nb) in zoo["launches"].items())),
+                 for n, (_, h, nb) in zoo["launches"].items())
+             + f"; the imported flagship (phase 15): {ref['launches']['head_argmax']} over "
+             f"one call"),
             ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
              f"(D) unfused, attention_impl='pallas', {n_cd} requests"),
@@ -1388,6 +1478,8 @@ def main() -> None:
     rows[1]["zoo_launches"] = zoo["f32_launches"]
     rows[3]["zoo_launches"] = {n: h for n, (_, h, _) in zoo["launches"].items()}
     rows[0]["zoo_export_launches"] = gate["export_launches"]
+    rows[0]["reference_launches"] = ref["launches"]["conformer_block_bf16"]
+    rows[3]["reference_launches"] = ref["launches"]["head_argmax"]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -3482,73 +3574,17 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         feats = frontend.mel_spectrogram(wav, acfg_i, method=acfg_i.mel_method)
         lengths = frontend.mel_lengths(counts, acfg_i.hop_length)
 
-    # -- 13d. the block kernel at the zipformer's six stacks, B=128 x 10 s:
-    # held on 13b's trained model; on the model of the flagship's blocks
-    # (13c's) printed beside it (ROADMAP Queue C, C6)
-    def stack_readings(zm, what, hold):
-        """The block kernel against its plain version on the first block of
-        each of zm's six stacks, fed the plain path's input; the head
-        kernel at E=1. Returns the stacks' T'."""
-        kw = dict(n_heads=zm.cfg.n_heads, kernel_size=zm.cfg.depthwise_kernel_size,
-                  compute_dtype=zm.cfg.dtype, residual_dtype=zm.cfg.rdtype,
-                  attn_softmax_dtype=zm.cfg.sm_dtype)
-        inputs = []
-
-        def record(i, stack, x, mask):
-            inputs.append((x.contiguous(), mask.sum(1, dtype=torch.int32)))
-            return stack(x, mask)
-
-        with torch.no_grad(), plain_path():
-            hidden, _ = zm._forward(feats, lengths, record)
-        with torch.no_grad():
-            for i, (x, lens) in enumerate(inputs):
-                f0 = zm.stacks()[i].folded()[0]
-                y_k = kcb.conformer_block(f0, x, lens, **kw)
-                y_p = kcb.conformer_block_plain(f0, x, lens, **kw)
-                torch.cuda.synchronize()
-                with exact_product_sums():
-                    y_e = kcb.conformer_block_plain(f0, x, lens, **kw)
-                err, mean, ulps, frac = bf16_figures(y_k, y_p)
-                ulps_e, frac_e = bf16_figures(y_e, y_p)[2:]
-                # phase 2 calibrated its tolerance on a block fed the
-                # embedding, as the pre stack is. A stage is fed a block's
-                # output, where the block's bf16 rounding points lie closer to
-                # its float32 sums: the plain version moves by up to ulps_e on
-                # frac_e of values when only its products' sum order changes.
-                # So a stage's kernel is held to twice that (each of the two
-                # orders within ulps_e of the exact sums), at least phase 2's
-                # ulps, its share printed (8b)
-                bound = BLOCK_MAX_ULPS if i == 0 else max(BLOCK_MAX_ULPS, 2 * ulps_e)
-                where = "pre" if i == 0 else f"stage {i}"
-                print(f"13d. early_zipformer ({what}) {where}, its first block, kernel vs "
-                      f"plain on the plain path's input (B={x.shape[0]}, T'={x.shape[1]}, "
-                      f"lengths {int(lens.min())}..{int(lens.max())}): max|d| {err} "
-                      f"mean|d| {mean} max ulps {ulps} values differing {frac}; the plain "
-                      f"version with every product summed exactly vs itself: max ulps "
-                      f"{ulps_e} values differing {frac_e} (tolerance {bound} ulps" +
-                      (f" and {BLOCK_DIFFERING} of values, fed the embedding" if i == 0 else
-                       ", fed a block's output") + ("" if hold else "; printed, not held")
-                      + ")")
-                if not torch.isfinite(y_k.float()).all() or hold and (
-                        ulps > bound or (i == 0 and frac > BLOCK_DIFFERING)):
-                    fail(f"the block kernel at the zipformer's {where} (T'={x.shape[1]}) "
-                         f"disagrees with its plain version")
-            hb = hidden.to(torch.bfloat16).contiguous()
-            wb, bb = zm.heads_w.to(torch.bfloat16), zm.heads_b.to(torch.bfloat16)
-            ids_k, ids_p = kha.head_argmax(hb, wb, bb), kha.head_argmax_plain(hb, wb, bb)
-            n_diff = int((ids_k != ids_p).sum())
-            print(f"13d. head_argmax at E=1 ({what}), {tuple(hb.shape)}, vs its plain "
-                  f"version: {n_diff} of {ids_p.numel()} ids differ (held: none)")
-            if n_diff:
-                fail("head_argmax at E=1 disagrees with its plain version")
-        return [x.shape[1] for x, _ in inputs]
-
+    # -- 13d. the block kernel at the zipformer's six stacks, B=128 x 10 s,
+    # held on 13b's trained model and on the model of the flagship's blocks
+    # (13c's); the readings of ROADMAP Queue C's C6 at the latter's pre stack
     zm = models["early_zipformer"]
-    t_sizes = stack_readings(zm, f"{ZOO_STEPS} steps from its seeded init", hold=True)
+    t_sizes = zipformer_stack_readings(zm, feats, lengths, plain_path,
+                                       f"{ZOO_STEPS} steps from its seeded init")
     args, mcfg, _, _, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
                                     flagship_ckpt["early_zipformer"], "--fused_block", "true"]
                                    + zoo["early_zipformer"], mode="infer")
-    stack_readings(inference.load_model(args, mcfg, dev), "the flagship's blocks", hold=False)
+    zipformer_stack_readings(inference.load_model(args, mcfg, dev), feats, lengths, plain_path,
+                             "the flagship's blocks", c6=True)
 
     # -- 13e. the splitformer's gate on the card, float32
     args, mcfg, _, _, _ = get_args(["--decoder_mode", "ctc", "--load_model_path",
@@ -3627,6 +3663,177 @@ def zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, flagship,
         f"{100 * busy:.1f}%")
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "f32_launches": f32_launches}
+
+
+def zipformer_stack_readings(zm, feats, lengths, plain_path, what, c6=False):
+    """Phase 13d: the block kernel against its plain version on the first
+    block of each of zm's six stacks, fed the plain path's input; the head
+    kernel at E=1. Each stage (fed a block's output) within twice the ulps
+    the plain version moves by when every product is summed exactly, at
+    least phase 2's. The pre stack (fed the embedding, as phase 2's block)
+    within phase 2's tolerance; with c6 (the flagship's blocks fed the
+    one-conv embedding, ROADMAP Queue C's C6) it is held by `c6_readings`
+    instead, its kernel-vs-plain figures printed. Returns the stacks' T'."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    kw = dict(n_heads=zm.cfg.n_heads, kernel_size=zm.cfg.depthwise_kernel_size,
+              compute_dtype=zm.cfg.dtype, residual_dtype=zm.cfg.rdtype,
+              attn_softmax_dtype=zm.cfg.sm_dtype)
+    inputs = []
+
+    def record(i, stack, x, mask):
+        inputs.append((x.contiguous(), mask.sum(1, dtype=torch.int32)))
+        return stack(x, mask)
+
+    with torch.no_grad(), plain_path():
+        hidden, _ = zm._forward(feats, lengths, record)
+    with torch.no_grad():
+        for i, (x, lens) in enumerate(inputs):
+            f0 = zm.stacks()[i].folded()[0]
+            y_k = kcb.conformer_block(f0, x, lens, **kw)
+            y_p = kcb.conformer_block_plain(f0, x, lens, **kw)
+            torch.cuda.synchronize()
+            with exact_product_sums():
+                y_e = kcb.conformer_block_plain(f0, x, lens, **kw)
+            err, mean, ulps, frac = bf16_figures(y_k, y_p)
+            ulps_e, frac_e = bf16_figures(y_e, y_p)[2:]
+            # phase 2 calibrated its tolerance on a block fed the
+            # embedding, as the pre stack is. A stage is fed a block's
+            # output, where the block's bf16 rounding points lie closer to
+            # its float32 sums: the plain version moves by up to ulps_e on
+            # frac_e of values when only its products' sum order changes.
+            # So a stage's kernel is held to twice that (each of the two
+            # orders within ulps_e of the exact sums), at least phase 2's
+            # ulps, its share printed (8b)
+            bound = BLOCK_MAX_ULPS if i == 0 else max(BLOCK_MAX_ULPS, 2 * ulps_e)
+            where = "pre" if i == 0 else f"stage {i}"
+            print(f"13d. early_zipformer ({what}) {where}, its first block, kernel vs "
+                  f"plain on the plain path's input (B={x.shape[0]}, T'={x.shape[1]}, "
+                  f"lengths {int(lens.min())}..{int(lens.max())}): max|d| {err} "
+                  f"mean|d| {mean} max ulps {ulps} values differing {frac}; the plain "
+                  f"version with every product summed exactly vs itself: max ulps "
+                  f"{ulps_e} values differing {frac_e} (" + (
+                      "printed; held by C6's readings below" if c6 and i == 0 else
+                      f"tolerance {bound} ulps" + (
+                          f" and {BLOCK_DIFFERING} of values, fed the embedding" if i == 0
+                          else ", fed a block's output")) + ")")
+            held = not (c6 and i == 0)
+            if not held:
+                c6_readings(f0, x, lens, y_k, y_p, kw)
+            if not torch.isfinite(y_k.float()).all() or held and (ulps > bound or (
+                    i == 0 and frac > BLOCK_DIFFERING)):
+                fail(f"the block kernel at the zipformer's {where} (T'={x.shape[1]}, "
+                     f"{what}) disagrees with its plain version")
+        hb = hidden.to(torch.bfloat16).contiguous()
+        wb, bb = zm.heads_w.to(torch.bfloat16), zm.heads_b.to(torch.bfloat16)
+        ids_k, ids_p = kha.head_argmax(hb, wb, bb), kha.head_argmax_plain(hb, wb, bb)
+        n_diff = int((ids_k != ids_p).sum())
+        print(f"13d. head_argmax at E=1 ({what}), {tuple(hb.shape)}, vs its plain "
+              f"version: {n_diff} of {ids_p.numel()} ids differ (held: none)")
+        if n_diff:
+            fail("head_argmax at E=1 disagrees with its plain version")
+    return [x.shape[1] for x, _ in inputs]
+
+
+def c6_readings(f0, x, lens, y_k, y_p, kw) -> None:
+    """ROADMAP Queue C's C6: the block kernel at the zipformer's pre stack
+    built from the flagship's block 1, fed the one-conv embedding, where
+    it lies 7 bf16 ulps from its plain version on 4.5% of values. Prints
+    the LayerNorm statistics of the input rows (mu^2 / var, where the
+    one-pass variance E[x^2] - mu^2 would cancel), the block's LayerNorm
+    kernel alone against its plain version and the float64 two-pass
+    LayerNorm, and the kernel and its plain version against the plain
+    version with every sum exact (`exact_sums`) and with the kernel's own
+    products and LayerNorms (`kernel_products_and_norms`). Holds (a) the
+    kernel against the latter within phase 2's tolerance: everything but
+    the products (attention, softmax, conv module, epilogues) agrees on
+    this input; (b) each of the block's eight weight products, on the
+    inputs the plain version gives them, rounded to bf16, against the
+    float64 product: at most 1 ulp, on at most twice the share of values
+    that cuBLAS's bf16 product (tensor cores, float32 accumulation) moves
+    (or the float32 product's share, if larger).
+    The float32 product (TF32 off) is printed beside them: it moves ~10x
+    fewer values at K = 2048, which is why the plain version lies nearer
+    the exact sums than the kernel on this input."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    valid = torch.arange(x.shape[1], device=x.device)[None, :] < lens[:, None]
+    rows = x[valid].contiguous()
+    r64 = rows.double()
+    mu, var = r64.mean(-1), r64.var(-1, unbiased=False)
+    ratio = (mu * mu / var).float()
+    q = torch.quantile(ratio, torch.tensor([0.5, 0.99], device=ratio.device))
+    print(f"13d. C6: the pre stack's {rows.shape[0]} valid input rows: mu^2/var max "
+          f"{float(ratio.max())} p99 {float(q[1])} median {float(q[0])}; |x| max "
+          f"{float(rows.float().abs().max())}, var {float(var.min())}..{float(var.max())}")
+    for name in ("ffn1", "attn", "conv", "ffn2", "final"):
+        g, b = f0[name + "_ln_g"], f0[name + "_ln_b"]
+        ln_k, ln_p = kcb.block_layer_norm(rows, g, b), kcb.block_layer_norm_plain(rows, g, b)
+        m64 = r64.mean(-1, keepdim=True)
+        ln_x = ((r64 - m64) * torch.rsqrt(((r64 - m64) ** 2).mean(-1, keepdim=True) + 1e-5)
+                * g.double() + b.double()).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        k_p, k_x, p_x = (bf16_figures(a, c)[2:] for a, c in
+                         ((ln_k, ln_p), (ln_k, ln_x), (ln_p, ln_x)))
+        print(f"13d. C6: the {name} LayerNorm's weights on those rows, kernel vs plain: "
+              f"max ulps {k_p[0]} values differing {k_p[1]}; vs the float64 two-pass "
+              f"LayerNorm: kernel {k_x[0]} ulps on {k_x[1]}, plain {p_x[0]} ulps on {p_x[1]}")
+    with exact_key_sums():
+        y_z = kcb.conformer_block_plain(f0, x, lens, **kw)
+    with exact_sums():
+        y_x = kcb.conformer_block_plain(f0, x, lens, **kw)
+    with kernel_products_and_norms():
+        y_g = kcb.conformer_block_plain(f0, x, lens, **kw)
+    torch.cuda.synchronize()
+    figs = {"plain, softmax denominator exact, vs plain": bf16_figures(y_z, y_p)[2:],
+            "kernel vs every sum exact": bf16_figures(y_k, y_x)[2:],
+            "plain vs every sum exact": bf16_figures(y_p, y_x)[2:],
+            "the kernel's products and LayerNorms, every other sum exact, vs every sum "
+            "exact": bf16_figures(y_g, y_x)[2:]}
+    for name, (u, fr) in figs.items():
+        print(f"13d. C6: {name}: max ulps {u} values differing {fr}")
+    ulps, frac = bf16_figures(y_k, y_g)[2:]
+    print(f"13d. C6: kernel vs the kernel's products and LayerNorms, every other sum exact: "
+          f"max ulps {ulps} values differing {frac} (tolerance {BLOCK_MAX_ULPS} ulps and "
+          f"{BLOCK_DIFFERING} of values)")
+    if ulps > BLOCK_MAX_ULPS or frac > BLOCK_DIFFERING:
+        fail("C6: the block kernel at the zipformer's pre stack disagrees with its plain "
+             "version run with the kernel's own products and LayerNorms")
+    # the block's eight weight products one by one, on the inputs the plain
+    # version gives them with every sum exact
+    taken, matmul = [], torch.matmul
+    with exact_sums():
+        mm = torch.matmul
+
+        def take(a, b):
+            if b.dim() == 2:
+                taken.append((a.reshape(-1, a.shape[-1]).to(torch.bfloat16).contiguous(),
+                              b.to(torch.bfloat16).contiguous()))
+            return mm(a, b)
+        torch.matmul = take
+        try:
+            kcb.conformer_block_plain(f0, x, lens, **kw)
+        finally:
+            torch.matmul = mm
+    names = ("ffn1_w1", "ffn1_w2", "wqkv", "wo", "pw1_w", "pw2_w", "ffn2_w1", "ffn2_w2")
+    for name, (a, w) in zip(names, taken):
+        zero = torch.zeros(w.shape[1], dtype=torch.bfloat16, device=a.device)
+        want = matmul(a.double(), w.double()).float().to(torch.bfloat16)
+        got_k = kcb.block_gemm(a, w, zero)
+        got_f = matmul(a.float(), w.float()).to(torch.bfloat16)
+        got_t = matmul(a, w)        # exact_float32: no reduced-precision reductions
+        torch.cuda.synchronize()
+        fk, ff, ft = (bf16_figures(g, want)[2:] for g in (got_k, got_f, got_t))
+        print(f"13d. C6: product {name} ({a.shape[0]} x {a.shape[1]} x {w.shape[1]}), rounded "
+              f"to bf16, against the float64 product: the block's max ulps {fk[0]} values "
+              f"differing {fk[1]}; cuBLAS's bf16 product max ulps {ft[0]} values differing "
+              f"{ft[1]} (held: the block's at most 1 ulp on at most twice that share, or "
+              f"the float32 product's); "
+              f"float32 max ulps {ff[0]} values differing {ff[1]}")
+        if fk[0] > 1 or fk[1] > max(2 * ft[1], ff[1]):
+            fail(f"C6: the block's product {name} moves more values than cuBLAS's bf16 "
+                 f"product")
 
 
 def capture_zoo_bundles(dev, card) -> dict:
@@ -3994,6 +4201,189 @@ def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return {"gate_launches": gate_launches, "export_launches": export_launches,
             "escalation_launches": esc["conformer_block_bf16"]}
+
+
+def reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
+                    counts) -> dict:
+    """Phase 15: reference checkpoints and the whole tokenizer on the card.
+    (a) The flagship through `interop.to_reference_state_dict` and
+    `torch.save` into `python -m early_exit_tpu_torch.import_reference_checkpoint`
+    (a subprocess, on the card, --fused_block true): the imported tree equal
+    to the flagship's leaf for leaf (in float32: the flagship's bf16
+    parameters widen exactly), and `Recognizer.transcribe` of it over 32 of
+    phase 3's requests, through the block and head kernels, giving the
+    flagship's tokens at every exit, 0 apart, with the launches of each
+    kernel. (b) Seeded splitformer, early_zipformer and full_conformer at
+    the flagship's widths: the round trip through the reference state_dict
+    exact, and the forward on the card of the model read back bit-equal to
+    the original's. (c) An nmt_nfkc BPE-256 tokenizer with the reference
+    recipe's ids and a unigram-256, trained over phase 9's transcripts: the
+    native and Python engines' ids equal over the corpus, each engine's
+    sentences a second; then 5 steps of `python -m early_exit_tpu_torch.train`
+    at the flagship's widths with the BPE model as --bpe_model_path, the
+    loss finite and falling. Returns the launches of (a)."""
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import _native, checkpoint, interop, train
+    from early_exit_tpu_torch.configs import inference_profile
+    from early_exit_tpu_torch.models.registry import build_model
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+    from early_exit_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k], f"{prefix}/{k}")]
+        if isinstance(tree, (list, tuple)):
+            return [x for i, v in enumerate(tree) for x in leaves(v, f"{prefix}/{i}")]
+        return [(prefix, checkpoint.to_torch(tree).float())]
+
+    def same_tree(a, b):
+        la, lb = leaves(a), leaves(b)
+        return [p for p, _ in la] == [p for p, _ in lb] and all(
+            x.shape == y.shape and torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+    # -- 15a. the flagship through the reference format and the import tool
+    flag = checkpoint.load_tree(checkpoint.FLAGSHIP_CKPT)
+    cfg = inference_profile(fused_block=True)
+    sd = interop.to_reference_state_dict(*interop.to_jax_params(rec_k.model), cfg)
+    pt, out = os.path.join(tmp, "flagship-torch"), os.path.join(tmp, "flagship-imported")
+    torch.save({k: torch.from_numpy(v.copy()) for k, v in sd.items()}, pt)
+    argv = [sys.executable, "-m", "early_exit_tpu_torch.import_reference_checkpoint",
+            "--torch_ckpt", pt, "--out", out, "--decoder_mode", "ctc", "--bpe_model_path",
+            os.path.join(HERE, "assets", "spm", "synth.bpe-256.model"), "--fused_block", "true"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=HERE, capture_output=True, text=True, timeout=300)
+    tool_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"import_reference_checkpoint failed (rc={proc.returncode}):\n"
+             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    imported = checkpoint.load_tree(out)
+    equal = same_tree(imported, {"params": flag["params"], "model_state": flag["model_state"]})
+    print(f"15a. the flagship -> to_reference_state_dict ({len(sd)} tensors) -> torch.save -> "
+          f"`python -m early_exit_tpu_torch.import_reference_checkpoint ... --fused_block true` "
+          f"on the card ({tool_s:.1f} s, its process's start included): "
+          f"{' | '.join(proc.stdout.strip().splitlines()[-2:])}; the imported tree equal to "
+          f"the flagship's leaf for leaf: {equal}")
+    if not equal:
+        fail("the imported flagship's tree differs from the flagship's")
+    rec_i = Recognizer(interop.from_jax_params(imported["params"], imported["model_state"], cfg),
+                       rec_k.tokenizer, device=dev, calib=rec_k.calib)
+    w32, c32 = wav[:32], counts[:32]
+    want = rec_k.transcribe(w32, c32)
+    reset_counts()
+    got = rec_i.transcribe(w32, c32)
+    launches = read_counts()
+    dis = disagreement(got.tokens, got.n_tokens, want.tokens, want.n_tokens)
+    print(f"15a. Recognizer.transcribe of the imported flagship over 32 of phase 3's requests "
+          f"(B=32 x 10 s), block and head kernels: launches {launches}; tokens per exit "
+          f"against the flagship's (edits, tokens): {dis} (held: 0 edits, 12 block and 1 "
+          f"head launches)")
+    if any(e for e, _ in dis) or launches["conformer_block_bf16"] != 12 or \
+            launches["head_argmax"] != 1:
+        fail("the imported flagship does not serve the flagship's tokens through the kernels")
+    del rec_i, imported, flag, sd
+
+    # -- 15b. the zoo at the flagship's widths, seeded: exact round trips
+    fb, lb = rec_k._features(wav[:4], counts[:4])
+    zoo = {"splitformer": dict(model_type="splitformer"),
+           "early_zipformer": dict(model_type="early_zipformer", n_enc_exits=19,
+                                   n_enc_layers_per_exit=1),
+           "full_conformer": dict(model_type="full_conformer", n_dec_layers=6)}
+    for seed, (name, over) in enumerate(zoo.items()):
+        zcfg = dataclasses.replace(cfg, **over)
+        model = build_model(zcfg).to(dev)
+        model.init(torch.Generator(device=dev).manual_seed(100 + seed))
+        model.eval().requires_grad_(False)
+        params, state = interop.to_jax_params(model)
+        zsd = interop.to_reference_state_dict(params, state, zcfg)
+        back = interop.from_reference_state_dict(zsd, zcfg)
+        exact = same_tree(back, (params, state))
+        again = interop.from_jax_params(*back, zcfg).to(dev).eval()
+        with torch.no_grad():
+            if name == "full_conformer":
+                trg = torch.tensor([[1, 40, 41, 42]] * fb.shape[0], device=dev)
+                a, b = model.apply(fb, lb, trg), again.apply(fb, lb, trg)
+                same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            else:
+                a, b = model.apply(fb, lb), again.apply(fb, lb)
+                same = torch.equal(a[0], b[0])
+        torch.cuda.synchronize()
+        print(f"15b. {name} (seeded, the flagship's widths, {len(zsd)} reference tensors): "
+              f"round trip exact {exact}; the forward on the card of the model read back "
+              f"bit-equal to the original's {same} (B={fb.shape[0]} x 10 s)")
+        if not (exact and same):
+            fail(f"{name}: the reference round trip is not exact on the card")
+        del model, again
+
+    # -- 15c. tokenizers trained with the reference recipe, and a train run
+    corpus = os.path.join(tmp, "ref_corpus.txt")
+    texts = [u.transcript for u in corp["corpus"]]
+    with open(corpus, "w") as f:
+        f.write("\n".join(texts) + "\n")
+    lib = _native.get_lib()
+    tsv = os.path.join(HERE, "csrc", "tokenizer", "data", "nmt_nfkc.tsv").encode()
+    models = {}
+    for name, mtype in (("bpe", 2), ("unigram", 1)):
+        prefix = os.path.join(tmp, f"ref_{name}")
+        t0 = time.perf_counter()
+        # the reference recipe: --pad_id=126 --unk_id=127 --bos_id=1 --eos_id=2
+        # --user_defined_symbols="@", nmt_nfkc
+        rc = lib.eet_spm_train_norm_ex(corpus.encode(), prefix.encode(), 256, 127, 1, 2, 126,
+                                       b"@", mtype, b"nmt_nfkc", tsv, 0)
+        if rc:
+            fail(f"training the {name} tokenizer failed ({rc})")
+        train_s = time.perf_counter() - t0
+        models[name] = prefix + ".model"
+        engines = {"native": load_tokenizer(models[name]),
+                   "python": load_tokenizer(models[name], prefer_native=False)}
+        rates, ids = {}, {}
+        for kind, tok in engines.items():
+            t1 = time.perf_counter()
+            for _ in range(20):
+                ids[kind] = [tok.encode_as_ids(t) for t in texts]
+            rates[kind] = 20 * len(texts) / (time.perf_counter() - t1)
+        same = ids["native"] == ids["python"]
+        print(f"15c. {name}-256 tokenizer, nmt_nfkc, the reference recipe's ids, trained over "
+              f"phase 9's {len(texts)} transcripts in {train_s:.1f} s: "
+              f"{engines['python'].get_piece_size()} pieces; native and Python ids equal over "
+              f"the corpus: {same}; sentences a second, native {rates['native']:.0f}, Python "
+              f"{rates['python']:.0f} (host)")
+        if not same:
+            fail(f"the {name} tokenizer's native and Python engines disagree")
+    ck_dir = os.path.join(tmp, "ref_train")
+    argv = ["--decoder_mode", "ctc", "--synthetic_data", "true", "--batch_size", "13",
+            "--n_batch_split", "1", "--n_epochs", "1", "--warmup", "10", "--seed", "15",
+            "--bpe_model_path", models["bpe"], "--save_model_dir", ck_dir,
+            "--log_dir", ck_dir + "_runs"]
+    losses, step = [], trainer.Trainer.step
+
+    def logged(self, batch):
+        res = step(self, batch)
+        losses.append(res["loss"])
+        return res
+    trainer.Trainer.step = logged
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.Trainer.step = step
+    losses = [float(v) for v in losses]
+    print(f"15c. `python -m early_exit_tpu_torch.train {' '.join(argv).replace(tmp, '<tmp>')}` "
+          f"at the flagship's widths with the nmt_nfkc BPE model: {len(losses)} steps, loss "
+          f"{[round(v, 3) for v in losses]} ({wall:.1f} s)")
+    if len(losses) != 5 or not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        fail("the training CLI with the nmt_nfkc tokenizer did not take 5 falling steps")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return {"launches": launches}
 
 
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,

@@ -3,8 +3,8 @@
 
 `csrc/` at the repository root holds the C++ host components that both
 packages call through ctypes: the FLAC decoder, the lexicon snapper, the
-lexicon-constrained CTC beam search and its ARPA LM (and the tokenizer,
-which the port does not call: it encodes BPE in Python). The library is
+lexicon-constrained CTC beam search and its ARPA LM, the SentencePiece
+engine (`tokenizer/native.py`) and its trainers. The library is
 built from the same sources as the JAX package's (`csrc/**/*.cc` but the
 `*_cli.cc` programs), with g++, into the port's own directory
 `build/torch_native/`, named by a hash of the sources and flags so that
@@ -118,6 +118,19 @@ def _configure(lib: ctypes.CDLL) -> None:
         "eet_lm_order": (i, [vp]), "eet_lm_vocab_size": (i, [vp]),
         "eet_lm_word_id": (i, [vp, cp]),
         "eet_lm_score_sequence": (f, [vp, ip, i, i]),
+        # SentencePiece engine, all four model types
+        "eet_bpe_load": (vp, [cp]), "eet_bpe_free": (None, [vp]),
+        "eet_bpe_piece_size": (i, [vp]), "eet_bpe_special": (i, [vp, i]),
+        "eet_bpe_piece_type": (i, [vp, i]),
+        "eet_bpe_id_to_piece": (i, [vp, i, cp, i]),
+        "eet_bpe_encode_n": (i, [vp, cp, c.c_long, ip, i]),
+        "eet_bpe_decode": (i, [vp, ip, i, cp, i]),
+        "eet_bpe_normalize": (i, [vp, cp, cp, i]),
+        # its trainers: corpus, prefix, vocab, unk/bos/eos/pad ids, the
+        # user-defined pieces, model type, rule name, rule TSV, byte fallback
+        "eet_spm_train_norm_ex": (i, [cp, cp, i, i, i, i, i, cp, i, cp, cp, i]),
+        # a normalization rule TSV -> charsmap blob file; its size
+        "eet_charsmap_compile": (c.c_long, [cp, cp]),
     }
     for name, (res, args) in sigs.items():
         fn = getattr(lib, name)

@@ -833,6 +833,15 @@ extern "C" int eet_gemm_s8(const void* aq, const void* sx, const void* wt, const
                  static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
 }
 
+// The bf16 entry's LayerNorm on its own, for checks: x (rows, D) bf16 ->
+// y (rows, D) bf16, every row normalized (none zeroed).
+extern "C" int eet_layer_norm_bf16(const void* x, const void* g, const void* b, void* y,
+                                   int rows, int D, float eps, void* stream_) {
+  return layer_norm(static_cast<const bf16*>(x), static_cast<bf16*>(y),
+                    static_cast<const float*>(g), static_cast<const float*>(b), rows, D, eps,
+                    nullptr, 1, static_cast<cudaStream_t>(stream_));
+}
+
 // The W8A8 entry's LayerNorm + quantize on its own, for checks: x (rows,
 // D) bf16 -> q (rows, D) int8 and sx (rows) float32.
 extern "C" int eet_layer_norm_quantize(const void* x, const void* g, const void* b, void* q,

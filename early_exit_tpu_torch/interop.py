@@ -16,11 +16,20 @@ Adam moments) the same way, and `from_jax_tree` reads such a tree back
 into one tensor per parameter; `state_tensors` reads a state tree. Each
 model type has its own list of paths (`_PATHS`). `flagship_zoo_tree`
 builds the zoo's trees from the committed flagship's trained blocks.
+
+`from_reference_state_dict(sd, cfg)` reads the state_dict of the
+reference's torch model (`augustgw/early-exit-transformer`'s
+Early_conformer, Splitformer, Early_zipformer or full_conformer, as
+numpy arrays) into (params, state) trees of the JAX package's layout,
+which `from_jax_params` / `load_params` load; `to_reference_state_dict`
+is its exact inverse, a state_dict the reference loads with strict=True.
+Both give the same trees and arrays as the JAX package's functions of
+those names.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -368,3 +377,434 @@ def flagship_zoo_tree(model_type: str, path: str = FLAGSHIP_CKPT):
              "head": {"w": fp["heads"]["w"][5], "b": fp["heads"]["b"][5]}},
             {"pre": stacked(fs["blocks"], parts[0]),
              "stages": [stacked(fs["blocks"], q) for q in parts[1:]]})
+
+
+# ---------------------------------------------------------------------------
+# Reference checkpoints: the state_dict of the reference's torch modules
+# <-> the JAX package's layout (the port's copy of
+# `early_exit_tpu/interop.py`). The reference's encoders are torchaudio's
+# `Conformer`, whose state_dict names are
+#
+#     conformer_layers.{l}.ffn1.sequential.{0 LN, 1 Linear, 4 Linear}
+#     conformer_layers.{l}.self_attn_layer_norm
+#     conformer_layers.{l}.self_attn.{in_proj_weight, in_proj_bias, out_proj}
+#     conformer_layers.{l}.conv_module.layer_norm
+#     conformer_layers.{l}.conv_module.sequential.{0 pw-Conv1d, 2 dw-Conv1d,
+#                                                  3 BatchNorm1d, 5 pw-Conv1d}
+#     conformer_layers.{l}.ffn2.sequential.{0, 1, 4}
+#     conformer_layers.{l}.final_layer_norm
+#
+# Linears go from torch's (out, in) to (in, out), convolutions from
+# (out, in, k) to "WIO" (k, in, out), the packed in_proj splits into q, k
+# and v, and per-layer leaves stack on a leading axis. Every tensor must
+# be consumed (an unknown key raises); the positional-encoding buffers are
+# recomputed on export, not read on import.
+# ---------------------------------------------------------------------------
+
+_IGNORED_SUFFIXES = ("num_batches_tracked",)
+_IGNORED_KEYS = ("positional_encoder.pe", "positional_encoder_1.pe",
+                 "positional_encoder_2.pe")
+
+
+class _Reader:
+    """Tracks key consumption so leftovers fail loudly."""
+
+    def __init__(self, sd: Dict[str, np.ndarray]):
+        self.sd = {k: np.asarray(v, np.float32)
+                   if np.asarray(v).dtype.kind == "f" else np.asarray(v)
+                   for k, v in sd.items()}
+        self.used = set()
+
+    def take(self, key: str, shape=None) -> np.ndarray:
+        if key not in self.sd:
+            raise KeyError(f"reference state_dict is missing {key!r} — "
+                           "wrong --model_type or architecture flags?")
+        self.used.add(key)
+        t = self.sd[key]
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != expected "
+                             f"{tuple(shape)} — check d_model/"
+                             "d_feed_forward/vocab/kernel flags")
+        return t.astype(np.float32)
+
+    def finish(self):
+        left = [k for k in self.sd
+                if k not in self.used
+                and k not in _IGNORED_KEYS
+                and not k.endswith(_IGNORED_SUFFIXES)]
+        if left:
+            raise ValueError(
+                "unmapped reference tensors (wrong model type?): "
+                + ", ".join(sorted(left)[:8])
+                + (" ..." if len(left) > 8 else ""))
+
+
+def _ref_linear(r: _Reader, pre: str, d_in: int, d_out: int):
+    return {"w": r.take(pre + ".weight", (d_out, d_in)).T.copy(),
+            "b": r.take(pre + ".bias", (d_out,))}
+
+
+def _layer_norm(r: _Reader, pre: str, d: int):
+    return {"g": r.take(pre + ".weight", (d,)),
+            "b": r.take(pre + ".bias", (d,))}
+
+
+def _conv1d(r: _Reader, pre: str, c_in: int, c_out: int, k: int):
+    # torch (out, in, k) -> WIO (k, in, out)
+    return {"w": r.take(pre + ".weight",
+                        (c_out, c_in, k)).transpose(2, 1, 0).copy(),
+            "b": r.take(pre + ".bias", (c_out,))}
+
+
+def _ffn(r: _Reader, pre: str, d: int, ff: int):
+    return {"ln": _layer_norm(r, pre + ".sequential.0", d),
+            "w1": _ref_linear(r, pre + ".sequential.1", d, ff),
+            "w2": _ref_linear(r, pre + ".sequential.4", ff, d)}
+
+
+def _mha(r: _Reader, pre: str, d: int):
+    w = r.take(pre + ".in_proj_weight", (3 * d, d))
+    b = r.take(pre + ".in_proj_bias", (3 * d,))
+    out = {}
+    for i, name in enumerate(("q", "k", "v")):
+        out[name] = {"w": w[i * d:(i + 1) * d].T.copy(),
+                     "b": b[i * d:(i + 1) * d].copy()}
+    out["o"] = _ref_linear(r, pre + ".out_proj", d, d)
+    return out
+
+
+def _block(r: _Reader, pre: str, d: int, ff: int, k: int):
+    """One torchaudio ConformerLayer -> (our block params, block state)."""
+    cm = pre + ".conv_module"
+    params = {
+        "ffn1": _ffn(r, pre + ".ffn1", d, ff),
+        "attn": {"ln": _layer_norm(r, pre + ".self_attn_layer_norm", d),
+                 "mha": _mha(r, pre + ".self_attn", d)},
+        "conv": {
+            "ln": _layer_norm(r, cm + ".layer_norm", d),
+            # pointwise convs are (out, in, 1) -> our Linear (in, out)
+            "pw1": {"w": r.take(cm + ".sequential.0.weight",
+                                (2 * d, d, 1))[:, :, 0].T.copy(),
+                    "b": r.take(cm + ".sequential.0.bias", (2 * d,))},
+            # depthwise (C, 1, k) -> ours (k, 1, C)
+            "dw": {"w": r.take(cm + ".sequential.2.weight",
+                               (d, 1, k)).transpose(2, 1, 0).copy(),
+                   "b": r.take(cm + ".sequential.2.bias", (d,))},
+            "norm": {"g": r.take(cm + ".sequential.3.weight", (d,)),
+                     "b": r.take(cm + ".sequential.3.bias", (d,))},
+            "pw2": {"w": r.take(cm + ".sequential.5.weight",
+                                (d, d, 1))[:, :, 0].T.copy(),
+                    "b": r.take(cm + ".sequential.5.bias", (d,))},
+        },
+        "ffn2": _ffn(r, pre + ".ffn2", d, ff),
+        "final_ln": _layer_norm(r, pre + ".final_layer_norm", d),
+    }
+    state = {"conv_bn": {
+        "mean": r.take(cm + ".sequential.3.running_mean", (d,)),
+        "var": r.take(cm + ".sequential.3.running_var", (d,))}}
+    return params, state
+
+
+def _stack_trees(trees):
+    """Trees of one structure (dicts and lists) -> one tree, each leaf the
+    trees' leaves stacked on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    if isinstance(first, list):
+        return [_stack_trees([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack(trees)
+
+
+def _stack(pairs):
+    """[(params, state), ...] -> leaves stacked on a leading axis."""
+    return (_stack_trees([p for p, _ in pairs]),
+            _stack_trees([s for _, s in pairs]))
+
+
+def _blocks_of(r, fmt, n_blocks, npe, d, ff, k):
+    """Reference blocks fmt.format(block) each holding npe ConformerLayers,
+    flattened in block-major order (matching conformer.stack_init)."""
+    pairs = []
+    for b in range(n_blocks):
+        for l in range(npe):
+            pairs.append(_block(r, f"{fmt.format(b)}.conformer_layers.{l}",
+                                d, ff, k))
+    return _stack(pairs)
+
+
+def _decoder_layer(r: _Reader, pre: str, d: int, ff: int):
+    """torch.nn.TransformerDecoderLayer (norm_first) -> our
+    transformer_decoder.layer_init layout."""
+    return {
+        "ln1": _layer_norm(r, pre + ".norm1", d),
+        "self_attn": _mha(r, pre + ".self_attn", d),
+        "ln2": _layer_norm(r, pre + ".norm2", d),
+        "cross_attn": _mha(r, pre + ".multihead_attn", d),
+        "ln3": _layer_norm(r, pre + ".norm3", d),
+        "w1": _ref_linear(r, pre + ".linear1", d, ff),
+        "w2": _ref_linear(r, pre + ".linear2", ff, d),
+    }
+
+
+def _full_conformer(r: _Reader, cfg, d, ff, k, E, npe, V):
+    """Reference full_conformer (early_exit.py:637-811): per-exit
+    encoder stacks + CTC heads (linears_1) + torch TransformerDecoders
+    with output heads (linears_2), a shared token embedding and a
+    SHARED final LayerNorm (one module registered as `layer_norm` AND as
+    every decoder's `norm` — all copies of the same tensor)."""
+    sub = {"convs": [_conv1d(r, "conv_subsample.sequential.0",
+                             cfg.n_mels, d, 3),
+                     _conv1d(r, "conv_subsample.sequential.1", d, d, 3)]}
+    block_p, block_s = _blocks_of(r, "conformer.{}", E, npe, d, ff, k)
+    ctc_heads = _stack([(_ref_linear(r, f"linears_1.{e}", d, V), {})
+                        for e in range(E)])[0]
+    out_heads = _stack([(_ref_linear(r, f"linears_2.{e}", d, V), {})
+                        for e in range(E)])[0]
+    nd = cfg.n_dec_layers
+    per_exit = []
+    for e in range(E):
+        layers = [_decoder_layer(r, f"decoders.{e}.layers.{l}", d, ff)
+                  for l in range(nd)]
+        per_exit.append(_stack_trees(layers))
+        # each decoder registers the shared final LN under its own path
+        r.take(f"decoders.{e}.norm.weight", (d,))
+        r.take(f"decoders.{e}.norm.bias", (d,))
+    decoders = _stack_trees(per_exit)
+    params = {
+        "subsample": sub,
+        "blocks": block_p,
+        "heads": ctc_heads,
+        "emb": {"table": r.take("emb.weight", (V, d))},
+        "decoders": decoders,
+        "out_linear": out_heads,
+        "final_ln": _layer_norm(r, "layer_norm", d),
+    }
+    r.finish()
+    return params, {"blocks": block_s}
+
+
+def from_reference_state_dict(sd: Dict[str, np.ndarray], cfg):
+    """state_dict of the reference Early_conformer / Splitformer /
+    Early_zipformer (early_exit.py:565/227/117) -> (params, state) for
+    the matching model in our zoo (same ModelConfig contract)."""
+    r = _Reader(sd)
+    d, ff, k = cfg.d_model, cfg.d_feed_forward, cfg.depthwise_kernel_size
+    E, npe, V = cfg.n_enc_exits, cfg.n_enc_layers_per_exit, cfg.vocab_size
+
+    if cfg.model_type == "early_zipformer":
+        from early_exit_tpu_torch.models.zipformer import STACK
+        blocks = [2] + list(STACK)          # pre + the 5 U-Net stages
+        assert E == sum(blocks), "n_enc_exits checked by zipformer.init"
+        params = {"subsample": {"convs": [
+            _conv1d(r, "conv_subsample.conv", cfg.n_mels, d, 3)]}}
+        state = {}
+        off = 0
+        trees = []
+        for n in blocks:
+            # consecutive reference blocks off..off+n, npe layers each
+            ps, ss = _stack([
+                _block(r, f"conformer.{b}.conformer_layers.{l}", d, ff, k)
+                for b in range(off, off + n) for l in range(npe)])
+            trees.append((ps, ss))
+            off += n
+        params["pre"], state["pre"] = trees[0]
+        params["stages"] = [t[0] for t in trees[1:]]
+        state["stages"] = [t[1] for t in trees[1:]]
+        params["head"] = _ref_linear(r, "linear", d, V)
+        r.finish()
+        return params, state
+
+    if cfg.model_type == "full_conformer":
+        return _full_conformer(r, cfg, d, ff, k, E, npe, V)
+
+    if cfg.model_type not in ("early_conformer", "splitformer"):
+        raise ValueError(f"no reference import for {cfg.model_type!r}")
+
+    sub = {"convs": [_conv1d(r, "conv_subsample.sequential.0",
+                             cfg.n_mels, d, 3),
+                     _conv1d(r, "conv_subsample.sequential.1", d, d, 3)]}
+    block_p, block_s = _blocks_of(r, "conformer.{}", E, npe, d, ff, k)
+    heads = _stack([(_ref_linear(r, f"linears.{e}", d, V), {}) for e in
+                    range(E)])[0]
+    params = {"subsample": sub, "blocks": block_p, "heads": heads}
+    state = {"blocks": block_s}
+    if cfg.model_type == "splitformer":
+        par = [_block(r, f"conformer_parallel.{i}.conformer_layers.0",
+                      d, ff, k) for i in range(2)]
+        params["parallel"] = [p for p, _ in par]
+        state["parallel"] = [s for _, s in par]
+    r.finish()
+    return params, state
+
+
+# ---------------------------------------------------------------------------
+# Export (the exact inverse): our pytrees -> reference state_dict
+# ---------------------------------------------------------------------------
+
+class _Writer:
+    def __init__(self):
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def put(self, key: str, arr):
+        self.sd[key] = np.ascontiguousarray(np.asarray(arr, np.float32))
+
+
+def _w_linear(w: _Writer, pre: str, p):
+    w.put(pre + ".weight", np.asarray(p["w"]).T)
+    w.put(pre + ".bias", p["b"])
+
+
+def _w_layer_norm(w: _Writer, pre: str, p):
+    w.put(pre + ".weight", p["g"])
+    w.put(pre + ".bias", p["b"])
+
+
+def _w_conv1d(w: _Writer, pre: str, p):
+    w.put(pre + ".weight", np.asarray(p["w"]).transpose(2, 1, 0))
+    w.put(pre + ".bias", p["b"])
+
+
+def _w_ffn(w: _Writer, pre: str, p):
+    _w_layer_norm(w, pre + ".sequential.0", p["ln"])
+    _w_linear(w, pre + ".sequential.1", p["w1"])
+    _w_linear(w, pre + ".sequential.4", p["w2"])
+
+
+def _w_mha(w: _Writer, pre: str, p):
+    w.put(pre + ".in_proj_weight",
+          np.concatenate([np.asarray(p[n]["w"]).T for n in ("q", "k", "v")]))
+    w.put(pre + ".in_proj_bias",
+          np.concatenate([np.asarray(p[n]["b"]) for n in ("q", "k", "v")]))
+    _w_linear(w, pre + ".out_proj", p["o"])
+
+
+def _w_block(w: _Writer, pre: str, p, s):
+    cm = pre + ".conv_module"
+    _w_ffn(w, pre + ".ffn1", p["ffn1"])
+    _w_layer_norm(w, pre + ".self_attn_layer_norm", p["attn"]["ln"])
+    _w_mha(w, pre + ".self_attn", p["attn"]["mha"])
+    _w_layer_norm(w, cm + ".layer_norm", p["conv"]["ln"])
+    w.put(cm + ".sequential.0.weight",
+          np.asarray(p["conv"]["pw1"]["w"]).T[:, :, None])
+    w.put(cm + ".sequential.0.bias", p["conv"]["pw1"]["b"])
+    w.put(cm + ".sequential.2.weight",
+          np.asarray(p["conv"]["dw"]["w"]).transpose(2, 1, 0))
+    w.put(cm + ".sequential.2.bias", p["conv"]["dw"]["b"])
+    w.put(cm + ".sequential.3.weight", p["conv"]["norm"]["g"])
+    w.put(cm + ".sequential.3.bias", p["conv"]["norm"]["b"])
+    w.put(cm + ".sequential.3.running_mean", s["conv_bn"]["mean"])
+    w.put(cm + ".sequential.3.running_var", s["conv_bn"]["var"])
+    w.sd[cm + ".sequential.3.num_batches_tracked"] = np.asarray(0,
+                                                                np.int64)
+    w.put(cm + ".sequential.5.weight",
+          np.asarray(p["conv"]["pw2"]["w"]).T[:, :, None])
+    w.put(cm + ".sequential.5.bias", p["conv"]["pw2"]["b"])
+    _w_ffn(w, pre + ".ffn2", p["ffn2"])
+    _w_layer_norm(w, pre + ".final_layer_norm", p["final_ln"])
+
+
+def _tree_at(tree, i):
+    """Element i of every leaf's leading axis."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_at(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_at(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _pe_buffer(cfg) -> np.ndarray:
+    """Reference PositionalEncoding buffer (max_len, 1, d) — same
+    sinusoid as nn.sinusoidal_pe (positional_encoding.py:54-63)."""
+    pos = np.arange(cfg.max_len, dtype=np.float32)[:, None]
+    div = np.exp(np.arange(0, cfg.d_model, 2, dtype=np.float32)
+                 * (-np.log(10000.0) / cfg.d_model))
+    pe = np.zeros((cfg.max_len, 1, cfg.d_model), np.float32)
+    pe[:, 0, 0::2] = np.sin(pos * div)
+    pe[:, 0, 1::2] = np.cos(pos * div)
+    return pe
+
+
+def _w_blocks(w: _Writer, fmt, block_p, block_s, n_blocks, npe):
+    for b in range(n_blocks):
+        for l in range(npe):
+            flat = b * npe + l
+            _w_block(w, f"{fmt.format(b)}.conformer_layers.{l}",
+                     _tree_at(block_p, flat), _tree_at(block_s, flat))
+
+
+def _w_decoder_layer(w: _Writer, pre: str, p):
+    _w_layer_norm(w, pre + ".norm1", p["ln1"])
+    _w_mha(w, pre + ".self_attn", p["self_attn"])
+    _w_layer_norm(w, pre + ".norm2", p["ln2"])
+    _w_mha(w, pre + ".multihead_attn", p["cross_attn"])
+    _w_layer_norm(w, pre + ".norm3", p["ln3"])
+    _w_linear(w, pre + ".linear1", p["w1"])
+    _w_linear(w, pre + ".linear2", p["w2"])
+
+
+def to_reference_state_dict(params, state, cfg) -> Dict[str, np.ndarray]:
+    """(params, state) of our early_conformer / splitformer /
+    early_zipformer / full_conformer -> a state_dict the reference's
+    torch modules load with strict=True (includes positional-encoding
+    buffers and BatchNorm bookkeeping). Exact inverse of
+    from_reference_state_dict; round-trip pinned by tests."""
+    w = _Writer()
+    E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
+
+    if cfg.model_type == "early_zipformer":
+        from early_exit_tpu_torch.models.zipformer import STACK
+        _w_conv1d(w, "conv_subsample.conv", params["subsample"]["convs"][0])
+        w.put("positional_encoder.pe", _pe_buffer(cfg))
+        _w_linear(w, "linear", params["head"])
+        blocks = [2] + list(STACK)
+        off = 0
+        trees = [(params["pre"], state["pre"])] + \
+            list(zip(params["stages"], state["stages"]))
+        for (bp, bs), n in zip(trees, blocks):
+            for j in range(n):
+                for l in range(npe):
+                    flat = j * npe + l
+                    _w_block(w, f"conformer.{off + j}.conformer_layers.{l}",
+                             _tree_at(bp, flat), _tree_at(bs, flat))
+            off += n
+        return w.sd
+
+    if cfg.model_type == "full_conformer":
+        _w_conv1d(w, "conv_subsample.sequential.0",
+                  params["subsample"]["convs"][0])
+        _w_conv1d(w, "conv_subsample.sequential.1",
+                  params["subsample"]["convs"][1])
+        w.put("positional_encoder_1.pe", _pe_buffer(cfg))
+        w.put("positional_encoder_2.pe", _pe_buffer(cfg))
+        w.put("emb.weight", params["emb"]["table"])
+        _w_layer_norm(w, "layer_norm", params["final_ln"])
+        _w_blocks(w, "conformer.{}", params["blocks"], state["blocks"],
+                  E, npe)
+        for e in range(E):
+            _w_linear(w, f"linears_1.{e}", _tree_at(params["heads"], e))
+            _w_linear(w, f"linears_2.{e}", _tree_at(params["out_linear"],
+                                                    e))
+            dec_e = _tree_at(params["decoders"], e)
+            for l in range(cfg.n_dec_layers):
+                _w_decoder_layer(w, f"decoders.{e}.layers.{l}",
+                                 _tree_at(dec_e, l))
+            _w_layer_norm(w, f"decoders.{e}.norm", params["final_ln"])
+        return w.sd
+
+    if cfg.model_type not in ("early_conformer", "splitformer"):
+        raise ValueError(f"no reference export for {cfg.model_type!r}")
+
+    _w_conv1d(w, "conv_subsample.sequential.0",
+              params["subsample"]["convs"][0])
+    _w_conv1d(w, "conv_subsample.sequential.1",
+              params["subsample"]["convs"][1])
+    w.put("positional_encoder.pe", _pe_buffer(cfg))
+    _w_blocks(w, "conformer.{}", params["blocks"], state["blocks"], E, npe)
+    for e in range(E):
+        _w_linear(w, f"linears.{e}", _tree_at(params["heads"], e))
+    if cfg.model_type == "splitformer":
+        for i in range(2):
+            _w_block(w, f"conformer_parallel.{i}.conformer_layers.0",
+                     params["parallel"][i], state["parallel"][i])
+    return w.sd

@@ -12,8 +12,9 @@ profile (bf16 compute and residual, bf16 or float32 softmax), float32
 Any other mix raises on the card. The bf16 entry's ten products run
 through one wgmma + TMA kernel (`csrc/gemm_bf16.cuh`), the W8A8 entry's
 through its int8 instantiation (`csrc/gemm_s8.cuh`); `block_gemm` and
-`block_gemm_s8` expose them on their own for checks and timing, and
-`layer_norm_quantize` the W8A8 entry's LayerNorm + quantize kernel.
+`block_gemm_s8` expose them on their own for checks and timing,
+`layer_norm_quantize` the W8A8 entry's LayerNorm + quantize kernel and
+`block_layer_norm` the bf16 entry's LayerNorm (no op: checks only).
 Bounds and design notes are in the sources.
 
 Each wrapper calls its `torch.library` op (`eet::conformer_block`,
@@ -612,6 +613,41 @@ def _layer_norm_quantize_cuda(x, g, b, eps):
 layer_norm_quantize.launches = 0
 
 
+def block_layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """The block's LayerNorm as its plain version computes it, rounded to
+    x's dtype."""
+    return _ln_one_pass(x, g, b, eps).to(x.dtype)
+
+
+def block_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """The bf16 entry's LayerNorm kernel on its own: x (R, D) bf16, g and b
+    (D,) float32 -> (R, D) bf16. For checks: the block never calls it. A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (D a multiple of 8) or raises."""
+    _device_ok("block_layer_norm", x)
+    if x.device.type == "cpu":
+        return block_layer_norm_plain(x, g, b, eps)
+    R, D = x.shape
+    if R <= 0 or D % 8:
+        raise ValueError(f"block_layer_norm kernel needs rows > 0 and D a multiple "
+                         f"of 8; got {R} x {D}")
+    _check(x, "x", torch.bfloat16, (R, D), x.device)
+    _check(g, "g", torch.float32, (D,), x.device)
+    _check(b, "b", torch.float32, (D,), x.device)
+    y = torch.empty_like(x)
+    lib = _lib()
+    err = lib.eet_layer_norm_bf16(_build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(y),
+                                  R, D, eps, _build.stream_ptr(x.device))
+    _build.check(lib, err, "block_layer_norm kernel")
+    block_layer_norm.launches += 1
+    return y
+
+
+block_layer_norm.launches = 0
+
+
 def _lib():
     lib = _build.load("conformer_block")
     if lib.eet_conformer_block_bf16.argtypes is None:
@@ -625,10 +661,11 @@ def _lib():
         lib.eet_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.eet_gemm_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, fl, vp]
+        lib.eet_layer_norm_bf16.argtypes = [vp, vp, vp, vp, i, i, fl, vp]
         for entry in (lib.eet_conformer_block_bf16, lib.eet_conformer_block_f32,
                       lib.eet_conformer_block_w8a8, lib.eet_gemm_bf16,
                       lib.eet_gemm_s8, lib.eet_layer_norm_quantize,
-                      lib.eet_conformer_block_param_count):
+                      lib.eet_layer_norm_bf16, lib.eet_conformer_block_param_count):
             entry.restype = i
         lib.eet_conformer_block_param_count.argtypes = []
         if lib.eet_conformer_block_param_count() != len(PARAM_ORDER):

@@ -51,7 +51,7 @@ from early_exit_tpu_torch.ops import ctc, frontend
 from early_exit_tpu_torch.ops.kernels.head_argmax import head_argmax
 from early_exit_tpu_torch.serving import cascade
 from early_exit_tpu_torch.serving.packing import PACK_BATCH
-from early_exit_tpu_torch.tokenizer import SentencePieceDecoder, load_decoder
+from early_exit_tpu_torch.tokenizer import SentencePieceBPE, load_decoder
 
 
 @dataclasses.dataclass
@@ -72,7 +72,7 @@ class GatedTranscripts:
 
 
 class Recognizer:
-    def __init__(self, model: torch.nn.Module, tokenizer: SentencePieceDecoder,
+    def __init__(self, model: torch.nn.Module, tokenizer: SentencePieceBPE,
                  *, acfg: AudioConfig = AudioConfig(mel_method="dft"),
                  device=None, calib: Optional[dict] = None):
         self.device = runtime.resolve_device(device)
