@@ -1423,6 +1423,7 @@ def main() -> None:
                           zoo_export)
         ref = reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
                               counts)
+        parallel_phase(dev, card, knobs, reset_counts, read_counts, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1483,6 +1484,272 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+
+
+def parallel_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
+    """Phase 16: `--conv_norm group` and data + tensor parallelism in
+    training, at the flagship's widths (d 256, 8 heads, ffn 2048, 12 blocks,
+    6 exits, V 256). (a) The committed flagship's weights under
+    conv_norm="group" (the BatchNorm's g and b read as the GroupNorm's): one
+    float32 CTC train step on the card against the CPU (TF32 off, phase
+    8a's tolerances, the running statistics passed through unchanged); 5
+    bf16 train steps from the same weights at warmup 100 with the loss
+    falling, beside the same steps at warmup 10, under group and batch
+    norm (printed: ten times the learning rate); the inference CLI with
+    `--conv_norm group --fused_block false` over 8 of phase 9's utterances,
+    card against CPU, float32 tokens equal and bf16 within phase 3's
+    contract, with the tokens counted an exit and no kernel launched; and
+    `--fused_block true` refused by name. (b) A world of one over NCCL: one
+    train step of the distributed code (process group up, data=1 x
+    model=1) against the plain step, twice, bit for bit where the plain
+    step repeats itself bit for bit, else within its own run-to-run spread.
+    (c) Four gloo ranks on the one card with CUDA tensors
+    (`multiprocess_smoke.run_world`): data=2 on two of them, then data=2 x
+    model=2, two float32 steps each of the flagship against the
+    single-rank card step (loss and grad norm within 1e-4, the next step's
+    loss within 2e-3, the BatchNorm statistics of the first step within
+    1e-5), and the 4-rank run's checkpoint, loaded into the single-rank
+    model, written back equal to itself, its tree and shapes a single-rank
+    checkpoint's. Returns the seconds of each part."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from early_exit_tpu_torch import checkpoint, inference, interop, parallel
+    from early_exit_tpu_torch import multiprocess_smoke as mps
+    from early_exit_tpu_torch.configs import AudioConfig, ModelConfig, TrainConfig, train_profile
+    from early_exit_tpu_torch.data import text
+    from early_exit_tpu_torch.data.pipeline import Pipeline
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    from early_exit_tpu_torch.models.conformer import GROUP_NORM_FUSED
+    from early_exit_tpu_torch.models.registry import build_model
+    from early_exit_tpu_torch.optim.noam import global_norm
+    from early_exit_tpu_torch.tokenizer import load_tokenizer
+    from early_exit_tpu_torch.training import checkpoint as tck
+    from early_exit_tpu_torch.training import trainer
+
+    t_phase = time.perf_counter()
+    secs = {}
+    tok = load_tokenizer(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    tcfg = TrainConfig()
+    cpu_pipe = Pipeline([], tok, AudioConfig(), tcfg, device="cpu")
+    tree = checkpoint.load_tree(checkpoint.FLAGSHIP_CKPT)
+
+    def batch_of(n, seed):
+        """n requests of bench_eval's distribution as one CPU sub-batch."""
+        wav, counts, refs = synth_batch(knobs, n, seed)
+        items = []
+        for i in range(n):
+            label = text.clean_train_label(refs[i])
+            items.append((wav[i, :counts[i]], text.encode_target(label, tok), label))
+        host = {k: torch.from_numpy(v) for k, v in cpu_pipe.host_subbatch(items).items()}
+        return cpu_pipe.to_device(host)
+
+    batch4 = batch_of(4, 777)                         # phase 8a's requests
+    T_ = int(batch4["feats"].shape[1])
+
+    # -- 16a. group norm
+    t0 = time.perf_counter()
+    gn32 = ModelConfig(compute_dtype="float32", drop_prob=0.0, conv_norm="group")
+
+    def gn_step(device):
+        model = interop.from_jax_params(tree["params"], tree["model_state"], gn32,
+                                        trainable=True).to(device)
+        before = {k: v.detach().clone() for k, v in model.state()["blocks"]["conv_bn"].items()}
+        total, _, new_state = trainer.loss_fn(model, tcfg,
+                                              {k: v.to(device) for k, v in batch4.items()})
+        params = list(model.parameters())
+        grads = torch.autograd.grad(total, params)
+        leaves = {k: np.asarray(v, np.float64) for k, v in
+                  _flat(interop.jax_tree(model, dict(zip(params, grads)))).items()}
+        passed = all(torch.equal(new_state["blocks"]["conv_bn"][k], before[k]) for k in before)
+        return float(total.detach()), float(global_norm(grads)), leaves, passed
+
+    card_step, cpu_step = gn_step(dev), gn_step(torch.device("cpu"))
+    zero_leaf = ZERO_GRAD_LEAVES[0]        # the key bias; the depthwise bias moves a GroupNorm
+    rel = {k: np.linalg.norm(card_step[2][k] - h) / np.linalg.norm(h)
+           for k, h in cpu_step[2].items() if k != zero_leaf}
+    worst = max(rel, key=rel.get)
+    zero = max(np.linalg.norm(card_step[2][zero_leaf]),
+               np.linalg.norm(cpu_step[2][zero_leaf])) / cpu_step[1]
+    d_loss = abs(card_step[0] - cpu_step[0]) / abs(cpu_step[0])
+    d_norm = abs(card_step[1] - cpu_step[1]) / cpu_step[1]
+    print(f"16a. group norm (the flagship's weights, conv_norm='group'), one float32 CTC "
+          f"train step (B=4, T={T_}), card vs CPU: loss {card_step[0]:.6f} vs "
+          f"{cpu_step[0]:.6f} (relative {d_loss:.3e}); grad_norm {card_step[1]:.6f} vs "
+          f"{cpu_step[1]:.6f} ({d_norm:.3e}); worst gradient leaf relative L2 "
+          f"{rel[worst]:.3e} ({worst}); the key bias's share of the norm {zero:.3e}; "
+          f"running statistics passed through unchanged: card {card_step[3]}, CPU "
+          f"{cpu_step[3]}")
+    if not np.isfinite([card_step[0], card_step[1]]).all():
+        fail("16a: non-finite group-norm train step on the card")
+    if (d_loss > TRAIN_F32_LOSS or d_norm > TRAIN_F32_NORM or rel[worst] > TRAIN_F32_LEAF
+            or zero > ZERO_GRAD_SHARE or not (card_step[3] and cpu_step[3])):
+        fail("16a: the group-norm train step on the card disagrees with the CPU")
+
+    batch16 = {k: v.to(dev) for k, v in batch_of(16, 4343).items()}
+
+    def bf16_steps(norm, warmup):
+        """5 bf16 train steps (train profile, dropout 0.1) from the
+        flagship's weights under conv_norm=norm; their losses."""
+        model = interop.from_jax_params(tree["params"], tree["model_state"],
+                                        train_profile(conv_norm=norm), trainable=True).to(dev)
+        tr = trainer.Trainer(model, tcfg, warmup=warmup)
+        return [round(float(tr.step(batch16)["loss"]), 4) for _ in range(5)]
+
+    losses = bf16_steps("group", 100)
+    print(f"16a. group norm, 5 bf16 train steps from the flagship's weights (train profile, "
+          f"dropout 0.1, warmup 100: learning rates 1.25e-4 to 3.75e-4, phase 8b's "
+          f"sub-batch of 16, T={batch16['feats'].shape[1]}): loss {losses}; the same steps "
+          f"at warmup 10 (3.95e-3 to 1.19e-2): group norm {bf16_steps('group', 10)}, "
+          f"batch norm {bf16_steps('batch', 10)}")
+    if not np.isfinite(losses).all() or losses[-1] >= losses[0]:
+        fail("16a: the group-norm model's loss did not fall over 5 bf16 steps")
+    del batch16
+
+    small = os.path.join(tmp, "cpu8")
+    base = ["--decoder_mode", "ctc", "--load_model_path", checkpoint.FLAGSHIP_CKPT,
+            "--eval_splits", "test-clean", "--data_root", small, "--conv_norm", "group",
+            "--fused_block", "false"]
+    f32_flags = ["--compute_dtype", "float32", "--attn_softmax_dtype", "float32"]
+
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            inference.main(argv)
+        return buf.getvalue()
+
+    def exit_ids(out):
+        ids = {}
+        for ln in out.splitlines():
+            if "BEAM_OUT_" in ln:
+                e = int(ln.split("BEAM_OUT_")[1].split(":")[0])
+                ids.setdefault(e, []).append(tok.encode_as_ids(
+                    ln.split(" : ", 1)[1] if " : " in ln else ""))
+        return ids
+
+    gaps = {}
+    for what, flags in (("float32", f32_flags), ("bf16", [])):
+        reset_counts()
+        out_c = cli(base + flags)
+        launched = {k: v for k, v in read_counts().items() if v}
+        out_h = cli(base + flags + ["--device", "cpu"])
+        ic, ih = exit_ids(out_c), exit_ids(out_h)
+        if sorted(ic) != sorted(ih) or any(len(ic[e]) != len(ih[e]) for e in ih) or not ih:
+            fail(f"16a: the {what} CLI prints other BEAM_OUT lines on the card than on the CPU")
+        gaps[what] = {e: (sum(edit_distance(x, y) for x, y in zip(ic[e], ih[e])),
+                          sum(len(y) for y in ih[e])) for e in sorted(ih)}
+        wers = [ln.split(": ", 1)[1] for ln in out_h.splitlines() if " WER exit " in ln]
+        print(f"16a. the inference CLI, --conv_norm group --fused_block false, {what}, card "
+              f"vs CPU over {len(ih[min(ih)])} of phase 9's utterances: edits / CPU tokens "
+              f"per exit {[f'{e}/{t}' for e, t in gaps[what].values()]}; WER per exit (CPU) "
+              f"{wers}; kernels launched on the card {launched or 'none'}")
+        if launched:
+            fail(f"16a: the unfused group-norm CLI launched {launched}")
+    edits32 = sum(e for e, _ in gaps["float32"].values())
+    e16 = sum(e for e, _ in gaps["bf16"].values())
+    t16 = sum(t for _, t in gaps["bf16"].values())
+    if sum(t for _, t in gaps["float32"].values()) == 0 or t16 == 0:
+        fail("16a: the group-norm CLI emitted no token: the comparison would see nothing")
+    if edits32:
+        fail(f"16a: the float32 group-norm CLI's tokens differ on the card ({edits32} edits)")
+    if e16 > TOKEN_DISAGREE * t16:
+        fail(f"16a: the bf16 group-norm CLI disagrees with the CPU on {e16} of {t16} tokens")
+    try:
+        cli(base[:-1] + ["true"])
+        fail("16a: --fused_block true ran a group-norm model")
+    except ValueError as e:
+        if str(e) != GROUP_NORM_FUSED:
+            raise
+        print(f"16a. --conv_norm group --fused_block true on the card raises: {e}")
+    secs["a"] = time.perf_counter() - t0
+
+    # -- 16b. a world of one over NCCL
+    t0 = time.perf_counter()
+    f32 = dataclasses.asdict(ModelConfig(compute_dtype="float32", drop_prob=0.0))
+    one_step = {"model": f32, "steps": 1, "load": checkpoint.FLAGSHIP_CKPT,
+                "keep_params": True}
+    index = torch.cuda.current_device()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{mps.free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", index))
+    try:
+        mesh = parallel.make_mesh(dp=1, tp=1)
+        plain = mps.run_scenario(one_step, batch4, dev)
+        dist_step = mps.run_scenario(one_step, batch4, dev, mesh)
+        again = mps.run_scenario(one_step, batch4, dev)
+    finally:
+        dist.destroy_process_group()
+
+    def apart(a, b):
+        """Loss, grad norm and parameters: (all equal bit for bit, max |d| of
+        the parameters)."""
+        d = max(float((x - y).abs().max()) for x, y in zip(a["params"], b["params"]))
+        same = (a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                and all(torch.equal(x, y) for x, y in zip(a["params"], b["params"])))
+        return same, d
+
+    same_dist, d_dist = apart(dist_step, plain)
+    same_plain, d_plain = apart(again, plain)
+    print(f"16b. a world of one over NCCL, data=1 x model=1: the distributed step vs the "
+          f"plain step (float32, B=4): loss {dist_step['loss']!r} vs {plain['loss']!r}, "
+          f"grad_norm {dist_step['grad_norm']!r} vs {plain['grad_norm']!r}, bit for bit "
+          f"{same_dist} (parameters max|d| {d_dist:.3e}); the plain step against itself: "
+          f"bit for bit {same_plain} (max|d| {d_plain:.3e})")
+    if dist_step["loss"] != plain["loss"] or (same_plain and not same_dist) or d_dist > d_plain:
+        fail("16b: the distributed step in a world of one is not the plain step")
+    secs["b"] = time.perf_counter() - t0
+
+    # -- 16c. four gloo ranks on the one card, CUDA tensors
+    t0 = time.perf_counter()
+    two = dict(one_step, steps=2, keep_params=False)
+    single = mps.run_scenario(dict(two, save=os.path.join(tmp, "par_single")), batch4, dev)
+    four_dir = os.path.join(tmp, "par_four")
+    got = mps.run_world([dict(two, name="data=2", mesh={"ranks": [0, 1], "dp": 2}),
+                         dict(two, name="data=2 x model=2", mesh={"dp": 2, "tp": 2},
+                              save=four_dir)],
+                        {"main": batch4}, world=4, device="cuda", backend="gloo",
+                        timeout=400, workdir=tmp)
+    secs["c_world"] = time.perf_counter() - t0
+    for name, res in got.items():
+        faults = mps.check(name, res, single)
+        bn = max(float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+                 for a, b in zip(_flat(res["state"][0]).values(),
+                                 _flat(single["state"][0]).values()))
+        print(f"16c. {name} on 4 gloo ranks sharing the card (CUDA tensors) vs the "
+              f"single-rank card step: loss {res['loss']} vs {single['loss']}, grad_norm "
+              f"{res['grad_norm'][0]:.6f} vs {single['grad_norm'][0]:.6f}; BN running "
+              f"statistics after step 1 max|d| {bn:.3e} (of max(1, max|ref|))")
+        if faults or bn > TRAIN_F32_BN:
+            fail("16c: " + "; ".join(faults or [f"{name}: BN statistics {bn:.3e}"]))
+    four = tck.load_tree(tck.model_ckpt_path(four_dir, 0))
+    ref = tck.load_tree(tck.model_ckpt_path(os.path.join(tmp, "par_single"), 0))
+    f4, fr = _flat(four), _flat(ref)
+    if sorted(f4) != sorted(fr) or any(np.shape(f4[k]) != np.shape(fr[k]) for k in fr):
+        fail("16c: the 4-rank checkpoint's tree or shapes are not a single rank's")
+    model = build_model(ModelConfig(**f32)).to(dev)
+    tck.load_model_file(model, tck.model_ckpt_path(four_dir, 0))
+    os.makedirs(os.path.join(tmp, "par_back"))
+    tck.save_epoch(os.path.join(tmp, "par_back"), 0, model)
+    back = _flat(tck.load_tree(tck.model_ckpt_path(os.path.join(tmp, "par_back"), 0)))
+    d_back = max(float(np.abs(np.asarray(back[k]) - np.asarray(f4[k])).max()) for k in f4)
+    d_single = max(float(np.abs(np.asarray(fr[k]) - np.asarray(f4[k])).max()) for k in f4)
+    print(f"16c. the data=2 x model=2 checkpoint: {len(f4)} leaves, the single rank's "
+          f"tree and shapes; loaded into the single-rank model and written back, max|d| "
+          f"{d_back:.3e}; against the single rank's own after the same 2 steps, max|d| "
+          f"{d_single:.3e} (Adam's first steps move each weight by ~lr whatever the "
+          f"gradient's size)")
+    if d_back != 0.0:
+        fail("16c: the 4-rank checkpoint does not load into the single-rank model as it is")
+    secs["c"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"phase 16: {total:.1f} s on {card} (16a {secs['a']:.1f} s, 16b {secs['b']:.1f} "
+          f"s, 16c {secs['c']:.1f} s of which the 4-rank world {secs['c_world']:.1f} s)")
+    return {**secs, "total": total}
 
 
 class _DecodeClock:

@@ -143,7 +143,10 @@ def get_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--conv_norm", type=str, default="batch",
-                   choices=["batch", "group"])
+                   choices=["batch", "group"],
+                   help="The conv module's norm: masked BatchNorm, or the "
+                        "masked GroupNorm(1) of each utterance (unfused path "
+                        "only: --fused_block true raises).")
     p.add_argument("--length_mode", type=str, default="reference",
                    choices=["reference", "true"])
     p.add_argument("--ctc_compat_padded_lengths", type=_bool,
@@ -158,11 +161,11 @@ def get_parser() -> argparse.ArgumentParser:
                         "enable only for bit-parity debugging against "
                         "the reference.")
     p.add_argument("--dp", type=int, default=None,
-                   help="Data-parallel size; the port trains on one GPU "
-                        "(values above 1 raise).")
+                   help="Data-parallel size (default WORLD_SIZE // --tp); "
+                        "launch dp x tp ranks with torchrun.")
     p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel size; the port trains on one GPU "
-                        "(values above 1 raise).")
+                   help="Tensor-parallel size: the FFN and the vocab heads "
+                        "sharded over tp ranks.")
     p.add_argument("--log_dir", type=str, default="runs")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--decode", type=str, default="greedy",

@@ -53,6 +53,24 @@ def read_audio(path: str) -> Tuple[np.ndarray, int]:
     raise ValueError(f"unsupported audio format: {path}")
 
 
+def audio_samples(path: str) -> int:
+    """The sample count `read_audio` returns, from the file's header
+    (FLAC's STREAMINFO, WAV's frame count); a FLAC stream that leaves the
+    count unset (0) is decoded."""
+    if path.endswith(".wav"):
+        with wave.open(path, "rb") as w:
+            return w.getnframes()
+    with open(path, "rb") as f:
+        head = f.read(26)
+    # "fLaC", a STREAMINFO block header, then rate 20 bits, channels 3,
+    # bits per sample 5 and the total samples 36 in bytes 18..25
+    if len(head) == 26 and head[:4] == b"fLaC" and head[4] & 0x7F == 0:
+        total = int.from_bytes(head[18:26], "big") & ((1 << 36) - 1)
+        if total:
+            return total
+    return len(read_audio(path)[0])
+
+
 class LibriSpeechDataset:
     """Index of one or more LibriSpeech splits (`url` may list several,
     comma-separated, indexed in that order); audio is decoded lazily."""
@@ -102,6 +120,10 @@ class LibriSpeechDataset:
 
     def __len__(self) -> int:
         return len(self.items)
+
+    def meta(self, i: int) -> Tuple[int, str]:
+        """(sample count, transcript) of item i from the audio's header."""
+        return audio_samples(self.items[i][0]), self.items[i][1]
 
     def __getitem__(self, i: int) -> Utterance:
         path, text, speaker, chapter, utt = self.items[i]

@@ -12,6 +12,7 @@ flagship's training distribution (`assets/flagship_calib.json`,
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 
@@ -68,7 +69,9 @@ class SyntheticDataset:
             return 150.0
         return 400.0 + 110.0 * (ord(c.lower()) - ord("a"))  # 400..3150 Hz
 
-    def __getitem__(self, i: int) -> Utterance:
+    def _plan(self, i: int):
+        """(generator, text, warp, [(samples, amplitude)] a character): the
+        draws before the waveform's, the generator left after them."""
         rng = np.random.RandomState(self.seed * 100003 + i)
         n_words = rng.randint(self.min_words, self.max_words + 1)
         words = [_WORDS[rng.randint(len(_WORDS))] for _ in range(n_words)]
@@ -77,14 +80,25 @@ class SyntheticDataset:
         alpha = 1.0 + (rng.uniform(-self.speaker_warp, self.speaker_warp)
                        if self.speaker_warp else 0.0)
         segs = []
-        for c in text:
+        for _ in text:
             dur = base_seg * (1.0 + (rng.uniform(-self.dur_jitter,
                                                  self.dur_jitter)
                                      if self.dur_jitter else 0.0))
-            seg = max(int(dur), 1)
             amp = 0.2 * (1.0 + (rng.uniform(-self.amp_jitter,
                                             self.amp_jitter)
                                 if self.amp_jitter else 0.0))
+            segs.append((max(int(dur), 1), amp))
+        return rng, text, alpha, segs
+
+    def meta(self, i: int) -> Tuple[int, str]:
+        """(sample count, transcript) of item i, without its waveform."""
+        _, text, _, segs = self._plan(i)
+        return sum(n for n, _ in segs), text
+
+    def __getitem__(self, i: int) -> Utterance:
+        rng, text, alpha, plan = self._plan(i)
+        segs = []
+        for c, (seg, amp) in zip(text, plan):
             f = self._char_freq(c) * alpha
             t = np.arange(seg) / self.sample_rate
             segs.append(amp * np.sin(2 * np.pi * f * t))

@@ -42,7 +42,10 @@ The model comes from --load_model_path or the average of the epoch
 checkpoints --avg_model_start..--avg_model_end in --load_model_dir. Runs
 on CUDA unless --device cpu; raises without a GPU otherwise.
 
-Not ported, and raising by name: --conv_norm group.
+--conv_norm group decodes a group-norm model on the unfused path (the JAX
+package's unfused path); with --fused_block true it raises by name: the
+block kernel folds BatchNorm running statistics and cannot compute a
+GroupNorm.
 """
 
 from __future__ import annotations

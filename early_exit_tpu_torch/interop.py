@@ -115,11 +115,11 @@ def state_tensors(tree):
 
 def load_params(model, params, state=None) -> None:
     """The JAX trees -> the model's parameters and running statistics (if
-    it has any), in place."""
+    it has any), in place; a tensor-parallel shard takes its piece."""
     src = from_jax_tree(model, params)
     with torch.no_grad():
         for p in model.parameters():
-            p.copy_(src[p])
+            p.copy_(local(p, src[p]))
     if state is not None:
         model.set_state(state_tensors(state))
 
@@ -259,8 +259,17 @@ _PATHS = {"EarlyConformer": _early_conformer_paths,
           "LegacyTransformer": _legacy_transformer_paths}
 
 
-def _param_paths(model):
+def param_paths(model):
+    """[(JAX path, [port parameters], leading axes)] of the model's type."""
     return _PATHS[type(model).__name__](model)
+
+
+def local(p: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """This rank's piece of a parameter's full tensor: the whole tensor,
+    or the tensor-parallel shard a sharded parameter holds
+    (`parallel.shard_params` marks it with `tp_shard`)."""
+    shard = getattr(p, "tp_shard", None)
+    return full if shard is None else shard.take(full)
 
 
 def legacy_from_jax(kind: str, params, cfg: ModelConfig):
@@ -296,7 +305,7 @@ def jax_tree(model, values=None) -> dict:
     """The JAX params tree of `values` (a dict from parameter to tensor;
     default the parameters themselves), float32 numpy leaves."""
     tree: dict = {}
-    for path, params, lead in _param_paths(model):
+    for path, params, lead in param_paths(model):
         ts = [p if values is None else values[p] for p in params]
         leaf = (_np(ts[0]) if not lead else
                 np.stack([_np(t) for t in ts]).reshape(lead + tuple(ts[0].shape)))
@@ -322,7 +331,7 @@ def to_jax_params(model):
 def from_jax_tree(model, tree) -> dict:
     """A tree in the JAX params layout -> {parameter: float32 CPU tensor}."""
     out = {}
-    for path, params, lead in _param_paths(model):
+    for path, params, lead in param_paths(model):
         leaf = tree
         for k in path:
             leaf = _item(leaf, k) if isinstance(k, int) else leaf[k]

@@ -12,13 +12,14 @@ convolution_first=False):
 Training (`ConformerStack.train_forward`) runs the unfused blocks with
 autograd, unquantized, with dropout at the JAX package's places (two in
 each half-FFN, after SiLU and after W2; after the attention's Wo; after
-PW2), masked BatchNorm on the batch's statistics, and an optional
-(T, T) attention pair mask. A block's dropout masks come from a
-generator on the activations' device seeded with the block's own seed,
-so a block recomputed in backward (`remat`, torch.utils.checkpoint)
-draws the same masks; BatchNorm's new running statistics are returned,
-never written inside the block, so a recomputation cannot apply them
-twice. No kernel runs in training.
+PW2), masked BatchNorm on the batch's statistics (or, with
+conv_norm="group", the masked GroupNorm(1) of each utterance, the same in
+training and inference), and an optional (T, T) attention pair mask. A
+block's dropout masks come from a generator on the activations' device
+seeded with the block's own seed, so a block recomputed in backward
+(`remat`, torch.utils.checkpoint) draws the same masks; BatchNorm's new
+running statistics are returned, never written inside the block, so a
+recomputation cannot apply them twice. No kernel runs in training.
 
 `ConformerBlock.forward` is the unfused path (the JAX package's XLA
 path, two-pass LayerNorm), for inference and, with `train=True`, for
@@ -32,7 +33,10 @@ it mirrors the JAX dispatch: the kernel up to T' = 512 (the TPU kernel's
 VMEM budget), the unfused blocks beyond. On the GPU it always launches
 the kernel, at any T'. The kernel layout is folded from the weights
 when they change (`ConformerStack.folded`); an exported program pins
-its own copy, held as buffers (`pin_folded`).
+its own copy, held as buffers (`pin_folded`). A group-norm block
+never takes the kernel: the kernel folds BatchNorm running statistics,
+so a group-norm configuration with `fused_block` or W8A8 raises
+(`GROUP_NORM_FUSED`).
 """
 
 from __future__ import annotations
@@ -48,8 +52,16 @@ from early_exit_tpu_torch.configs import _dt
 from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.ops.kernels import attention as katt
 from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+from early_exit_tpu_torch.parallel import collectives
 
 FUSED_MAX_T = 512
+# why a group-norm model never runs the block kernel (fused_block, and so
+# quantize="int8", which only the kernel serves)
+GROUP_NORM_FUSED = (
+    "conv_norm='group' cannot run the fused block (fused_block=True or "
+    "quantize='int8'): the block kernel folds the BatchNorm running statistics "
+    "into a scale and shift and cannot compute a GroupNorm; serve a group-norm "
+    "model with --fused_block false")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +80,7 @@ class ConformerConfig:
     attention_impl: str = "xla"
     quantize: str = "none"          # "int8": W8A8 linears (inference)
     remat: bool = False             # training: recompute each block in backward
+    conv_norm: str = "batch"        # the conv module's norm: "batch" | "group"
 
     def __post_init__(self):
         if self.attention_impl not in ("xla", "pallas"):
@@ -76,6 +89,11 @@ class ConformerConfig:
         if self.quantize not in ("none", "int8"):
             raise ValueError(f"quantize must be 'none' or 'int8': "
                              f"{self.quantize!r}")
+        if self.conv_norm not in ("batch", "group"):
+            raise ValueError(f"conv_norm must be 'batch' or 'group': "
+                             f"{self.conv_norm!r}")
+        if self.conv_norm == "group" and (self.fused_block or self.quantize != "none"):
+            raise ValueError(GROUP_NORM_FUSED)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -108,6 +126,16 @@ def _block_generator(seed: Optional[int], rate: float,
 
 
 class FeedForward(nn.Module):
+    """The half-FFN. Under a mesh with tp > 1 (`parallel.shard_params`) it
+    holds its column shard of w1 / b1 and its row shard of w2: its input
+    enters the model group (`copy_to_model`), the partial products of w2
+    are summed over it (`reduce_from_model`), then b2 is added once. The
+    first dropout mask is drawn at the full d_ff width and cut to the
+    shard's columns, so the generator stays where every peer's is and the
+    second mask, on the replicated output, is the peers' too."""
+
+    mesh = None
+
     def __init__(self, d: int, d_ff: int):
         super().__init__()
         self.ln_g, self.ln_b = _weight(d), _weight(d)
@@ -123,11 +151,19 @@ class FeedForward(nn.Module):
                 gen: Optional[torch.Generator] = None):
         y = core.layer_norm(x, self.ln_g, self.ln_b)
         lin = dict(compute_dtype=cfg.dtype, quantize=quant)
-        y = core.linear(y, self.w1, self.b1, **lin)
+        mesh = self.mesh
+        if mesh is None or mesh.tp == 1:
+            y = core.linear(y, self.w1, self.b1, **lin)
+            y = torch.nn.functional.silu(y)
+            y = core.dropout(y, cfg.dropout, gen)
+            y = core.linear(y, self.w2, self.b2, **lin)
+            return core.dropout(y, cfg.dropout, gen)
+        shard = self.w1.tp_shard
+        y = core.linear(collectives.copy_to_model(y, mesh), self.w1, self.b1, **lin)
         y = torch.nn.functional.silu(y)
-        y = core.dropout(y, cfg.dropout, gen)
-        y = core.linear(y, self.w2, self.b2, **lin)
-        return core.dropout(y, cfg.dropout, gen)
+        y = core.dropout(y, cfg.dropout, gen, columns=(shard.offset, shard.full))
+        y = collectives.reduce_from_model(core.linear(y, self.w2, None, **lin), mesh)
+        return core.dropout(y + self.b2.to(y.dtype), cfg.dropout, gen)
 
 
 class SelfAttention(nn.Module):
@@ -165,6 +201,8 @@ class SelfAttention(nn.Module):
 
 
 class ConvModule(nn.Module):
+    mesh = None             # training under a mesh: the global batch's BatchNorm
+
     def __init__(self, d: int, k: int):
         super().__init__()
         self.ln_g, self.ln_b = _weight(d), _weight(d)
@@ -199,9 +237,15 @@ class ConvModule(nn.Module):
                                                             device=y.device))
         y = core.depthwise_conv1d(y, self.dw_w, self.dw_b,
                                   compute_dtype=cfg.dtype)
-        if train:
+        if cfg.conv_norm == "group":
+            # per utterance, the same in eval and in train; the BatchNorm's
+            # running statistics pass through unchanged, as in the JAX package
+            y = core.masked_group_norm(y, self.bn_g, self.bn_b, mask)
+            new_mean, new_var = self.bn_mean, self.bn_var
+        elif train:
             y, new_mean, new_var = core.masked_batch_norm_train(
-                y, self.bn_g, self.bn_b, self.bn_mean, self.bn_var, mask)
+                y, self.bn_g, self.bn_b, self.bn_mean, self.bn_var, mask,
+                mesh=self.mesh)
         else:
             y = core.masked_batch_norm(y, self.bn_g, self.bn_b,
                                        self.bn_mean, self.bn_var)
@@ -287,6 +331,8 @@ class ConformerStack(nn.Module):
         returned as it is."""
         if self._pinned is not None:
             return self._pinned
+        if self.cfg.conv_norm != "batch":
+            raise ValueError(GROUP_NORM_FUSED)
         if not self._slots:         # (dict, name) of every parameter and buffer
             self._slots = [(d, n) for m in self.modules()
                            for d in (m._parameters, m._buffers) for n in d]

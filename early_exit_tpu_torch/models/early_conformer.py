@@ -21,11 +21,12 @@ from torch import nn
 from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models import conformer, subsampling
 from early_exit_tpu_torch.nn import core
+from early_exit_tpu_torch.parallel import collectives
 
 
 def conformer_cfg(cfg: ModelConfig) -> conformer.ConformerConfig:
-    if cfg.conv_norm != "batch":
-        raise NotImplementedError("the port runs conv_norm='batch' only")
+    """The blocks' configuration; a group-norm model with a fused block
+    raises here (`conformer.GROUP_NORM_FUSED`)."""
     return conformer.ConformerConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_feed_forward,
         kernel_size=cfg.depthwise_kernel_size, dropout=cfg.drop_prob,
@@ -33,12 +34,14 @@ def conformer_cfg(cfg: ModelConfig) -> conformer.ConformerConfig:
         residual_dtype=(cfg.residual_dtype or cfg.compute_dtype),
         attn_softmax_dtype=cfg.attn_softmax_dtype,
         fused_block=cfg.fused_block, attention_impl=cfg.attention_impl,
-        quantize=cfg.quantize)
+        quantize=cfg.quantize, conv_norm=cfg.conv_norm)
 
 
 class ConformerTrunk(nn.Module):
     """Conv subsampling, PE, the Conformer stack and the per-exit CTC
     heads: the part the CTC and the AED models share."""
+
+    mesh = None             # set by `parallel.shard_params`
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -101,7 +104,7 @@ class ConformerTrunk(nn.Module):
         """(E, B, T, D) -> (E, B, T, V): float32 log-probs, or the raw
         compute-dtype logits with log_probs=False."""
         return heads_apply(self.heads_w, self.heads_b, hidden, self.cfg.dtype,
-                           log_probs=log_probs)
+                           log_probs=log_probs, mesh=self.mesh, vocab=self.cfg.vocab_size)
 
     # blocks outside the stack whose dropout draws a seed of its own in
     # training (the splitformer's two branch blocks)
@@ -152,12 +155,20 @@ class ConformerTrunk(nn.Module):
 
 
 def heads_apply(w: torch.Tensor, b: torch.Tensor, hidden: torch.Tensor,
-                compute_dtype: torch.dtype, *, log_probs: bool = True) -> torch.Tensor:
+                compute_dtype: torch.dtype, *, log_probs: bool = True,
+                mesh=None, vocab: int = 0) -> torch.Tensor:
     """Per-exit heads w (E, D, V), b (E, V) on (E, B, T, D) -> (E, B, T, V):
     float32 log-probs, or the raw compute-dtype logits with
-    log_probs=False."""
+    log_probs=False. Under a mesh with tp > 1, w and b hold this rank's
+    shard of the `vocab` columns, and the model group's logits are
+    gathered before the softmax."""
+    tp = mesh is not None and mesh.tp > 1
+    if tp:
+        hidden = collectives.copy_to_model(hidden, mesh)
     logits = core.linear(hidden, w[:, None], b[:, None, None],
                          compute_dtype=compute_dtype)
+    if tp:
+        logits = collectives.gather_from_model(logits, mesh, vocab)
     if not log_probs:
         return logits
     return torch.log_softmax(logits.float(), dim=-1)

@@ -25,6 +25,7 @@ from early_exit_tpu_torch.configs import ModelConfig
 from early_exit_tpu_torch.models.early_conformer import ConformerTrunk
 from early_exit_tpu_torch.models.transformer_decoder import DecoderStack
 from early_exit_tpu_torch.nn import core
+from early_exit_tpu_torch.parallel import collectives
 
 
 class FullConformer(ConformerTrunk):
@@ -65,9 +66,15 @@ class FullConformer(ConformerTrunk):
         return core.dropout(x, self.cfg.drop_prob, generator)
 
     def out_logits(self, n_exit: int, h: torch.Tensor) -> torch.Tensor:
-        """Exit n's (1-based) output product: raw compute-dtype logits."""
-        return core.linear(h, self.out_w[n_exit - 1], self.out_b[n_exit - 1],
-                           compute_dtype=self.cfg.dtype)
+        """Exit n's (1-based) output product: raw compute-dtype logits (under
+        a mesh with tp > 1, the model group's V shards gathered)."""
+        mesh = self.mesh
+        if mesh is None or mesh.tp == 1:
+            return core.linear(h, self.out_w[n_exit - 1], self.out_b[n_exit - 1],
+                               compute_dtype=self.cfg.dtype)
+        logits = core.linear(collectives.copy_to_model(h, mesh), self.out_w[n_exit - 1],
+                             self.out_b[n_exit - 1], compute_dtype=self.cfg.dtype)
+        return collectives.gather_from_model(logits, mesh, self.cfg.vocab_size)
 
     def _decode_all(self, trg, hidden, *, emb_gen=None, seeds=None):
         cfg = self.cfg

@@ -39,6 +39,8 @@ N_BLOCKS = 2 + sum(STACK)
 
 
 class EarlyZipformer(nn.Module):
+    mesh = None             # set by `parallel.shard_params`
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         if cfg.n_enc_exits != N_BLOCKS:
@@ -122,7 +124,7 @@ class EarlyZipformer(nn.Module):
         """(1, B, T'', D) -> (1, B, T'', V): float32 log-probs, or the raw
         compute-dtype logits with log_probs=False."""
         return heads_apply(self.heads_w, self.heads_b, hidden, self.cfg.dtype,
-                           log_probs=log_probs)
+                           log_probs=log_probs, mesh=self.mesh, vocab=self.cfg.vocab_size)
 
     def apply(self, feats: torch.Tensor, lengths: torch.Tensor, *,
               log_probs: bool = True):

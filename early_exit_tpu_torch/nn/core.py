@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from early_exit_tpu_torch.parallel import collectives
+
 # finite large negative for masked logits: a fully masked row gives a
 # uniform distribution instead of NaN
 NEG_INF = -1e9
@@ -89,14 +91,24 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], *,
+            columns: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Inverted dropout: keep each value with probability 1 - rate, scaled
     by 1 / (1 - rate), in x's dtype. Identity at rate 0 or without a
-    generator."""
+    generator. columns (offset, full): x holds columns offset.. of a
+    last axis `full` wide, and the mask is drawn at the full width and
+    cut to them, so that the generator moves as the whole tensor's draw
+    would (a tensor-parallel shard)."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if columns is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        offset, full = columns
+        u = torch.rand(x.shape[:-1] + (full,), generator=generator,
+                       device=x.device)[..., offset:offset + x.shape[-1]]
+    mask = u < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device)).to(x.dtype)
 
@@ -215,18 +227,24 @@ def masked_batch_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 def masked_batch_norm_train(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                             mean: torch.Tensor, var: torch.Tensor,
                             mask: Optional[torch.Tensor], *,
-                            momentum: float = 0.1, eps: float = 1e-5):
+                            momentum: float = 0.1, eps: float = 1e-5, mesh=None):
     """BatchNorm in training mode over (batch, time) per channel of
     (B, T, C), counting only the valid frames (mask (B, T) bool).
     Normalises with the batch's biased statistics; the running estimate
     takes the unbiased variance, count / (count - 1), with momentum 0.1.
+    Under a mesh the batch is the global one: the count, the masked sum
+    and then the masked sum of squared deviations are summed over the
+    batch group, their gradients summed back (`all_reduce_batch`).
     Returns (y, new_mean, new_var); the new statistics carry no graph."""
     x32 = x.float()
-    if mask is not None:
-        m = mask.float()[..., None]
-        count = m.sum().clamp_min(1.0)
-        mu = (x32 * m).sum((0, 1)) / count
-        v = ((x32 - mu).square() * m).sum((0, 1)) / count
+    if mask is not None or mesh is not None:
+        m = (torch.ones(x.shape[:2], device=x.device) if mask is None
+             else mask.float())[..., None]
+        total = ((lambda t: t) if mesh is None
+                 else (lambda t: collectives.all_reduce_batch(t, mesh)))
+        count = total(m.sum()).clamp_min(1.0)
+        mu = total((x32 * m).sum((0, 1))) / count
+        v = total(((x32 - mu).square() * m).sum((0, 1))) / count
         unbiased = v * count / (count - 1.0).clamp_min(1.0)
     else:
         n = x32.shape[0] * x32.shape[1]
@@ -238,6 +256,25 @@ def masked_batch_norm_train(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         new_var = (1 - momentum) * var + momentum * unbiased
     y = (x32 - mu) * torch.rsqrt(v + eps) * g.float() + b.float()
     return y, new_mean, new_var
+
+
+def masked_group_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                      mask: Optional[torch.Tensor], *,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm(num_groups=1) of (B, T, C) over (T, C) per utterance, in
+    float32, counting only the valid frames (mask (B, T) bool): count
+    max(valid frames, 1) * C, so that an empty utterance stays finite;
+    two-pass variance; the per-channel affine g, b."""
+    x32 = x.float()
+    if mask is not None:
+        m = mask.float()[..., None]
+        count = m.sum((1, 2), keepdim=True).clamp_min(1.0) * x32.shape[-1]
+        mu = (x32 * m).sum((1, 2), keepdim=True) / count
+        v = ((x32 - mu).square() * m).sum((1, 2), keepdim=True) / count
+    else:
+        mu = x32.mean((1, 2), keepdim=True)
+        v = (x32 - mu).square().mean((1, 2), keepdim=True)
+    return (x32 - mu) * torch.rsqrt(v + eps) * g.float() + b.float()
 
 
 def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ rest, which the tests feed with the uniforms the JAX package draws.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,12 +49,19 @@ def apply_uniforms(feats: torch.Tensor, feat_lengths: torch.Tensor,
 def apply(generator: torch.Generator, feats: torch.Tensor,
           feat_lengths: torch.Tensor, *, n_freq_masks: int = 2,
           freq_mask_width: int = 27, n_time_masks: int = 2,
-          time_mask_frac: float = 0.05) -> torch.Tensor:
-    """Masks (B, T, F) features; same shape and dtype."""
+          time_mask_frac: float = 0.05,
+          rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Masks (B, T, F) features; same shape and dtype. rows (offset,
+    total): feats are rows offset.. of a global batch of `total` rows
+    (a data-parallel shard); the uniforms are drawn for all of them and
+    this shard keeps its own, so every shard masks as the whole batch
+    would."""
     B = feats.shape[0]
+    offset, total = (0, B) if rows is None else rows
 
     def uniform(k):
-        return torch.rand((B, k), generator=generator, device=feats.device)
+        u = torch.rand((total, k), generator=generator, device=feats.device)
+        return u[offset:offset + B]
 
     freq = n_freq_masks > 0 and freq_mask_width > 0
     time = n_time_masks > 0 and time_mask_frac > 0.0

@@ -12,6 +12,10 @@ operations:
     u = (mu / (1 - b1^c)) / (sqrt(nu / (1 - b2^c)) + eps) + wd * p
     p <- p - lr(c - 1) * u
 
+Under tensor parallelism a sharded parameter's moments are its shard's
+(the update is elementwise) and the clip reads the global norm of the
+whole gradient (`global_norm`).
+
 `clip_grad_norm_`'s clip / (n + 1e-6) scaling is not optax's rule, so the
 clip is written out. The step count lives on the host, so the schedule
 and the bias corrections cost no device round trip.
@@ -23,6 +27,8 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
+
+from early_exit_tpu_torch.parallel import collectives
 
 
 def noam_schedule(d_model: int, warmup: int):
@@ -37,10 +43,19 @@ def noam_schedule(d_model: int, warmup: int):
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, float32, on the device."""
+def global_norm(tensors: Sequence[torch.Tensor], *, mesh=None,
+                sharded: Sequence[bool] = ()) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, float32, on the device.
+    Under a mesh with tp > 1, `sharded[i]` says tensor i is this rank's
+    shard of a tensor-parallel leaf: the squares of those are summed over
+    the model group once, those of the replicated leaves added once."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if mesh is None or mesh.tp == 1:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    part = torch.as_tensor(list(sharded), device=sq.device)
+    split = collectives.sum_over_model(sq[part].sum(), mesh)
+    return (split + sq[~part].sum()).sqrt()
 
 
 class NoamAdamW:
@@ -52,8 +67,10 @@ class NoamAdamW:
 
     def __init__(self, params: Sequence[torch.Tensor], d_model: int,
                  warmup: int, *, clip: float = 1.0, adam_eps: float = 1e-9,
-                 weight_decay: float = 5e-4):
+                 weight_decay: float = 5e-4, mesh=None):
         self.params: List[torch.Tensor] = list(params)
+        self.mesh = mesh
+        self.sharded = [hasattr(p, "tp_shard") for p in self.params]
         self.schedule = noam_schedule(d_model, warmup)
         self.clip, self.eps, self.wd = clip, adam_eps, weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -70,7 +87,7 @@ class NoamAdamW:
         Returns the global norm of the unclipped gradients (a device
         scalar, not synchronised)."""
         g = [t.float() for t in grads]
-        norm = global_norm(g)
+        norm = global_norm(g, mesh=self.mesh, sharded=self.sharded)
         # clip: (g / n) * clip where n >= clip, else g unchanged
         factor = torch.where(norm < self.clip, torch.ones_like(norm), norm)
         g = torch._foreach_div(g, factor)

@@ -26,8 +26,25 @@ zoo trains with full attention. --decoder_mode aed trains a
 `full_conformer` on the joint loss aed_ce_weight x decoder cross-entropy
 + aed_ctc_weight x CTC.
 
-Not ported, and raising by name: --conv_norm group, --dp/--tp above 1,
-and --attention_impl pallas in training.
+--conv_norm group trains the masked GroupNorm(1) of the JAX package's
+unfused path (with --fused_block false: the block kernel folds BatchNorm
+statistics, so a group-norm model with --fused_block true raises by
+name). --attention_impl pallas raises in training, as in the JAX
+package.
+
+Data and tensor parallelism: under `torchrun` (WORLD_SIZE > 1) each
+process is one rank,
+
+    torchrun --nproc_per_node 4 -m early_exit_tpu_torch.train \
+        --dp 2 --tp 2 [--device cpu] ...
+
+on the mesh data={dp} x model={tp} (`parallel.make_mesh`; --dp defaults
+to WORLD_SIZE // --tp, and dp x tp must equal WORLD_SIZE). --device cpu
+runs gloo; on CUDA each rank takes cuda:(LOCAL_RANK % device_count) and
+NCCL, and raises without it. The mesh's first rank prints, logs, decodes
+the sample and writes the checkpoints (the gathered whole trees, the
+files of a single-rank run); every rank resumes from them, whatever the
+layout that wrote them. A world of one is the single-process path.
 """
 
 from __future__ import annotations
@@ -37,8 +54,9 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
 
-from early_exit_tpu_torch import runtime
+from early_exit_tpu_torch import parallel, runtime
 from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.pipeline import Pipeline
 from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset, SyntheticDataset
@@ -53,12 +71,34 @@ LOG_EVERY = 50
 DECODE_EVERY = 500
 
 
-def check_ported(args) -> None:
-    """Raises by name for what the port does not train."""
-    if (args.dp or 1) > 1 or args.tp > 1:
-        raise NotImplementedError(
-            "--dp/--tp above 1: data and tensor parallelism are not ported; "
-            "the port trains on one GPU")
+def setup_parallel(args):
+    """(device, mesh): the mesh is None in a world of one (no process
+    group). Under torchrun: the process group (gloo on the CPU, NCCL on
+    CUDA) and the data x model mesh, dp and tp resolved as the JAX
+    package's train.py does."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    tp = max(args.tp, 1)
+    dp = args.dp if args.dp is not None else max(world // tp, 1)
+    if dp * tp != world:
+        raise ValueError(f"data x tensor parallelism over --dp {dp} x --tp {tp} = "
+                         f"{dp * tp} ranks, but WORLD_SIZE is {world}: launch dp x tp "
+                         f"processes with torchrun")
+    device = runtime.resolve_device(args.device)
+    if world == 1:
+        return device, None
+    rank = int(os.environ["RANK"])
+    if device.type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("--device cuda with --dp/--tp needs NCCL, which this "
+                               "PyTorch lacks")
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        dist.init_process_group("nccl", init_method="env://", world_size=world,
+                                rank=rank, device_id=device)
+    else:
+        dist.init_process_group("gloo", init_method="env://", world_size=world, rank=rank)
+    return device, parallel.make_mesh(dp=dp, tp=tp)
 
 
 def build_dataset(args):
@@ -89,36 +129,42 @@ def _resolve_dir(path: str) -> str:
 
 def main(argv=None) -> None:
     args, model_cfg, train_cfg, audio_cfg, tokenizer = get_args(argv)
-    check_ported(args)
-    device = runtime.resolve_device(args.device)
+    device, mesh = setup_parallel(args)
+    first = mesh is None or mesh.is_first
+    say = print if first else (lambda *a, **k: None)
     if device.type == "cuda":
         runtime.exact_float32()
     model = build_model(model_cfg).to(device)
     model.init(torch.Generator(device=device).manual_seed(args.seed))
     if args.load_model_path is not None:
         checkpoint.load_model_file(model, args.load_model_path)
-        print(f"loaded checkpoint: {args.load_model_path}")
+        say(f"loaded checkpoint: {args.load_model_path}")
     elif None not in (args.load_model_dir, args.avg_model_start, args.avg_model_end):
         checkpoint.avg_models(model, args.load_model_dir, args.avg_model_start,
                               args.avg_model_end)
-        print(f"averaged checkpoints {args.avg_model_start}.."
-              f"{args.avg_model_end} from {args.load_model_dir}")
-    print(f"The model has {count_parameters(model):,} trainable parameters")
+        say(f"averaged checkpoints {args.avg_model_start}.."
+            f"{args.avg_model_end} from {args.load_model_dir}")
+    say(f"The model has {count_parameters(model):,} trainable parameters")
+    if mesh is not None:
+        parallel.replicate([*model.parameters(), *model.buffers()], mesh)
+        parallel.shard_params(model, mesh)
+        say(f"mesh: data={mesh.dp} x model={mesh.tp}")
 
     pipe = Pipeline(build_dataset(args), tokenizer, audio_cfg, train_cfg,
                     bpe=args.bpe, shuffle=args.shuffle, seed=args.seed,
-                    workers=args.n_workers, device=device)
+                    workers=args.n_workers, device=device,
+                    shard=None if mesh is None else (mesh.batch_rank, mesh.n_batch))
     warmup = args.warmup
     if warmup == -1:
         warmup = pipe.batches_per_epoch() * args.n_batch_split
-    print("batch_size:", args.batch_size, " num_heads:", args.n_heads,
-          " num_encoder_layers:", args.n_enc_layers_per_exit,
-          " optimizer: NOAM[warmup", warmup, "] vocab_size:",
-          model_cfg.vocab_size, "SOS,EOS,PAD", model_cfg.bos_id,
-          model_cfg.eos_id, model_cfg.pad_id, "device:",
-          torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
+    say("batch_size:", args.batch_size, " num_heads:", args.n_heads,
+        " num_encoder_layers:", args.n_enc_layers_per_exit,
+        " optimizer: NOAM[warmup", warmup, "] vocab_size:",
+        model_cfg.vocab_size, "SOS,EOS,PAD", model_cfg.bos_id,
+        model_cfg.eos_id, model_cfg.pad_id, "device:",
+        torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu")
     trainer = Trainer(model, train_cfg, warmup=warmup)
-    logger = MetricsLogger(args.log_dir)
+    logger = MetricsLogger(args.log_dir) if first else None
     moddir = _resolve_dir(args.save_model_dir)
     os.makedirs(moddir, exist_ok=True)
 
@@ -126,7 +172,7 @@ def main(argv=None) -> None:
     if args.load_model_path is None and args.load_model_dir is None:
         resume, warning = checkpoint.resume_epoch(moddir)
         if warning:
-            print(warning)
+            say(warning)
         if resume is not None:
             checkpoint.load_model_file(model, checkpoint.model_ckpt_path(moddir, resume))
             opt_path = checkpoint.opt_ckpt_path(moddir, resume)
@@ -134,7 +180,21 @@ def main(argv=None) -> None:
                 checkpoint.load_opt_tree(model, trainer.opt,
                                          checkpoint.load_tree(opt_path))
             start_epoch = resume + 1
-            print(f"auto-resume from epoch {resume} (step {trainer.step_count})")
+            say(f"auto-resume from epoch {resume} (step {trainer.step_count})")
+
+    twin = []           # under tp: the whole model, for the sample decode
+
+    def decode_sample(batch):
+        if mesh is None or mesh.tp == 1:
+            if first:
+                sample_decode(model, batch, tokenizer)
+            return
+        tree = checkpoint.model_tree(model)         # a collective: every rank
+        if first:
+            if not twin:
+                twin.append(build_model(model_cfg).requires_grad_(False).to(device))
+            checkpoint.load_model_tree(twin[0], tree)
+            sample_decode(twin[0], batch, tokenizer)
 
     best_loss = float("inf")
     prof, prof_left = None, args.profile_steps
@@ -157,39 +217,46 @@ def main(argv=None) -> None:
                     if device.type == "cuda":
                         torch.cuda.synchronize(device)
                     prof.__exit__(None, None, None)
-                    os.makedirs(args.profile_trace, exist_ok=True)
-                    prof.export_chrome_trace(os.path.join(args.profile_trace,
-                                                          "trace.json"))
+                    if first:
+                        os.makedirs(args.profile_trace, exist_ok=True)
+                        prof.export_chrome_trace(os.path.join(args.profile_trace,
+                                                              "trace.json"))
                     prof = None
-                    print(f"profiler trace written to {args.profile_trace}")
+                    say(f"profiler trace written to {args.profile_trace}")
             loss_sum += metrics["loss"]
             n_batches += 1
             step = trainer.step_count
-            if i % LOG_EVERY == 0:
+            if i % LOG_EVERY == 0 and first:
                 loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
                 lr = trainer.opt.schedule(step - 1)
                 print(f"step {step} loss {loss:.4f} grad_norm {gnorm:.3f} "
                       f"RATE: {lr:.6e}")
                 logger.log(step, {"loss": loss, "lr": lr, "grad_norm": gnorm})
             if i % DECODE_EVERY == 0 and train_cfg.decoder_mode == "ctc":
-                sample_decode(model, batch, tokenizer)
+                decode_sample(batch)
         if n_batches == 0:
             sys.exit("empty epoch - no usable utterances")
         loss_total = float(loss_sum) / n_batches
-        print(f"LOSS_TOTAL-{epoch} := {loss_total:.4f}  ({time.time() - t0:.1f}s, "
-              f"{n_batches} sub-batches)")
-        logger.log(epoch, {"Total loss": loss_total})
+        say(f"LOSS_TOTAL-{epoch} := {loss_total:.4f}  ({time.time() - t0:.1f}s, "
+            f"{n_batches} sub-batches)")
+        if first:
+            logger.log(epoch, {"Total loss": loss_total})
         if loss_total < best_loss:
             best_loss = loss_total
-            print("saving:", checkpoint.model_ckpt_path(moddir, epoch))
+            say("saving:", checkpoint.model_ckpt_path(moddir, epoch))
             checkpoint.save_epoch(moddir, epoch, model, trainer.opt)
-            pruned = checkpoint.prune_old(moddir, args.keep_last_ckpts)
-            if pruned:
-                print(f"pruned {len(pruned)} old checkpoint(s) (--keep_last_ckpts "
-                      f"{args.keep_last_ckpts}): epochs {pruned[0]}..{pruned[-1]}")
+            if first:
+                pruned = checkpoint.prune_old(moddir, args.keep_last_ckpts)
+                if pruned:
+                    print(f"pruned {len(pruned)} old checkpoint(s) (--keep_last_ckpts "
+                          f"{args.keep_last_ckpts}): epochs {pruned[0]}..{pruned[-1]}")
         else:
-            print("WORST: not saving epoch", epoch)
-    logger.close()
+            say("WORST: not saving epoch", epoch)
+    if first:
+        logger.close()
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

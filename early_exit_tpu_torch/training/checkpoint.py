@@ -9,6 +9,11 @@
   {"0": {}, "1": {"0": {"count", "mu", "nu"}, "1": {}, "2": {"count"}}},
   mu and nu in the params layout, the counts and the step int32.
 
+Under data and tensor parallelism the files are the same: the mesh's
+first rank writes the gathered whole trees, and every rank loads the
+whole tree and keeps its shard, so a checkpoint of any layout resumes in
+any other.
+
 Both are flax-msgpack (`checkpoint.save_tree`, atomic), so the JAX
 package's `load_pytree(template, path)` reads what the port writes and
 the port reads what the JAX package writes. Also: checkpoint averaging
@@ -25,10 +30,12 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from early_exit_tpu_torch import interop
 from early_exit_tpu_torch.checkpoint import load_tree, save_tree
 from early_exit_tpu_torch.optim.noam import NoamAdamW
+from early_exit_tpu_torch.parallel import collectives
 
 
 def model_ckpt_path(directory: str, epoch: int) -> str:
@@ -39,12 +46,25 @@ def opt_ckpt_path(directory: str, epoch: int) -> str:
     return os.path.join(directory, f"lr{epoch:03d}-transformer")
 
 
-def opt_tree(model: torch.nn.Module, opt: NoamAdamW) -> dict:
-    """{"opt_state", "step"} in optax's tree."""
-    count = np.asarray(opt.count, np.int32)
+def full_tensors(model: torch.nn.Module, tensors) -> dict:
+    """{parameter: its whole tensor} of per-parameter tensors (the
+    parameters, gradients or moments): a tensor-parallel shard gathered
+    over its model group (every rank of the group must call)."""
     params = list(model.parameters())
-    mu = interop.jax_tree(model, dict(zip(params, opt.mu)))
-    nu = interop.jax_tree(model, dict(zip(params, opt.nu)))
+    mesh = getattr(model, "mesh", None)
+    out = {}
+    for p, t in zip(params, tensors):
+        shard = getattr(p, "tp_shard", None)
+        out[p] = t if shard is None else collectives.gather_shard(t, shard, mesh)
+    return out
+
+
+def opt_tree(model: torch.nn.Module, opt: NoamAdamW) -> dict:
+    """{"opt_state", "step"} in optax's tree, whole (a tensor-parallel
+    shard's moments gathered)."""
+    count = np.asarray(opt.count, np.int32)
+    mu = interop.jax_tree(model, full_tensors(model, opt.mu))
+    nu = interop.jax_tree(model, full_tensors(model, opt.nu))
     return {"opt_state": {"0": {}, "1": {"0": {"count": count, "mu": mu, "nu": nu},
                                          "1": {}, "2": {"count": count}}},
             "step": count}
@@ -52,14 +72,15 @@ def opt_tree(model: torch.nn.Module, opt: NoamAdamW) -> dict:
 
 def load_opt_tree(model: torch.nn.Module, opt: NoamAdamW, tree: dict) -> None:
     """Restores mu, nu and the count from an optax tree (as `opt_tree`
-    writes it or the JAX package saves it)."""
+    writes it or the JAX package saves it); a tensor-parallel shard takes
+    its piece."""
     adam = tree["opt_state"]["1"]["0"]
     params = list(model.parameters())
     for name, dest in (("mu", opt.mu), ("nu", opt.nu)):
         src = interop.from_jax_tree(model, adam[name])
         with torch.no_grad():
             for p, d in zip(params, dest):
-                d.copy_(src[p])
+                d.copy_(interop.local(p, src[p]))
     opt.count = int(tree["step"])
     if int(adam["count"]) != opt.count:
         raise ValueError(f"optimizer count {int(adam['count'])} != step "
@@ -71,13 +92,28 @@ def load_model_tree(model: torch.nn.Module, tree: dict) -> None:
     interop.load_params(model, tree["params"], tree["model_state"])
 
 
+def model_tree(model: torch.nn.Module) -> dict:
+    """{"params", "model_state"} in the JAX layout, whole (a
+    tensor-parallel shard gathered)."""
+    params = list(model.parameters())
+    return {"params": interop.jax_tree(model, full_tensors(model, params)),
+            "model_state": interop.numpy_tree(model.state())}
+
+
 def save_epoch(directory: str, epoch: int, model: torch.nn.Module,
                opt: Optional[NoamAdamW] = None) -> None:
-    params, state = interop.to_jax_params(model)
-    save_tree({"params": params, "model_state": state},
-              model_ckpt_path(directory, epoch))
+    """The epoch's model (and optimizer) files. Under a mesh every rank
+    calls: the shards are gathered, the mesh's first rank writes the whole
+    trees (the files of a single-rank run) and the others wait for it."""
+    mesh = getattr(model, "mesh", None)
+    trees = [(model_tree(model), model_ckpt_path(directory, epoch))]
     if opt is not None:
-        save_tree(opt_tree(model, opt), opt_ckpt_path(directory, epoch))
+        trees.append((opt_tree(model, opt), opt_ckpt_path(directory, epoch)))
+    if mesh is None or mesh.is_first:
+        for tree, path in trees:
+            save_tree(tree, path)
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
 
 
 def load_model_file(model: torch.nn.Module, path: str) -> None:

@@ -15,7 +15,8 @@ from the corpus's transcripts, the while-loop gate, the cascade, an
 histogram).
 
 Also: what the port cannot run raises by name (an early_zipformer of
-other than 19 exits, as in the JAX package; --conv_norm group),
+other than 19 exits, as in the JAX package; --conv_norm group with
+--fused_block true),
 --streaming's usage errors exit with the JAX CLI's messages, and the CLI
 needs a GPU unless told --device cpu.
 """
@@ -140,7 +141,7 @@ def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
 
 @pytest.mark.parametrize("flags,match", [
     (["--model_type", "early_zipformer"], "early_zipformer"),    # 2 exits, not 19
-    (["--conv_norm", "group"], "conv_norm"),
+    (["--conv_norm", "group", "--fused_block", "true"], "conv_norm"),
 ])
 def test_cli_unported_modes_raise_by_name(setup, flags, match):
     argv = ["--decoder_mode", "ctc", "--synthetic_data", "true", "--device", "cpu",

@@ -208,3 +208,27 @@ def test_train_cli_on_a_flac_corpus(tmp_path, capsys):
     with pytest.raises(SystemExit, match="no LibriSpeech split"):
         port_train.main(["--decoder_mode", "ctc", "--data_root", str(tmp_path / "none"),
                          "--device", "cpu", "--save_model_dir", str(tmp_path / "ck2")])
+
+
+def test_audio_samples_from_headers_equal_the_decoded_length(tmp_path):
+    """`audio_samples` (the sharded pipeline's metadata) reads the count
+    that `read_audio` returns from the header, and the dataset's `meta`
+    gives it with the transcript."""
+    r = np.random.RandomState(0)
+    for n in (100, 4096, 4096 * 2 + 17):
+        path = str(tmp_path / f"{n}.flac")
+        flac.write_flac_verbatim(path, (r.randn(n) * 0.3).astype(np.float32))
+        assert librispeech.audio_samples(path) == len(librispeech.read_audio(path)[0]) == n
+    for channels in (1, 2):
+        path = str(tmp_path / f"{channels}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(channels)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(np.zeros(800 * channels, np.int16).tobytes())
+        assert librispeech.audio_samples(path) == len(librispeech.read_audio(path)[0]) == 800
+    root = str(tmp_path / "corpus")
+    write_corpus(root)
+    ds = librispeech.LibriSpeechDataset(root, "test-clean")
+    for i in range(len(ds)):
+        assert ds.meta(i) == (len(ds[i].waveform), ds[i].transcript)

@@ -239,8 +239,8 @@ def test_train_cli_two_epochs_then_resume(tmp_path, capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--model_type", "early_zipformer"], "early_zipformer"),    # 2 exits, not 19
     (["--model_type", "splitformer", "--attention_impl", "pallas"], "cannot train"),
-    (["--tp", "2"], "parallelism"),
-    (["--conv_norm", "group"], "conv_norm"),
+    (["--tp", "2"], "parallelism"),          # dp x tp = 2 ranks in a world of one
+    (["--conv_norm", "group", "--fused_block", "true"], "conv_norm"),
 ])
 def test_train_cli_unported_modes_raise_by_name(tmp_path, flags, match):
     argv = _cli(tmp_path, "--n_epochs", "1")
