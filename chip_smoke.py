@@ -101,7 +101,7 @@ Phases (any failure exits non-zero, with no result line):
      bench_eval's distribution (split test-clean), written with the port's
      FLAC writer and read back equal to the int16 sources: greedy, the
      prefix beam (beam 10), the lexicon beam with an ARPA LM trained from
-     the corpus's transcripts by tools/train_arpa.py, and the gated
+     the corpus's transcripts by `train_arpa`, and the gated
      cascade under the committed calibration (k=2), all with
      --fused_block true. Launch counts around each run: 12 block launches
      a sub-batch and one head launch for greedy, 12 block launches for
@@ -274,6 +274,13 @@ Phases (any failure exits non-zero, with no result line):
      of `python -m early_exit_tpu_torch.train` with the BPE model, the
      loss finite and falling. Its seconds are printed.
 
+ 16. `--conv_norm group` and data + tensor parallelism (`parallel_phase`).
+ 17. the evaluation and profiling tools (`tools_phase`): `utils/profiling`'s
+     trace, annotate and StepTimer around phase 3's flagship forward,
+     `score_wer` over phase 9's greedy log, `streaming_demo` (block and
+     attention kernels), `streaming_gate_report` and `dress_rehearsal` on
+     the card. Its seconds are printed.
+
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
 last line is
@@ -401,6 +408,10 @@ ZOO_STEPS, ZOO_BATCH, ZOO_GATE_ROWS = 40, 16, 32
 GATE_DELTA_PP, GATE_NEAR, GATE_THR_ATOL = 0.5, 1e-3, 1e-5
 ESC_WER_PP, ESC_HIST = 0.5, 0.01
 ZOO_EXPORT_ROWS = 32
+# phase 17a: StepTimer's rtf_x (host clock, synchronized before stop)
+# against CUDA events over the same forwards; the host clock adds the
+# launch of the first kernel and the synchronize's return
+TIMER_STEPS, TIMER_RTOL = 10, 0.05
 
 
 def fail(msg: str) -> None:
@@ -573,6 +584,7 @@ def kernel_products_and_norms():
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     faulthandler.enable()
     if not os.path.isdir(os.path.join(HERE, "early_exit_tpu_torch")):
         fail("early_exit_tpu_torch/ not found beside chip_smoke.py; run it "
@@ -1424,6 +1436,8 @@ def main() -> None:
         ref = reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
                               counts)
         parallel_phase(dev, card, knobs, reset_counts, read_counts, tmp)
+        tools = tools_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
+                            counts)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1445,7 +1459,10 @@ def main() -> None:
              f"exported all-exit programs (phase 14): {gate['export_launches']} over "
              f"{ZOO_EXPORT_ROWS // EXPORT_BUCKET[0]} calls each; the flagship imported "
              f"from its reference state_dict (phase 15): "
-             f"{ref['launches']['conformer_block_bf16']} over one call"),
+             f"{ref['launches']['conformer_block_bf16']} over one call; trace() around "
+             f"two all-exit forwards (phase 17a): {tools['trace_launches']['conformer_block_bf16']}; "
+             f"streaming_demo's full decodes (phase 17c): "
+             f"{tools['demo_launches']['conformer_block_bf16']} over 8 utterances"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
@@ -1459,7 +1476,8 @@ def main() -> None:
                  f"{n} {h} over {nb} sub-batches (E={6 if n == 'splitformer' else 1})"
                  for n, (_, h, nb) in zoo["launches"].items())
              + f"; the imported flagship (phase 15): {ref['launches']['head_argmax']} over "
-             f"one call"),
+             f"one call; trace() around two all-exit forwards (phase 17a): "
+             f"{tools['trace_launches']['head_argmax']}"),
             ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
              f"(D) unfused, attention_impl='pallas', {n_cd} requests"),
@@ -1467,7 +1485,9 @@ def main() -> None:
              "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", streamed["launches"],
              "StreamPool with attention_impl='pallas' over the corpus (10.2), 12 a "
-             "dispatch; timed at (32, 8, 112, 32) on streaming key masks")):
+             "dispatch; timed at (32, 8, 112, 32) on streaming key masks; "
+             f"streaming_demo's windows over 8 utterances (phase 17c): "
+             f"{tools['demo_launches']['attention']}")):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": line, "launches": n, "path": path,
                      "max_abs_err": err, "ms": t["ms"],
@@ -1481,6 +1501,11 @@ def main() -> None:
     rows[0]["zoo_export_launches"] = gate["export_launches"]
     rows[0]["reference_launches"] = ref["launches"]["conformer_block_bf16"]
     rows[3]["reference_launches"] = ref["launches"]["head_argmax"]
+    rows[0]["tools_launches"] = {"trace": tools["trace_launches"]["conformer_block_bf16"],
+                                 "streaming_demo": tools["demo_launches"]["conformer_block_bf16"]}
+    rows[3]["tools_launches"] = {"trace": tools["trace_launches"]["head_argmax"]}
+    rows[5]["tools_launches"] = {"streaming_demo": tools["demo_launches"]["attention"]}
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1752,6 +1777,172 @@ def parallel_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     return {**secs, "total": total}
 
 
+def tools_phase(dev, card, reset_counts, read_counts, corp, tmp, rec, wav, counts) -> dict:
+    """Phase 17: the evaluation and profiling tools on the card. (a)
+    `utils.profiling.trace` and `annotate` around the flagship's all-exit
+    forward (`Recognizer.exit_ids`, block and head kernels) at phase 3's
+    B=128 x 10 s: the Chrome trace holds the span and the block's and the
+    head's kernels; `StepTimer.rtf_x` against the same steps timed with
+    CUDA events, within TIMER_RTOL. (b) `score_wer` over phase 9's greedy
+    CLI log: its per-exit WERs equal the CLI's own lines. (c)
+    `streaming_demo --fused_block true --attention_impl pallas` at phase
+    10's geometry over the 8-utterance cpu8 corpus: 12 block launches an
+    utterance (the full decode), 12 attention launches a window dispatch,
+    the streamed and the full WER within the sanity bound. (d)
+    `streaming_gate_report` over the same 8
+    utterances with one threshold (two child processes of the inference
+    CLI): its ungated ladder equal to the CLI's run in this process with
+    the tool's flags, the gated leg's histogram over every chunk. (e)
+    `dress_rehearsal --fast --legs ctc` on the card: the loss falls and
+    every test utterance is decoded."""
+    import io
+    import torch
+    from early_exit_tpu_torch import dress_rehearsal, inference, score_wer
+    from early_exit_tpu_torch import streaming_demo, streaming_gate_report
+    from early_exit_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    t_phase = time.perf_counter()
+    secs = {}
+    flagship = os.path.join(HERE, "assets", "flagship_ckpt")
+    small = os.path.join(tmp, "cpu8")
+
+    def quiet(fn, *a):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*a)
+        return res, buf.getvalue()
+
+    # -- 17a. trace, annotate and StepTimer around the flagship's forward
+    t0 = time.perf_counter()
+    audio = float(counts.sum()) / 16000.0
+    log_dir = os.path.join(tmp, "profile")
+    with torch.no_grad():
+        rec.exit_ids(wav, counts)
+        torch.cuda.synchronize()
+        reset_counts()
+        with trace(log_dir):
+            for _ in range(2):
+                with annotate("eet_flagship_forward"):
+                    rec.exit_ids(wav, counts)[0].cpu()
+        got = trace_launches = read_counts()
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+        want = {"span": "eet_flagship_forward", "block GEMM": "gemm_wgmma_kernel",
+                "block conv module": "conv_module_kernel",
+                "block attention": "attention_kernel", "head": "head_argmax_kernel"}
+        found = {k: sum(v in n for n in names) for k, v in want.items()}
+        print(f"17a. trace() over 2 annotated all-exit forwards at B={wav.shape[0]} x 10 s "
+              f"on {card}: {len(names)} event names; names holding " + ", ".join(
+                  f"{k} '{v}': {found[k]}" for k, v in want.items())
+              + f"; launches {got}")
+        if not all(found.values()):
+            fail(f"17a: the trace lacks {[k for k, n in found.items() if not n]}")
+        if got["conformer_block_bf16"] != 24 or got["head_argmax"] != 2:
+            fail(f"17a: launches {got}, expected 24 block and 2 head launches")
+        timer = StepTimer(warmup_steps=2)
+        ev_ms = []
+        for i in range(TIMER_STEPS + 2):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            timer.start()
+            e0.record()
+            rec.exit_ids(wav, counts)
+            e1.record()
+            torch.cuda.synchronize()
+            timer.stop(audio_seconds=audio)
+            if i >= 2:
+                ev_ms.append(e0.elapsed_time(e1))
+    rtf_ev = audio * len(ev_ms) / (sum(ev_ms) / 1e3)
+    rel = abs(timer.rtf_x - rtf_ev) / rtf_ev
+    print(f"17a. StepTimer over {TIMER_STEPS} forwards after 2 warm-up ({audio:.1f} s of audio "
+          f"each, synchronized before stop): {timer.steps_per_sec:.2f} steps/s, rtf_x "
+          f"{timer.rtf_x:.1f}; CUDA events over the same steps: {sum(ev_ms) / len(ev_ms):.3f} "
+          f"ms a step, rtf_x {rtf_ev:.1f}; relative difference {rel:.4f} (tolerance "
+          f"{TIMER_RTOL})")
+    if rel > TIMER_RTOL:
+        fail("17a: StepTimer's rtf_x disagrees with the CUDA events'")
+    secs["a"] = time.perf_counter() - t0
+
+    # -- 17b. score_wer over phase 9's greedy CLI log
+    t0 = time.perf_counter()
+    log = corp["greedy_log"]
+    scored, _ = quiet(score_wer.score, log.splitlines())
+    mine = {int(ln.split()[1].rstrip(":")): float(ln.split("WER ")[1].split("%")[0])
+            for ln in scored if ln.startswith("exit ")}
+    cli = {int(ln.split("WER exit ")[1].split(":")[0]): float(ln.split(": ")[1].split("%")[0])
+           for ln in log.splitlines() if " WER exit " in ln}
+    print(f"17b. score_wer over phase 9's greedy CLI log: {scored}; the CLI's own: {cli}")
+    if mine != cli:
+        fail(f"17b: score_wer {mine} != the CLI's {cli}")
+    secs["b"] = time.perf_counter() - t0
+
+    # -- 17c. streaming_demo, block kernel for the full decode, attention
+    # kernel in the windows
+    t0 = time.perf_counter()
+    argv = ["--load_model_path", flagship, "--data_root", small, "--eval_splits",
+            "test-clean", "--left_s", "3.0", "--right_s", "0.5", "--fused_block", "true",
+            "--attention_impl", "pallas", "--device", dev.type]
+    reset_counts()
+    demo, out = quiet(streaming_demo.main, argv)
+    demo_launches = read_counts()
+    wall = time.perf_counter() - t0
+    n_utt = sum("] ref :" in ln for ln in out.splitlines())
+    print(f"17c. streaming_demo {' '.join(argv[4:])} over {demo['utts']} utterances on "
+          f"{card}: {json.dumps(demo)}; launches {demo_launches}; {wall:.1f} s")
+    blocks, att = demo_launches["conformer_block_bf16"], demo_launches["attention"]
+    others = {k: v for k, v in demo_launches.items()
+              if k not in ("conformer_block_bf16", "attention") and v}
+    if (demo["utts"] != 8 or n_utt != 8 or blocks != 12 * 8 or not att or att % 12
+            or others):
+        fail(f"17c: {demo['utts']} utterances, launches {demo_launches}: expected 8, 96 "
+             f"block launches and 12 attention launches a window dispatch")
+    if max(demo["stream_wer_pct"], demo["full_wer_pct"]) > SANE_DENSE_WER:
+        fail(f"17c: WER above {SANE_DENSE_WER}%: {demo}")
+    secs["c"] = time.perf_counter() - t0
+
+    # -- 17d. streaming_gate_report: two legs in child processes; its
+    # ungated ladder against the CLI's in this process with its flags
+    t0 = time.perf_counter()
+    report, _ = quiet(streaming_gate_report.main,
+                      ["--ckpt", flagship, "--data_root", small, "--splits", "test-clean",
+                       "--thresholds", "0.85", "--device", dev.type,
+                       "--out", os.path.join(tmp, "streaming_gated.json")])
+    _, cli_out = quiet(inference.main,
+                       ["--decoder_mode", "ctc", "--streaming", "true",
+                        "--load_model_path", flagship, "--data_root", small,
+                        "--eval_splits", "test-clean", "--batch_size", "32", "--n_workers",
+                        "2", "--compute_dtype", "bfloat16", "--device", dev.type])
+    want = streaming_gate_report.parse(cli_out)
+    got_u, gated = report["ungated_all_exits"], report["gated"]["0.85"]["test-clean"]
+    print(f"17d. streaming_gate_report over 8 utterances, threshold 0.85, on {card}: "
+          f"ungated {got_u}; the CLI in this process {want}; gated {gated}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if got_u != want or got_u["test-clean"]["eval_utts"] != 8:
+        fail("17d: the report's ungated ladder differs from the CLI's")
+    if sum(gated["exit_histogram"].values()) == 0 or "mean_exit" not in gated:
+        fail(f"17d: the gated leg parsed no histogram: {gated}")
+    secs["d"] = time.perf_counter() - t0
+
+    # -- 17e. the dress rehearsal on the card
+    t0 = time.perf_counter()
+    try:
+        summary, _ = quiet(dress_rehearsal.main,
+                           ["--fast", "--legs", "ctc", "--device", dev.type,
+                            "--workdir", os.path.join(tmp, "dress_rehearsal")])
+    except SystemExit as e:
+        fail(f"17e: dress_rehearsal exited: {e}")
+    print(f"17e. dress_rehearsal --fast --legs ctc on {card}: {json.dumps(summary)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (summary["test_utts"] != 6 or not summary["loss_last"] < summary["loss_first"]
+            or not summary["wer_pct"]):
+        fail(f"17e: {summary}")
+    secs["e"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    print(f"phase 17: {total:.1f} s on {card} (" + ", ".join(
+        f"17{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return {"trace_launches": trace_launches, "demo_launches": demo_launches,
+            "secs": secs, "total": total}
+
+
 class _DecodeClock:
     """Host wall time spent inside the CLI's decoders, the device drained
     on entry and on exit so that the forward's device time stays outside
@@ -1843,15 +2034,15 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     under tmp: greedy, the prefix beam, the lexicon beam with an ARPA LM,
     and the gated cascade, with launch counts, WER, held results and
     times. Returns the corpus for phase 10: its root, the dataset, the
-    waveforms and greedy's WER at each exit."""
+    waveforms, greedy's WER at each exit and greedy's log (phase 17b)."""
     import contextlib
-    import importlib.util
     import io
 
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from early_exit_tpu_torch import checkpoint, inference
+    from early_exit_tpu_torch import checkpoint, inference, train_arpa
     from early_exit_tpu_torch.cli import get_args
     from early_exit_tpu_torch.data import text
     from early_exit_tpu_torch.data.librispeech import LibriSpeechDataset
@@ -1868,12 +2059,8 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
     # ---- 9.1 the corpus: N_CORPUS utterances of bench_eval's distribution
     corp = make_corpus(knobs, tmp)
     corpus, waves, audio_s, src = corp["corpus"], corp["waves"], corp["audio_s"], corp["src"]
-    spec = importlib.util.spec_from_file_location(
-        "train_arpa", os.path.join(HERE, "tools", "train_arpa.py"))
-    arpa_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(arpa_mod)
     arpa = os.path.join(tmp, "lm.arpa")
-    arpa_mod.write_arpa(arpa_mod.train(
+    train_arpa.write_arpa(train_arpa.train(
         [t.lower().split() for _, t in src.values()], order=2), arpa)
 
     # a calibration under which the cascade escalates part of the
@@ -1981,18 +2168,16 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
             if mode == "cascade_escalating" and not n_esc:
                 fail("CLI cascade_escalating: no row escalated")
         # the device's busy share, from a second pass under the profiler:
-        # device activity only, tallied from the trace file (the prefix
-        # beam launches ~10^5 kernels, too many for key_averages)
+        # device activity only, summed over the profiler's own events (the
+        # prefix beam's ~10^6 events: ~6 s, where a Chrome trace took ~32 s
+        # to write and read back, with the same sum)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             cli(argv)
             torch.cuda.synchronize()
             wall_p = time.perf_counter() - t1
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            busy = sum(ev.get("dur", 0) for ev in json.load(f)["traceEvents"]
-                       if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+        busy = sum(ev.duration_ns() for ev in prof.profiler.kineto_results.events()
+                   if ev.device_type() == DeviceType.CUDA) / 1e9
         rates[mode] = audio_s / wall
         summary = [ln for ln in out.splitlines()
                    if " WER" in ln or "cascade" in ln or "shallow fusion" in ln]
@@ -2002,7 +2187,8 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
               f"= {audio_s / wall:.1f} audio-s/s (the whole main(): model load, FLAC "
               f"decode, pipeline, forward, decoding, detokenising); decoding {100 * clock.seconds / wall:.1f}% "
               f"of the wall ({clock.seconds:.3f} s); device busy {busy:.3f} s of a "
-              f"profiled pass's {wall_p:.3f} s ({100 * busy / wall_p:.1f}%); both passes "
+              f"profiled pass's {wall_p:.3f} s "
+              f"({100 * busy / wall_p:.1f}%); both passes "
               f"and the profile's tally {time.perf_counter() - t_mode:.1f} s")
 
     # ---- 9.3 held results
@@ -2119,7 +2305,7 @@ def infer_phase(dev, card, knobs, reset_counts, read_counts, tmp) -> dict:
             fail("transcribe_gated escalates no row under the escalating calibration")
     print(f"CLI audio-s/s on {card}: " + ", ".join(f"{m} {r:.1f}" for m, r in rates.items()))
     return dict(root=full, corpus=corpus, waves=waves, audio_s=audio_s,
-                greedy_wer=wers["greedy"])
+                greedy_wer=wers["greedy"], greedy_log=outs["greedy"])
 
 
 def _stream_ids(pool, n_exits: int):

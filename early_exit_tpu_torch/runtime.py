@@ -1,10 +1,14 @@
-"""Device selection and float32 precision settings.
+"""Device selection, float32 precision settings, and the command line
+that runs one of the package's entry points in a child process.
 
 Entry points run on CUDA unless the caller asks for the CPU. Without a
 GPU and without an explicit "cpu" they raise: nothing drifts to the CPU.
 """
 
 from __future__ import annotations
+
+import os
+import sys
 
 import torch
 
@@ -28,3 +32,19 @@ def exact_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def module_command(name: str) -> list:
+    """argv that runs `python -m early_exit_tpu_torch.<name>`."""
+    return [sys.executable, "-m", f"early_exit_tpu_torch.{name}"]
+
+
+def child_env() -> dict:
+    """This process's environment with the package's root first on
+    PYTHONPATH, so that a child process started from any directory
+    imports this checkout."""
+    from early_exit_tpu_torch.checkpoint import REPO
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    return env

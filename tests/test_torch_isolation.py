@@ -67,7 +67,8 @@ def test_no_source_names_the_jax_package():
     pat = re.compile(r"early_exit_tpu\.|^\s*(import|from)\s+(jax|flax|early_exit_tpu)\b",
                      re.M)
     hits = []
-    for path in list(_sources()) + [os.path.join(REPO, "chip_smoke.py")]:
+    for path in list(_sources()) + [os.path.join(REPO, "chip_smoke.py"),
+                                    os.path.join(REPO, "reproduce_flagship.py")]:
         with open(path) as f:
             hits += [f"{path}: {m.group(0)}" for m in pat.finditer(f.read())]
     assert not hits, hits
@@ -116,3 +117,44 @@ def test_the_walk_reaches_the_inference_slice():
             "decoding.lexicon_beam", "decoding.prefix_beam", "decoding.forced_align",
             "decoding.timestamps", "decoding.api", "utils.model_utils"}
     assert {"early_exit_tpu_torch." + n for n in want} <= names
+
+
+TOOLS = ("score_wer", "train_arpa", "plot_metrics", "streaming_demo",
+         "streaming_gate_report", "dress_rehearsal", "reference_scale_run",
+         "promote_flagship", "calibrate_shift_demo", "utils.epoch_timer",
+         "utils.profiling")
+
+
+def test_the_walk_reaches_the_tools():
+    """The import probe walks the evaluation and profiling tools."""
+    import pkgutil
+    import early_exit_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(early_exit_tpu_torch.__path__,
+                                                   "early_exit_tpu_torch.")}
+    assert {"early_exit_tpu_torch." + n for n in TOOLS} <= names
+
+
+def test_the_tools_default_to_cuda(tmp_path, monkeypatch):
+    """streaming_demo raises without a GPU; the tools that start child
+    processes hand them --device cuda unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from early_exit_tpu_torch import dress_rehearsal, streaming_demo, streaming_gate_report
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        streaming_demo.main(["--synthetic_data", "true", "--bpe", "false"])
+    seen = []
+
+    def refuse(cmd, **kw):
+        seen.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "no GPU")
+
+    monkeypatch.setattr(subprocess, "run", refuse)
+    with pytest.raises(SystemExit):
+        dress_rehearsal.main(["--fast", "--workdir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="leg failed"):
+        streaming_gate_report.main(["--ckpt", "c", "--data_root", "d",
+                                    "--out", str(tmp_path / "r.json")])
+    assert len(seen) == 2
+    for cmd in seen:
+        assert cmd[1:3] == ["-m", cmd[2]] and cmd[2].startswith("early_exit_tpu_torch.")
+        assert cmd[cmd.index("--device") + 1] == "cuda"
