@@ -2,7 +2,11 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero, with no result line):
+Phases (any failure exits non-zero, with no result line; they run in
+the order 1-10, 12, 13, 15-17, 18b-d, 11, 14, 18a: the serving programs
+of phases 11, 14c and 18a are captured and compiled by AOTInductor in a
+child process at nice 10 (`export_child`, EXPORT_WORKERS compiles at a
+time) beside phases 8-18d, and served once they all are):
   1. build the CUDA kernels from `early_exit_tpu_torch/csrc` with nvcc
      (sm_90a, one nvcc per source, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, at
@@ -144,9 +148,9 @@ Phases (any failure exits non-zero, with no result line):
  11. the serving export (`serving/export.py`): the flagship exported for
      "cuda" at the bucket 8 x 160000 with the gated, cascade (the
      committed calibration's k and temperatures) and poly (up to 320000
-     samples) programs, each compiled by AOTInductor in one parallel batch
-     with phase 14's three (compile seconds and bundle size printed, the
-     bundle under a temp dir); the graphs hold
+     samples) programs and the features' program, captured and compiled
+     by AOTInductor in `export_child` (capture and compile seconds and
+     bundle size printed, the bundles under a temp dir); the graphs hold
      `eet::conformer_block` once per block run (12 all-exit, 2 in each
      exit's cond of the gated program, 2k and 12-2k in the cascade
      phases); the compiled program's mel features full float32 (and
@@ -246,8 +250,8 @@ Phases (any failure exits non-zero, with no result line):
      buckets), exits 2-6 and the gated WER within ESC_WER_PP points of the
      record, the accept histogram within ESC_HIST, the sweep printed; (c)
      the splitformer's all-exit and gated programs and the zipformer's
-     all-exit program exported at EXPORT_BUCKET (captured before phase 11
-     and compiled by AOTInductor in its batch, `compile_bundles`): 12, 12 (2 in each exit's
+     all-exit program exported at EXPORT_BUCKET (captured and compiled
+     by AOTInductor in `export_child`): 12, 12 (2 in each exit's
      cond) and 19 `eet::conformer_block` nodes, the manifests' n_exits 6
      and 1; phase 3's first ZOO_EXPORT_ROWS requests served from each
      bundle in batches of 8, 12 (19) launches a call, within phase 3's
@@ -280,6 +284,21 @@ Phases (any failure exits non-zero, with no result line):
      `score_wer` over phase 9's greedy log, `streaming_demo` (block and
      attention kernels), `streaming_gate_report` and `dress_rehearsal` on
      the card. Its seconds are printed.
+ 18. the zoo's poly programs and the measuring tools: (a) `poly_phase`:
+     the splitformer's and the zipformer's all-exit poly programs,
+     captured and compiled by AOTInductor in `export_child`, served from
+     their
+     bundles at 3.7, 7.9, 11.3 s and each model's min_samples, 12 (19)
+     `eet::conformer_block` launches a call, within the token contract of
+     the eager `Recognizer.transcribe`; compile seconds, MB and ms a call
+     beside the bucket programs' (14c). (b-d) `measure_phase`: the
+     ablation library (`conformer_block.cu` with -DEET_ABLATE) bit-equal
+     to the bf16 entry and within ABLATE_TIME_RTOL of its time, each
+     ablation within the bf16 rule of the plain version with the same
+     `ablate`, `ablate_fused_block`'s savings; `ablate_head_path`,
+     `bench_int8` and `ablate_decode` in child processes (head ids equal
+     but at bf16 ties, the int8 legs within the token contract, the
+     collapse variants equal); `warm_cache` at WARM_ARGS.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -290,9 +309,11 @@ last line is
 import contextlib
 import faulthandler
 import json
+import math
 import multiprocessing
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -310,6 +331,7 @@ LOAD_STREAMS, LOAD_ROUNDS = (16, 64), 30   # phase 10.6's pools
 # phase 11: the bucket (the JAX export tool's default), the poly program's
 # bound and two lengths no bucket covers (12.3 s and 17.9 s)
 EXPORT_BUCKET, EXPORT_POLY_MAX = (8, 160000), 320000
+EXPORT_WORKERS = 3       # AOTInductor compiles at once beside phases 8-18d
 EXPORT_POLY_LENGTHS = (196800, 286400)
 # the exported program's mel features against eager ones: both full
 # float32 (cuBLAS products in another blocking at most move the last
@@ -412,6 +434,13 @@ ZOO_EXPORT_ROWS = 32
 # against CUDA events over the same forwards; the host clock adds the
 # launch of the first kernel and the synchronize's return
 TIMER_STEPS, TIMER_RTOL = 10, 0.05
+# phase 18a: the zoo's poly programs served at lengths no bucket covers
+# (3.7 s, 7.9 s, 11.3 s; and each model's min_samples), 8 rows a call;
+# 18b: the ablation library's full block against the production entry's
+# time; 18d: warm_cache's buckets (3 frame buckets up to 2 s x 2 batches)
+ZOO_POLY_LENGTHS = (59200, 126400, 180800)
+ABLATE_TIME_RTOL = 0.03
+WARM_ARGS = ("--max_seconds", "2", "--batches", "8,16")
 
 
 def fail(msg: str) -> None:
@@ -590,22 +619,12 @@ def main() -> None:
         fail("early_exit_tpu_torch/ not found beside chip_smoke.py; run it "
              "from a checkout of the repository")
     sys.path.insert(0, HERE)
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
 
-    from early_exit_tpu_torch import checkpoint, runtime
-    from early_exit_tpu_torch.data.synthetic import synth_batch
-    from early_exit_tpu_torch.ops import ctc, frontend
-    from early_exit_tpu_torch.models.early_exit_gate import gated_apply
-    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
-    from early_exit_tpu_torch.nn import core
+    from early_exit_tpu_torch import runtime
     from early_exit_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
-    from early_exit_tpu_torch.ops.kernels import attention as katt
-    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
-    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
-    from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -614,6 +633,72 @@ def main() -> None:
           f"{sys.version.split()[0]}")
     runtime.exact_float32()
     dev = torch.device("cuda")
+
+    # ---- 1. build
+    t0 = time.perf_counter()
+    # the ablation library (phase 18b) builds beside the production ones
+    _build.build_all((*KERNEL_SOURCES, "conformer_block_ablate"))
+    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    for name in (*KERNEL_SOURCES, "conformer_block_ablate"):
+        with open(_build.lib_path(name) + ".log") as f:
+            regs = [ln.split(":", 1)[1].strip() for ln in f
+                    if "Used" in ln and "registers" in ln]
+        print(f"ptxas {name}: {regs}")
+
+    # the serving programs of phases 11, 14c and 18a, captured and compiled
+    # by a child process at a lower priority beside the other phases
+    # (`export_child`)
+    work_dir = tempfile.mkdtemp(prefix="eet_export_")
+    child_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        run_phases(t_start, dev, card, kind, child_pool, work_dir)
+    finally:
+        for proc in list(getattr(child_pool, "_processes", {}).values()):
+            if proc.is_alive():
+                stop_descendants(proc.pid)   # its compile processes, if any
+                proc.terminate()
+        child_pool.shutdown(wait=False, cancel_futures=True)
+        shutil.rmtree(work_dir, ignore_errors=True)
+
+
+def stop_descendants(pid: int) -> None:
+    """SIGTERM every live process below pid (parents read from /proc)."""
+    below = {}
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        below.setdefault(ppid, []).append(int(d))
+    stack, found = [pid], []
+    while stack:
+        kids = below.get(stack.pop(), [])
+        found += kids
+        stack += kids
+    for p in found:
+        try:
+            os.kill(p, signal.SIGTERM)
+        except OSError:
+            pass
+
+
+def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
+    """Phases 1 (after the build) to 18, the kernels line and the last
+    line."""
+    import numpy as np
+    import torch
+
+    from early_exit_tpu_torch import checkpoint, runtime
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.ops import ctc, frontend
+    from early_exit_tpu_torch.models.early_exit_gate import gated_apply
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.nn import core
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    from early_exit_tpu_torch.serving.recognizer import Recognizer, wer_pct
 
     def reset_counts():
         kcb.conformer_block.launches = 0
@@ -642,16 +727,6 @@ def main() -> None:
         if got != full:
             fail(f"{what}: launches {got}, expected {full}")
         return got
-
-    # ---- 1. build
-    t0 = time.perf_counter()
-    _build.build_all(KERNEL_SOURCES)
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
-    for name in KERNEL_SOURCES:
-        with open(_build.lib_path(name) + ".log") as f:
-            regs = [ln.split(":", 1)[1].strip() for ln in f
-                    if "Used" in ln and "registers" in ln]
-        print(f"ptxas {name}: {regs}")
 
     # ---- flagship, both paths, and the in-distribution requests
     rec_k = Recognizer.from_flagship("cuda", fused=True)
@@ -1409,12 +1484,18 @@ def main() -> None:
     got_d = allexit_path("D", rec_a, rec_u, n_cd, attention=len(folded))
     del rec_a, rec_q
 
+    # ---- the serving programs of phases 11, 14c and 18a: captured and
+    # compiled in a child process beside phases 8-18d, once the kernels'
+    # times above are taken; those three phases run last
+    export_job = child_pool.submit(export_child, work_dir, EXPORT_WORKERS)
+
     # ---- 8. training on the card
     train_phase(dev, card, knobs, reset_counts, expect_counts)
 
     # ---- 9. the inference CLI on the card; 10. streaming, over its corpus;
-    # 11. the serving export, served from the bundle alone; 12. the AED
-    # mode, served over phase 9's corpus
+    # 12. the AED mode and 13. the zoo, over it; 15-17; 18b-d; then 11. the
+    # serving export, 14. calibration and the zoo's bundles, 18a. the zoo's
+    # poly programs, served from the bundles alone
     tmp = tempfile.mkdtemp(prefix="eet_infer_")
     try:
         t9 = time.perf_counter()
@@ -1423,21 +1504,29 @@ def main() -> None:
         t10 = time.perf_counter()
         streamed = streaming_phase(dev, card, reset_counts, read_counts, corp)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s")
-        t11 = time.perf_counter()
-        zoo_export = capture_zoo_bundles(dev, card)
-        exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
-                                out_k, ladder, zoo_export["bundles"])
-        print(f"phase 11: {time.perf_counter() - t11:.1f} s")
         aed = aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp)
         zoo = zoo_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp, model,
                         wav, counts)
-        gate = gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts, refs,
-                          zoo_export)
         ref = reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
                               counts)
         parallel_phase(dev, card, knobs, reset_counts, read_counts, tmp)
         tools = tools_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
                             counts)
+        with torch.no_grad():
+            x18, _, _, len18 = embed(wav, counts)
+        meas = measure_phase(dev, card, reset_counts, read_counts, folded, x18, len18, kw)
+        print(f"phase 18b-d: {sum(meas['secs'].values()):.1f} s on {card} (" + ", ".join(
+            f"18{k} {v:.1f} s" for k, v in meas["secs"].items()) + ")")
+        t11 = time.perf_counter()
+        exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
+                                out_k, ladder, export_job, work_dir)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+        zoo_export = {"models": zoo_models(dev), "dir": work_dir, "aoti": exported["aoti"],
+                      "capture_s": exported["capture_s"]}
+        gate = gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts, refs,
+                          zoo_export)
+        poly = poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts)
+        print(f"phase 18a: {poly['secs']:.1f} s on {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1462,14 +1551,20 @@ def main() -> None:
              f"{ref['launches']['conformer_block_bf16']} over one call; trace() around "
              f"two all-exit forwards (phase 17a): {tools['trace_launches']['conformer_block_bf16']}; "
              f"streaming_demo's full decodes (phase 17c): "
-             f"{tools['demo_launches']['conformer_block_bf16']} over 8 utterances"),
+             f"{tools['demo_launches']['conformer_block_bf16']} over 8 utterances; the zoo's "
+             f"poly programs (phase 18a): {poly['launches']}; the measuring tools "
+             f"(phase 18c): {meas['child_launches']['ablate_head_path']['conformer_block_bf16']} "
+             f"in ablate_head_path, {meas['child_launches']['bench_int8']['conformer_block_bf16']} "
+             f"in bench_int8's bf16 fused legs; the ablation library's entry (18b): "
+             f"{meas['ablate_launches']}"),
             ("conformer_block_f32", f32, f32_err, blk_src,
              blk_line + " (compute_dtype=float32)", got_c["conformer_block_f32"],
              f"(C) all-exit float32, {n_cd} requests"),
             ("conformer_block_w8a8", w8, w8_err, blk_src,
              blk_line + " (quantize='int8', body :225)", gated_launches["w8a8"][1],
              f"(B) the W8A8 cascade with half the rows escalated; "
-             f"{gated_launches['w8a8'][0]} with none"),
+             f"{gated_launches['w8a8'][0]} with none; bench_int8's int8 fused legs "
+             f"(phase 18c): {meas['child_launches']['bench_int8']['conformer_block_w8a8']}"),
             ("head_argmax", head, head_err, "early_exit_tpu_torch/csrc/head_argmax.cu",
              "early_exit_tpu/ops/pallas/head_argmax.py:53", launches["head_argmax"],
              "all-exit path; the zoo's inference CLIs (phase 13): " + ", ".join(
@@ -1477,7 +1572,8 @@ def main() -> None:
                  for n, (_, h, nb) in zoo["launches"].items())
              + f"; the imported flagship (phase 15): {ref['launches']['head_argmax']} over "
              f"one call; trace() around two all-exit forwards (phase 17a): "
-             f"{tools['trace_launches']['head_argmax']}"),
+             f"{tools['trace_launches']['head_argmax']}; ablate_head_path's kernel_all "
+             f"(phase 18c): {meas['child_launches']['ablate_head_path']['head_argmax']}"),
             ("attention", att, att_err, "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51", got_d["attention"],
              f"(D) unfused, attention_impl='pallas', {n_cd} requests"),
@@ -1505,6 +1601,14 @@ def main() -> None:
                                  "streaming_demo": tools["demo_launches"]["conformer_block_bf16"]}
     rows[3]["tools_launches"] = {"trace": tools["trace_launches"]["head_argmax"]}
     rows[5]["tools_launches"] = {"streaming_demo": tools["demo_launches"]["attention"]}
+    child = meas["child_launches"]
+    rows[0]["poly_launches"] = poly["launches"]
+    rows[0]["ablate_launches"] = meas["ablate_launches"]
+    rows[0]["measure_tool_launches"] = {
+        t: child[t]["conformer_block_bf16"] for t in ("ablate_head_path", "bench_int8")}
+    rows[2]["measure_tool_launches"] = {"bench_int8": child["bench_int8"]["conformer_block_w8a8"]}
+    rows[3]["measure_tool_launches"] = {
+        "ablate_head_path": child["ablate_head_path"]["head_argmax"]}
     print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2726,16 +2830,14 @@ def streaming_phase(dev, card, reset_counts, read_counts, corp) -> dict:
 
 
 def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
-                 ladder, zoo_bundles) -> dict:
-    """Phase 11: the serving export (`serving/export.py`). The flagship
-    (rec, bf16, fused block) is exported for "cuda" at the bucket 8 x
-    160000 with the gated, cascade and poly programs and compiled by
-    AOTInductor, in one batch with the programs of zoo_bundles (phase
-    14's, captured by `capture_zoo_bundles`), the bundle written under a
-    temp dir; then served from the bundle alone (`ExportedRecognizer`) on
-    phase 3's 128 requests in 16 batches of 8 and held against the eager
-    paths. Returns the export path's launch counts and times for the
-    kernels line."""
+                 ladder, export_job, work_dir) -> dict:
+    """Phase 11 (run after phase 18d): once `export_child` (export_job)
+    has captured and compiled the programs into work_dir, the flagship's
+    (rec, bf16, fused block) served from the bundle alone
+    (`ExportedRecognizer`) on phase 3's 128 requests in 16 batches of 8
+    and held against the eager paths. Returns the export path's launch
+    counts and times for the kernels line, and the zoo's capture and
+    compile seconds and package MB for phases 14c and 18a."""
     import numpy as np
     import torch
     from early_exit_tpu_torch import runtime
@@ -2765,39 +2867,27 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
             fail(f"{what}: launches {got}, expected {full}")
         return got
 
-    tmp = tempfile.mkdtemp(prefix="eet_export_")
-    try:
-        # ---- 11.1 export and compile; the features' program (11.3) compiles
-        # in a process of its own meanwhile
-        class Mel(torch.nn.Module):
-            def forward(self, w):
-                return frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
+    class Mel(torch.nn.Module):
+        def forward(self, w):
+            return frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
 
-        mel_ep_path = os.path.join(tmp, "mel.ep.pt2")
-        mel_path = os.path.join(tmp, "mel.pt2")
-        torch.export.save(ex._capture(Mel(), (wav[:Bk],)), mel_ep_path)
-        mel_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-        mel_job = mel_pool.submit(ex._compile_file, mel_ep_path, mel_path, 1)
-        t0 = time.perf_counter()
-        bundle = ex.export_recognizer(
-            model, acfg, [EXPORT_BUCKET], platforms=("cuda",),
-            gate_score=gate["score"], symbolic_max_samples=EXPORT_POLY_MAX,
-            gated=True, cascade_k=k, gate_temperatures=gate["temperatures"],
-            compile_aoti=False)
-        ex.compile_bundles({"flagship": bundle, **zoo_bundles})
-        path = os.path.join(tmp, "flagship.eetx")
-        ex.save_bundle(path, bundle)
-        export_s = time.perf_counter() - t0
-        mel_s = mel_job.result()
-        mel_pool.shutdown()
+    # ---- 11.1 the programs, captured and compiled beside phases 8-18d
+    t0 = time.perf_counter()
+    built = export_job.result()
+    secs = built["aoti"]
+    print(f"export on {card}: {sum(map(len, secs.values()))} programs captured ("
+          + ", ".join(f"{n} {v:.1f} s" for n, v in built["capture_s"].items()) + ") and "
+          f"compiled by AOTInductor, {EXPORT_WORKERS} at a time, in a child process "
+          f"beside phases 8-18d; phase 11 waited {time.perf_counter() - t0:.1f} s for them")
+    path = os.path.join(work_dir, "flagship.eetx")
+    mel_path = os.path.join(work_dir, "mel.pt2")
+    try:
+        bundle = ex.load_bundle(path)
         man = bundle.manifest
-        n_zoo = sum(len(b.packages) for b in zoo_bundles.values())
-        print(f"export on {card}: {len(bundle.packages)} programs captured and "
-              f"compiled in {export_s:.1f} s, in one batch with phase 14's {n_zoo}; "
-              f"bundle {os.path.getsize(path) / 1e6:.1f} MB (ops called: {man['ops']}); "
-              f"the features' program compiled in {mel_s:.1f} s beside it")
-        for key, secs in man["aoti_compile_s"].items():
-            print(f"  {key}: AOTInductor compile {secs:.1f} s, package "
+        print(f"  the flagship's bundle {os.path.getsize(path) / 1e6:.1f} MB (ops called: "
+              f"{man['ops']}); the features' program compiled in {secs['mel'][''][0]:.1f} s")
+        for key, sec in man["aoti_compile_s"].items():
+            print(f"  {key}: AOTInductor compile {sec:.1f} s, package "
                   f"{len(bundle.packages[key]) / 1e6:.1f} MB, exported program "
                   f"{len(bundle.programs['cuda'][key]) / 1e6:.1f} MB")
         # ---- 11.2 the graphs hold the block op, once per block run
@@ -2974,9 +3064,12 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
               f"{ {key: round(100 * v, 1) for key, v in busy.items()} } %")
         rec_x.close()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        for stale in (path, mel_path):
+            if os.path.exists(stale):
+                os.remove(stale)
     return {"allexit_launches": allexit["conformer_block_bf16"],
-            "calls": len(batches), "ms": t_x, "eager_ms": t_e}
+            "calls": len(batches), "ms": t_x, "eager_ms": t_e, "aoti": secs,
+            "capture_s": built["capture_s"]}
 
 
 @contextlib.contextmanager
@@ -4289,19 +4382,15 @@ def c6_readings(f0, x, lens, y_k, y_p, kw) -> None:
                  f"product")
 
 
-def capture_zoo_bundles(dev, card) -> dict:
-    """Phase 14c's programs, captured before phase 11 so that they compile
-    in its batch: the splitformer's all-exit and gated programs and the
-    zipformer's all-exit program at EXPORT_BUCKET, the models of the
-    flagship's trained blocks (`interop.flagship_zoo_tree`) in the bf16
-    inference profile. Returns {"models", "bundles"} (uncompiled)."""
+def zoo_models(dev) -> dict:
+    """The splitformer and the zipformer of the flagship's trained blocks
+    (`interop.flagship_zoo_tree`) in the bf16 inference profile, fused, on
+    dev."""
     import dataclasses
 
     from early_exit_tpu_torch import interop
-    from early_exit_tpu_torch.configs import AudioConfig, inference_profile
-    from early_exit_tpu_torch.serving import export as ex
+    from early_exit_tpu_torch.configs import inference_profile
 
-    t0 = time.perf_counter()
     prof = inference_profile(fused_block=True)
     models = {}
     for name, over in (("splitformer", {}),
@@ -4309,13 +4398,98 @@ def capture_zoo_bundles(dev, card) -> dict:
         params, state = interop.flagship_zoo_tree(name)
         models[name] = interop.from_jax_params(
             params, state, dataclasses.replace(prof, model_type=name, **over)).to(dev).eval()
-    acfg = AudioConfig(mel_method="dft")
-    bundles = {name: ex.export_recognizer(m, acfg, [EXPORT_BUCKET], platforms=("cuda",),
-                                          gated=name == "splitformer", compile_aoti=False)
-               for name, m in models.items()}
-    print(f"14c. the zoo's three programs captured in {time.perf_counter() - t0:.1f} s on "
-          f"{card}, to compile in phase 11's batch")
-    return {"models": models, "bundles": bundles}
+    return models
+
+
+def export_child(out_dir: str, workers: int) -> dict:
+    """Every serving program of phases 11, 14c and 18a, captured and
+    compiled by AOTInductor in a spawned child process at nice 10 (which
+    its compile processes inherit) while the main process runs phases 8
+    to 18d: the flagship's features' program and its programs at
+    EXPORT_BUCKET (all-exit, gated, the committed calibration's cascade)
+    and over symbolic (b, s) up to EXPORT_POLY_MAX samples (all-exit,
+    gated), then from `zoo_models` the splitformer's all-exit and gated
+    programs and the zipformer's all-exit program at EXPORT_BUCKET and the
+    poly program of each (the splitformer's gated poly program does not
+    compile for CUDA: ROADMAP Queue C, C8). Each program goes to a pool
+    of `workers` compile processes (`export._compile_file`, one compile
+    thread) as soon as it is captured; an AOTInductor compile costs about
+    two core-minutes whatever the graph, and more of them at once slow
+    the main process's phases more than they gain. Writes
+    out_dir/<stem>.eetx (stems "flagship", "<zoo name>" and "<zoo
+    name>.poly") and out_dir/mel.pt2; returns {"capture_s": {stem:
+    seconds}, "aoti": {stem: {key: (compile seconds, package MB)}}}, the
+    features' program as {"mel": {"": ...}}."""
+    os.nice(10)
+    sys.path.insert(0, HERE)
+    import torch
+    from early_exit_tpu_torch import runtime
+    from early_exit_tpu_torch.configs import AudioConfig
+    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.serving import export as ex
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+
+    runtime.exact_float32()
+    dev = torch.device("cuda")
+    work = tempfile.mkdtemp(prefix="eet_aoti_", dir=out_dir)
+    pool = ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
+    capture_s, bundles, jobs = {}, {}, {}
+
+    def submit(stem, programs):
+        for key, blob in programs.items():
+            stub = os.path.join(work, f"{stem}:{key}".replace("/", "_"))
+            with open(stub + ".ep.pt2", "wb") as f:
+                f.write(blob)
+            jobs[stem, key] = (stub + ".pt2", pool.submit(
+                ex._compile_file, stub + ".ep.pt2", stub + ".pt2", 1))
+
+    try:
+        t0 = time.perf_counter()
+        rec = Recognizer.from_flagship("cuda", fused=True)
+        acfg, gate = rec.acfg, rec.gate_settings()
+
+        class Mel(torch.nn.Module):
+            def forward(self, w):
+                return frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
+
+        submit("mel", {"": ex._saved(ex._capture(Mel(), (torch.zeros(EXPORT_BUCKET,
+                                                                     device=dev),)))})
+        bundles["flagship"] = ex.export_recognizer(
+            rec.model, acfg, [EXPORT_BUCKET], platforms=("cuda",),
+            gate_score=gate["score"], symbolic_max_samples=EXPORT_POLY_MAX, gated=True,
+            cascade_k=int(rec.calib.get("cascade_k") or 2),
+            gate_temperatures=gate["temperatures"], compile_aoti=False)
+        submit("flagship", bundles["flagship"].programs["cuda"])
+        capture_s["flagship"] = time.perf_counter() - t0
+        del rec
+        zoo_acfg = AudioConfig(mel_method="dft")
+        for name, m in zoo_models(dev).items():
+            for stem, shapes, kw in (
+                    (name, [EXPORT_BUCKET], dict(gated=name == "splitformer")),
+                    (f"{name}.poly", [], dict(symbolic_max_samples=EXPORT_POLY_MAX))):
+                t0 = time.perf_counter()
+                bundles[stem] = ex.export_recognizer(m, zoo_acfg, shapes, platforms=("cuda",),
+                                                     compile_aoti=False, **kw)
+                submit(stem, bundles[stem].programs["cuda"])
+                capture_s[stem] = time.perf_counter() - t0
+        aoti = {}
+        for (stem, key), (path, job) in jobs.items():
+            secs = job.result()
+            with open(path, "rb") as f:
+                blob = f.read()
+            aoti.setdefault(stem, {})[key] = (secs, len(blob) / 1e6)
+            if stem == "mel":
+                with open(os.path.join(out_dir, "mel.pt2"), "wb") as f:
+                    f.write(blob)
+            else:
+                bundles[stem].packages[key] = blob
+                bundles[stem].manifest["aoti_compile_s"][key] = secs
+        for stem, b in bundles.items():
+            ex.save_bundle(os.path.join(out_dir, f"{stem}.eetx"), b)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        shutil.rmtree(work, ignore_errors=True)
+    return {"capture_s": capture_s, "aoti": aoti}
 
 
 def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
@@ -4332,9 +4506,9 @@ def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
     on the CPU: per-exit WERs, temperatures, mean exit and gated WER equal,
     thresholds within GATE_THR_ATOL. (b) `escalation_report` at the
     settings of `reports/escalation_v3_seed1.json` held to that record.
-    (c) the bundles of zoo_export (`capture_zoo_bundles`: the
+    (c) the bundles in zoo_export["dir"] (`export_child`: the
     splitformer's all-exit and gated programs and the zipformer's all-exit
-    program at EXPORT_BUCKET, compiled in phase 11's batch); phase 3's
+    program at EXPORT_BUCKET, compiled beside phases 8-18d); phase 3's
     first ZOO_EXPORT_ROWS requests served from each bundle in batches of 8
     against the eager `Recognizer` (block and head kernels) and
     `gated_apply`. Returns the launch counts for the kernels line."""
@@ -4549,21 +4723,20 @@ def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
     if not same_utts or ladder_gap > ESC_WER_PP or hist_gap > ESC_HIST or gated_gap > ESC_WER_PP:
         fail("escalation_report on the card departs from reports/escalation_v3_seed1.json")
 
-    # -- 14c. the zoo's bundles (compiled in phase 11's batch), served
+    # -- 14c. the zoo's bundles (compiled beside phases 8-18d), served
     acfg = AudioConfig(mel_method="dft")
     tok = load_decoder(checkpoint.bound_tokenizer(checkpoint.load_calib()))
-    models, bundles = zoo_export["models"], zoo_export["bundles"]
+    models = zoo_export["models"]
     Bk, Sk = EXPORT_BUCKET
     bkey = f"{Bk}x{Sk}"
-    paths = {}
+    paths = {name: os.path.join(zoo_export["dir"], f"{name}.eetx") for name in models}
+    bundles = {name: ex.load_bundle(path) for name, path in paths.items()}
     for name, bundle in bundles.items():
-        paths[name] = os.path.join(tmp, f"{name}.eetx")
-        ex.save_bundle(paths[name], bundle)
         man = bundle.manifest
         print(f"14c. {name} exported for cuda at {bkey}: bundle "
               f"{os.path.getsize(paths[name]) / 1e6:.1f} MB, n_exits {man['n_exits']}, "
               f"shapes {man['shapes']}; " + "; ".join(
-                  f"{key}: AOTInductor {secs:.1f} s (in phase 11's batch), package "
+                  f"{key}: AOTInductor {secs:.1f} s (beside phases 8-18d), package "
                   f"{len(bundle.packages[key]) / 1e6:.1f} MB" for key, secs in
                   man["aoti_compile_s"].items()))
     nodes = {f"{name}/{key}": c.get("eet::conformer_block", 0)
@@ -4577,7 +4750,7 @@ def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
     n_exits = {name: b.manifest["n_exits"] for name, b in bundles.items()}
     if n_exits != {"splitformer": 6, "early_zipformer": 1}:
         fail(f"the zoo bundles' manifests say n_exits {n_exits}")
-    zoo_export["bundles"] = {}
+    del bundles
 
     R = ZOO_EXPORT_ROWS
     w, c = wav[:R].contiguous(), counts[:R].to(torch.int32).contiguous()
@@ -4645,6 +4818,7 @@ def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
             t_x = cuda_ms(lambda: run(w8, c8), 20, 3)
             t_n = cuda_ms(lambda: rec_x(w_np[:Bk], c_np[:Bk]), 20, 3)
             t_e = cuda_ms(lambda: rec_e.transcribe(w8, c8), 20, 3)
+        zoo_export.setdefault("bucket_ms", {})[name] = t_x
         print(f"14c. {name} times on {card} ({Bk} x {Sk / acfg.sample_rate:.0f} s, CUDA "
               f"events): the exported all-exit program {t_x:.3f} ms a call = "
               f"{audio_s / t_x * 1e3:.1f} audio-s/s ({t_n:.3f} ms with numpy in and out); "
@@ -4837,6 +5011,216 @@ def reference_phase(dev, card, reset_counts, read_counts, corp, tmp, rec_k, wav,
         fail("the training CLI with the nmt_nfkc tokenizer did not take 5 falling steps")
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s on {card}")
     return {"launches": launches}
+
+
+def poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts) -> dict:
+    """Phase 18a (run last): the zoo's shape-polymorphic programs
+    (captured and compiled by `export_child` beside phases 8-18d), served
+    from their bundles alone at lengths no bucket covers
+    (ZOO_POLY_LENGTHS and each model's min_samples, 8 of phase 3's
+    requests cut or zero-padded to each), through `eet::conformer_block`
+    (12 launches a call for the splitformer, 19 for the zipformer). Their
+    tokens are held to the eager `Recognizer.transcribe` of the same model
+    under the token contract. (The splitformer's gated poly program does
+    not compile for CUDA: Queue C, C8.) Prints compile seconds, package MB
+    and ms a call beside the bucket programs' (phase 14c's)."""
+    import torch
+    from early_exit_tpu_torch import checkpoint
+    from early_exit_tpu_torch.configs import AudioConfig
+    from early_exit_tpu_torch.serving import export as ex
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_decoder
+
+    t_phase = time.perf_counter()
+    capture_s, aoti = zoo_export["capture_s"], zoo_export["aoti"]
+    print("18a. the zoo's poly programs captured beside phases 8-18d (" + ", ".join(
+        f"{n} {capture_s[n + '.poly']:.1f} s" for n in zoo_export["models"]) + ") and "
+        "compiled beside them (" + ", ".join(
+            f"{n} {aoti[n + '.poly']['poly'][0]:.1f} s" for n in zoo_export["models"]) + ")")
+    acfg = AudioConfig(mel_method="dft")
+    tok = load_decoder(checkpoint.bound_tokenizer(checkpoint.load_calib()))
+    Bk, Sk = EXPORT_BUCKET
+    launches = {}
+    for name, m in zoo_export["models"].items():
+        L = 12 if name == "splitformer" else 19
+        path = os.path.join(zoo_export["dir"], f"{name}.poly.eetx")
+        bundle = ex.load_bundle(path)
+        man = bundle.manifest
+        s_min = man["shapes"]["poly"]["min_samples"]
+        bucket = aoti[name]
+        print(f"18a. {name} poly bundle {os.path.getsize(path) / 1e6:.1f} MB, min_samples "
+              f"{s_min}, max_samples {man['shapes']['poly']['max_samples']}; " + "; ".join(
+                  f"{k}: AOTInductor {secs:.1f} s, package {len(bundle.packages[k]) / 1e6:.1f} "
+                  f"MB" for k, secs in man["aoti_compile_s"].items()) + "; the bucket "
+              f"programs: " + "; ".join(f"{k}: {secs:.1f} s, {mb:.1f} MB"
+                                        for k, (secs, mb) in bucket.items()))
+        nodes = {k: c.get("eet::conformer_block", 0)
+                 for k, c in man["op_nodes"]["cuda"].items()}
+        if set(nodes.values()) != {L}:
+            fail(f"18a: {name}'s poly graphs hold {nodes} block op nodes, expected {L}")
+        rec_x = ex.ExportedRecognizer(path)
+        rec_e = Recognizer(m, tok, acfg=acfg, device=dev)
+        n_launch, per_exit = 0, None
+        for S in (*ZOO_POLY_LENGTHS, s_min):
+            w = torch.zeros(Bk, S, device=dev)
+            w[:, :min(S, wav.shape[1])] = wav[:Bk, :S]
+            c = counts[:Bk].clamp(max=S).to(torch.int32)
+            w_np, c_np = w.cpu().numpy(), c.cpu().numpy()
+            reset_counts()
+            t, n, _ = rec_x(w_np, c_np)
+            got = read_counts()
+            want = {k: (L if k == "conformer_block_bf16" else 0) for k in got}
+            if got != want:
+                fail(f"18a: {name} poly at S={S}: launches {got}, expected {want}")
+            n_launch += L
+            eager = rec_e.transcribe(w, c)
+            dis = disagreement(torch.from_numpy(t), torch.from_numpy(n), eager.tokens,
+                               eager.n_tokens)
+            per_exit = dis if per_exit is None else [
+                (a + e, b + u) for (a, b), (e, u) in zip(per_exit, dis)]
+        pooled = sum(e for e, _ in per_exit) / max(1, sum(u for _, u in per_exit))
+        print(f"18a. {name} poly program at S = {(*ZOO_POLY_LENGTHS, s_min)} ({Bk} rows "
+              f"each) vs Recognizer.transcribe: token disagreement per exit "
+              f"{[f'{e}/{u}' for e, u in per_exit]}, pooled {100 * pooled:.3f}%")
+        if pooled > TOKEN_DISAGREE:
+            fail(f"18a: {name}'s poly program disagrees with Recognizer.transcribe by "
+                 f"> 1% pooled")
+        launches[name] = n_launch
+        run = rec_x._fn("poly")
+        w8, c8 = wav[:Bk].contiguous(), counts[:Bk].to(torch.int32).contiguous()
+        with torch.no_grad():
+            t_p = cuda_ms(lambda: run(w8, c8), 20, 3)
+        print(f"18a. {name} on {card}: the poly program {t_p:.3f} ms a call at {Bk} x "
+              f"{Sk / acfg.sample_rate:.0f} s (CUDA events), the {Bk}x{Sk} bucket program "
+              f"{zoo_export['bucket_ms'][name]:.3f} ms (14c)")
+        rec_x.close()
+    return {"launches": launches, "secs": time.perf_counter() - t_phase}
+
+
+def measure_phase(dev, card, reset_counts, read_counts, folded, x, lengths, kw) -> dict:
+    """Phase 18b-d: the measuring tools on the card. (b) The ablation
+    library (`conformer_block.cu` built with -DEET_ABLATE): its full block
+    bit-equal to `eet_conformer_block_bf16` on the main path's input and
+    within ABLATE_TIME_RTOL of its time over the flagship's 12 blocks;
+    each ablation within phase 2's bf16 rule of the plain version with the
+    same `ablate`; `ablate_fused_block`'s savings. (c) `ablate_head_path`,
+    `bench_int8` and `ablate_decode` in child processes: the head kernel's
+    ids equal torch.matmul heads' but at bf16 ties, the collapse variants
+    equal, the int8 legs' tokens within the token contract of the bf16
+    unfused leg's. (d) `warm_cache` at WARM_ARGS. Returns the children's
+    launch counts, the ablation entry's launches and each part's seconds."""
+    import torch
+    from early_exit_tpu_torch import ablate_fused_block as afb
+    from early_exit_tpu_torch import runtime
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+
+    secs = {}
+    t0 = time.perf_counter()
+    akw = dict(n_heads=kw["n_heads"], kernel_size=kw["kernel_size"],
+               attn_softmax_dtype=kw["attn_softmax_dtype"])
+    with torch.no_grad():
+        kcb.conformer_block_ablate.launches = 0
+        y_p = kcb.conformer_block(folded[0], x, lengths, **kw)
+        y_a = kcb.conformer_block_ablate(folded[0], x, lengths, **akw)
+        torch.cuda.synchronize()
+        if not torch.equal(y_p, y_a):
+            fail("18b: the ablation library's full block differs from "
+                 "eet_conformer_block_bf16")
+
+        def stack(fn, **over):
+            def run():
+                y = x
+                for f in folded:
+                    y = fn(f, y, lengths, **over)
+                return y
+            return run
+
+        t = [cuda_ms(stack(kcb.conformer_block, **kw), 10, 2),
+             cuda_ms(stack(kcb.conformer_block_ablate, **akw), 10, 2),
+             cuda_ms(stack(kcb.conformer_block_ablate, **akw), 10, 2),
+             cuda_ms(stack(kcb.conformer_block, **kw), 10, 2)]
+        prod, abl = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(f"18b. the ablation library's full block is bit-equal to the production "
+              f"entry at (B={x.shape[0]}, T'={x.shape[1]}); {len(folded)} blocks on {card}: "
+              f"production {t[0]:.4f} / {t[3]:.4f} ms, ablation library {t[1]:.4f} / "
+              f"{t[2]:.4f} ms ({100 * (abl / prod - 1):+.2f}%)")
+        if abs(abl / prod - 1) > ABLATE_TIME_RTOL:
+            fail(f"18b: the ablation library's full block takes {abl:.4f} ms, the "
+                 f"production entry {prod:.4f} ms")
+        # each ablation on the tool's weights (N(0, 0.02), LayerNorm rows
+        # included): the flagship's trained LayerNorm gains, left
+        # unnormalised by "ln", grow the residual stream past 1e14, where
+        # two float32 summation orders part by far more than a bf16 step
+        f_r = afb.make_folded(torch.Generator().manual_seed(0), x.shape[2],
+                              folded[0]["ffn1_w1"].shape[1], kw["kernel_size"], dev)
+        outside = []
+        for ab in afb.ABLATIONS[1:]:
+            y_k = kcb.conformer_block_ablate(f_r, x, lengths, ablate=ab, **akw)
+            y_pl = kcb.conformer_block_plain(f_r, x, lengths, ablate=ab, **kw)
+            torch.cuda.synchronize()
+            err, mean, ulps, frac = bf16_figures(y_k, y_pl)
+            top = float(y_pl.float().abs().max())
+            if "ln" in ab:
+                # no LayerNorm normalises: a residual of scale `top` carries
+                # the bf16 steps of its largest values into every row, so
+                # the ulps are those of max|plain|
+                ulps = err / 2.0 ** (math.floor(math.log2(max(top, 1.0))) - 7)
+            print(f"18b. -{','.join(ab)}: against the plain version with the same ablate "
+                  f"max|d| {err:.4g} (max|plain| {top:.4g}), {ulps:.2f} ulps"
+                  f"{' of max|plain|' if 'ln' in ab else ''}, {100 * frac:.3f}% of values "
+                  f"differ")
+            if not torch.isfinite(y_k.float()).all() or ulps > BLOCK_MAX_ULPS \
+                    or frac > BLOCK_DIFFERING:
+                outside.append(ab)
+        if outside:
+            fail(f"18b: the ablations {outside} are outside the bf16 rule of their plain "
+                 f"versions")
+        afb.run(dev, x.shape[0], x.shape[1], x.shape[2], kw["n_heads"],
+                folded[0]["ffn1_w1"].shape[1], kw["kernel_size"], len(folded), 10,
+                out=lambda ln: print("18b. " + ln))
+        torch.cuda.synchronize()
+    ablate_launches = kcb.conformer_block_ablate.launches
+    secs["b"] = time.perf_counter() - t0
+
+    def child(name, args, env=None):
+        t = time.perf_counter()
+        proc = subprocess.run(runtime.module_command(name) + list(args), cwd=HERE,
+                              env={**runtime.child_env(), **(env or {})},
+                              capture_output=True, text=True, timeout=300)
+        for ln in proc.stdout.splitlines():
+            print(f"18. {name}: {ln}")
+        if proc.returncode:
+            fail(f"18: {name} exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+        print(f"18. {name}: {time.perf_counter() - t:.1f} s in a child process")
+        return proc.stdout
+
+    def launches_of(out):
+        line = [ln for ln in out.splitlines() if ln.startswith("launches: ")][-1]
+        return json.loads(line[len("launches: "):])
+
+    t0 = time.perf_counter()
+    children = {}
+    out = child("ablate_head_path", ["--iters", "10"], {"AB_B": "128"})
+    children["ablate_head_path"] = launches_of(out)
+    if " 0 not at a bf16 tie" not in out:
+        fail("18c: ablate_head_path's kernel ids differ from torch.matmul's at a non-tie")
+    out = child("bench_int8", ["128", "64", "--iters", "10"])
+    children["bench_int8"] = launches_of(out)
+    pairs = [ln.rsplit(" ", 1)[-1].split("/") for ln in out.splitlines()
+             if "tokens vs bf16 unfused" in ln]
+    dis = sum(int(a) for a, _ in pairs) / max(1, sum(int(b) for _, b in pairs))
+    print(f"18c. bench_int8: every leg's last-exit tokens against the bf16 unfused leg's: "
+          f"pooled disagreement {100 * dis:.3f}%")
+    if len(pairs) != 8 or dis > TOKEN_DISAGREE:
+        fail("18c: bench_int8's legs disagree with the bf16 unfused leg by > 1% pooled")
+    child("ablate_decode", ["--iters", "50"])
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = child("warm_cache", ["--decoder_mode", "ctc", "--device", "cuda", *WARM_ARGS])
+    if "done: 6 shape combinations warmed" not in out:
+        fail("18d: warm_cache did not warm its 6 buckets")
+    secs["d"] = time.perf_counter() - t0
+    return {"child_launches": children, "ablate_launches": ablate_launches, "secs": secs}
 
 
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,

@@ -7,12 +7,14 @@ lexicon-constrained CTC beam search and its ARPA LM, the SentencePiece
 engine (`tokenizer/native.py`) and its trainers. The library is
 built from the same sources as the JAX package's (`csrc/**/*.cc` but the
 `*_cli.cc` programs), with g++, into the port's own directory
-`build/torch_native/`, named by a hash of the sources and flags so that
-a stale library is never loaded. The objects compile in parallel; the
-link writes a temporary file that `os.replace` moves into place, under a
+`build/torch_native/`, and so is the `eet_spm` program (`build_cli`,
+from `csrc/tokenizer/spm_cli.cc` and the sources the JAX package links
+it with); each is named by a hash of its sources and flags so that a
+stale build is never used. The objects compile in parallel; the link
+writes a temporary file that `os.replace` moves into place, under a
 file lock, so processes that build at once (parallel test workers)
-neither race nor read a partial file. A failed build raises with the
-compiler's output.
+neither race nor run or read a partial file. A failed build raises with
+the compiler's output.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_REPO, "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 FLAGS = ["-O3", "-std=c++17", "-fPIC"]
+CLI_FLAGS = ["-O3", "-std=c++17"]
 
 _lock = threading.Lock()
 _lib = None
@@ -41,14 +44,31 @@ def sources():
     return [s for s in srcs if not s.endswith("_cli.cc")]
 
 
-def lib_path() -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for path in sources() + sorted(glob.glob(os.path.join(CSRC, "**", "*.h"),
-                                             recursive=True)):
+def _hashed(stem: str, srcs, flags) -> str:
+    """build/torch_native/<stem>-<hash of flags, sources and headers>."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in list(srcs) + sorted(glob.glob(os.path.join(CSRC, "**", "*.h"),
+                                              recursive=True)):
         h.update(path[len(CSRC):].encode())
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libeet_native-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}")
+
+
+def lib_path() -> str:
+    return _hashed("libeet_native", sources(), FLAGS) + ".so"
+
+
+def cli_sources():
+    """The `eet_spm` program's sources, as the JAX package builds it."""
+    tok = os.path.join(CSRC, "tokenizer")
+    return [os.path.join(tok, f) for f in (
+        "spm_cli.cc", "bpe_tokenizer.cc", "bpe_trainer.cc", "unigram_trainer.cc",
+        "charsmap_builder.cc")]
+
+
+def cli_path() -> str:
+    return _hashed("eet_spm", cli_sources(), CLI_FLAGS)
 
 
 def _run(cmds) -> None:
@@ -60,12 +80,14 @@ def _run(cmds) -> None:
         if p.returncode:
             errors.append(f"{' '.join(cmd)} (rc={p.returncode}):\n{out}")
     if errors:
-        raise RuntimeError("building the native library failed:\n" + "\n".join(errors))
+        raise RuntimeError("building the native code failed:\n" + "\n".join(errors))
 
 
-def build() -> str:
-    """Build the library unless it is there; returns its path."""
-    out = lib_path()
+def _build_once(out: str, srcs, flags, link) -> str:
+    """out, built unless it is there: each source compiled to an object in
+    parallel, linked by `link` (extra g++ arguments) into a temporary
+    file that `os.replace` moves into place, under the directory's file
+    lock, so no process ever runs or loads a half-written file."""
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -74,12 +96,23 @@ def build() -> str:
         if os.path.exists(out):          # another process built it meanwhile
             return out
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            objs = [os.path.join(tmp, f"{i}.o") for i in range(len(sources()))]
-            _run([["g++", *FLAGS, "-c", "-o", o, s] for o, s in zip(objs, sources())])
-            so = os.path.join(tmp, "lib.so")
-            _run([["g++", "-shared", "-o", so, *objs]])
-            os.replace(so, out)
+            objs = [os.path.join(tmp, f"{i}.o") for i in range(len(srcs))]
+            _run([["g++", *flags, "-c", "-o", o, s] for o, s in zip(objs, srcs)])
+            part = os.path.join(tmp, "out")
+            _run([["g++", *link, "-o", part, *objs]])
+            os.replace(part, out)
     return out
+
+
+def build() -> str:
+    """Build the library unless it is there; returns its path."""
+    return _build_once(lib_path(), sources(), FLAGS, ["-shared"])
+
+
+def build_cli() -> str:
+    """Build the `eet_spm` program (train / encode / decode / normalize)
+    unless it is there; returns its path."""
+    return _build_once(cli_path(), cli_sources(), CLI_FLAGS, [])
 
 
 def get_lib() -> ctypes.CDLL:

@@ -239,8 +239,12 @@ static cudaError_t quantize_rows(const TIn* x, int8_t* q, float* sx, int rows, i
 // t >= lengths[b] are written as zeros. x and y may alias when their
 // types agree.
 constexpr int LN_THREADS = 256;
+// MODE: LN_ONE_PASS (every entry), or, in the ablation library only
+// (EET_ABLATE), LN_SCALE (x * g + b, no statistics) and LN_TWO_PASS
+// (centred variance, one more pass over the row).
+enum { LN_ONE_PASS = 0, LN_SCALE = 1, LN_TWO_PASS = 2 };
 
-template <typename TIn, typename TOut>
+template <typename TIn, typename TOut, int MODE = LN_ONE_PASS>
 __global__ void __launch_bounds__(LN_THREADS)
 layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
                   const float* __restrict__ b, int rows, int D, float eps,
@@ -250,20 +254,34 @@ layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
   if (row >= rows) return;
   const TIn* xr = x + (size_t)row * D;
   TOut* yr = y + (size_t)row * D;
-  float s = 0.f, ss = 0.f;
-  for (int v = lane; v < D / 8; v += 32) {
-    float e[8];
-    load8(xr + v * 8, e);
+  float mu = 0.f, rstd = 1.f;
+  if constexpr (MODE != LN_SCALE) {
+    float s = 0.f, ss = 0.f;
+    for (int v = lane; v < D / 8; v += 32) {
+      float e[8];
+      load8(xr + v * 8, e);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      s += e[q];
-      ss += e[q] * e[q];
+      for (int q = 0; q < 8; ++q) {
+        s += e[q];
+        ss += e[q] * e[q];
+      }
+    }
+    s = warp_sum(s);
+    mu = s / D;
+    if constexpr (MODE == LN_TWO_PASS) {
+      ss = 0.f;
+      for (int v = lane; v < D / 8; v += 32) {
+        float e[8];
+        load8(xr + v * 8, e);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) ss += (e[q] - mu) * (e[q] - mu);
+      }
+      rstd = rsqrtf(warp_sum(ss) / D + eps);
+    } else {
+      ss = warp_sum(ss);
+      rstd = rsqrtf(fmaxf(ss / D - mu * mu, 0.f) + eps);
     }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mu = s / D;
-  const float rstd = rsqrtf(fmaxf(ss / D - mu * mu, 0.f) + eps);
   const bool zero = lengths != nullptr && (row % T) >= lengths[row / T];
   for (int v = lane; v < D / 8; v += 32) {
     float e[8], o[8];
@@ -271,18 +289,18 @@ layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int c = v * 8 + q;
-      o[q] = zero ? 0.f : (e[q] - mu) * rstd * g[c] + b[c];
+      o[q] = zero ? 0.f : MODE == LN_SCALE ? e[q] * g[c] + b[c] : (e[q] - mu) * rstd * g[c] + b[c];
     }
     store8(yr + v * 8, o);
   }
 }
 
-template <typename TIn, typename TOut>
+template <typename TIn, typename TOut, int MODE = LN_ONE_PASS>
 static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float* b,
                               int rows, int D, float eps, const int* lengths, int T,
                               cudaStream_t s) {
   const int per_block = LN_THREADS / 32;
-  layer_norm_kernel<TIn, TOut><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
+  layer_norm_kernel<TIn, TOut, MODE><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
       x, y, g, b, rows, D, eps, lengths, T);
   return cudaGetLastError();
 }
@@ -403,8 +421,10 @@ __device__ __forceinline__ void store_pair(float* p, float lo, float hi) {
 
 // TOut: bf16, or float for the W8A8 entry with a float32 softmax, whose
 // o projection quantizes the unrounded P V. KT: keys per tile, a multiple
-// of 16 (min(Tp, ATT_KT)).
-template <int DH, typename TOut>
+// of 16 (min(Tp, ATT_KT)). kSoftmax false (the ablation library only):
+// P is the scaled, masked scores themselves, and the max and sum passes
+// are not run.
+template <int DH, typename TOut, bool kSoftmax = true>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
                  TOut* __restrict__ out, int T, int D, int Tp, int KT, float scale,
@@ -490,41 +510,47 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   };
 
   float m0 = -INFINITY, m1 = -INFINITY;
-  for (int k0 = 0; k0 < Tp; k0 += KT) {
-    const int n = min(KT, Tp - k0);
-    if (!resident) load_tile(k0, n, false);
-    if (!active) continue;
-    for (int j = 0; j < n; j += 8) {
-      float s[4];
-      scores(j, k0 + j, s);
-      m0 = fmaxf(m0, fmaxf(s[0], s[1]));
-      m1 = fmaxf(m1, fmaxf(s[2], s[3]));
-    }
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
   auto ex = [&](float v, float m) {
     return sm_bf16 ? bf16r(expf(bf16r(v - m))) : expf(v - m);
   };
-
   float z0 = 0.f, z1 = 0.f;
-  for (int k0 = 0; k0 < Tp; k0 += KT) {
-    const int n = min(KT, Tp - k0);
-    if (!resident) load_tile(k0, n, false);
-    if (!active) continue;
-    for (int j = 0; j < n; j += 8) {
-      float s[4];
-      scores(j, k0 + j, s);
-      z0 += ex(s[0], m0) + ex(s[1], m0);
-      z1 += ex(s[2], m1) + ex(s[3], m1);
+  if constexpr (kSoftmax) {
+    for (int k0 = 0; k0 < Tp; k0 += KT) {
+      const int n = min(KT, Tp - k0);
+      if (!resident) load_tile(k0, n, false);
+      if (!active) continue;
+      for (int j = 0; j < n; j += 8) {
+        float s[4];
+        scores(j, k0 + j, s);
+        m0 = fmaxf(m0, fmaxf(s[0], s[1]));
+        m1 = fmaxf(m1, fmaxf(s[2], s[3]));
+      }
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+
+    for (int k0 = 0; k0 < Tp; k0 += KT) {
+      const int n = min(KT, Tp - k0);
+      if (!resident) load_tile(k0, n, false);
+      if (!active) continue;
+      for (int j = 0; j < n; j += 8) {
+        float s[4];
+        scores(j, k0 + j, s);
+        z0 += ex(s[0], m0) + ex(s[1], m0);
+        z1 += ex(s[2], m1) + ex(s[3], m1);
+      }
+    }
+    z0 = quad_sum(z0);
+    z1 = quad_sum(z1);
+    if (sm_bf16) {
+      z0 = bf16r(z0);
+      z1 = bf16r(z1);
     }
   }
-  z0 = quad_sum(z0);
-  z1 = quad_sum(z1);
-  if (sm_bf16) {
-    z0 = bf16r(z0);
-    z1 = bf16r(z1);
-  }
+  auto prob = [&](float v, float m, float z) {
+    if constexpr (kSoftmax) return ex(v, m) / z;
+    else return v;
+  };
 
   float o[DH / 8][4] = {};
   for (int k0 = 0; k0 < Tp; k0 += KT) {
@@ -536,10 +562,10 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
       scores(j, k0 + j, sa);
       scores(j + 8, k0 + j + 8, sb);
       const uint32_t pa[4] = {
-          pack_pair(ex(sa[0], m0) / z0, ex(sa[1], m0) / z0),
-          pack_pair(ex(sa[2], m1) / z1, ex(sa[3], m1) / z1),
-          pack_pair(ex(sb[0], m0) / z0, ex(sb[1], m0) / z0),
-          pack_pair(ex(sb[2], m1) / z1, ex(sb[3], m1) / z1)};
+          pack_pair(prob(sa[0], m0, z0), prob(sa[1], m0, z0)),
+          pack_pair(prob(sa[2], m1, z1), prob(sa[3], m1, z1)),
+          pack_pair(prob(sb[0], m0, z0), prob(sb[1], m0, z0)),
+          pack_pair(prob(sb[2], m1, z1), prob(sb[3], m1, z1))};
 #pragma unroll
       for (int nt = 0; nt < DH / 8; ++nt) {
         const bf16* vr = Vt + (nt * 8 + g) * VLD + j + t2;
@@ -556,16 +582,16 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   }
 }
 
-template <typename TOut>
+template <typename TOut, bool kSoftmax = true>
 static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
   const int Tp = (T + 15) / 16 * 16;
   const int KT = Tp < ATT_KT ? Tp : ATT_KT;
   const size_t bytes = AttLayout<32>::bytes(KT);
-  EET_TRY(cudaFuncSetAttribute(attention_kernel<32, TOut>,
+  EET_TRY(cudaFuncSetAttribute(attention_kernel<32, TOut, kSoftmax>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
-  attention_kernel<32, TOut><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp,
+  attention_kernel<32, TOut, kSoftmax><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp,
                                                                  KT, scale, sm_bf16);
   return cudaGetLastError();
 }
@@ -580,8 +606,12 @@ static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int
 // while a warp takes each row's absmax, and leave quantized, with their
 // scales in sx, as the PW2 product reads them.
 constexpr int CONV_TT = 32, CONV_THREADS = 256;
+// ABL (the ablation library only, 0 in every entry): bits of the parts
+// taken out -- the GLU gate (a passes through), the depthwise conv (the
+// centre row passes through), the SiLU.
+enum { CV_NO_GLU = 1, CV_NO_DW = 2, CV_NO_SILU = 4 };
 
-template <typename T_, typename TOut>
+template <typename T_, typename TOut, int ABL = 0>
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
                    const T_* __restrict__ dw, const float* __restrict__ dw_b,
@@ -599,7 +629,8 @@ conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
     float v = 0.f;
     if (t >= 0 && t < len) {
       const T_* gr = g + ((size_t)b * T + t) * 2 * D;
-      v = rnd<T_>(to_f(gr[c]) * sigmoid_t<T_>(to_f(gr[D + c])));
+      v = ABL & CV_NO_GLU ? to_f(gr[c])
+                          : rnd<T_>(to_f(gr[c]) * sigmoid_t<T_>(to_f(gr[D + c])));
     }
     tile[idx] = from_f<T_>(v);
   }
@@ -608,10 +639,12 @@ conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
     const int r = idx / D, c = idx % D, t = t0 + r;
     if (t >= T) continue;
     float acc = 0.f;
-    for (int j = 0; j < ksize; ++j) acc += to_f(tile[(r + j) * D + c]) * to_f(dw[j * D + c]);
+    if (ABL & CV_NO_DW) acc = to_f(tile[(r + padl) * D + c]);
+    else
+      for (int j = 0; j < ksize; ++j) acc += to_f(tile[(r + j) * D + c]) * to_f(dw[j * D + c]);
     float y = rnd<T_>(acc) + dw_b[c];
     y = y * bn_scale[c] + bn_shift[c];
-    y = y / (1.f + expf(-y));
+    if (!(ABL & CV_NO_SILU)) y = y / (1.f + expf(-y));
     if constexpr (kQuant) ytile[idx] = y;
     else out[((size_t)b * T + t) * D + c] = from_f<TOut>(y);
   }
@@ -634,7 +667,7 @@ conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
   }
 }
 
-template <typename T_, typename TOut>
+template <typename T_, typename TOut, int ABL = 0>
 static cudaError_t conv_module(const T_* g, const int* lengths, const T_* dw,
                                const float* dw_b, const float* bn_scale, const float* bn_shift,
                                TOut* out, float* sx, int B, int T, int D, int ksize,
@@ -643,10 +676,10 @@ static cudaError_t conv_module(const T_* g, const int* lengths, const T_* dw,
   const size_t bytes =
       rows_bytes + (std::is_same<TOut, int8_t>::value ? (size_t)CONV_TT * D * sizeof(float) : 0);
   if (bytes > SMEM_LIMIT || rows_bytes % 16) return cudaErrorInvalidValue;
-  EET_TRY(cudaFuncSetAttribute(conv_module_kernel<T_, TOut>,
+  EET_TRY(cudaFuncSetAttribute(conv_module_kernel<T_, TOut, ABL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
   const dim3 grid((T + CONV_TT - 1) / CONV_TT, B);
-  conv_module_kernel<T_, TOut><<<grid, CONV_THREADS, bytes, s>>>(
+  conv_module_kernel<T_, TOut, ABL><<<grid, CONV_THREADS, bytes, s>>>(
       g, lengths, dw, dw_b, bn_scale, bn_shift, out, sx, T, D, ksize);
   return cudaGetLastError();
 }
@@ -701,6 +734,110 @@ extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* le
   EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
   return 0;
 }
+
+#ifdef EET_ABLATE
+// The ablation library (this file built with -DEET_ABLATE into a library
+// of its own; the production library has no such entry): the bf16 entry
+// with parts of the block taken out, for timing by difference
+// (`ablate_fused_block`). Bits, as the TPU kernel's `ablate` names them:
+enum {
+  AB_LN = 1,         // every LayerNorm: x * g + b, no statistics
+  AB_LN2P = 2,       // every LayerNorm: centred two-pass variance
+  AB_SOFTMAX = 4,    // P = the scaled, masked scores
+  AB_SILU = 8,       // the FFNs' and the conv module's SiLU: identity
+  AB_GLU = 16,       // the GLU gate: a passes through
+  AB_DWCONV = 32,    // the depthwise conv: the centre row passes through
+  AB_ATTN = 64,      // the whole MHSA module: four launches fewer
+  AB_CONV = 128,     // the whole conv module: four launches fewer
+  AB_FFN = 256       // both half-FFNs: six launches fewer (one copy more)
+};
+
+static cudaError_t ablate_ln(int ab, const bf16* x, bf16* y, const float* g, const float* b,
+                             int R, int D, float eps, const int* lengths, int T,
+                             cudaStream_t s) {
+  if (ab & AB_LN) return layer_norm<bf16, bf16, LN_SCALE>(x, y, g, b, R, D, eps, lengths, T, s);
+  if (ab & AB_LN2P)
+    return layer_norm<bf16, bf16, LN_TWO_PASS>(x, y, g, b, R, D, eps, lengths, T, s);
+  return layer_norm(x, y, g, b, R, D, eps, lengths, T, s);
+}
+
+template <int ABL>
+static cudaError_t ablate_conv_t(const bf16* g, const int* lengths, const bf16* dw,
+                                 const float* dw_b, const float* bn_scale,
+                                 const float* bn_shift, bf16* out, int B, int T, int D,
+                                 int ksize, cudaStream_t s) {
+  return conv_module<bf16, bf16, ABL>(g, lengths, dw, dw_b, bn_scale, bn_shift, out, nullptr,
+                                      B, T, D, ksize, s);
+}
+
+static cudaError_t ablate_conv(int ab, const bf16* g, const int* lengths, const bf16* dw,
+                               const float* dw_b, const float* bn_scale, const float* bn_shift,
+                               bf16* out, int B, int T, int D, int ksize, cudaStream_t s) {
+  const int cv = (ab & AB_GLU ? CV_NO_GLU : 0) | (ab & AB_DWCONV ? CV_NO_DW : 0) |
+                 (ab & AB_SILU ? CV_NO_SILU : 0);
+#define EET_CONV_CASE(k) \
+  case k:                \
+    return ablate_conv_t<k>(g, lengths, dw, dw_b, bn_scale, bn_shift, out, B, T, D, ksize, s);
+  switch (cv) {
+    EET_CONV_CASE(0) EET_CONV_CASE(1) EET_CONV_CASE(2) EET_CONV_CASE(3)
+    EET_CONV_CASE(4) EET_CONV_CASE(5) EET_CONV_CASE(6) EET_CONV_CASE(7)
+  }
+#undef EET_CONV_CASE
+  return cudaErrorInvalidValue;
+}
+
+// The bf16 entry's arguments, then the bits; with ablate 0 it launches
+// exactly the bf16 entry's kernels with the same arguments.
+extern "C" int eet_conformer_block_bf16_ablate(const void* x_, void* y_, const void* lengths_,
+                                               int B, int T, int D, int H, int F, int ksize,
+                                               int sm_bf16, float scale, float eps,
+                                               const void* const* w, void* s_ln_,
+                                               void* s_big_, void* s_att_, void* stream_,
+                                               int ab) {
+  const bf16* x = static_cast<const bf16*>(x_);
+  bf16* y = static_cast<bf16*>(y_);
+  const int* lengths = static_cast<const int*>(lengths_);
+  bf16* s_ln = static_cast<bf16*>(s_ln_);
+  bf16* s_big = static_cast<bf16*>(s_big_);
+  bf16* s_att = static_cast<bf16*>(s_att_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  const int R = B * T;
+  const int epi_w1 = ab & AB_SILU ? EPI_BIAS : EPI_SILU;
+
+  if (ab & AB_FFN) {
+    EET_TRY(cudaMemcpyAsync(y, x, (size_t)R * D * sizeof(bf16), cudaMemcpyDeviceToDevice, s));
+  } else {
+    EET_TRY(ablate_ln(ab, x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(gemm(epi_w1, s_ln, bw(W_FFN1_W1), bw(W_FFN1_B1), nullptr, s_big, R, F, D, s));
+    EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN1_W2), bw(W_FFN1_B2), x, y, R, D, F, s));
+  }
+  if (!(ab & AB_ATTN)) {
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * D, D, s));
+    if (ab & AB_SOFTMAX)
+      EET_TRY((attention<bf16, false>(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s)));
+    else
+      EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s));
+    EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, D, s));
+  }
+  if (!(ab & AB_CONV)) {
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
+    EET_TRY(ablate_conv(ab, s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
+                        fw(W_BN_SHIFT), s_att, B, T, D, ksize, s));
+    EET_TRY(gemm(EPI_RES, s_att, bw(W_PW2), bw(W_BPW2), y, y, R, D, D, s));
+  }
+  if (!(ab & AB_FFN)) {
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(gemm(epi_w1, s_ln, bw(W_FFN2_W1), bw(W_FFN2_B1), nullptr, s_big, R, F, D, s));
+    EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN2_W2), bw(W_FFN2_B2), y, y, R, D, F, s));
+  }
+  EET_TRY(ablate_ln(ab, y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  return 0;
+}
+#endif  // EET_ABLATE
 
 // The float32 entry. x, y: (B*T, D) float32 (may not alias); every weight
 // float32, same order; scratch as above in float32. Scores are masked to

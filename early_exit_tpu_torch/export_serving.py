@@ -22,8 +22,9 @@ early_exit_tpu_torch.inference`); the weights come from
 --load_model_path or the average of --load_model_dir's epochs
 --avg_model_start..--avg_model_end. Exporting for "cuda" needs a GPU.
 Any CTC --model_type exports its all-exit program (early_zipformer: one
-exit; --export_symbolic_max the flagship only); --export_gated true takes
-early_conformer and splitformer, and
+exit) and, with --export_symbolic_max, its shape-polymorphic program
+(each model's own lower bound, `min_samples` in the manifest);
+--export_gated true takes early_conformer and splitformer, and
 --export_cascade_k early_conformer only: other models raise the JAX
 package's ValueError before the model is loaded.
 """
@@ -61,7 +62,9 @@ def main(argv=None):
                           "compiles each program with AOTInductor")
     own.add_argument("--export_symbolic_max", type=int, default=None,
                      help="also export ONE shape-polymorphic program valid up "
-                          "to this many samples")
+                          "to this many samples, for any --model_type "
+                          "(early_conformer, splitformer, early_zipformer); "
+                          "its lower bound is the model's own")
     own.add_argument("--export_gated", default="false",
                      help="true: also export confidence-gated variants (exit "
                           "by exit, threshold a runtime scalar) -- "

@@ -57,8 +57,7 @@ class Splitformer(EarlyConformer):
     def _branch_input(self, x, lengths, sub_len):
         """The branch's downsampled input and its mask."""
         T = x.shape[1]
-        x, pad = subsampling.pad_time(x, FACTOR)
-        x = subsampling.downsample(x, FACTOR)
+        x, pad = subsampling.pad_downsample(x, FACTOR)
         t_ds = x.shape[1]
         if self.cfg.length_mode == "reference":
             ds_len = ((lengths + pad).float() / FACTOR).to(torch.int32).clamp(max=t_ds)
@@ -75,7 +74,7 @@ class Splitformer(EarlyConformer):
         branch_in (the hidden state before the stack), padded rows
         zeroed."""
         x_ds, ds_mask, T = self._branch_input(branch_in, lengths, sub_len)
-        y = subsampling.upsample(self.parallel[bi](x_ds, ds_mask), FACTOR)[:, :T]
+        y = subsampling.upsample_to(self.parallel[bi](x_ds, ds_mask), FACTOR, T)
         return torch.where(mask[..., None], h + y, torch.zeros((), dtype=h.dtype,
                                                                  device=h.device))
 
@@ -126,7 +125,7 @@ class Splitformer(EarlyConformer):
                 y, bm, bv = self.parallel[bi](
                     x_ds, ds_mask, train=True,
                     seed=None if seeds is None else seeds[L + bi])
-                h = h + subsampling.upsample(y, FACTOR)[:, :T]
+                h = h + subsampling.upsample_to(y, FACTOR, T)
                 h = torch.where(mask[..., None], h, torch.zeros((), dtype=h.dtype,
                                                                   device=h.device))
                 par_state.append({"conv_bn": {"mean": bm, "var": bv}})

@@ -57,20 +57,24 @@ def reference_subsampled_length(lengths: torch.Tensor, factor: int,
     return (lengths.float() / factor).to(torch.int32).clamp(max=max_t)
 
 
-def upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Each frame repeated `factor` times over time (B, T, D)."""
-    return torch.repeat_interleave(x, factor, dim=1)
+def upsample_to(x: torch.Tensor, factor: int, length) -> torch.Tensor:
+    """Each frame of (B, T, D) repeated `factor` times over time, cut to
+    `length` frames, as one gather: a capture over a symbolic length then
+    needs no guard that the cut fits (length <= factor * T)."""
+    idx = torch.div(torch.arange(length, device=x.device), factor, rounding_mode="floor")
+    return x.index_select(1, idx)
 
 
 def downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Every `factor`-th frame (B, T, D), from the first."""
-    return x[:, ::factor]
+    """Every `factor`-th frame (B, T, D), from the first, contiguous: a
+    strided view of an odd symbolic length would make a later matmul's
+    view guard T's parity."""
+    return x[:, ::factor].contiguous()
 
 
-def pad_time(x: torch.Tensor, factor: int) -> Tuple[torch.Tensor, int]:
-    """(B, T, D) zero-padded at the end to a multiple of `factor`, and the
-    pad."""
-    pad = (factor - x.shape[1] % factor) % factor
-    if pad:
-        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
-    return x, pad
+def pad_downsample(x: torch.Tensor, factor: int) -> Tuple[torch.Tensor, int]:
+    """`downsample` of (B, T, D) zero-padded at the end to a multiple of
+    `factor`, and the pad, (-T) % factor. The padding is never picked
+    (every kept frame k * factor is < T), so it is not made: a capture
+    over a symbolic T adds no branch or guard on T's residue."""
+    return downsample(x, factor), (-x.shape[1]) % factor

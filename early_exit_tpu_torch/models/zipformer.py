@@ -98,8 +98,7 @@ class EarlyZipformer(nn.Module):
         x = run(0, self.pre, x, base_mask[..., 0])
         for i, factor in enumerate(FACTORS):
             src, T = x, x.shape[1]
-            x, pad = subsampling.pad_time(x, factor)
-            x = subsampling.downsample(x, factor)
+            x, pad = subsampling.pad_downsample(x, factor)
             t_ds = x.shape[1]
             if cfg.length_mode == "reference":
                 ds_len = ((lengths + pad).float() / factor).to(torch.int32)
@@ -108,7 +107,7 @@ class EarlyZipformer(nn.Module):
                                    rounding_mode="floor")
             mask = pos[None, :t_ds] < ds_len.clamp(max=t_ds)[:, None]
             x = run(i + 1, self.stages[i], x, mask)
-            x = subsampling.upsample(x, factor)[:, :T] + src
+            x = subsampling.upsample_to(x, factor, T) + src
             x = torch.where(base_mask, x, zero.to(x.dtype))
         out = subsampling.downsample(x, 2)
         out_len = torch.div(base_len + 1, 2, rounding_mode="floor").clamp(max=out.shape[1])

@@ -2,7 +2,10 @@
 
 Each `csrc/<name>.cu` becomes `build/torch_kernels/<name>-<hash>.so`,
 where the hash covers the source, the headers beside it and the flags,
-so a stale library is never loaded. The build runs at first use (or all
+so a stale library is never loaded. A variant (`VARIANTS`) is another
+library built from a source with flags of its own: the ablation library
+`conformer_block_ablate` is `conformer_block.cu` with `-DEET_ABLATE`,
+which adds an entry and leaves the production library as it is. The build runs at first use (or all
 sources at once, in parallel, through `build_all`). libcuda is not
 linked: the one call of it the kernels need, the tensor-map encoder, is
 looked up with `dlsym` at first use (`-ldl`). Every C entry takes
@@ -29,6 +32,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl"]
 
+# library name -> (source stem, extra nvcc flags)
+VARIANTS = {"conformer_block_ablate": ("conformer_block", ["-DEET_ABLATE"])}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -41,9 +47,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _source(name: str):
+    """(the .cu path, the nvcc flags) of a library."""
+    stem, extra = VARIANTS.get(name, (name, []))
+    return os.path.join(CSRC, stem + ".cu"), FLAGS + extra
+
+
 def _digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for path in [os.path.join(CSRC, name + ".cu")] + sorted(
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in [src] + sorted(
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
@@ -62,7 +75,8 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     log = open(out + ".log", "w")
-    cmd = [nvcc(), *FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    src, flags = _source(name)
+    cmd = [nvcc(), *flags, "-o", tmp, src]
     return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, out, log
 
 
@@ -74,7 +88,7 @@ def _finish(name: str, job) -> None:
     log.close()
     if rc != 0:
         with open(out + ".log") as f:
-            raise RuntimeError(f"nvcc failed for {name}.cu (rc={rc}):\n{f.read()}")
+            raise RuntimeError(f"nvcc failed for {name} (rc={rc}):\n{f.read()}")
     os.replace(tmp, out)
 
 

@@ -123,6 +123,21 @@ def _ln_one_pass(v, g, b, eps):
     return (v32 - mu) * torch.rsqrt(var + eps) * g + b
 
 
+# the parts of the block that `ablate` can take out, with the TPU kernel's
+# names (early_exit_tpu/ops/pallas/conformer_block.py:179-351), and the
+# ablation library's bits for them (AB_* in csrc/conformer_block.cu)
+ABLATIONS = {"ln": 1, "ln2p": 2, "softmax": 4, "silu": 8, "glu": 16,
+             "dwconv": 32, "attn": 64, "conv": 128, "ffn": 256}
+
+
+def _ablate_bits(ablate) -> int:
+    unknown = set(ablate) - set(ABLATIONS)
+    if unknown:
+        raise ValueError(f"ablate: unknown parts {sorted(unknown)}; the block's "
+                         f"are {sorted(ABLATIONS)}")
+    return sum(ABLATIONS[a] for a in set(ablate))
+
+
 def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                           lengths: torch.Tensor, *, n_heads: int,
                           kernel_size: int,
@@ -130,14 +145,34 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                           residual_dtype: torch.dtype = torch.bfloat16,
                           attn_softmax_dtype: torch.dtype = torch.float32,
                           quantize: Optional[str] = None,
-                          eps: float = 1e-5) -> torch.Tensor:
+                          eps: float = 1e-5,
+                          ablate=frozenset()) -> torch.Tensor:
     """The kernel's function in PyTorch ops. x: (B, T, D); lengths: (B,).
     With quantize="int8", f is the W8A8 layout and every product
-    quantizes its float input row by row."""
+    quantizes its float input row by row.
+
+    ablate: for timing by difference only (`ablate_fused_block`), parts
+    of the block taken out with the TPU kernel's semantics (`ABLATIONS`):
+    "ln" (every LayerNorm x * g + b), "ln2p" (centred two-pass variance),
+    "softmax" (P = the scaled, masked scores), "silu" (identity), "glu"
+    (a passes through), "dwconv" (the GLU output passes through), "attn",
+    "conv", "ffn" (the module skipped). The output is then not the
+    block's."""
     cd, rd = compute_dtype, residual_dtype
     int8 = quantize == "int8"
+    _ablate_bits(ablate)
+
+    def ln(v, g, b):
+        if "ln" in ablate:
+            return v.float() * g + b
+        if "ln2p" in ablate:
+            v32 = v.float()
+            mu = v32.mean(-1, keepdim=True)
+            var = (v32 - mu).square().mean(-1, keepdim=True)
+            return (v32 - mu) * torch.rsqrt(var + eps) * g + b
+        return _ln_one_pass(v, g, b, eps)
+
     B, T, D = x.shape
-    dh = D // n_heads
     valid = (torch.arange(T, device=x.device)[None, :]
              < lengths.to(x.device)[:, None])                   # (B, T)
 
@@ -152,18 +187,33 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         return torch.matmul(v.to(cd).float(), f[w].float()).to(cd) + f[b]
 
     def silu(v):
-        return v / (1 + torch.exp(-v))
+        return v if "silu" in ablate else v / (1 + torch.exp(-v))
 
     def ffn(v, pre):
-        y = _ln_one_pass(v, f[pre + "_ln_g"], f[pre + "_ln_b"], eps)
+        y = ln(v, f[pre + "_ln_g"], f[pre + "_ln_b"])
         y = silu(mm(y, pre + "_w1", pre + "_b1"))
         return mm(y, pre + "_w2", pre + "_b2")
 
     x = x.to(rd)
-    x = x + 0.5 * ffn(x, "ffn1").to(rd)
+    if "ffn" not in ablate:
+        x = x + 0.5 * ffn(x, "ffn1").to(rd)
+    if "attn" not in ablate:
+        x = _mhsa(x, ln(x, f["attn_ln_g"], f["attn_ln_b"]), mm, valid, n_heads,
+                  cd, rd, attn_softmax_dtype, "softmax" in ablate)
+    if "conv" not in ablate:
+        x = _conv_module(x, ln(x, f["conv_ln_g"], f["conv_ln_b"]), f, mm, silu, valid,
+                         kernel_size, cd, rd, ablate)
+    if "ffn" not in ablate:
+        x = x + 0.5 * ffn(x, "ffn2").to(rd)
+    x = ln(x, f["final_ln_g"], f["final_ln_b"]).to(rd)
+    return torch.where(valid[..., None], x,
+                       torch.zeros((), dtype=rd, device=x.device))
 
-    # MHSA with a per-item key mask
-    y = _ln_one_pass(x, f["attn_ln_g"], f["attn_ln_b"], eps)
+
+def _mhsa(x, y, mm, valid, n_heads, cd, rd, attn_softmax_dtype, no_softmax):
+    """x + the MHSA module on its LayerNormed input y, per-item key mask."""
+    B, T, D = x.shape
+    dh = D // n_heads
     qkv = mm(y, "wqkv", "bqkv")
     q, k, v = (t.reshape(B, T, n_heads, dh).transpose(1, 2)
                for t in qkv.split(D, dim=-1))
@@ -173,38 +223,40 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         s = s.to(torch.bfloat16) * torch.tensor(1.0 / math.sqrt(dh),
                                                 dtype=torch.bfloat16)
         s = s.masked_fill(~col_valid, -30000.0)
-        e = torch.exp(s - s.amax(-1, keepdim=True))
-        p = e / e.float().sum(-1, keepdim=True).to(torch.bfloat16)
+        if no_softmax:
+            p = s
+        else:
+            e = torch.exp(s - s.amax(-1, keepdim=True))
+            p = e / e.float().sum(-1, keepdim=True).to(torch.bfloat16)
         oh = torch.matmul(p.float(), v.float()).to(cd)
     else:
         s = (s * (1.0 / math.sqrt(dh))).masked_fill(~col_valid, -1e9)
-        p = torch.softmax(s, dim=-1).to(cd)
+        p = (s if no_softmax else torch.softmax(s, dim=-1)).to(cd)
         oh = torch.matmul(p.float(), v.to(cd).float())
     att = oh.transpose(1, 2).reshape(B, T, D)
-    x = x + mm(att, "wo", "bo").to(rd)
+    return x + mm(att, "wo", "bo").to(rd)
 
-    # convolution module
-    y = _ln_one_pass(x, f["conv_ln_g"], f["conv_ln_b"], eps)
+
+def _conv_module(x, y, f, mm, silu, valid, kernel_size, cd, rd, ablate):
+    """x + the convolution module on its LayerNormed input y."""
+    B, T, D = x.shape
     y = mm(y, "pw1_w", "pw1_b")
     a, g = y[..., :D], y[..., D:]
-    y = a * (1 / (1 + torch.exp(-g)))                            # GLU
+    y = a if "glu" in ablate else a * (1 / (1 + torch.exp(-g)))   # GLU
     y = torch.where(valid[..., None], y, torch.zeros((), dtype=y.dtype,
                                                      device=y.device))
-    padl = (kernel_size - 1) // 2
-    yp = F.pad(y, (0, 0, padl, kernel_size - 1 - padl))
-    dw = f["dw_w"].float()
-    acc = torch.zeros(B, T, D, dtype=torch.float32, device=x.device)
-    for j in range(kernel_size):           # tap by tap, float32
-        acc = acc + yp[:, j:j + T].float() * dw[j]
-    y = acc.to(cd).float() + f["dw_b"]
+    if "dwconv" in ablate:
+        y = y.float() + f["dw_b"]
+    else:
+        padl = (kernel_size - 1) // 2
+        yp = F.pad(y, (0, 0, padl, kernel_size - 1 - padl))
+        dw = f["dw_w"].float()
+        acc = torch.zeros(B, T, D, dtype=torch.float32, device=x.device)
+        for j in range(kernel_size):           # tap by tap, float32
+            acc = acc + yp[:, j:j + T].float() * dw[j]
+        y = acc.to(cd).float() + f["dw_b"]
     y = y * f["bn_scale"] + f["bn_shift"]
-    y = y / (1 + torch.exp(-y))
-    x = x + mm(y, "pw2_w", "pw2_b").to(rd)
-
-    x = x + 0.5 * ffn(x, "ffn2").to(rd)
-    x = _ln_one_pass(x, f["final_ln_g"], f["final_ln_b"], eps).to(rd)
-    return torch.where(valid[..., None], x,
-                       torch.zeros((), dtype=rd, device=x.device))
+    return x + mm(silu(y), "pw2_w", "pw2_b").to(rd)
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -314,12 +366,17 @@ def _conformer_block_fake(x, lengths, params, n_heads, kernel_size, compute_dtyp
 
 
 def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtype,
-                          residual_dtype, attn_softmax_dtype, quantize):
-    """The kernel launch: checks, scratch, the C entry of the profile."""
+                          residual_dtype, attn_softmax_dtype, quantize, ablate=None):
+    """The kernel launch: checks, scratch, the C entry of the profile.
+    ablate (bits of `ABLATIONS`, the bf16 entry only): the ablation
+    library's entry instead, counted by `conformer_block_ablate`."""
     compute_dtype, residual_dtype, attn_softmax_dtype = (
         getattr(torch, name) for name in (compute_dtype, residual_dtype,
                                           attn_softmax_dtype))
     entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
+    if ablate is not None and entry != "bf16":
+        raise NotImplementedError(f"conformer_block_ablate: the ablation library "
+                                  f"has the bf16 entry only, not {entry}")
     f = _layout(params, quantize)
     B, T, D = x.shape
     Fd = f["ffn1_w1"].shape[1]
@@ -368,6 +425,14 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
         scale = torch.tensor(scale, dtype=torch.bfloat16).item()
     head = (_build.ptr(x), _build.ptr(y), _build.ptr(lengths), B, T, D,
             n_heads, Fd, kernel_size)
+    if ablate is not None:
+        lib = _ablate_lib()
+        err = lib.eet_conformer_block_bf16_ablate(
+            *head, int(sm_bf16), scale, 1e-5, wptrs, _build.ptr(s_ln),
+            _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev), ablate)
+        _build.check(lib, err, "conformer_block_ablate kernel")
+        conformer_block_ablate.launches += 1
+        return y
     if entry == "bf16":
         err = lib.eet_conformer_block_bf16(
             *head, int(sm_bf16), scale, 1e-5, wptrs, _build.ptr(s_ln),
@@ -395,6 +460,30 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
 # launches of any entry, and of each: counted where a kernel is launched
 conformer_block.launches = 0
 conformer_block.entry_launches = {"bf16": 0, "f32": 0, "w8a8": 0}
+
+
+def conformer_block_ablate(f: Mapping[str, torch.Tensor], x: torch.Tensor,
+                           lengths: torch.Tensor, *, n_heads: int, kernel_size: int,
+                           attn_softmax_dtype: torch.dtype = torch.float32,
+                           ablate=frozenset()) -> torch.Tensor:
+    """The bf16 block with the parts in `ablate` (`ABLATIONS`) taken out,
+    for timing by difference (`ablate_fused_block`); not an op. A CPU
+    tensor takes the plain version with the same `ablate`; a CUDA tensor
+    launches the ablation library's entry (`conformer_block.cu` built with
+    -DEET_ABLATE), which with no part taken out launches exactly the bf16
+    entry's kernels."""
+    _device_ok("conformer_block_ablate", x)
+    bits = _ablate_bits(ablate)
+    kw = dict(n_heads=n_heads, kernel_size=kernel_size, compute_dtype=torch.bfloat16,
+              residual_dtype=torch.bfloat16, attn_softmax_dtype=attn_softmax_dtype)
+    if x.device.type == "cpu":
+        return conformer_block_plain(f, x, lengths, ablate=ablate, **kw)
+    return _conformer_block_cuda(
+        x, lengths, op_params(f), n_heads, kernel_size, "bfloat16", "bfloat16",
+        str(attn_softmax_dtype).removeprefix("torch."), "none", ablate=bits)
+
+
+conformer_block_ablate.launches = 0
 
 GEMM_EPILOGUES = ("bias", "silu", "res", "res_half")
 
@@ -646,6 +735,16 @@ def block_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 block_layer_norm.launches = 0
+
+
+def _ablate_lib():
+    lib = _build.load("conformer_block_ablate")
+    if lib.eet_conformer_block_bf16_ablate.argtypes is None:
+        vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.eet_conformer_block_bf16_ablate.argtypes = (
+            [vp, vp, vp, i, i, i, i, i, i, i, fl, fl, ctypes.POINTER(vp), vp, vp, vp, vp, i])
+        lib.eet_conformer_block_bf16_ablate.restype = ctypes.c_int
+    return lib
 
 
 def _lib():

@@ -25,7 +25,7 @@ Bundle format, a plain zip archive:
   vocab.json (optional)            id -> piece table for `detokenize`
 
 Keys, as in the JAX package: "<B>x<S>" (a bucket), "poly" (symbolic
-(b, s), hop*14 <= s <= symbolic_max_samples), "gated/<key>",
+(b, s), min_samples <= s <= symbolic_max_samples), "gated/<key>",
 "cascade_a/<B>x<S>", "cascade_b/<B>x<S>".
 
 Program contracts (all outputs int32 but conf):
@@ -256,8 +256,41 @@ def _capture(program, args, dynamic_shapes=None):
     # earlier capture at other shapes could specialize this one
     torch._dynamo.reset()
     with torch.no_grad():
-        return torch.export.export(program, args, dynamic_shapes=dynamic_shapes,
-                                   strict=False)
+        ep = torch.export.export(program, args, dynamic_shapes=dynamic_shapes,
+                                 strict=False)
+    _spell_sym_sums(ep)
+    return ep
+
+
+def _spell_sym_sums(ep) -> None:
+    """Each `torch.sym_sum` node (dynamo writes a size sum inside a cond
+    branch so, e.g. a strided slice's length 1 + T) as a chain of plain
+    `+`, which `torch.export.save` can serialize."""
+    import operator
+
+    def val(t):
+        return t.meta["val"] if isinstance(t, torch.fx.Node) else t
+
+    for gm in ep.graph_module.modules():
+        if not isinstance(gm, torch.fx.GraphModule):
+            continue
+        changed = False
+        for node in list(gm.graph.nodes):
+            if node.op != "call_function" or node.target is not torch.sym_sum:
+                continue
+            terms = list(node.args[0])
+            acc = terms[0]
+            with gm.graph.inserting_before(node):
+                for i, t in enumerate(terms[1:]):
+                    total = val(acc) + val(t)
+                    acc = gm.graph.create_node("call_function", operator.add, (acc, t),
+                                               name=f"{node.name}_plus{i}")
+                    acc.meta["val"] = total
+            node.replace_all_uses_with(acc)
+            gm.graph.erase_node(node)
+            changed = True
+        if changed:
+            gm.recompile()
 
 
 def _saved(ep) -> bytes:
@@ -333,13 +366,14 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     runner pads a smaller input up to the closest covering bucket.
 
     symbolic_max_samples: also one program over symbolic (b, s) with
-    hop_length*14 <= s <= symbolic_max_samples (and its gated variant
-    with gated), for the flagship; from 14 hops up T' >= 3, where every
-    size check the capture adds as a runtime guard (sizes other than 1
-    and 2) holds, so nothing is specialized. A runner pads shorter input.
-    On the CPU a fused stack runs the block kernel's plain version only
-    up to T' = 512, as the JAX package: the bound must keep the poly
-    program's T' there, or export raises.
+    `poly_min_samples(cfg, hop)` <= s <= symbolic_max_samples (and its
+    gated variant with gated), for any model; the manifest records the
+    lower bound as `min_samples`, and a runner pads shorter input up to
+    it. On the CPU a fused stack runs the block kernel's plain version
+    only up to T' = 512, as the JAX package: the bound must keep the
+    model's largest stack length (`_stack_frames`) there, or export
+    raises. The splitformer's gated poly program exports for "cpu" only
+    (raises by name for "cuda").
 
     Any CTC model of the registry exports its all-exit program (the
     zipformer's has one exit). gated: also the gated programs (threshold
@@ -357,31 +391,36 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
         registry.require_cascade(cfg)
     E = cfg.n_enc_exits
     hop = int(audio_cfg.hop_length)
-    s_min = hop * 14
-    if symbolic_max_samples is not None and cfg.model_type != "early_conformer":
-        raise NotImplementedError(
-            f"export_recognizer: the shape-polymorphic program is ported for "
-            f"early_conformer; {cfg.model_type}'s padding of T' to its "
-            f"downsampling factor specializes the symbolic length (export "
-            f"buckets with shapes instead)")
     if not shapes and symbolic_max_samples is None:
         raise ValueError("export_recognizer: need shapes and/or "
                          "symbolic_max_samples")
+    if (gated and symbolic_max_samples is not None and "cuda" in platforms
+            and cfg.model_type == "splitformer"):
+        raise NotImplementedError(
+            "export_recognizer: the splitformer's gated poly program does not compile "
+            "for 'cuda': its branch runs inside the gate's torch.cond and computes a "
+            "size there, and AOTInductor (torch 2.11) cannot give that size an example "
+            "value; export it for 'cpu', or the gated buckets and the all-exit poly "
+            "program for 'cuda'")
     unknown = set(platforms) - {"cpu", "cuda"}
     if unknown:
         raise ValueError(f"export_recognizer: unknown platforms {sorted(unknown)}; "
                          f"the port exports for 'cpu' and 'cuda'")
     if symbolic_max_samples is not None:
         from early_exit_tpu_torch.models.conformer import FUSED_MAX_T
+        s_min = poly_min_samples(cfg, hop)
         if symbolic_max_samples < s_min:
             raise ValueError(f"symbolic_max_samples must be >= {s_min}")
-        t_max = _sub_frames(symbolic_max_samples, hop)
+        t_max = max(_stack_frames(cfg, symbolic_max_samples, hop))
         if "cpu" in platforms and cfg.fused_block and t_max > FUSED_MAX_T:
+            s_top = s_min
+            while max(_stack_frames(cfg, s_top + hop, hop)) <= FUSED_MAX_T:
+                s_top += hop
             raise ValueError(
                 f"symbolic_max_samples={symbolic_max_samples} gives T' up to "
                 f"{t_max}; on the CPU the fused stack takes T' <= {FUSED_MAX_T} "
                 f"(the JAX package's rule), so the poly program's bound must "
-                f"stay within {hop * (4 * FUSED_MAX_T + 6) - 1} samples")
+                f"stay within {s_top + hop - 1} samples")
     programs: Dict[str, Dict[str, bytes]] = {}
     meta_shapes: Dict[str, dict] = {}
     ops: Dict[str, Dict[str, int]] = {}
@@ -492,13 +531,36 @@ def _out_shapes(ep):
             for n in out]
 
 
-def _sub_frames(s: int, hop: int) -> int:
-    """T' of an s-sample input to the flagship's trunk: centred mel frames,
-    then two VALID k=3 stride-2 convolutions."""
+def _stack_frames(cfg, s: int, hop: int) -> list:
+    """Every time axis that the model's stacks run at for an s-sample
+    input: centred mel frames, then the VALID k=3 stride-2 convolutions
+    (two; the zipformer's one) give T'; the splitformer's branch runs at
+    ceil(T'/2), the zipformer's stages at ceil(T'/factor) and its exit at
+    ceil(T'/2)."""
+    from early_exit_tpu_torch.models import splitformer, zipformer
     t = 1 + s // hop
-    for _ in range(2):
+    for _ in range(1 if cfg.model_type == "early_zipformer" else 2):
         t = (t - 3) // 2 + 1
-    return t
+    factors = {"splitformer": (splitformer.FACTOR,),
+               "early_zipformer": (*zipformer.FACTORS, 2)}.get(cfg.model_type, ())
+    return [t] + [-(-t // f) for f in factors]
+
+
+def poly_min_samples(cfg, hop: int) -> int:
+    """The poly program's lower bound: the fewest whole hops (from the JAX
+    package's 10) at which T' holds at least 3 frames and every
+    downsampled axis of the model (`_stack_frames`) at least 2. From there
+    every size check that the capture adds as a runtime guard (T' other
+    than 1 and 2, a downsampled length other than 1) holds, so nothing is
+    specialized: 14 hops for the flagship and the splitformer, 18 for the
+    zipformer (its deepest stage at ceil(T'/8)). A runner pads shorter
+    input up to it."""
+    s = hop * 10
+    while True:
+        t, *down = _stack_frames(cfg, s, hop)
+        if t >= 3 and min(down, default=2) >= 2:
+            return s
+        s += hop
 
 
 def save_bundle(path: str, bundle: ExportBundle) -> None:

@@ -13,7 +13,7 @@ confidences; the manifest's `n_exits` and shapes equal JAX's (1 exit and
 the zipformer's own T''); `eet::conformer_block` nodes a graph: one a
 trunk block (the splitformer's two branch blocks run unfused), 19 for the
 zipformer. The refusals carry the JAX package's text; the zoo's
-shape-polymorphic program is not ported and raises by name.
+shape-polymorphic program, refused by name until it was ported, exports.
 """
 
 import jax
@@ -180,10 +180,12 @@ def test_refusals_carry_the_jax_text(name):
         assert str(err.value) == gate
     else:
         registry.require_gated(cfg)
-    # not ported: the zoo's shape-polymorphic program
-    with pytest.raises(NotImplementedError, match="shape-polymorphic program"):
-        exp.export_recognizer(registry.build_model(cfg), AudioConfig(n_mels=8), [],
-                              platforms=("cpu",), symbolic_max_samples=16000)
+    # no longer refused: the zoo's shape-polymorphic program exports
+    # (held against the JAX package's in tests/test_torch_zoo_poly_export.py)
+    bundle = exp.export_recognizer(registry.build_model(cfg).eval(), AudioConfig(n_mels=8),
+                                   [], platforms=("cpu",), symbolic_max_samples=16000)
+    assert sorted(bundle.programs["cpu"]) == ["poly"]
+    assert bundle.manifest["shapes"]["poly"]["min_samples"] == exp.poly_min_samples(cfg, 160)
     with pytest.raises(ValueError) as err:
         registry.require_streaming(cfg)
     from early_exit_tpu_torch.inference import check_streaming

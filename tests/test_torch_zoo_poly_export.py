@@ -1,0 +1,238 @@
+"""The zoo's shape-polymorphic programs on the CPU: the port's `poly` (and
+the splitformer's `gated/poly`) of the splitformer and the early_zipformer
+(`serving/export.py`) against the JAX package's poly programs of the same
+weights (`early_exit_tpu/serving/export.py`), at lengths off any bucket
+and at the JAX package's lower bound (hop * 10 samples, which the port's
+runner pads up to the model's `min_samples`).
+
+Tiny models (d 32, 4 heads, ffn 64, k 7, V 32, 8 mels, float32; the
+splitformer 3 exits x 1 block, the zipformer 19 x 1), JAX inits; the
+port's bundles made by `python -m early_exit_tpu_torch.export_serving
+--export_symbolic_max` from the JAX package's checkpoint, and its
+models by `interop.from_jax_params`. The port's stacks are fused (the block op
+in every graph); the JAX package's poly program is exported unfused (its
+fused dispatch compares the symbolic batch, so it has none). Tolerance:
+tokens and n_tok equal, conf within 1e-5, the gated chosen exits and
+tokens equal at thresholds 0, 1.01 and the median of exit 1's
+confidences. Each program goes through `save_bundle` / `load_bundle`,
+which `torch.export.save` refused while the splitformer's gated capture
+held a `sym_sum` node.
+"""
+
+import contextlib
+import dataclasses
+import io
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from early_exit_tpu.configs import AudioConfig as JAudioConfig
+from early_exit_tpu.configs import ModelConfig as JModelConfig
+from early_exit_tpu.models.registry import build_model as jbuild
+from early_exit_tpu.serving import export as jexp
+from early_exit_tpu.training import checkpoint as jck
+from early_exit_tpu_torch import export_serving as port_export
+from early_exit_tpu_torch import interop
+from early_exit_tpu_torch.configs import AudioConfig, ModelConfig
+from early_exit_tpu_torch.serving import export as exp
+
+N_EXITS = {"splitformer": 3, "early_zipformer": 19}
+MAX_S = 8000
+HOP = 160
+# off the buckets, with a row of every length class; hop * 10 is the
+# JAX package's lower bound
+LENGTHS = [(2, HOP * 10), (3, 3333), (2, 7919)]
+
+
+def _kw(name, fused):
+    return dict(model_type=name, d_model=32, n_heads=4, d_feed_forward=64,
+                n_enc_exits=N_EXITS[name], n_enc_layers_per_exit=1,
+                depthwise_kernel_size=7, vocab_size=32, n_mels=8,
+                compute_dtype="float32", residual_dtype="float32",
+                attn_softmax_dtype="float32", drop_prob=0.0, fused_block=fused)
+
+
+def _wav(b, s, seed):
+    rng = np.random.RandomState(seed)
+    n = np.asarray([s, s - 700, s // 2][:b], np.int32)
+    return (rng.randn(b, s) * 0.1).astype(np.float32), n
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one intra-op thread, as the suite runs six workers on the
+    machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", params=sorted(N_EXITS))
+def pair(request, tmp_path_factory, one_thread):
+    """The port's bundle made by the export CLI from the JAX package's
+    checkpoint (the splitformer's with --export_gated true), the JAX
+    package's of the same weights, and the port's model of them."""
+    name = request.param
+    tmp = tmp_path_factory.mktemp(name)
+    jcfg = JModelConfig(**_kw(name, False))
+    jmodel = jbuild(jcfg)
+    params, state = jmodel.init(jax.random.PRNGKey(0), jcfg)
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    model = interop.from_jax_params(to_np(params), to_np(state),
+                                    ModelConfig(**_kw(name, True))).eval()
+    gated = name == "splitformer"
+    ck = str(tmp / "ckpt")
+    jck.save_pytree({"params": params, "model_state": state}, ck)
+    path = str(tmp / "port.eetx")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_export.main([
+            "--decoder_mode", "ctc", "--load_model_path", ck, "--bpe", "false",
+            "--model_type", name, "--d_model", "32", "--n_heads", "4",
+            "--d_feed_forward", "64", "--n_enc_exits", str(N_EXITS[name]),
+            "--n_enc_layers_per_exit", "1", "--depthwise_kernel_size", "7", "--n_mels", "8",
+            "--compute_dtype", "float32", "--attn_softmax_dtype", "float32",
+            "--fused_block", "true", "--export_path", path, "--export_shapes", "",
+            "--export_platforms", "cpu", "--export_symbolic_max", str(MAX_S),
+            "--export_gated", str(gated).lower()])
+    jexp.save_bundle(str(tmp / "jax.eetx"), jexp.export_recognizer(
+        jmodel, jcfg, JAudioConfig(n_mels=8), params, state, [], platforms=["cpu"],
+        symbolic_max_samples=MAX_S, gated=gated))
+    return dict(name=name, model=model, bundle=exp.load_bundle(path), cli=out.getvalue(),
+                rec=exp.ExportedRecognizer(path, device="cpu"),
+                jrec=jexp.ExportedRecognizer(str(tmp / "jax.eetx")))
+
+
+def _same(got, want):
+    for a, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a, np.asarray(w))
+    np.testing.assert_allclose(got[2], np.asarray(want[2]), atol=1e-5, rtol=0)
+
+
+def _as_served(pair, wav):
+    """The request as the port's runner serves it: padded with zeros up to
+    the model's `min_samples` when it is shorter."""
+    s_min = pair["rec"].manifest["shapes"]["poly"]["min_samples"]
+    return np.pad(wav, ((0, 0), (0, max(0, s_min - wav.shape[1]))))
+
+
+@pytest.mark.parametrize("b,s", LENGTHS)
+def test_poly_matches_jax(pair, b, s):
+    """The port's poly program against the JAX package's on the request as
+    the port serves it. From `min_samples` up that is the request itself;
+    under it (the JAX package's bound, hop * 10) the padded request: the
+    reference's length rule clamps the valid frames at T', which padding
+    raises, so a padded request keeps frames that the JAX package's
+    unpadded program cuts (Queue C)."""
+    wav, n = _wav(b, s, seed=s)
+    got = pair["rec"](wav, n)
+    _same(got, pair["jrec"](_as_served(pair, wav), n))
+    E = 1 if pair["name"] == "early_zipformer" else N_EXITS[pair["name"]]
+    assert got[0].shape[:2] == (E, b) and got[1].sum() > 0
+
+
+def test_poly_manifest_and_ops(pair):
+    man = pair["rec"].manifest
+    poly = man["shapes"]["poly"]
+    cfg = pair["model"].cfg
+    assert poly["min_samples"] == exp.poly_min_samples(cfg, HOP)
+    assert poly["min_samples"] == {"splitformer": 14, "early_zipformer": 18}[
+        pair["name"]] * HOP
+    assert poly["max_samples"] == MAX_S
+    assert man["n_exits"] == pair["jrec"].manifest["n_exits"]
+    blocks = N_EXITS[pair["name"]]
+    assert man["op_nodes"]["cpu"]["poly"] == {"eet::conformer_block": blocks}
+    if pair["name"] == "splitformer":
+        assert man["op_nodes"]["cpu"]["gated/poly"] == {"eet::conformer_block": blocks}
+    # below the model's bound the runner pads up to it; at and past it the
+    # program runs the length as given
+    assert pair["rec"]._pick(2, HOP * 10) == (2, poly["min_samples"])
+    assert pair["rec"]._pick(2, poly["min_samples"] + 1) == (2, poly["min_samples"] + 1)
+
+
+def test_poly_equals_its_eager_program(pair):
+    """At the lower bound itself, the program and its eager module agree."""
+    s = pair["rec"].manifest["shapes"]["poly"]["min_samples"]
+    wav, n = _wav(3, s, seed=1)
+    # the export CLI's inference profile computes the mel features by DFT
+    serve = exp.make_serve_fn(pair["model"], AudioConfig(n_mels=8, mel_method="dft"))
+    with torch.no_grad():
+        want = [t.numpy() for t in serve(torch.from_numpy(wav), torch.from_numpy(n))]
+    got = pair["rec"](wav, n)
+    for a, w in zip(got, want):
+        np.testing.assert_array_equal(a, w)
+
+
+def test_gated_poly_matches_jax(pair):
+    if pair["name"] == "early_zipformer":
+        assert "gated/poly" not in pair["rec"]._progs     # no gate, as in JAX
+        return
+    seen = set()
+    for b, s in LENGTHS:
+        wav, n = _wav(b, s, seed=s)
+        # the middle threshold lies halfway between two rows' exit-1
+        # confidences, never at one (the packages' float sums may part a tie)
+        c = np.sort(pair["rec"](wav, n)[2][0])
+        for thr in (0.0, 1.01, float((c[b // 2 - 1] + c[b // 2]) / 2)):
+            toks, n_tok, chosen = pair["rec"].gated(wav, n, thr)
+            want = pair["jrec"].gated(_as_served(pair, wav), n, thr)
+            for a, w in zip((toks, n_tok, chosen), want):
+                np.testing.assert_array_equal(a, np.asarray(w))
+            seen.update(chosen.tolist())
+    assert seen >= {1, 3}
+
+
+def test_programs_round_trip_through_save(pair, tmp_path):
+    """Every program saves, loads and holds no `sym_sum` node."""
+    path = str(tmp_path / "again.eetx")
+    exp.save_bundle(path, pair["bundle"])
+    back = exp.load_bundle(path)
+    assert back.manifest == pair["bundle"].manifest
+    assert back.programs == pair["bundle"].programs
+    for key in back.programs["cpu"]:
+        # the loaded program the recognizer runs, cond branches included
+        for gm in pair["rec"]._fn(key).modules():
+            if isinstance(gm, torch.fx.GraphModule):
+                assert all(nd.target is not torch.sym_sum for nd in gm.graph.nodes)
+
+
+def test_bound_and_cpu_limit_follow_the_model():
+    """The CPU check uses the model's own largest stack length: the
+    zipformer's one-conv T' is about twice the flagship's."""
+    from early_exit_tpu_torch.models import registry
+    zcfg = ModelConfig(**_kw("early_zipformer", True))
+    fcfg = dataclasses.replace(zcfg, model_type="early_conformer", n_enc_exits=2)
+    s10 = 10 * 16000
+    assert max(exp._stack_frames(zcfg, s10, HOP)) == 500
+    assert max(exp._stack_frames(fcfg, s10, HOP)) == 249
+    model = registry.build_model(zcfg)
+    with pytest.raises(ValueError, match="stay within 164159 samples"):
+        exp.export_recognizer(model, AudioConfig(n_mels=8), [], platforms=("cpu",),
+                              symbolic_max_samples=s10 + HOP * 100)
+    with pytest.raises(ValueError, match=f"must be >= {18 * HOP}"):
+        exp.export_recognizer(model, AudioConfig(n_mels=8), [], platforms=("cpu",),
+                              symbolic_max_samples=HOP * 12)
+
+
+def test_export_cli_takes_symbolic_max_for_the_zoo(pair):
+    """The fixture's bundle came from `export_serving --export_symbolic_max`
+    with --export_shapes "": the poly programs only."""
+    n = 2 if pair["name"] == "splitformer" else 1
+    assert f"exported {n} program(s)" in pair["cli"]
+    assert sorted(pair["bundle"].programs["cpu"]) == (
+        ["gated/poly", "poly"] if n == 2 else ["poly"])
+    assert pair["bundle"].manifest["gated"] == (n == 2)
+
+
+def test_gated_poly_for_cuda_is_refused_by_name():
+    """AOTInductor cannot compile the splitformer's gated poly program (a
+    size computed inside a cond branch); the refusal comes before any
+    capture, so it needs no card."""
+    from early_exit_tpu_torch.models import registry
+    model = registry.build_model(ModelConfig(**_kw("splitformer", True)))
+    with pytest.raises(NotImplementedError, match="gated poly program does not compile"):
+        exp.export_recognizer(model, AudioConfig(n_mels=8), [], platforms=("cuda",),
+                              symbolic_max_samples=MAX_S, gated=True)
