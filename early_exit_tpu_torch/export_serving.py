@@ -23,7 +23,8 @@ early_exit_tpu_torch.inference`); the weights come from
 --avg_model_start..--avg_model_end. Exporting for "cuda" needs a GPU.
 Any CTC --model_type exports its all-exit program (early_zipformer: one
 exit) and, with --export_symbolic_max, its shape-polymorphic program
-(each model's own lower bound, `min_samples` in the manifest);
+over hop * 10 samples (the JAX package's bound, `min_samples` in the
+manifest) up to that maximum, for "cpu" and "cuda";
 --export_gated true takes early_conformer and splitformer, and
 --export_cascade_k early_conformer only: other models raise the JAX
 package's ValueError before the model is loaded.
@@ -64,7 +65,8 @@ def main(argv=None):
                      help="also export ONE shape-polymorphic program valid up "
                           "to this many samples, for any --model_type "
                           "(early_conformer, splitformer, early_zipformer); "
-                          "its lower bound is the model's own")
+                          "its lower bound is hop * 10 samples, as the JAX "
+                          "package's")
     own.add_argument("--export_gated", default="false",
                      help="true: also export confidence-gated variants (exit "
                           "by exit, threshold a runtime scalar) -- "

@@ -165,8 +165,12 @@ def heads_apply(w: torch.Tensor, b: torch.Tensor, hidden: torch.Tensor,
     tp = mesh is not None and mesh.tp > 1
     if tp:
         hidden = collectives.copy_to_model(hidden, mesh)
-    logits = core.linear(hidden, w[:, None], b[:, None, None],
-                         compute_dtype=compute_dtype)
+    # each row's copy of its exit's head, as the batched product would
+    # make it from a broadcast w[:, None]: made here, a capture over a
+    # symbolic batch adds no guard on B == 1
+    w = w.to(compute_dtype)[:, None].expand(-1, hidden.shape[1], -1, -1)
+    w = w.clone(memory_format=torch.contiguous_format)
+    logits = core.linear(hidden, w, b[:, None, None], compute_dtype=compute_dtype)
     if tp:
         logits = collectives.gather_from_model(logits, mesh, vocab)
     if not log_probs:

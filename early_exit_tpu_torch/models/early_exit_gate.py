@@ -114,7 +114,7 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     temps = per_exit(temperatures, E)
     h, sub_len, mask = model.frontend_embed(feats, lengths)
     thr = exit_thresholds(threshold, E, h.device)
-    B, Tp, _ = h.shape
+    B, Tp, D = h.shape
     if item_mask is None:
         done = torch.zeros(B, dtype=torch.bool, device=h.device)
     else:
@@ -122,8 +122,13 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     # the carry flat: a cond's branches must agree on their outputs'
     # strides, which a symbolic T' inside a shape would leave unprovable
     V = cfg.vocab_size
-    # the branch's mask needs the frame and sub-frame counts
-    branch_lengths = (lengths, sub_len) if branches else ()
+    # the branch's gathers and mask, made here: no cond branch derives a
+    # size of its own
+    branch_ops = model.branch_operands(Tp, lengths, sub_len) if branches else ()
+    # the masks contiguous copies: the strides of a broadcast comparison
+    # depend on B == 1, which the cond's capture would guard
+    mask, *branch_ops = (t.clone(memory_format=torch.contiguous_format)
+                         for t in (mask, *branch_ops))
     carry = (h.reshape(-1), torch.zeros(B * Tp * V, device=h.device),
              torch.zeros(B, dtype=torch.int32, device=h.device), done,
              torch.zeros((), dtype=torch.int32, device=h.device))
@@ -132,12 +137,12 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
         return tuple(t.clone() for t in carry[:5])
 
     def run_exit(e):
-        def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr, *lengths):
+        def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr, *ops):
             shape = mask.shape
-            h_in = h.view(*shape, -1)
+            h_in = h.view(*shape, D)
             h = model.stack(h_in, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
             if e in branches:
-                h = model.add_branch(branches[e], h_in, h, mask, *lengths)
+                h = model.add_branch(branches[e], h_in, h, mask, *ops)
             logp, conf = head_logp_conf(model, h, mask, e, score,
                                         None if temps is None else temps[e])
             ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
@@ -153,6 +158,6 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
         pred = carry[3].all()
         if not torch.compiler.is_compiling():
             pred = bool(pred)
-        carry = torch.cond(pred, skip, run_exit(e), carry + (mask, thr) + branch_lengths)
+        carry = torch.cond(pred, skip, run_exit(e), carry + (mask, thr, *branch_ops))
     _, chosen_lp, chosen_exit, _, n_run = carry
     return chosen_lp.view(B, Tp, V), chosen_exit, sub_len, n_run

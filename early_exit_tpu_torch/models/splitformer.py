@@ -54,27 +54,31 @@ class Splitformer(EarlyConformer):
         (a one-exit model runs block 0 there, as the JAX package)."""
         return {self.cfg.n_enc_exits - 1: 1, 0: 0}
 
-    def _branch_input(self, x, lengths, sub_len):
-        """The branch's downsampled input and its mask."""
-        T = x.shape[1]
-        x, pad = subsampling.pad_downsample(x, FACTOR)
-        t_ds = x.shape[1]
+    def branch_operands(self, T, lengths: torch.Tensor, sub_len: torch.Tensor):
+        """What the branch takes from the lengths at a T'-frame exit, the
+        same at both branch exits: the kept frames' indices (t_ds,), the
+        branch mask (B, t_ds) and the upsampling gather (T',). Computed
+        once, outside the gate's conds, so that no cond branch derives a
+        size of its own."""
+        down = subsampling.down_index(T, FACTOR, lengths.device)
+        t_ds = down.shape[0]
         if self.cfg.length_mode == "reference":
+            pad = (-T) % FACTOR
             ds_len = ((lengths + pad).float() / FACTOR).to(torch.int32).clamp(max=t_ds)
         else:
             ds_len = torch.div(sub_len + FACTOR - 1, FACTOR,
                                rounding_mode="floor").clamp(max=t_ds)
-        mask = torch.arange(t_ds, device=x.device)[None, :] < ds_len[:, None]
-        return x, mask, T
+        ds_mask = torch.arange(t_ds, device=lengths.device)[None, :] < ds_len[:, None]
+        up = subsampling.up_index(T, FACTOR, lengths.device)
+        return down, ds_mask, up
 
     def add_branch(self, bi: int, branch_in: torch.Tensor, h: torch.Tensor,
-                   mask: torch.Tensor, lengths: torch.Tensor,
-                   sub_len: torch.Tensor) -> torch.Tensor:
+                   mask: torch.Tensor, down: torch.Tensor, ds_mask: torch.Tensor,
+                   up: torch.Tensor) -> torch.Tensor:
         """Inference: h (the exit's stack output) plus branch bi on
-        branch_in (the hidden state before the stack), padded rows
-        zeroed."""
-        x_ds, ds_mask, T = self._branch_input(branch_in, lengths, sub_len)
-        y = subsampling.upsample_to(self.parallel[bi](x_ds, ds_mask), FACTOR, T)
+        branch_in (the hidden state before the stack), padded rows zeroed;
+        down, ds_mask, up from `branch_operands`."""
+        y = self.parallel[bi](branch_in.index_select(1, down), ds_mask).index_select(1, up)
         return torch.where(mask[..., None], h + y, torch.zeros((), dtype=h.dtype,
                                                                  device=h.device))
 
@@ -83,11 +87,12 @@ class Splitformer(EarlyConformer):
         sub-lengths)."""
         x, sub_len, mask = self.frontend_embed(feats, lengths)
         npe, branches = self.cfg.n_enc_layers_per_exit, self.branch_exits()
+        ops = self.branch_operands(x.shape[1], lengths, sub_len)
         hidden = []
         for e in range(n_exits):
             h = self.stack(x, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
             if e in branches:
-                h = self.add_branch(branches[e], x, h, mask, lengths, sub_len)
+                h = self.add_branch(branches[e], x, h, mask, *ops)
             x = h
             hidden.append(h)
         return hidden, sub_len
@@ -111,6 +116,7 @@ class Splitformer(EarlyConformer):
         their dropout from seeds[L] and seeds[L + 1]."""
         npe, branches = self.cfg.n_enc_layers_per_exit, self.branch_exits()
         L = len(self.stack.blocks)
+        down, ds_mask, up = self.branch_operands(x.shape[1], lengths, sub_len)
         hidden, means, variances, par_state = [], [], [], []
         for e in range(self.cfg.n_enc_exits):
             out, m, v = self.stack.train_forward(
@@ -121,11 +127,10 @@ class Splitformer(EarlyConformer):
             variances.append(v)
             if e in branches:
                 bi = branches[e]
-                x_ds, ds_mask, T = self._branch_input(x, lengths, sub_len)
                 y, bm, bv = self.parallel[bi](
-                    x_ds, ds_mask, train=True,
+                    x.index_select(1, down), ds_mask, train=True,
                     seed=None if seeds is None else seeds[L + bi])
-                h = h + subsampling.upsample_to(y, FACTOR, T)
+                h = h + y.index_select(1, up)
                 h = torch.where(mask[..., None], h, torch.zeros((), dtype=h.dtype,
                                                                   device=h.device))
                 par_state.append({"conv_bn": {"mean": bm, "var": bv}})

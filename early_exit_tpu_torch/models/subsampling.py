@@ -57,19 +57,29 @@ def reference_subsampled_length(lengths: torch.Tensor, factor: int,
     return (lengths.float() / factor).to(torch.int32).clamp(max=max_t)
 
 
+def up_index(length, factor: int, device=None) -> torch.Tensor:
+    """The gather (length,) that repeats each frame `factor` times."""
+    return torch.div(torch.arange(length, device=device), factor, rounding_mode="floor")
+
+
+def down_index(length, factor: int, device=None) -> torch.Tensor:
+    """The gather (ceil(length / factor),) of every `factor`-th frame."""
+    return torch.arange(0, length, factor, device=device)
+
+
 def upsample_to(x: torch.Tensor, factor: int, length) -> torch.Tensor:
     """Each frame of (B, T, D) repeated `factor` times over time, cut to
     `length` frames, as one gather: a capture over a symbolic length then
     needs no guard that the cut fits (length <= factor * T)."""
-    idx = torch.div(torch.arange(length, device=x.device), factor, rounding_mode="floor")
-    return x.index_select(1, idx)
+    return x.index_select(1, up_index(length, factor, x.device))
 
 
 def downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
-    """Every `factor`-th frame (B, T, D), from the first, contiguous: a
-    strided view of an odd symbolic length would make a later matmul's
+    """Every `factor`-th frame (B, T, D), from the first, as one gather: a
+    strided view would make a capture over a symbolic T guard on the
+    kept length being 1 where it copies the view, and a later matmul's
     view guard T's parity."""
-    return x[:, ::factor].contiguous()
+    return x.index_select(1, down_index(x.shape[1], factor, x.device))
 
 
 def pad_downsample(x: torch.Tensor, factor: int) -> Tuple[torch.Tensor, int]:

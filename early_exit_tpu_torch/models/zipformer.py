@@ -105,7 +105,7 @@ class EarlyZipformer(nn.Module):
             else:
                 ds_len = torch.div(base_len + pad + factor - 1, factor,
                                    rounding_mode="floor")
-            mask = pos[None, :t_ds] < ds_len.clamp(max=t_ds)[:, None]
+            mask = torch.arange(t_ds, device=x.device)[None, :] < ds_len.clamp(max=t_ds)[:, None]
             x = run(i + 1, self.stages[i], x, mask)
             x = subsampling.upsample_to(x, factor, T) + src
             x = torch.where(base_mask, x, zero.to(x.dtype))

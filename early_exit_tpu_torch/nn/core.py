@@ -182,7 +182,10 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
         w = w.to(compute_dtype)
     xt = F.pad(x.transpose(1, 2), _time_pad(w.shape[0], padding))
     y = F.conv1d(xt, w.permute(2, 1, 0), stride=stride)
-    y = y.transpose(1, 2).float()
+    # (B, T, C) contiguous: a product on the transposed layout cannot fold
+    # the batch into its rows, and a capture over a symbolic batch then
+    # guards on B == 1
+    y = y.transpose(1, 2).clone(memory_format=torch.contiguous_format).float()
     if b is not None:
         y = y + b.float()
     return y
@@ -201,7 +204,11 @@ def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor,
     k, _, C = w.shape
     xt = F.pad(x.float().transpose(1, 2), _time_pad(k, "SAME"))
     y = F.conv1d(xt, w.float().permute(2, 1, 0), groups=C)
-    y = y.transpose(1, 2).to(x.dtype).float()
+    # back to (B, T, C) as a contiguous copy: a later product on the
+    # transposed view would copy it anyway, and a capture over a symbolic
+    # T would guard on T == 1 deciding so
+    y = y.transpose(1, 2).clone(memory_format=torch.contiguous_format)
+    y = y.to(x.dtype).float()
     if b is not None:
         y = y + b.float()
     return y
@@ -284,6 +291,18 @@ def _softmax_lowp(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(-1, keepdim=True)
 
 
+def _heads(x: torch.Tensor, B: int, T: int, n_heads: int, dh: int, *,
+           keys: bool = False) -> torch.Tensor:
+    """(B, T, n_heads * dh) -> (B * n_heads, T, dh), or (B * n_heads, dh,
+    T) with keys, as a contiguous copy: the operand that a batched product
+    on the transposed view would copy to anyway. Made explicitly, it
+    leaves a capture over a symbolic T with no guard on T == 1 (a view
+    decision), so a poly program serves a one-frame axis."""
+    x = x.reshape(B, T, n_heads, dh)
+    x = x.permute(0, 2, 3, 1) if keys else x.permute(0, 2, 1, 3)
+    return x.clone(memory_format=torch.contiguous_format).view(B * n_heads, *x.shape[2:])
+
+
 def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         kv_in: torch.Tensor, n_heads: int, *,
         key_mask: Optional[torch.Tensor] = None,
@@ -308,18 +327,19 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
     q = linear(q_in, *p["q"], **lin)
     k = linear(kv_in, *p["k"], **lin)
     v = linear(kv_in, *p["v"], **lin)
-    q = q.reshape(B, Tq, n_heads, dh).transpose(1, 2)
-    k = k.reshape(B, Tk, n_heads, dh).transpose(1, 2)
-    v = v.reshape(B, Tk, n_heads, dh).transpose(1, 2)
+    q = _heads(q, B, Tq, n_heads, dh)
+    k = _heads(k, B, Tk, n_heads, dh, keys=True)
+    v = _heads(v, B, Tk, n_heads, dh)
 
     lowp = softmax_dtype == torch.bfloat16
     if lowp:
-        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)
+        scores = torch.bmm(q, k) / math.sqrt(dh)
         neg = NEG_BF16
     else:
-        scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+        scores = torch.bmm(q.float(), k.float())
         scores = scores / math.sqrt(dh)
         neg = NEG_INF
+    scores = scores.view(B, n_heads, Tq, Tk)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, :], neg)
     if causal:
@@ -329,14 +349,15 @@ def mha(p: Dict[str, Tuple[torch.Tensor, torch.Tensor]], q_in: torch.Tensor,
         pm = pair_mask if pair_mask.dim() == 3 else pair_mask[None]
         scores = scores.masked_fill(~pm[:, None], neg)
     if lowp:
-        out = torch.matmul(_softmax_lowp(scores), v)
+        out = torch.bmm(_softmax_lowp(scores).view(B * n_heads, Tq, Tk), v)
     else:
         attn = torch.softmax(scores.float(), dim=-1)
         if compute_dtype is not None:
             attn = attn.to(compute_dtype)
             v = v.to(compute_dtype)
-        out = torch.matmul(attn.float(), v.float())
-    out = out.transpose(1, 2).reshape(B, Tq, D)
+        out = torch.bmm(attn.float().view(B * n_heads, Tq, Tk), v.float())
+    out = out.view(B, n_heads, Tq, dh).permute(0, 2, 1, 3)
+    out = out.clone(memory_format=torch.contiguous_format).view(B, Tq, D)
     return linear(out, *p["o"], **lin)
 
 

@@ -110,8 +110,11 @@ def greedy_decode_ids(best: torch.Tensor, lengths: torch.Tensor, *,
     B, T = best.shape
     t_idx = torch.arange(T, device=best.device)[None, :]
     valid = t_idx < lengths.to(best.device)[:, None]
-    prev = torch.cat([torch.full((B, 1), -1, dtype=best.dtype,
-                                 device=best.device), best[:, :-1]], dim=1)
+    # the previous frame's id (-1 before the first) as a gather: a slice
+    # of T - 1 frames would make a capture over a symbolic T guard on
+    # T - 1 == 1
+    prev = best.index_select(1, (t_idx[0] - 1).clamp(min=0))
+    prev = torch.where(t_idx > 0, prev, torch.full_like(prev, -1))
     keep = (best != blank) & (best != prev) & valid
     # the running count of kept frames as a product with the (T, T)
     # upper-triangular ones, exact (0/1 operands, float32 sums far below
@@ -124,4 +127,6 @@ def greedy_decode_ids(best: torch.Tensor, lengths: torch.Tensor, *,
     dest = torch.where(keep, pos, torch.full_like(pos, T))
     out = torch.full((B, T + 1), blank, dtype=best.dtype, device=best.device)
     out.scatter_(1, dest, torch.where(keep, best, torch.full_like(best, blank)))
-    return out[:, :T], n_tokens
+    # contiguous: a later reshape of the strided cut would make a capture
+    # over a symbolic batch guard on B == 1
+    return out[:, :T].clone(memory_format=torch.contiguous_format), n_tokens

@@ -82,7 +82,11 @@ def _frames(wav: torch.Tensor, n_fft: int, hop_length: int,
     n_frames = 1 + wav.shape[1] // hop_length
     width = n_fft if width is None else width
     offset = (n_fft - width) // 2
-    return x[:, offset:].unfold(1, width, hop_length)[:, :n_frames]
+    # the first n_frames as a gather, not a slice: a capture over a
+    # symbolic length cannot always show that n_frames fits the unfolded
+    # count, and some torch versions then give the slice a size of its own
+    first = torch.arange(n_frames, device=wav.device)
+    return x[:, offset:].unfold(1, width, hop_length).index_select(1, first)
 
 
 def spectrogram(wav: torch.Tensor, *, n_fft: int, win_length: int,

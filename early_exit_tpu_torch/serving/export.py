@@ -251,11 +251,18 @@ def _ops_called(ep) -> Dict[str, int]:
     return count
 
 
-def _capture(program, args, dynamic_shapes=None):
+def _capture(program, args, dynamic_shapes=None, *, size_oblivious=False):
+    """torch.export of program at args. size_oblivious: a size check that
+    the tracer meets (is this axis 1, so a view or a broadcast?) takes the
+    answer that holds for every size, and adds no guard, so a program over
+    a symbolic time axis also serves the lengths where an axis has one
+    frame (the poly program from hop * 10 samples: T' = 2, the
+    splitformer's branch and the zipformer's deepest stage 1)."""
     # torch.export traces a cond through dynamo, whose cache from an
     # earlier capture at other shapes could specialize this one
     torch._dynamo.reset()
-    with torch.no_grad():
+    with torch.no_grad(), torch.fx.experimental._config.patch(
+            backed_size_oblivious=size_oblivious):
         ep = torch.export.export(program, args, dynamic_shapes=dynamic_shapes,
                                  strict=False)
     _spell_sym_sums(ep)
@@ -366,14 +373,15 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     runner pads a smaller input up to the closest covering bucket.
 
     symbolic_max_samples: also one program over symbolic (b, s) with
-    `poly_min_samples(cfg, hop)` <= s <= symbolic_max_samples (and its
-    gated variant with gated), for any model; the manifest records the
-    lower bound as `min_samples`, and a runner pads shorter input up to
-    it. On the CPU a fused stack runs the block kernel's plain version
-    only up to T' = 512, as the JAX package: the bound must keep the
-    model's largest stack length (`_stack_frames`) there, or export
-    raises. The splitformer's gated poly program exports for "cpu" only
-    (raises by name for "cuda").
+    hop * 10 <= s <= symbolic_max_samples (and its gated variant with
+    gated), for any model: the JAX package's bound, which the manifest
+    records as `min_samples`. The program takes every length in
+    that range as it is; only a shorter request is padded up to the bound,
+    as the JAX package's runner pads it. On the CPU a fused stack runs the
+    block kernel's plain version only up to T' = 512, as the JAX package:
+    the bound must keep the model's largest stack length (`_stack_frames`)
+    there, or export raises. The splitformer's gated poly program exports
+    for "cpu" only (raises by name for "cuda").
 
     Any CTC model of the registry exports its all-exit program (the
     zipformer's has one exit). gated: also the gated programs (threshold
@@ -398,17 +406,17 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
             and cfg.model_type == "splitformer"):
         raise NotImplementedError(
             "export_recognizer: the splitformer's gated poly program does not compile "
-            "for 'cuda': its branch runs inside the gate's torch.cond and computes a "
-            "size there, and AOTInductor (torch 2.11) cannot give that size an example "
-            "value; export it for 'cpu', or the gated buckets and the all-exit poly "
-            "program for 'cuda'")
+            "for 'cuda': AOTInductor (torch 2.11) autotunes the kernels of the gate's "
+            "torch.cond branches with example sizes taken from the program's own "
+            "precomputed sizes, and an example kernel faults; export it for 'cpu', or "
+            "the gated buckets and the all-exit poly program for 'cuda'")
     unknown = set(platforms) - {"cpu", "cuda"}
     if unknown:
         raise ValueError(f"export_recognizer: unknown platforms {sorted(unknown)}; "
                          f"the port exports for 'cpu' and 'cuda'")
     if symbolic_max_samples is not None:
         from early_exit_tpu_torch.models.conformer import FUSED_MAX_T
-        s_min = poly_min_samples(cfg, hop)
+        s_min = hop * 10
         if symbolic_max_samples < s_min:
             raise ValueError(f"symbolic_max_samples must be >= {s_min}")
         t_max = max(_stack_frames(cfg, symbolic_max_samples, hop))
@@ -465,10 +473,12 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
             s_ex = max(s_min, min(int(symbolic_max_samples), 4 * s_min))
             wav = torch.zeros(2, s_ex, device=dev)
             n = torch.full((2,), s_ex, dtype=torch.int32, device=dev)
-            eps["poly"] = _capture(serve, (wav, n), ({0: nb, 1: ns}, {0: nb}))
+            eps["poly"] = _capture(serve, (wav, n), ({0: nb, 1: ns}, {0: nb}),
+                                   size_oblivious=True)
             if gated_p is not None:
                 eps["gated/poly"] = _capture(gated_p, (wav, n, thr),
-                                             ({0: nb, 1: ns}, {0: nb}, None))
+                                             ({0: nb, 1: ns}, {0: nb}, None),
+                                             size_oblivious=True)
         programs[plat] = {k: _saved(ep) for k, ep in eps.items()}
         ops[plat] = {k: _ops_called(ep) for k, ep in eps.items()}
     # shapes per bucket, and the exits, from the captured all-exit
@@ -546,23 +556,6 @@ def _stack_frames(cfg, s: int, hop: int) -> list:
     return [t] + [-(-t // f) for f in factors]
 
 
-def poly_min_samples(cfg, hop: int) -> int:
-    """The poly program's lower bound: the fewest whole hops (from the JAX
-    package's 10) at which T' holds at least 3 frames and every
-    downsampled axis of the model (`_stack_frames`) at least 2. From there
-    every size check that the capture adds as a runtime guard (T' other
-    than 1 and 2, a downsampled length other than 1) holds, so nothing is
-    specialized: 14 hops for the flagship and the splitformer, 18 for the
-    zipformer (its deepest stage at ceil(T'/8)). A runner pads shorter
-    input up to it."""
-    s = hop * 10
-    while True:
-        t, *down = _stack_frames(cfg, s, hop)
-        if t >= 3 and min(down, default=2) >= 2:
-            return s
-        s += hop
-
-
 def save_bundle(path: str, bundle: ExportBundle) -> None:
     with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
         z.writestr("manifest.json", json.dumps(bundle.manifest, indent=1))
@@ -602,11 +595,13 @@ def load_bundle(path: str) -> ExportBundle:
 
 class ExportedRecognizer:
     """Runs a saved bundle with no model code: pads a waveform batch up to
-    the smallest covering bucket (else the poly program) and calls the
-    program, numpy in, numpy out. On CUDA (the default device) it runs the
-    AOTInductor packages, on the CPU the captured programs; a bundle with
-    no program for the device's platform raises. Programs are loaded at
-    first use. `close()` removes the packages' extracted files."""
+    the smallest covering bucket, else calls the poly program on it as it
+    is (a request under the program's `min_samples`, hop * 10, padded up
+    to it as the JAX package's runner pads it), numpy in, numpy out. On
+    CUDA (the default device) it runs the AOTInductor packages, on the
+    CPU the captured programs; a bundle with no program for the device's
+    platform raises. Programs are loaded at first use. `close()` removes
+    the packages' extracted files."""
 
     def __init__(self, path: str, device=None):
         self.bundle = load_bundle(path)

@@ -221,6 +221,56 @@ def test_symbolic_program(gc):
         rec(*_wav(1, 32000))
 
 
+HOP = 160
+SHORT = [HOP * h for h in (10, 11, 12, 13)]     # T' = 2: the JAX package's bound up
+
+
+def _short(b, s, seed):
+    """A b-row request s samples wide, rows of s, s - 700 and s // 2
+    samples in turn; b above the fixture's bucket batch, so that the poly
+    program serves it."""
+    rng = np.random.RandomState(seed)
+    return ((rng.randn(b, s) * 0.1).astype(np.float32),
+            np.asarray([(s, s - 700, s // 2)[i % 3] for i in range(b)], np.int32))
+
+
+@pytest.mark.parametrize("s", SHORT)
+def test_symbolic_program_from_ten_hops(gc, s):
+    """From the JAX package's bound (hop * 10 samples) up, the poly
+    program takes the request as it is: the same shapes (T' = 2), tokens,
+    n_tok and conf as the JAX package's poly program on the unpadded
+    request, and the gated poly program's chosen exits and tokens at
+    thresholds 0, 1.01 and between two rows' exit-1 confidences."""
+    assert gc.rec.manifest["shapes"]["poly"]["min_samples"] == HOP * 10
+    assert gc.rec._pick(4, s) == (4, s)
+    wav, n = _short(4, s, seed=s)
+    got, want = gc.rec(wav, n), gc.jrec(wav, n)
+    assert [a.shape for a in got] == [np.shape(w) for w in want]
+    assert got[0].shape[2] == 2
+    _same(got, want)
+    for thr in (0.0, 1.01, _split(got[2][0], 1)):
+        g = gc.rec.gated(wav, n, thr)
+        w = gc.jrec.gated(wav, n, thr)
+        assert [a.shape for a in g] == [np.shape(x) for x in w]
+        for a, x in zip(g, w):
+            np.testing.assert_array_equal(a, np.asarray(x))
+
+
+def test_fused_poly_from_ten_hops(fused):
+    """The fused model's poly programs at 10 and 13 hops against the JAX
+    functions jitted at the request's own shape: all-exit outputs equal,
+    the gated program's chosen exits and tokens equal."""
+    for s in (SHORT[0], SHORT[-1]):
+        wav, n = _short(FUSED_B + 1, s, seed=s + 1)
+        got, want = fused.rec(wav, n), fused.jax_direct()(wav, n)
+        assert [a.shape for a in got] == [np.shape(w) for w in want]
+        _same(got, want)
+        thr = _split(got[2][0], 1)
+        g = fused.rec.gated(wav, n, thr)
+        for a, x in zip(g, fused.jax_direct(thr)(wav, n)):
+            np.testing.assert_array_equal(a, np.asarray(x))
+
+
 def test_symbolic_only_bundle(tmp_path):
     kw = dict(UNFUSED)
     model = interop.from_jax_params(*_jax_weights(kw), ModelConfig(**kw)).eval()

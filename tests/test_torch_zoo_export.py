@@ -185,7 +185,7 @@ def test_refusals_carry_the_jax_text(name):
     bundle = exp.export_recognizer(registry.build_model(cfg).eval(), AudioConfig(n_mels=8),
                                    [], platforms=("cpu",), symbolic_max_samples=16000)
     assert sorted(bundle.programs["cpu"]) == ["poly"]
-    assert bundle.manifest["shapes"]["poly"]["min_samples"] == exp.poly_min_samples(cfg, 160)
+    assert bundle.manifest["shapes"]["poly"]["min_samples"] == 160 * 10
     with pytest.raises(ValueError) as err:
         registry.require_streaming(cfg)
     from early_exit_tpu_torch.inference import check_streaming
