@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --row_times [CHECKOUT]   # rows 1-3s' times only
 
 Phases (any failure exits non-zero, with no result line; they run in
-the order 1-10, 12, 13, 15-17, 18b-d, 11, 14, 18a: the serving programs
+the order 1-10, 12, 13, 15-17, 18b-d, 19, 11, 14, 18a: the serving programs
 of phases 11, 14c and 18a are captured and compiled by AOTInductor in a
 child process at nice 10 (`export_child`, EXPORT_WORKERS compiles at a
 time) beside phases 8-18d, and served once they all are):
@@ -152,8 +153,8 @@ time) beside phases 8-18d, and served once they all are):
      by AOTInductor in `export_child` (capture and compile seconds and
      bundle size printed, the bundles under a temp dir); the graphs hold
      `eet::conformer_block` once per block run (12 all-exit, 2 in each
-     exit's cond of the gated program, 2k and 12-2k in the cascade
-     phases); the compiled program's mel features full float32 (and
+     exit's cond of the gated bucket program and in each of the gated
+     poly program's six programs, 2k and 12-2k in the cascade phases); the compiled program's mel features full float32 (and
      TF32's outside the tolerance); then, from the bundle alone
      (`ExportedRecognizer`, AOTInductor packages) over phase 3's 128
      requests in 16 batches of 8: the all-exit program (12 block launches
@@ -167,12 +168,18 @@ time) beside phases 8-18d, and served once they all are):
      packed phase-B batch; the poly program at 0.10, 0.12, 0.13 and 0.14
      s (10, 12, 13 and 14 hops: from the JAX package's bound, served as
      given) and at 12.3 s and 17.9 s within the contract of
-     `Recognizer.transcribe`; times (CUDA events) of the
+     `Recognizer.transcribe`; the gated poly program (one program an
+     exit, stepped on the host) at those lengths and 10 s, thresholds 0,
+     1.01 and the median gap, chosen exits equal to eager `gated_apply`'s,
+     2 launches an exit run, and its time at 8 x 10 s against the same
+     gate as one cond program (a yardstick compiled beside it); times
+     (CUDA events) of the
      exported all-exit program and cascade against the eager ones, and
      each path's device-busy share (torch.profiler).
 
  12. the AED mode (`--decoder_mode aed`) at the flagship's widths, a
-     seeded `full_conformer` (6 decoder layers an exit, ~89 M parameters):
+     seeded `full_conformer` (AED_DEC_LAYERS decoder layers an exit, the
+     recipe's 6 cut to 2 to keep the whole run inside its 1,200 s budget):
      (a) one joint-loss train step on the card against the CPU in float32
      with TF32 off, dropout 0, no SpecAugment (phase 8a's tolerances, the
      decoders' key biases among the zero-gradient leaves); (b) LEARN_STEPS
@@ -291,8 +298,11 @@ time) beside phases 8-18d, and served once they all are):
      s, the JAX package's bound up, unpadded) and at each model's former
      bound (14 and 18 hops), 12 (19) `eet::conformer_block` launches a
      call, within the token contract of the eager `Recognizer.transcribe`
-     pooled and at each exit; compile seconds, MB and ms a call beside
-     the bucket programs' (14c). (b-d) `measure_phase`: the
+     pooled and at each exit; the splitformer's gated poly program (one
+     program an exit, stepped on the host by `ExportedRecognizer.gated`)
+     at the same lengths and thresholds 0, 1.01 and the median gap, 2
+     launches an exit run, chosen exits equal to eager `gated_apply`'s;
+     compile seconds, MB and ms a call beside the bucket programs' (14c). (b-d) `measure_phase`: the
      ablation library (`conformer_block.cu` with -DEET_ABLATE) bit-equal
      to the bf16 entry and within ABLATE_TIME_RTOL of its time, each
      ablation within the bf16 rule of the plain version with the same
@@ -300,6 +310,45 @@ time) beside phases 8-18d, and served once they all are):
      `bench_int8` and `ablate_decode` in child processes (head ids equal
      but at bf16 ties, the int8 legs within the token contract, the
      collapse variants equal); `warm_cache` at WARM_ARGS.
+
+ 19. the widths past the flagship's that the JAX package's Pallas kernels
+     take: (a) `widths_kernels`: each new kernel instantiation against
+     its plain version on seeded inputs: the block's three entries at d
+     512 (8 heads of 64, ff 2048) and at 16 heads of 16 (d 256), B=8,
+     T'=249, a short and an empty item (the bf16 and W8A8 entries by
+     phase 2's rule against a reference that rounds where the kernel
+     rounds, with two controls outside it, `held_block`; float32 within
+     F32_BLOCK_ATOL); the attention at dh 16 and 64, T = 1, 65, 249, 785,
+     bf16 and float32 inputs (ATT_RTOL of max|v|); the head at V 32, 128,
+     500, 5000 beside D 256 and 512 (the resident and the streamed
+     design) on dyadic inputs with exact ties across its 256-column
+     tiles, at 3 x 3 x 83 rows and at the main path's 6 x 128 x 249, ids
+     equal (`heads_held`); the W8A8 LayerNorm + quantize at d 512, value
+     for value; (b-e) `widths_phase`: the d-512 early conformer
+     (`d512_config`, the port's init at seed 0, BPE-256) served on phase
+     3's 128 requests through `Recognizer.transcribe` (12 block and 1 head
+     launches; each block launch, fed the kernel path's own input, held
+     by `held_block`, and so each W8A8 block and, within F32_BLOCK_ATOL,
+     each float32 block of the same model at the same size; each exit's
+     head ids equal to the plain head's on the same hidden states but at
+     near-ties, `heads_held`; the per-exit token disagreement against the
+     plain-version path printed, not held: random weights transcribe
+     nothing), through the cascade with bf16 and W8A8 blocks under the
+     committed calibration and with exit k's threshold at the median
+     (chosen exits equal to the while-loop gate's), through `python -m
+     early_exit_tpu_torch.inference --fused_block true` with its flags
+     over phase 9's corpus, and the same CLI with `--bpe false` at the
+     flagship's widths (the head at V = 32); a seeded 5000-piece head at
+     d 512 through `Recognizer.exit_ids`, the model unfused with the
+     attention kernel (dh 64) and in float32 on 16 requests; the heads at
+     V 32 and V 5000 held by `heads_held` on the hidden states they are
+     timed on; the new rows' times (1@d512, 1b@d512, 1c@d512, 2@V32,
+     2@V5000·D512, 3@dh64) beside their plain versions, library calls and
+     bounds (`block_rows`, `head_row`, `attention_row`, as phase 4's).
+
+`--row_times [CHECKOUT]` times rows 1-3s alone at the flagship's shapes
+for the package of another checkout (`row_times`): parent and change are
+compared in one call to the card as p, c, c, p.
 
 The line before the last is the `kernels` JSON (every time in it is this
 run's; PERF.md keeps the times of the designs a kernel replaced); the
@@ -309,6 +358,7 @@ last line is
 
 import contextlib
 import faulthandler
+import io
 import json
 import math
 import multiprocessing
@@ -334,7 +384,7 @@ LOAD_STREAMS, LOAD_ROUNDS = (16, 64), 30   # phase 10.6's pools
 # JAX package's bound, hop * 10, where T' = 2; 14 hops was the port's
 # former bound) and 12.3 s and 17.9 s
 EXPORT_BUCKET, EXPORT_POLY_MAX = (8, 160000), 320000
-EXPORT_WORKERS = 3       # AOTInductor compiles at once beside phases 8-18d
+EXPORT_WORKERS = 4       # AOTInductor compiles at once beside phases 8-19
 SHORT_POLY_LENGTHS = (1600, 1920, 2080)
 EXPORT_POLY_LENGTHS = (*SHORT_POLY_LENGTHS, 2240, 196800, 286400)
 # the exported program's mel features against eager ones: both full
@@ -352,6 +402,22 @@ FEATURE_RTOL = 1e-5
 BLOCK_MAX_ULPS = 4
 BLOCK_DIFFERING = 0.05
 TOKEN_DISAGREE = 0.01
+# The block kernel at the widths past the flagship's (phase 19), on seeded
+# weights: a block's branches are as large as its residual stream there,
+# so one sum that rounds the other way reaches more of its row than on
+# trained weights, and the share grows with the width. Held against a
+# reference that rounds where the kernel rounds (`held_block`), the share
+# lies between the sound kernel's readings and the controls' (a skipped
+# bf16 rounding of P or of the SiLU). On an H100: bf16 up to 6.2%, its
+# controls 28-41%; W8A8 up to 10.4%, its controls 47-58% (and a third of
+# the nearer control where the block barely moves its input, the first
+# block on the frontend's output: sound 0.02%, controls 1.3-4.9%).
+SEEDED_DIFFERING = {"bf16": 0.12, "w8a8": 0.2}
+# head_argmax on real-valued hidden states (phase 19): two float32 sums in
+# another order round to bf16 at most one ulp apart, so where the two
+# sides choose different columns, those columns' logits lie within two
+# ulps of each other (one on each side)
+HEAD_NEAR_TIE_ULPS = 2
 # float32 kernels against their plain versions: both sides are float32
 # throughout and differ in the order of their sums (32 and 249 terms in
 # attention, whose outputs have the scale of v, so its tolerance is
@@ -419,6 +485,9 @@ AED_ZERO_GRAD_LEAVES = ZERO_GRAD_LEAVES + (
     "['decoders']['self_attn']['k']['b']", "['decoders']['cross_attn']['k']['b']")
 AED_RTOL = 1e-4
 AED_BEAM, AED_CMP_UTTS, AED_CMP_EXITS = 10, 4, (2, 6)
+# phase 12's decoder depth, cut from the recipe's 6 layers an exit to keep
+# the whole run inside its 1,200 s budget (widths stay the flagship's)
+AED_DEC_LAYERS = 2
 # phase 13 (the zoo): the zero-gradient leaves wherever their blocks sit
 # (the stack, the splitformer's branches, the zipformer's stacks); the
 # training CLI's steps and requests a step (64 synthetic utterances an
@@ -447,6 +516,15 @@ ZOO_POLY_LENGTHS = (59200, 126400, 180800)
 ZOO_FORMER_BOUND = {"splitformer": 2240, "early_zipformer": 2880}
 ABLATE_TIME_RTOL = 0.03
 WARM_ARGS = ("--max_seconds", "2", "--batches", "8,16")
+# phase 19: the widths past the flagship's. The block at d 512 (8 heads of
+# 64, ff 2048) and at 16 heads of 16 (d 256, ff 1024); the attention at
+# dh 16 and 64; the head at V 32, 128, 500 and 5000 beside D 256 and 512
+WIDTH_BLOCKS = {"d512": (512, 8, 2048), "dh16": (256, 16, 1024)}
+WIDTH_ATT_DH = (16, 64)
+WIDTH_ATT_T = (1, 65, 249, 785)
+WIDTH_HEADS = tuple((V, D) for D in (256, 512) for V in (32, 128, 500, 5000))
+D512 = dict(d_model=512, n_heads=8, d_feed_forward=2048, depthwise_kernel_size=31,
+            n_enc_exits=6, n_enc_layers_per_exit=2)
 
 
 def fail(msg: str) -> None:
@@ -578,12 +656,14 @@ def exact_sums():
 
 
 @contextlib.contextmanager
-def kernel_products_and_norms():
+def kernel_products_and_norms(attention64: bool = True):
     """Within the block's plain version, its ten products run through the
     bf16 block's own product (`block_gemm`, bias added after, as the plain
     version adds it) and its LayerNorms through the block's own LayerNorm
     (`block_layer_norm`); every other sum (the attention's, the softmax
-    denominator's) in float64, as `exact_sums` takes them."""
+    denominator's) in float64, as `exact_sums` takes them. attention64
+    False: the attention's products in float32, as the plain version
+    takes them (another sum order, for the reference's own spread)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     one_pass, matmul = kcb._ln_one_pass, torch.matmul
@@ -599,7 +679,8 @@ def kernel_products_and_norms():
 
     def mm(a, b):
         if b.dim() != 2:                 # the attention's products
-            return matmul(a.double(), b.double()).to(a.dtype)
+            return (matmul(a.double(), b.double()).to(a.dtype) if attention64
+                    else matmul(a, b))
         a2 = a.reshape(-1, a.shape[-1]).to(torch.bfloat16).contiguous()
         zero = torch.zeros(b.shape[1], dtype=torch.bfloat16, device=a.device)
         torch.matmul = matmul            # the CPU's block_gemm is plain
@@ -618,9 +699,156 @@ def kernel_products_and_norms():
         kcb._ln_one_pass = one_pass
 
 
+@contextlib.contextmanager
+def kernel_quantized_norms(f, attention64: bool = True):
+    """Within the W8A8 block's plain version (folded params f), each
+    LayerNorm that feeds a product is the block's own LayerNorm + quantize
+    (`layer_norm_quantize`): the product's row quantize takes its int8
+    values and scales as they are. The final LayerNorm is the block's own
+    (`block_layer_norm`), and the attention's products and the softmax
+    denominator are taken in float64, as `kernel_products_and_norms` takes
+    them (attention64 False: the attention's products in float32). The
+    products themselves are exact on both sides."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    one_pass, quantize, matmul = kcb._ln_one_pass, kcb.quantize_int8, torch.matmul
+    made = {}
+
+    def ln(v, g, b, eps):
+        rows = v.to(torch.bfloat16).reshape(-1, v.shape[-1]).contiguous()
+        kcb._ln_one_pass = one_pass      # the CPU's kernels are plain
+        try:
+            if g is f["final_ln_g"]:
+                return kcb.block_layer_norm(rows, g, b, eps).reshape(v.shape).float()
+            q, sx = kcb.layer_norm_quantize(rows, g, b, eps)
+        finally:
+            kcb._ln_one_pass = ln
+        q, sx = q.reshape(v.shape), sx.reshape(*v.shape[:-1], 1)
+        y = q.float() * sx
+        made[id(y)] = (y, q, sx)
+        return y
+
+    def quantize_int8(v, axis=-1):
+        hit = made.pop(id(v), None)
+        return hit[1:] if hit is not None and hit[0] is v else quantize(v, axis)
+
+    def mm(a, b):
+        if b.dim() != 2 and attention64:
+            return matmul(a.double(), b.double()).to(a.dtype)
+        return matmul(a, b)
+    kcb._ln_one_pass, kcb.quantize_int8, torch.matmul = ln, quantize_int8, mm
+    try:
+        with exact_key_sums():
+            yield
+    finally:
+        kcb._ln_one_pass, kcb.quantize_int8, torch.matmul = one_pass, quantize, matmul
+
+
+@contextlib.contextmanager
+def skipped_rounding(width=None):
+    """A control for the block's bf16 rule: within the block's plain
+    version, one bf16 rounding that the kernel makes is skipped. width
+    None: the softmax's exponentials (B, H, T', T') stay float32, so P is
+    never rounded to bf16; else the SiLU's exponentials over a last axis
+    of `width` (the FFN's d_ff) stay float32, so the SiLU's output is not
+    rounded either."""
+    import torch
+    exp = torch.exp
+
+    def unrounded(v):
+        hit = (v.dim() == 4 if width is None else v.dim() == 3 and v.shape[-1] == width)
+        return exp(v.float()) if hit and v.dtype == torch.bfloat16 else exp(v)
+    torch.exp = unrounded
+    try:
+        yield
+    finally:
+        torch.exp = exp
+
+
+def row_times(root: str) -> None:
+    """`python3 chip_smoke.py --row_times CHECKOUT`: the kernel times of
+    rows 1, 1b, 1c, 2, 3 and 3s at the flagship's main-path shapes (B=128
+    x 10 s, T'=249; 3s a streaming round's (32, 8, 112, 32) with 75 keys
+    masked) for the package of the checkout at CHECKOUT (this one, or
+    another commit's unpacked beside it), built there: the median of 5
+    CUDA-event timings of 20 calls each, as one line "ROWS {json}". Two
+    commits are compared on one card in alternating calls (parent, change,
+    change, parent)."""
+    import statistics
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch import checkpoint, runtime
+    from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.ops import frontend
+    from early_exit_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    runtime.exact_float32()
+    _build.build_all(KERNEL_SOURCES)
+    dev = torch.device("cuda")
+    rec = Recognizer.from_flagship("cuda", fused=True)
+    model, cfg, acfg = rec.model, rec.model.cfg, rec.acfg
+    B, N = 128, 160000
+    wav_np, _, _ = synth_batch(checkpoint.load_calib().get("bench_eval", {}), B, seed=4242)
+    wav = np.zeros((B, N), np.float32)
+    m = min(N, wav_np.shape[1])
+    wav[:, :m] = wav_np[:, :m]
+    wav = torch.as_tensor(wav, device=dev)
+    full = torch.full((B,), N, device=dev)
+    kw = dict(n_heads=cfg.n_heads, kernel_size=cfg.depthwise_kernel_size,
+              compute_dtype=cfg.dtype, residual_dtype=cfg.rdtype,
+              attn_softmax_dtype=cfg.sm_dtype)
+    kw32 = dict(kw, compute_dtype=torch.float32, residual_dtype=torch.float32,
+                attn_softmax_dtype=torch.float32)
+    with torch.no_grad():
+        feats = frontend.mel_spectrogram(wav, acfg, method="dft")
+        x, _, mask = model.frontend_embed(feats, frontend.mel_lengths(full, acfg.hop_length))
+        x, lengths = x.contiguous(), mask.sum(1, dtype=torch.int32)
+        f0 = model.stack.folded()[0]
+        q8 = Recognizer.from_flagship("cuda", fused=True,
+                                      quantize="int8").model.stack.folded()[0]
+        f32 = Recognizer.from_flagship("cuda", fused=True,
+                                       compute_dtype="float32").model.stack.folded()[0]
+        _, hs = model.stack(x, mask, collect_outputs=True,
+                            collect_every=cfg.n_enc_layers_per_exit)
+        hid = hs.to(torch.bfloat16).contiguous()
+        hw, hb = model.heads_w.to(torch.bfloat16), model.heads_b.to(torch.bfloat16)
+        T, dh = x.shape[1], cfg.d_model // cfg.n_heads
+        g = torch.Generator().manual_seed(3)
+        qb, kb, vb = (torch.randn(B, cfg.n_heads, T, dh, generator=g).to(dev, torch.bfloat16)
+                      for _ in range(3))
+        maskf = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+        qs, ks, vs = (torch.randn(32, cfg.n_heads, 112, dh, generator=g).to(dev, torch.bfloat16)
+                      for _ in range(3))
+        ms = torch.ones(32, 112, dtype=torch.bool, device=dev)
+        ms[:, :75] = False
+        big = torch.empty(8192, 8192, device=dev).normal_()
+        fns = {"1": lambda: kcb.conformer_block(f0, x, lengths, **kw),
+               "1b": lambda: kcb.conformer_block(q8, x, lengths, quantize="int8", **kw),
+               "1c": lambda: kcb.conformer_block(f32, x.float(), lengths, **kw32),
+               "2": lambda: kha.head_argmax(hid, hw, hb),
+               "3": lambda: katt.fused_attention(qb, kb, vb, maskf),
+               "3s": lambda: katt.fused_attention(qs, ks, vs, ms)}
+        out = {}
+        for name, fn in fns.items():
+            # the short launches behind ~20 ms of float32 FMAs
+            behind = (lambda: torch.matmul(big, big)) if name in ("2", "3s") else None
+            out[name] = statistics.median(cuda_ms(fn, 20, 3, behind=behind) for _ in range(5))
+    print("ROWS " + json.dumps({"root": root, "card": card_line(), **out}))
+
+
 def main() -> None:
     t_start = time.perf_counter()
     faulthandler.enable()
+    if sys.argv[1:2] == ["--row_times"]:
+        row_times(sys.argv[2] if len(sys.argv) > 2 else HERE)
+        return
     if not os.path.isdir(os.path.join(HERE, "early_exit_tpu_torch")):
         fail("early_exit_tpu_torch/ not found beside chip_smoke.py; run it "
              "from a checkout of the repository")
@@ -1192,43 +1420,6 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
         x, _, _, lengths = embed(wav, full)
         f0 = folded[0]
         R, D, T = B * x.shape[1], x.shape[2], x.shape[1]
-        Fd, H, K = cfg.d_feed_forward, cfg.n_heads, cfg.depthwise_kernel_size
-        blk_flops = (2 * R * D * (4 * Fd + 3 * D + D + 2 * D + D)
-                     + 4 * B * H * T * T * (D // H) + 2 * R * D * K)
-        w_bytes = sum(t.numel() * t.element_size() for t in f0.values())
-        blk_bytes = 2 * R * D * 2 + w_bytes + B * 4
-        blk = dict(
-            ms=cuda_ms(lambda: kcb.conformer_block(f0, x, lengths, **kw)),
-            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(f0, x, lengths, **kw), 5, 1),
-            library_ms=cuda_ms(lambda: block_library(f0, x, lengths, H)),
-            bound=(blk_flops / PEAK_BF16, blk_bytes / PEAK_BYTES))
-        hid = exit_hidden(model, wav, full)
-        E = hid.shape[0]
-        V = heads_w.shape[-1]
-        head_flops = 2 * E * R * D * V
-        head_bytes = hid.numel() * 2 + heads_w.numel() * 2 + heads_b.numel() * 2 + E * R * 4
-        # the persistent heads at the main path's size (~23 (exit, 64-row)
-        # items a block: the ring wraps, a block's run crosses exits)
-        heads_vs_plain(hid, heads_w, heads_b, f"B={B}")
-        head = dict(
-            ms=cuda_ms(lambda: kha.head_argmax(hid, heads_w, heads_b)),
-            plain_ms=cuda_ms(lambda: kha.head_argmax_plain(hid, heads_w, heads_b)),
-            library_ms=cuda_ms(lambda: torch.argmax(
-                torch.matmul(hid, heads_w[:, None]) + heads_b[:, None, None], -1)),
-            bound=(head_flops / PEAK_BF16, head_bytes / PEAK_BYTES))
-
-        # the float32 and W8A8 entries and the attention kernel, same shape
-        x32 = x.float()
-        w32_bytes = sum(t.numel() * t.element_size() for t in f32_0.values())
-        f32 = dict(
-            ms=cuda_ms(lambda: kcb.conformer_block(f32_0, x32, lengths, **kw32), 10, 2),
-            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(
-                f32_0, x32, lengths, **kw32), 5, 1),
-            library_ms=cuda_ms(lambda: block_library(f32_0, x32, lengths, H), 10, 2),
-            bound=(blk_flops / PEAK_F32, (2 * R * D * 4 + w32_bytes + B * 4) / PEAK_BYTES))
-        gemm_ops = 2 * R * D * (4 * Fd + 3 * D + D + 2 * D + D)
-        wq_bytes = sum(q8_0[n].numel() * q8_0[n].element_size()
-                       for n in kcb.PARAM_ORDER_INT8)
         # the W8A8 block and its LayerNorm + quantize at the main path's size
         err, mean, ulps, frac = bf16_figures(
             kcb.conformer_block(q8_0, x, lengths, quantize="int8", **kw),
@@ -1240,28 +1431,16 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
             fail(f"conformer_block W8A8 entry disagrees with its plain version at B={B}")
         w8_err = max(w8_err, err)
         lnq_vs_plain(x.reshape(R, D), q8_0["attn_ln_g"], q8_0["attn_ln_b"], f"B={B}")
-        w8 = dict(
-            ms=cuda_ms(lambda: kcb.conformer_block(q8_0, x, lengths,
-                                                   quantize="int8", **kw)),
-            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(
-                q8_0, x, lengths, quantize="int8", **kw), 5, 1),
-            library_ms=cuda_ms(lambda: block_library(q8_0, x, lengths, H,
-                                                     mm=library_int8_mm(q8_0))),
-            # the 10 products at the int8 rate, scores, P V and the conv at bf16's
-            bound=(gemm_ops / PEAK_INT8 + (blk_flops - gemm_ops) / PEAK_BF16,
-                   (2 * R * D * 2 + wq_bytes + B * 4) / PEAK_BYTES))
+        rows = block_rows(f0, f32_0, q8_0, x, lengths, kw)
+        blk, f32, w8 = rows["bf16"], rows["f32"], rows["w8a8"]
+        hid = exit_hidden(model, wav, full)
+        # the persistent heads at the main path's size (~23 (exit, 64-row)
+        # items a block: the ring wraps, a block's run crosses exits)
+        heads_vs_plain(hid, heads_w, heads_b, f"B={B}")
+        head = head_row(hid, heads_w, heads_b)
         maskf = torch.arange(T, device=dev)[None, :] < lengths[:, None]
         qb, kb_, vb = qkv_of(x, torch.bfloat16)        # path (D) hands it bf16
-        qf, kf, vf = qb.float(), kb_.float(), vb.float()
-        att_flops = 4 * B * H * T * T * (D // H)
-        att = dict(
-            ms=cuda_ms(lambda: katt.fused_attention(qb, kb_, vb, maskf)),
-            ms_f32_in=cuda_ms(lambda: katt.fused_attention(qf, kf, vf, maskf)),
-            plain_ms=cuda_ms(lambda: katt.fused_attention_plain(qb, kb_, vb, maskf)),
-            library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qf, kf, vf, attn_mask=maskf[:, None, None, :])),
-            bound=(att_flops / PEAK_F32,
-                   (3 * qb.numel() * 2 + qb.numel() * 4 + maskf.numel()) / PEAK_BYTES))
+        att = attention_row(qb, kb_, vb, maskf)
 
         # each product of the bf16 block on its own, at the main path's M
         gemm_times = []
@@ -1523,6 +1702,11 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
         meas = measure_phase(dev, card, reset_counts, read_counts, folded, x18, len18, kw)
         print(f"phase 18b-d: {sum(meas['secs'].values()):.1f} s on {card} (" + ", ".join(
             f"18{k} {v:.1f} s" for k, v in meas["secs"].items()) + ")")
+        t19 = time.perf_counter()
+        errs19 = widths_kernels(dev, card)
+        widths = widths_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
+                              checkpoint.load_calib(), errs19)
+        print(f"phase 19: {time.perf_counter() - t19:.1f} s on {card}")
         t11 = time.perf_counter()
         exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
                                 out_k, ladder, export_job, work_dir)
@@ -1594,6 +1778,25 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": line, "launches": n, "path": path,
                      "max_abs_err": err, "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for key, name, src, line in (
+            ("1@d512", "conformer_block_d512", blk_src, blk_line + " (d 512, 8 heads of 64)"),
+            ("1b@d512", "conformer_block_w8a8_d512", blk_src,
+             blk_line + " (quantize='int8', d 512, 8 heads of 64)"),
+            ("1c@d512", "conformer_block_f32_d512", blk_src,
+             blk_line + " (compute_dtype=float32, d 512, 8 heads of 64)"),
+            ("2@V32", "head_argmax_V32", "early_exit_tpu_torch/csrc/head_argmax.cu",
+             "early_exit_tpu/ops/pallas/head_argmax.py:53 (V 32, D 256)"),
+            ("2@V5000·D512", "head_argmax_V5000_D512",
+             "early_exit_tpu_torch/csrc/head_argmax.cu",
+             "early_exit_tpu/ops/pallas/head_argmax.py:53 (V 5000, D 512)"),
+            ("3@dh64", "attention_dh64", "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 64)")):
+        t = widths[key]
+        rows.append({"name": name, "route": "cuda", "source": src, "replaces": line,
+                     "launches": t["launches"], "path": t["path"],
+                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     rows[0]["export_launches"] = exported["allexit_launches"]
@@ -2848,6 +3051,7 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
     import numpy as np
     import torch
     from early_exit_tpu_torch import runtime
+    from early_exit_tpu_torch.models.early_exit_gate import exit_confidence
     from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
     from early_exit_tpu_torch.ops import frontend
     from early_exit_tpu_torch.serving import export as ex
@@ -2885,7 +3089,8 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
     print(f"export on {card}: {sum(map(len, secs.values()))} programs captured ("
           + ", ".join(f"{n} {v:.1f} s" for n, v in built["capture_s"].items()) + ") and "
           f"compiled by AOTInductor, {EXPORT_WORKERS} at a time, in a child process "
-          f"beside phases 8-18d; phase 11 waited {time.perf_counter() - t0:.1f} s for them")
+          f"beside phases 8-19 (the child's wall {built['wall_s']:.1f} s); phase 11 waited "
+          f"{time.perf_counter() - t0:.1f} s for them")
     path = os.path.join(work_dir, "flagship.eetx")
     mel_path = os.path.join(work_dir, "mel.pt2")
     try:
@@ -2898,12 +3103,14 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
                   f"{len(bundle.packages[key]) / 1e6:.1f} MB, exported program "
                   f"{len(bundle.programs['cuda'][key]) / 1e6:.1f} MB")
         # ---- 11.2 the graphs hold the block op, once per block run
-        want = {bkey: L, "gated/" + bkey: L, "poly": L, "gated/poly": L,
+        want = {bkey: L, "gated/" + bkey: L, "poly": L,
+                **{f"gated/poly/{e}": npe for e in range(E)},
                 "cascade_a/" + bkey: k * npe, "cascade_b/" + bkey: (E - k) * npe}
         nodes = {key: c.get("eet::conformer_block", 0)
                  for key, c in man["op_nodes"]["cuda"].items()}
         print(f"eet::conformer_block nodes per exported graph: {nodes} (the gated "
-              f"graphs: {npe} in each of the {E} exits' cond branches)")
+              f"bucket graph: {npe} in each of the {E} exits' cond branches; the gated "
+              f"poly program: one graph an exit)")
         if nodes != want:
             fail(f"exported graphs: block op nodes {nodes}, expected {want}")
         del bundle
@@ -3055,6 +3262,37 @@ def export_phase(dev, card, reset_counts, read_counts, rec, wav, counts, out_k,
                 (a + e, b + u) for (a, b), (e, u) in zip(pooled, dis)]
         _hold_token_contract(f"exported poly program vs Recognizer.transcribe at "
                              f"{EXPORT_POLY_LENGTHS} samples", pooled, ladder)
+
+        # ---- 11.7b the gated poly program (one program an exit, stepped on
+        # the host) at the same lengths, and its time at the bucket's shape
+        # against the same gate as one cond program (the yardstick that
+        # `export_child` compiled beside it; served nowhere)
+        def request(S):
+            return (wav[:2 * Bk].reshape(Bk, -1)[:, :S].contiguous(),
+                    torch.full((Bk,), S, dtype=torch.int32, device=dev))
+        gated_poly(model, rec_x, acfg, request, (*EXPORT_POLY_LENGTHS, Sk), reset_counts,
+                   read_counts, "11.7b. the flagship's", score=gate["score"], direct=True)
+        cond_x = torch._inductor.aoti_load_package(os.path.join(work_dir, "flagship_cond.pt2"))
+        w8, c8 = wav[:Bk].contiguous(), counts32[:Bk].contiguous()
+        with torch.no_grad():
+            feats = frontend.mel_spectrogram(w8, acfg, method=acfg.mel_method)
+            lp, sub = model.encode_exit(feats, frontend.mel_lengths(c8, acfg.hop_length), 1)
+            mask = torch.arange(lp.shape[1], device=dev)[None, :] < sub[:, None]
+            c1 = exit_confidence(lp, mask, gate["score"]).sort().values
+            for thr in (0.0, float(c1[Bk // 2 - 1:Bk // 2 + 1].mean()), 1.01):
+                t = torch.tensor(thr, device=dev)
+                cond = lambda: cond_x(w8, c8, t)
+                step = lambda: rec_x._gated_exits("poly", w8, c8, t)
+                ch_c, ch_s = cond()[2], step()[2]
+                ms = [cuda_ms(fn, 20, 3) for fn in (cond, step, step, cond)]
+                t_c, t_s = (ms[0] + ms[3]) / 2, (ms[1] + ms[2]) / 2
+                print(f"11.7b. the flagship's gated poly program at {Bk} x {Sk} on {card}, "
+                      f"threshold {thr:.4f} (exits chosen {ch_s.tolist()}; the cond "
+                      f"program's {'the same' if torch.equal(ch_c, ch_s) else ch_c.tolist()})"
+                      f": stepped {ms[1]:.3f} / {ms[2]:.3f} ms a call, the same gate as one "
+                      f"cond program {ms[0]:.3f} / {ms[3]:.3f} ms ({100 * (t_s / t_c - 1):+.1f}%"
+                      f", CUDA events, c s s c)")
+        del cond_x
 
         # ---- 11.8 times
         run = rec_x._fn(bkey)
@@ -3478,8 +3716,8 @@ def train_phase(dev, card, knobs, reset_counts, expect_counts) -> None:
 
 def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
     """Phase 12: the AED mode at the flagship's widths (a seeded
-    `full_conformer`: d 256, 8 heads, ffn 2048, k 31, 6 x 2 blocks, 6
-    decoder layers per exit, BPE-256). (a) One joint-loss train step on
+    `full_conformer`: d 256, 8 heads, ffn 2048, k 31, 6 x 2 blocks,
+    AED_DEC_LAYERS decoder layers per exit, BPE-256). (a) One joint-loss train step on
     the card against the CPU in float32; (b) LEARN_STEPS steps in the train
     profile on one sub-batch of 16 must learn; (c) the trained model served
     through `python -m early_exit_tpu_torch.inference --decoder_mode aed
@@ -3530,7 +3768,8 @@ def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
         return cpu_pipe.to_device(host)
 
     # -- 12a. one joint-loss step, card against CPU, float32, same features
-    f32 = ModelConfig(model_type="full_conformer", compute_dtype="float32", drop_prob=0.0)
+    f32 = ModelConfig(model_type="full_conformer", compute_dtype="float32", drop_prob=0.0,
+                      n_dec_layers=AED_DEC_LAYERS)
     seeded = FullConformer(f32).init(torch.Generator().manual_seed(12))
     n_params = sum(p.numel() for p in seeded.parameters())
     batch_cpu = requests(4, seed=1212)
@@ -3573,7 +3812,8 @@ def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
     del seeded, batch_cpu, batch_dev, on_card, host
 
     # -- 12b. a fresh model learns one sub-batch (joint loss, train profile)
-    model = FullConformer(train_profile(model_type="full_conformer")).to(dev)
+    model = FullConformer(train_profile(model_type="full_conformer",
+                                        n_dec_layers=AED_DEC_LAYERS)).to(dev)
     model.init(torch.Generator(device=dev).manual_seed(0))
     batch = {k: v.to(dev) for k, v in requests(16, seed=4343).items()}
     tr = trainer.Trainer(model, dataclasses.replace(tcfg, specaugment=True), warmup=10)
@@ -3597,7 +3837,8 @@ def aed_phase(dev, card, knobs, reset_counts, read_counts, corp, tmp) -> dict:
     # -- 12c. the trained model through the inference CLI, both modes
     argv = ["--decoder_mode", "aed", "--load_model_path", tck.model_ckpt_path(ck_dir, 0),
             "--data_root", corp["root"], "--eval_splits", "test-clean",
-            "--fused_block", "true", "--beam_size", str(AED_BEAM)]
+            "--fused_block", "true", "--beam_size", str(AED_BEAM),
+            "--n_dec_layers", str(AED_DEC_LAYERS)]
 
     def cli(a):
         buf = io.StringIO()
@@ -4430,15 +4671,15 @@ def export_child(out_dir: str, workers: int) -> dict:
     and over symbolic (b, s) up to EXPORT_POLY_MAX samples (all-exit,
     gated), then from `zoo_models` the splitformer's all-exit and gated
     programs and the zipformer's all-exit program at EXPORT_BUCKET and the
-    all-exit poly program of each (the splitformer's gated poly program
-    does not compile for CUDA: ROADMAP Queue C, C8). Each program goes to
-    a pool
-    of `workers` compile processes (`export._compile_file`, one compile
+    all-exit poly program of each, and the splitformer's gated poly
+    program (one program an exit, as every gated poly program), and the
+    flagship's gated poly program as one cond program, the stepped one's
+    yardstick. Each program goes to a pool of `workers` compile processes (`export._compile_file`, one compile
     thread) as soon as it is captured; an AOTInductor compile costs about
     two core-minutes whatever the graph, and more of them at once slow
     the main process's phases more than they gain. Writes
     out_dir/<stem>.eetx (stems "flagship", "<zoo name>" and "<zoo
-    name>.poly") and out_dir/mel.pt2; returns {"capture_s": {stem:
+    name>.poly"), out_dir/mel.pt2 and out_dir/flagship_cond.pt2; returns {"capture_s": {stem:
     seconds}, "aoti": {stem: {key: (compile seconds, package MB)}}}, the
     features' program as {"mel": {"": ...}}."""
     os.nice(10)
@@ -4464,6 +4705,7 @@ def export_child(out_dir: str, workers: int) -> dict:
             jobs[stem, key] = (stub + ".pt2", pool.submit(
                 ex._compile_file, stub + ".ep.pt2", stub + ".pt2", 1))
 
+    t_child = time.perf_counter()
     try:
         t0 = time.perf_counter()
         rec = Recognizer.from_flagship("cuda", fused=True)
@@ -4482,12 +4724,27 @@ def export_child(out_dir: str, workers: int) -> dict:
             gate_temperatures=gate["temperatures"], compile_aoti=False)
         submit("flagship", bundles["flagship"].programs["cuda"])
         capture_s["flagship"] = time.perf_counter() - t0
-        del rec
+        # the yardstick of the stepped gated poly program: the same gate
+        # as one cond program (`make_gated_serve_fn`), timed beside it in
+        # phase 11.7 and served nowhere
+        t0 = time.perf_counter()
+        s_min = acfg.hop_length * 10
+        nb = torch.export.Dim.DYNAMIC(min=1)
+        ns = torch.export.Dim.DYNAMIC(min=s_min, max=EXPORT_POLY_MAX)
+        w_ex = torch.zeros(2, 4 * s_min, device=dev)
+        n_ex = torch.full((2,), 4 * s_min, dtype=torch.int32, device=dev)
+        cond = ex.make_gated_serve_fn(ex._on(rec.model, dev), acfg, gate_score=gate["score"])
+        submit("flagship_cond", {"": ex._saved(ex._capture(
+            cond, (w_ex, n_ex, torch.zeros((), device=dev)),
+            ({0: nb, 1: ns}, {0: nb}, None), size_oblivious=True))})
+        capture_s["flagship_cond"] = time.perf_counter() - t0
+        del rec, cond
         zoo_acfg = AudioConfig(mel_method="dft")
         for name, m in zoo_models(dev).items():
             for stem, shapes, kw in (
                     (name, [EXPORT_BUCKET], dict(gated=name == "splitformer")),
-                    (f"{name}.poly", [], dict(symbolic_max_samples=EXPORT_POLY_MAX))):
+                    (f"{name}.poly", [], dict(symbolic_max_samples=EXPORT_POLY_MAX,
+                                              gated=name == "splitformer"))):
                 t0 = time.perf_counter()
                 bundles[stem] = ex.export_recognizer(m, zoo_acfg, shapes, platforms=("cuda",),
                                                      compile_aoti=False, **kw)
@@ -4499,8 +4756,8 @@ def export_child(out_dir: str, workers: int) -> dict:
             with open(path, "rb") as f:
                 blob = f.read()
             aoti.setdefault(stem, {})[key] = (secs, len(blob) / 1e6)
-            if stem == "mel":
-                with open(os.path.join(out_dir, "mel.pt2"), "wb") as f:
+            if stem in ("mel", "flagship_cond"):
+                with open(os.path.join(out_dir, stem + ".pt2"), "wb") as f:
                     f.write(blob)
             else:
                 bundles[stem].packages[key] = blob
@@ -4510,7 +4767,7 @@ def export_child(out_dir: str, workers: int) -> dict:
     finally:
         pool.shutdown(cancel_futures=True)
         shutil.rmtree(work, ignore_errors=True)
-    return {"capture_s": capture_s, "aoti": aoti}
+    return {"capture_s": capture_s, "aoti": aoti, "wall_s": time.perf_counter() - t_child}
 
 
 def gate_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
@@ -5045,8 +5302,9 @@ def poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts,
     call for the splitformer, 19 for the zipformer). Their tokens are held
     to the eager `Recognizer.transcribe` of the same model under the token
     contract, pooled and at each exit that transcribes (its WER over the 8
-    whole requests, against refs, at most 30%). (The splitformer's gated poly
-    program does not compile for CUDA: Queue C, C8.) Prints compile
+    whole requests, against refs, at most 30%). The splitformer's gated poly
+    program (one program an exit, stepped by `ExportedRecognizer.gated`:
+    ROADMAP C8) at the same lengths, `gated_poly`. Prints compile
     seconds, package MB and ms a call beside the bucket programs' (phase
     14c)."""
     import torch
@@ -5091,8 +5349,12 @@ def poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts,
                                         for k, (secs, mb) in bucket.items()))
         nodes = {k: c.get("eet::conformer_block", 0)
                  for k, c in man["op_nodes"]["cuda"].items()}
-        if set(nodes.values()) != {L}:
-            fail(f"18a: {name}'s poly graphs hold {nodes} block op nodes, expected {L}")
+        # the splitformer's gated program: one program an exit, 2 blocks each
+        want_nodes = {"poly": L, **{f"gated/poly/{e}": 2 for e in range(6)
+                                    if name == "splitformer"}}
+        if nodes != want_nodes:
+            fail(f"18a: {name}'s poly graphs hold {nodes} block op nodes, expected "
+                 f"{want_nodes}")
         rec_x = ex.ExportedRecognizer(path)
         rec_e = Recognizer(m, tok, acfg=acfg, device=dev)
         n_launch, per_exit, lengths = 0, None, (*ZOO_POLY_LENGTHS, *SHORT_POLY_LENGTHS,
@@ -5119,6 +5381,9 @@ def poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts,
         wers = [round(wer_pct(refs[:Bk], t), 2) for t in whole.texts]
         _hold_token_contract(f"18a. {name} poly program at S = {lengths} ({Bk} rows each) vs "
                              f"Recognizer.transcribe (exit WERs {wers})", per_exit, wers)
+        if name == "splitformer":
+            gated_poly(m, rec_x, acfg, request, lengths, reset_counts, read_counts,
+                       "18a. the splitformer's")
         run = rec_x._fn("poly")
         w8, c8 = wav[:Bk].contiguous(), counts[:Bk].to(torch.int32).contiguous()
         with torch.no_grad():
@@ -5129,6 +5394,71 @@ def poly_phase(dev, card, reset_counts, read_counts, zoo_export, wav, counts,
         launches[name] = n_launch
         rec_x.close()
     return {"launches": launches, "secs": time.perf_counter() - t_phase}
+
+
+def gated_poly(m, rec_x, acfg, request, lengths, reset_counts, read_counts, what: str,
+               score: str = "maxprob", direct: bool = False) -> list:
+    """A model's gated poly program from its bundle (one program an exit,
+    stepped on the host) at each of `lengths` and at thresholds 0, 1.01
+    and the widest gap among the middle rows' exit-1 confidences: n block
+    launches an exit run (n blocks an exit; as many exits as the deepest
+    chosen one), chosen exits equal to eager `gated_apply`'s on every
+    row; the chosen tokens' disagreement with the eager gate's greedy
+    tokens printed. direct: the bundle's poly program called as it is,
+    where `ExportedRecognizer.gated` would pad a short request into a
+    bucket's. Returns the thresholds used at each length."""
+    import numpy as np
+    import torch
+    from early_exit_tpu_torch.models.early_exit_gate import exit_confidence, gated_apply
+    from early_exit_tpu_torch.ops import ctc, frontend
+    from early_exit_tpu_torch.decoding.lexicon import edit_distance
+    npe, E = m.cfg.n_enc_layers_per_exit, m.cfg.n_enc_exits
+    seen, edits, total, rows, used = set(), 0, 0, 0, []
+    for S in lengths:
+        w, c = request(S)
+        w_np, c_np = w.cpu().numpy(), c.cpu().numpy()
+        feats = frontend.mel_spectrogram(w, acfg, method=acfg.mel_method)
+        flen = frontend.mel_lengths(c, acfg.hop_length)
+        with torch.no_grad():
+            lp, sub = m.encode_exit(feats, flen, 1)
+            mask = torch.arange(lp.shape[1], device=w.device)[None, :] < sub[:, None]
+            c1 = exit_confidence(lp, mask, score).sort().values
+        lo, hi = len(c1) // 4, 3 * len(c1) // 4
+        j = lo + int((c1[lo + 1:hi + 1] - c1[lo:hi]).argmax())
+        thrs = (0.0, 1.01, float(c1[j:j + 2].mean()))
+        used.append((S, thrs))
+        for thr in thrs:
+            reset_counts()
+            if direct:      # the poly program whatever the length: no bucket
+                t, n, ch = (v.cpu().numpy() for v in rec_x._gated_exits(
+                    "poly", w, c, torch.tensor(thr, device=w.device)))
+            else:
+                t, n, ch = rec_x.gated(w_np, c_np, thr)
+            got = read_counts()
+            want = {k: (npe * int(ch.max()) if k == "conformer_block_bf16" else 0)
+                    for k in got}
+            if got != want:
+                fail(f"{what} gated poly program at S={S}, threshold {thr}: launches "
+                     f"{got}, expected {want}")
+            with torch.no_grad():
+                lp_e, ch_e, sl_e, _ = gated_apply(m, feats, flen, threshold=thr, score=score)
+                te, ne = ctc.greedy_decode(lp_e, sl_e, blank=m.cfg.blank_id)
+            if not np.array_equal(ch, ch_e.cpu().numpy()):
+                fail(f"{what} gated poly program at S={S}, threshold {thr}, chooses other "
+                     f"exits than gated_apply")
+            te, ne = te.cpu(), ne.cpu()
+            for i in range(len(ch)):
+                edits += edit_distance(t[i, :n[i]].tolist(), te[i, :ne[i]].tolist())
+                total += max(int(ne[i]), 1)
+            seen.update(ch.tolist())
+            rows += len(ch)
+    print(f"{what} gated poly program ({E} programs, one an exit, stepped on the host) "
+          f"at S = {lengths}, thresholds 0, 1.01 and the median gap: chosen exits equal "
+          f"to eager gated_apply's on all {rows} rows (exits chosen {sorted(seen)}); its "
+          f"tokens against the eager gate's {edits}/{total} edits / tokens")
+    if not {1, E} <= seen:
+        fail(f"{what} gated poly program never chose exit 1 or exit {E}")
+    return used
 
 
 def measure_phase(dev, card, reset_counts, read_counts, folded, x, lengths, kw) -> dict:
@@ -5257,6 +5587,550 @@ def measure_phase(dev, card, reset_counts, read_counts, folded, x, lengths, kw) 
     return {"child_launches": children, "ablate_launches": ablate_launches, "secs": secs}
 
 
+def held_block(f, x, lengths, kw, what: str):
+    """A bf16 or W8A8 block launch at the new widths on seeded weights,
+    held by phase 2's rule against a reference that rounds where the kernel
+    rounds: every value within BLOCK_MAX_ULPS bf16 ulps of max(|y|, 1), and
+    a share of the values differing at all within the limit below. The
+    bf16 entry's reference is its plain version run with the kernel's own
+    products and LayerNorms (`kernel_products_and_norms`, as phase 13d
+    holds the zipformer's stacks); the W8A8 entry's, its plain version run
+    with the kernel's own LayerNorm + quantize (`kernel_quantized_norms`).
+    The ulps bound widens to the reference's own spread where that is
+    larger: the same reference with the attention's products in float32
+    (another sum order) against it. Two controls, the same reference with
+    the bf16 rounding of P (bf16 softmax) or of the FFN's SiLU skipped,
+    set the share's limit: SEEDED_DIFFERING of the entry, and at most a
+    third of the nearer control's share, so that a misplaced rounding falls
+    outside it even where the block barely moves its input. The figures
+    against the plain version itself are printed beside them. Returns
+    (max|d| against the plain version, the kernel's output)."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    int8 = kw.get("quantize") == "int8"
+    y_k = kcb.conformer_block(f, x, lengths, **kw)
+    y_p = kcb.conformer_block_plain(f, x, lengths, **kw)
+    err, mean, ulps_p, frac_p = bf16_figures(y_k, y_p)
+
+    def ref(attention64=True):
+        return (kernel_quantized_norms(f, attention64) if int8
+                else kernel_products_and_norms(attention64))
+    controls = [("the FFN's SiLU", f["ffn1_w1"].shape[1])]
+    if kw.get("attn_softmax_dtype") == torch.bfloat16:
+        controls.insert(0, ("P", None))
+    with ref():
+        y_g = kcb.conformer_block_plain(f, x, lengths, **kw)
+        ctl = []
+        for name, width in controls:
+            with skipped_rounding(width):
+                y_c = kcb.conformer_block_plain(f, x, lengths, **kw)
+            ctl.append((name, *bf16_figures(y_k, y_c)[2:]))
+            del y_c
+    with ref(attention64=False):
+        spread = bf16_figures(kcb.conformer_block_plain(f, x, lengths, **kw), y_g)[2]
+    ulps, frac = bf16_figures(y_k, y_g)[2:]
+    bound = max(BLOCK_MAX_ULPS, spread)
+    limit = min(SEEDED_DIFFERING["w8a8" if int8 else "bf16"], min(c for _, _, c in ctl) / 3)
+    print(f"{what}: vs its reference max ulps {ulps} values differing {frac} (held: "
+          f"{bound} ulps, the reference's own spread {spread}; {limit:.4g}); controls, "
+          f"the reference with the rounding of "
+          + ", ".join(f"{n} skipped: max ulps {u} values differing {c}" for n, u, c in ctl)
+          + f"; vs the plain version max|d| {err} mean|d| {mean} max ulps {ulps_p} "
+          f"values differing {frac_p}")
+    if not torch.isfinite(y_k.float()).all() or ulps > bound or frac > limit:
+        fail(f"{what}: the block kernel lies outside phase 2's rule of its reference")
+    return err, y_k
+
+
+def heads_held(hh, ww, bb, what: str, exact: bool):
+    """head_argmax against its plain version on (E, B, T', D) hidden
+    states: every id equal where `exact` (dyadic inputs, whose sums are
+    exact in any order). Else an id may differ only at a near-tie of the
+    sum order: the two chosen columns' logits, from the float64 sums
+    rounded as both sides round (float32, bf16, + the bf16 bias), within
+    HEAD_NEAR_TIE_ULPS bf16 ulps of each other. Returns the ids."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    ids_k = kha.head_argmax(hh, ww, bb)
+    ids_p = kha.head_argmax_plain(hh, ww, bb)
+    diff = ids_k != ids_p
+    n_diff = int(diff.sum())
+    gap = 0.0
+    if n_diff:
+        e, b_, t_ = diff.nonzero(as_tuple=True)
+        h = hh[e, b_, t_].double()
+
+        def logit(col):
+            s = (h * ww[e, :, col].double()).sum(-1).float().to(torch.bfloat16)
+            return (s + bb[e, col]).float()
+        la, lc = logit(ids_k[diff]), logit(ids_p[diff])
+        top = torch.maximum(la.abs(), lc.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+        gap = float(((la - lc).abs() / ulp).max())
+    print(f"{what}: head_argmax vs plain, {ids_k.numel()} rows (E={hh.shape[0]}, D="
+          f"{hh.shape[-1]}, V={ww.shape[-1]}): {n_diff} ids differ"
+          + ("" if exact else f", the two logits of each at most {gap} bf16 ulps apart "
+             f"(held: {HEAD_NEAR_TIE_ULPS})"))
+    if n_diff if exact else gap > HEAD_NEAR_TIE_ULPS:
+        fail(f"{what}: head_argmax kernel differs from its plain version")
+    return ids_k
+
+
+def seeded_block(D: int, H: int, F: int, seed: int, dev):
+    """One Conformer block at (d_model D, H heads, d_ff F, k 31) from the
+    port's initialisation at `seed`, folded three ways (bf16, float32,
+    W8A8), on `dev`: (f_bf16, f_f32, f_w8a8)."""
+    import torch
+    from early_exit_tpu_torch.models.conformer import ConformerConfig, ConformerStack
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    stack = ConformerStack(ConformerConfig(d_model=D, n_heads=H, d_ff=F, kernel_size=31), 1)
+    stack.init(torch.Generator().manual_seed(seed))
+    sd = stack.blocks[0].state_dict()
+    on = lambda f: {k: v.to(dev) for k, v in f.items()}
+    return (on(kcb.fold_block_params(sd)),
+            on(kcb.fold_block_params(sd, compute_dtype=torch.float32)),
+            on(kcb.fold_block_params(sd, quantize="int8")))
+
+
+def dyadic_head(E, B, T, D, V, seed, dev):
+    """Head operands whose products and partial sums are all exact in
+    float32 (small dyadic values), so the kernel and its plain version
+    round the same logits to bf16 whatever the order of their sums, and
+    the exact ties among them are the same on both sides: (E, B, T, D)
+    hidden, (E, D, V) head, (E, V) bias, bf16. Columns V - 1 and, past
+    256, 256 are copies of columns 100 and 255: exact ties across the
+    kernel's 256-column V tiles, which win on part of the rows."""
+    import numpy as np
+    import torch
+    r = np.random.RandomState(seed)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(dev)
+    h = bf(r.randint(-4, 5, (E, B, T, D)) / 4)
+    w = bf(r.randint(-4, 5, (E, D, V)) / 16)
+    b = bf(r.randint(-8, 9, (E, V)) / 16)
+    # the pairs win on part of the rows: exit 0 lifts (255, 256), exit 1
+    # (100, V - 1), by 2 (a logit's spread is ~0.1 sqrt(D))
+    for e, (src, dst) in enumerate(((255, 256), (min(100, V - 1), V - 1))):
+        if dst < V and src != dst:
+            w[:, :, dst], b[:, dst] = w[:, :, src], b[:, src]
+            if e < E:
+                b[e, src] += 2.0
+                b[e, dst] = b[e, src]
+    return h.contiguous(), w.contiguous(), b.contiguous()
+
+
+def widths_kernels(dev, card) -> dict:
+    """Phase 19a: each kernel instantiation past the flagship's widths
+    against its plain version on the card (WIDTH_BLOCKS, WIDTH_HEADS,
+    WIDTH_ATT_DH at WIDTH_ATT_T, the W8A8 LayerNorm + quantize at d 512).
+    Returns the largest max|d| of each new row's checks."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    g = torch.Generator(device="cpu").manual_seed(19)
+    t0 = time.perf_counter()
+    errs = {"1@d512": 0.0, "1b@d512": 0.0, "1c@d512": 0.0, "3@dh64": 0.0,
+            "2@V32": 0.0, "2@V5000·D512": 0.0}
+    with torch.no_grad():
+        # -- the block, three entries, B=8 at T'=249 with a short and an empty item
+        for name, (D, H, F) in WIDTH_BLOCKS.items():
+            fb, f32, f8 = seeded_block(D, H, F, 190, dev)
+            x = torch.randn(8, 249, D, generator=g).to(dev, torch.bfloat16)
+            lengths = torch.tensor([249] * 6 + [37, 0], dtype=torch.int32, device=dev)
+            kw = dict(n_heads=H, kernel_size=31)
+            for entry, f, over in (
+                    ("bf16", fb, dict(attn_softmax_dtype=torch.bfloat16)),
+                    ("w8a8", f8, dict(attn_softmax_dtype=torch.bfloat16, quantize="int8")),
+                    ("w8a8, float32 softmax", f8, dict(quantize="int8")),
+                    ("float32", f32, dict(compute_dtype=torch.float32,
+                                          residual_dtype=torch.float32))):
+                what = (f"19a. conformer_block {entry} at d {D}, {H} heads (dh {D // H}), "
+                        f"ff {F}, seeded (B=8, T'=249, lengths 249 x 6, 37, 0)")
+                if entry != "float32":
+                    err, y_k = held_block(f, x, lengths, {**kw, **over}, what)
+                else:
+                    y_k = kcb.conformer_block(f, x.float(), lengths, **kw, **over)
+                    y_p = kcb.conformer_block_plain(f, x.float(), lengths, **kw, **over)
+                    err = float((y_k - y_p).abs().max())
+                    print(f"{what}: vs plain max|d| {err} (tolerance {F32_BLOCK_ATOL})")
+                    if not torch.isfinite(y_k).all() or err > F32_BLOCK_ATOL:
+                        fail(f"{what}: the float32 block kernel disagrees with its plain "
+                             f"version")
+                if (y_k[-1] != 0).any():
+                    fail(f"{what}: the empty item is not all zeros")
+                if D == 512:
+                    row = {"bf16": "1@d512", "float32": "1c@d512"}.get(entry, "1b@d512")
+                    errs[row] = max(errs[row], err)
+            del fb, f32, f8
+        # -- the attention at dh 16 and 64, both input types
+        for dh in WIDTH_ATT_DH:
+            for T in WIDTH_ATT_T:
+                lens = torch.tensor([T, max(T // 2, 1), 0], device=dev)
+                mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+                q, k, v = (torch.randn(3, 4, T, dh, generator=g).to(dev) for _ in range(3))
+                for dt in (torch.bfloat16, torch.float32):
+                    qq, kk, vv = (t.to(dt) for t in (q, k, v))
+                    o_k = katt.fused_attention(qq, kk, vv, mask)
+                    o_p = katt.fused_attention_plain(qq, kk, vv, mask)
+                    torch.cuda.synchronize()
+                    rel = float((o_k - o_p).abs().max() / vv.float().abs().max())
+                    print(f"19a. attention vs plain, dh {dh}, T={T}, {dt}: max|d| / max|v| "
+                          f"{rel:.3e} (tolerance {ATT_RTOL})")
+                    if not rel <= ATT_RTOL:
+                        fail(f"attention kernel disagrees with its plain version at dh {dh}, "
+                             f"T={T}, {dt}")
+                    if dh == 64:
+                        errs["3@dh64"] = max(errs["3@dh64"], float((o_k - o_p).abs().max()))
+        # -- the head at any V, D 256 and 512, on dyadic inputs with ties
+        # across the V tiles: ragged rows (E=3 x 3 x 83, one item a block)
+        # and the main path's rows (E=6 x 128 x 249: a block's run crosses
+        # exits and reloads its head, the rings wrap)
+        for V, D in WIDTH_HEADS:
+            for E, B, T in ((3, 3, 83), (6, 128, 249)):
+                h, w, b = dyadic_head(E, B, T, D, V, V + D, dev)
+                lg = (torch.matmul(h.float(), w.float()[:, None]).to(torch.bfloat16)
+                      + b[:, None, None]).float()
+                ties = int(((lg == lg.amax(-1, keepdim=True)).sum(-1) > 1).sum())
+                del lg
+                kind = "resident" if V <= 256 and D <= 256 else "streamed"
+                heads_held(h, w, b, f"19a. dyadic, {B} x {T} rows an exit ({kind} head, "
+                           f"{ties} rows with an exact tie at the maximum)", exact=True)
+                del h, w, b
+        # -- the W8A8 LayerNorm + quantize at d 512, value for value
+        rows = torch.randn(4099, 512, generator=g).to(dev, torch.bfloat16)
+        gg = (1 + 0.3 * torch.randn(512, generator=g)).to(dev)
+        bb = (0.2 * torch.randn(512, generator=g)).to(dev)
+        q_k, s_k = kcb.layer_norm_quantize(rows, gg, bb)
+        q_p, s_p = kcb.layer_norm_quantize_plain(rows, gg, bb)
+        torch.cuda.synchronize()
+        n_q, n_s = int((q_k != q_p).sum()), int((s_k != s_p).sum())
+        print(f"19a. layer_norm_quantize vs plain at d 512 (4099 rows): {n_q} int8 values "
+              f"and {n_s} scales differ")
+        if n_q or n_s:
+            fail("layer_norm_quantize kernel differs from its plain version at d 512")
+    print(f"phase 19a: {time.perf_counter() - t0:.1f} s on {card}")
+    return errs
+
+
+def d512_config():
+    """The d-512 early conformer the JAX CLI builds with --d_model 512
+    --n_heads 8 --d_feed_forward 2048 --depthwise_kernel_size 31
+    --n_enc_exits 6 --n_enc_layers_per_exit 2, BPE-256, in the inference
+    profile (bf16, the block kernel)."""
+    import dataclasses
+    from early_exit_tpu_torch.configs import inference_profile
+    return dataclasses.replace(inference_profile(fused_block=True), **D512)
+
+
+def seeded_model(cfg, seed: int, dev):
+    """A model of cfg from the port's initialisation at seed, on dev."""
+    import torch
+    from early_exit_tpu_torch.models.registry import build_model
+    model = build_model(cfg)
+    model.init(torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()
+
+
+def widths_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
+                 calib, errs) -> dict:
+    """Phase 19b-e: the d-512 early conformer (`d512_config`, the port's
+    init at seed 0) served through the normal entries at B=128 x 10 s and
+    through the inference CLI; the CLI with --bpe false at the flagship's
+    widths (the head at V = 32); the new rows' times. errs: 19a's largest
+    max|d| of each new row, raised here by 19b's. Returns the new rows."""
+    import dataclasses
+    import torch
+    from early_exit_tpu_torch import checkpoint, inference
+    from early_exit_tpu_torch.configs import inference_profile
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops import ctc
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_decoder
+    from early_exit_tpu_torch.training import checkpoint as tck
+    t_start = time.perf_counter()
+    B, N = wav.shape
+    tok = load_decoder(checkpoint.bound_tokenizer(calib))
+    cfg = d512_config()
+    model = seeded_model(cfg, 0, dev)
+    rec = Recognizer(model, tok, device=dev, calib=calib)
+    folded = model.stack.folded()
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.depthwise_kernel_size
+    kw = dict(n_heads=H, kernel_size=K, compute_dtype=cfg.dtype,
+              residual_dtype=cfg.rdtype, attn_softmax_dtype=cfg.sm_dtype)
+    heads_w, heads_b = model.heads_w.to(torch.bfloat16), model.heads_b.to(torch.bfloat16)
+    npe = cfg.n_enc_layers_per_exit
+
+    def launches_of(fn, what, **want):
+        reset_counts()
+        out = fn()
+        got = read_counts()
+        full = {k: want.get(k, 0) for k in got}
+        print(f"19. {what}: launches {got}")
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return out, got
+
+    with torch.no_grad():
+        # -- 19b. the all-exit greedy path: launches, every block launch by
+        # phase 2's rule, each exit's head ids against the plain head
+        out_k, got = launches_of(lambda: rec.transcribe(wav, counts),
+                                 f"19b. d-512 all-exit path (B={B} x 10 s)",
+                                 conformer_block_bf16=len(folded), head_argmax=1)
+        n_blocks = got["conformer_block_bf16"]
+        feats, lengths_f = rec._features(wav, counts)
+        x, sub_len, mask = model.frontend_embed(feats, lengths_f)
+        x, lengths = x.contiguous(), mask.sum(1, dtype=torch.int32)
+        x_in = x
+        hs = []
+        for i, f in enumerate(folded):
+            err, y_k = held_block(f, x, lengths, kw, f"19b. d-512 block {i + 1} on the kernel "
+                                  f"path's own input (B={B} x 10 s)")
+            errs["1@d512"] = max(errs["1@d512"], err)
+            x = y_k
+            if (i + 1) % npe == 0:
+                hs.append(y_k)
+        hid = torch.stack(hs).contiguous()
+        heads_held(hid, heads_w, heads_b, "19b. d-512: the head kernel at D 512 on the "
+                   "kernel path's hidden states", exact=False)
+        # the W8A8 and float32 entries, each block on its own kernel path's
+        # input at the same size
+        q_model = seeded_model(dataclasses.replace(cfg, quantize="int8"), 0, dev)
+        f_cfg = dataclasses.replace(cfg, compute_dtype="float32", attn_softmax_dtype="float32")
+        f_model = seeded_model(f_cfg, 0, dev)
+        kw8 = dict(kw, quantize="int8")
+        kw32 = dict(kw, compute_dtype=f_cfg.dtype, residual_dtype=f_cfg.rdtype,
+                    attn_softmax_dtype=f_cfg.sm_dtype)
+        xq, x32 = x_in, x_in.to(f_cfg.rdtype)
+        for i, (fq, f32) in enumerate(zip(q_model.stack.folded(), f_model.stack.folded())):
+            err, xq = held_block(fq, xq, lengths, kw8, f"19b. d-512 W8A8 block {i + 1} on "
+                                 f"the kernel path's own input (B={B} x 10 s)")
+            errs["1b@d512"] = max(errs["1b@d512"], err)
+            y_p = kcb.conformer_block_plain(f32, x32, lengths, **kw32)
+            x32 = kcb.conformer_block(f32, x32, lengths, **kw32)
+            err = float((x32 - y_p).abs().max())
+            print(f"19b. d-512 float32 block {i + 1} on the kernel path's own input (B={B} x "
+                  f"10 s): vs plain max|d| {err} (tolerance {F32_BLOCK_ATOL})")
+            if not torch.isfinite(x32).all() or err > F32_BLOCK_ATOL:
+                fail(f"19b. d-512 float32 block {i + 1}: the float32 block kernel disagrees "
+                     f"with its plain version")
+            errs["1c@d512"] = max(errs["1c@d512"], err)
+        del xq, x32, y_p
+        # the per-exit token disagreement against the plain path (reported:
+        # random weights transcribe nothing)
+        xp, hp = x_in, []
+        for i, f in enumerate(folded):
+            xp = kcb.conformer_block_plain(f, xp, lengths, **kw)
+            if (i + 1) % npe == 0:
+                hp.append(xp)
+        ids_pp = kha.head_argmax_plain(torch.stack(hp), heads_w, heads_b)
+        E, Bn, T = ids_pp.shape
+        tp, n_p = ctc.greedy_decode_ids(ids_pp.reshape(E * Bn, T), sub_len.repeat(E))
+        dis = disagreement(out_k.tokens, out_k.n_tokens, tp.reshape(E, Bn, T).cpu(),
+                           n_p.reshape(E, Bn).cpu())
+        print(f"19b. d-512 greedy tokens, kernel path vs plain-version path: per exit "
+              f"{[f'{e}/{t}' for e, t in dis]} (edits / tokens; the 1% contract is "
+              f"reported, not applied: the seeded model transcribes nothing); tokens "
+              f"per utterance at exit 6 {float(out_k.n_tokens[-1].float().mean()):.1f}")
+
+        # -- 19c. the gated paths: the cascade with bf16 and with W8A8 blocks,
+        # under the committed calibration and with exit k's threshold at the
+        # batch's median confidence, chosen exits equal to the while-loop gate's
+        k_casc = int(calib.get("cascade_k") or 2)
+        gated = {}
+        rec_q = Recognizer(q_model, tok, device=dev, calib=calib)
+        for entry, r in (("bf16", rec), ("w8a8", rec_q)):
+            gate = r.gate_settings()
+            lp, sl = r.model.encode_exit(*r._features(wav, counts), k_casc)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sl[:, None]
+            conf = scaled_confidence(lp, m, gate["score"], gate["temperatures"][k_casc - 1])
+            thr = list(gate["threshold"])
+            thr[k_casc - 1] = float(conf.sort().values[B // 2 - 1:B // 2 + 1].mean())
+            for what, c in (("committed calibration", calib),
+                            ("exit k's threshold at the median", {**calib, "thresholds": thr})):
+                r.calib = c
+                reset_counts()
+                out = r.transcribe_gated(wav, counts)
+                got = read_counts()
+                want = k_casc * npe + ((cfg.n_enc_exits - k_casc) * npe
+                                       if out.rows_packed else 0)
+                gate_out = r.transcribe_gated(wav, counts, strategy="whileloop")
+                agree = int((out.chosen_exit == gate_out.chosen_exit).sum())
+                hist = torch.bincount(out.chosen_exit.long(),
+                                      minlength=cfg.n_enc_exits + 1)[1:].tolist()
+                print(f"19c. d-512 cascade, {entry} blocks, {what}: launches {got} "
+                      f"(expected {want} {entry} block launches); rows per exit {hist}, "
+                      f"escalated {100 * out.escalated_share:.2f}% ({out.rows_packed} rows "
+                      f"packed); chosen exits equal to the while-loop gate's on "
+                      f"{agree}/{B} rows")
+                others = {k: v for k, v in got.items() if k != "conformer_block_" + entry and v}
+                if got["conformer_block_" + entry] != want or others or agree != B:
+                    fail(f"19c. d-512 cascade ({entry}, {what}): launches {got} or chosen "
+                         f"exits unlike the while-loop gate's on {B - agree} rows")
+                gated[(entry, what)] = got["conformer_block_" + entry]
+            r.calib = calib
+        q8_0 = q_model.stack.folded()[0]
+        del rec_q, q_model
+
+    # -- 19d. the inference CLI at d 512, and with --bpe false at the
+    # flagship's widths, over phase 9's corpus
+    def cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            inference.main(argv)
+        return buf.getvalue()
+
+    n_batches = [0]
+    exit_outputs = inference.exit_outputs
+
+    def counted(*a, **k):
+        n_batches[0] += 1
+        return exit_outputs(*a, **k)
+
+    ck512 = os.path.join(tmp, "d512")
+    tck.save_epoch(ck512, 0, model)
+    # the flagship's widths (the CLI's defaults) with the JAX CLI's
+    # character vocabulary (early_exit_tpu/cli.py:430-432)
+    char_cfg = dataclasses.replace(inference_profile(fused_block=True), vocab_size=32,
+                                   blank_id=0, pad_id=30, bos_id=1, eos_id=31)
+    char_model = seeded_model(char_cfg, 1, dev)
+    ck_char = os.path.join(tmp, "char")
+    tck.save_epoch(ck_char, 0, char_model)
+    d512_flags = [a for k, v in D512.items() for a in (f"--{k}", str(v))]
+    cli_launches = {}
+    inference.exit_outputs = counted
+    try:
+        for name, ck, extra in (
+                ("d-512", ck512, d512_flags),
+                ("--bpe false", ck_char, ["--bpe", "false"])):
+            argv = ["--decoder_mode", "ctc", "--load_model_path",
+                    os.path.join(ck, "mod000-transformer"), "--data_root", corp["root"],
+                    "--eval_splits", "test-clean", "--fused_block", "true", *extra]
+            n_batches[0] = 0
+            reset_counts()
+            t0 = time.perf_counter()
+            out = cli(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            nb = n_batches[0]
+            n_lines = sum("BEAM_OUT_" in ln for ln in out.splitlines())
+            wers = [ln.split(": ", 1)[1] for ln in out.splitlines() if " WER exit " in ln]
+            print(f"19d. `python -m early_exit_tpu_torch.inference --decoder_mode ctc "
+                  f"--fused_block true {' '.join(extra)}` over {len(corp['corpus'])} "
+                  f"utterances: launches {got} over {nb} sub-batches; {n_lines} BEAM_OUT "
+                  f"lines; WER per exit {wers}; {corp['audio_s'] / wall:.1f} audio-s/s on "
+                  f"{card}")
+            others = {k: v for k, v in got.items()
+                      if k not in ("conformer_block_bf16", "head_argmax") and v}
+            if (nb == 0 or got["conformer_block_bf16"] != 12 * nb
+                    or got["head_argmax"] != nb or others
+                    or n_lines != 6 * len(corp["corpus"])):
+                fail(f"19d. the {name} CLI: {got} over {nb} sub-batches, {n_lines} lines; "
+                     f"expected 12 block and 1 head launches a sub-batch, 6 lines an "
+                     f"utterance")
+            cli_launches[name] = got["head_argmax"]
+    finally:
+        inference.exit_outputs = exit_outputs
+
+    # -- 19e. the new rows' times at B=128 x 10 s (T' 249)
+    with torch.no_grad():
+        full = torch.full_like(counts, N)
+        feats, lengths_f = rec._features(wav, full)
+        x, _, mask = model.frontend_embed(feats, lengths_f)
+        x, lengths = x.contiguous(), mask.sum(1, dtype=torch.int32)
+        T, F = x.shape[1], cfg.d_feed_forward
+        f32_0 = f_model.stack.folded()[0]
+        blocks = block_rows(folded[0], f32_0, q8_0, x, lengths, kw)
+        rows = {"1@d512": dict(
+            blocks["bf16"], launches=n_blocks,
+            path=f"the d-512 all-exit path (19b, B={B}); the cascade's (19c): "
+                 + ", ".join(f"{n} ({w})" for (e, w), n in gated.items() if e == "bf16")
+                 + "; the d-512 inference CLI (19d)")}
+        rows["1c@d512"] = blocks["f32"]
+        rows["1b@d512"] = dict(
+            blocks["w8a8"], launches=gated[("w8a8", "exit k's threshold at the median")],
+            path="the d-512 W8A8 cascade (19c), exit k's threshold at the median; "
+                 f"{gated[('w8a8', 'committed calibration')]} under the committed "
+                 f"calibration")
+        # the heads, each held against its plain version before it is
+        # timed: V 32 at D 256 (the char model's hidden states), V 5000 at
+        # D 512 (the d-512 model's, with a seeded 5000-column head)
+        _, hs512 = model.stack(x, mask, collect_outputs=True, collect_every=npe)
+        hid512 = hs512.to(torch.bfloat16).contiguous()
+        xc, _, mc = char_model.frontend_embed(*rec._features(wav, full))
+        _, hsc = char_model.stack(xc.contiguous(), mc, collect_outputs=True,
+                                  collect_every=npe)
+        hid_c = hsc.to(torch.bfloat16).contiguous()
+        w_c, b_c = char_model.heads_w.to(torch.bfloat16), char_model.heads_b.to(torch.bfloat16)
+        v_model = seeded_model(dataclasses.replace(cfg, vocab_size=5000), 2, dev)
+        w5k, b5k = v_model.heads_w.to(torch.bfloat16), v_model.heads_b.to(torch.bfloat16)
+        reset_counts()
+        ids5k, _ = Recognizer(v_model, tok, device=dev).exit_ids(wav, full)
+        n5k = read_counts()["head_argmax"]
+        hid_v = v_model.apply_hidden(*rec._features(wav, full))[0]
+        ids_v = heads_held(hid_v.to(torch.bfloat16).contiguous(), w5k, b5k,
+                           "19e. the V-5000 model's own trunk (seed 2)", exact=False)
+        if n5k != 1 or not torch.equal(ids5k, ids_v):
+            fail("19e. the V-5000 model's exit_ids: not one head launch, or ids unlike "
+                 "the head kernel's on its hidden states")
+        del hid_v, ids_v
+        heads_held(hid_c, w_c, b_c, "19e. the char model's trunk (V 32)", exact=False)
+        heads_held(hid512, w5k, b5k, "19e. the d-512 trunk with the 5000-column head",
+                   exact=False)
+        big = torch.empty(8192, 8192, device=dev).normal_()
+        for name, hh, ww, bb, n, path in (
+                ("2@V32", hid_c, w_c, b_c, cli_launches["--bpe false"],
+                 "the --bpe false inference CLI at the flagship's widths (19d)"),
+                ("2@V5000·D512", hid512, w5k, b5k, n5k,
+                 "`Recognizer.exit_ids` of the d-512 trunk with a seeded 5000-piece "
+                 "head (19e)")):
+            # behind ~20 ms of float32 FMAs
+            rows[name] = dict(head_row(hh, ww, bb, behind=lambda: torch.matmul(big, big)),
+                              launches=n, path=path)
+        del v_model, ids5k, w5k, b5k, hid512, big
+        # the attention at dh 64: the d-512 model unfused with the attention
+        # kernel (attention_impl="pallas") on 16 requests, and timed at the
+        # main path's shape on random q, k, v
+        u_model = seeded_model(dataclasses.replace(cfg, fused_block=False,
+                                                   attention_impl="pallas"), 0, dev)
+        _, got = launches_of(lambda: Recognizer(u_model, tok, device=dev).transcribe(
+            wav[:16], counts[:16]), "19e. d-512 unfused, attention_impl='pallas' (16 "
+            "requests)", attention=len(folded))
+        del u_model
+        g = torch.Generator(device="cpu").manual_seed(64)
+        qb, kb, vb = (torch.randn(B, H, T, D // H, generator=g).to(dev, torch.bfloat16)
+                      for _ in range(3))
+        maskf = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+        rows["3@dh64"] = dict(
+            attention_row(qb, kb, vb, maskf), launches=got["attention"],
+            path="the d-512 model unfused with attention_impl='pallas', 16 requests (19e)")
+        _, got = launches_of(lambda: Recognizer(f_model, tok, device=dev).transcribe(
+            wav[:16], counts[:16]), "19e. d-512 in float32 (16 requests)",
+            conformer_block_f32=len(folded))
+        del f_model
+        rows["1c@d512"].update(launches=got["conformer_block_f32"],
+                               path="the d-512 model's all-exit path in float32, 16 "
+                                    "requests (19e)")
+        e2e = cuda_ms(lambda: rec.exit_ids(wav, full), 5, 1)
+    print(f"19e. times on {card} (B={B}, T'={T}, CUDA events; d {D}, {H} heads of "
+          f"{D // H}, ff {F}):")
+    for name, t in rows.items():
+        by = "operations" if t["bound"][0] >= t["bound"][1] else "bytes"
+        t["bound_ms"], t["bound_by"] = 1e3 * max(t["bound"]), by
+        t["max_abs_err"] = errs[name]
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}: "
+              f"{t['bound'][0] * 1e3:.4f} ms ops, {t['bound'][1] * 1e3:.4f} ms bytes), "
+              f"{t['launches']} launches on a path")
+    print(f"  the d-512 all-exit forward (exit_ids): {e2e:.3f} ms per {B} x 10 s = "
+          f"{B * N / 16000 / (e2e / 1e3):.1f} audio-s/s")
+    print(f"phase 19b-e: {time.perf_counter() - t_start:.1f} s on {card}")
+    return rows
+
+
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
                     top: int = 25, grad: bool = False, shape: str = None) -> float:
     """Device time per kernel name over `iters` calls of `forward` (each
@@ -5336,6 +6210,90 @@ def library_int8_mm(f):
         y = torch._int_mm(q, f[name + "_t"].t()).float() * (sx * f[name + "_s"]) + f[bias]
         return y.to(torch.bfloat16).reshape(*v.shape[:-1], -1)
     return mm
+
+
+def block_rows(fb, f32, q8, x, lengths, kw) -> dict:
+    """Rows 1, 1c and 1b: the block's bf16, float32 and W8A8 entries on
+    the folded params fb, f32 and q8 at x's shape (B, T', D), bf16, by
+    CUDA events: {"bf16", "f32", "w8a8"} -> {ms, plain_ms, library_ms,
+    bound}. kw: the bf16 entry's keywords; the float32 entry runs in
+    float32 throughout. bound: (seconds of operations, seconds of bytes):
+    the ten products, the scores and P V, and the conv's taps at the
+    card's peak rate for their type (the W8A8 products at int8's); x read
+    and y written once, the weights and lengths read once."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    B, T, D = x.shape
+    R, F, H = B * T, fb["ffn1_w1"].shape[1], kw["n_heads"]
+    gemm_ops = 2 * R * D * (4 * F + 3 * D + D + 2 * D + D)
+    blk_flops = gemm_ops + 4 * B * H * T * T * (D // H) + 2 * R * D * kw["kernel_size"]
+
+    def nbytes(f, names=None):
+        return sum(t.numel() * t.element_size() for n, t in f.items()
+                   if names is None or n in names)
+    kw32 = dict(kw, compute_dtype=torch.float32, residual_dtype=torch.float32,
+                attn_softmax_dtype=torch.float32)
+    kw8 = dict(kw, quantize="int8")
+    x32 = x.float()
+    return {
+        "bf16": dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(fb, x, lengths, **kw)),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(fb, x, lengths, **kw), 5, 1),
+            library_ms=cuda_ms(lambda: block_library(fb, x, lengths, H)),
+            bound=(blk_flops / PEAK_BF16, (2 * R * D * 2 + nbytes(fb) + B * 4) / PEAK_BYTES)),
+        "f32": dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(f32, x32, lengths, **kw32), 10, 2),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(f32, x32, lengths, **kw32),
+                             5, 1),
+            library_ms=cuda_ms(lambda: block_library(f32, x32, lengths, H), 10, 2),
+            bound=(blk_flops / PEAK_F32, (2 * R * D * 4 + nbytes(f32) + B * 4) / PEAK_BYTES)),
+        "w8a8": dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(q8, x, lengths, **kw8)),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(q8, x, lengths, **kw8), 5, 1),
+            library_ms=cuda_ms(lambda: block_library(q8, x, lengths, H,
+                                                     mm=library_int8_mm(q8))),
+            bound=(gemm_ops / PEAK_INT8 + (blk_flops - gemm_ops) / PEAK_BF16,
+                   (2 * R * D * 2 + nbytes(q8, kcb.PARAM_ORDER_INT8) + B * 4) / PEAK_BYTES))}
+
+
+def head_row(hid, w, b, behind=None) -> dict:
+    """Row 2: head_argmax on (E, B, T', D) bf16 hidden states and the (E,
+    D, V) head, by CUDA events (the kernel behind `behind`'s work where
+    given, so that a launch shorter than the host's time to make it is
+    timed on the device), its plain version, and torch.matmul + argmax.
+    bound: the E x rows x D x V products at bf16's peak; the hidden rows,
+    the head and the bias read once, the int32 ids written once."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    E, B, T, D = hid.shape
+    R = B * T
+    return dict(
+        ms=cuda_ms(lambda: kha.head_argmax(hid, w, b), behind=behind),
+        plain_ms=cuda_ms(lambda: kha.head_argmax_plain(hid, w, b)),
+        library_ms=cuda_ms(lambda: torch.argmax(
+            torch.matmul(hid, w[:, None]) + b[:, None, None], -1)),
+        bound=(2 * E * R * D * w.shape[-1] / PEAK_BF16,
+               (hid.numel() * 2 + w.numel() * 2 + b.numel() * 2 + E * R * 4) / PEAK_BYTES))
+
+
+def attention_row(q, k, v, mask) -> dict:
+    """Row 3: fused_attention on bf16 (B, H, T', dh) q, k, v under the
+    (B, T') key mask, by CUDA events, and on their float32 copies
+    (ms_f32_in), its plain version, and SDPA on the float32 copies.
+    bound: Q K^T and P V at float32's peak; q, k, v read, the float32
+    output written and the mask read once."""
+    import torch
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    B, H, T, dh = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    return dict(
+        ms=cuda_ms(lambda: katt.fused_attention(q, k, v, mask)),
+        ms_f32_in=cuda_ms(lambda: katt.fused_attention(qf, kf, vf, mask)),
+        plain_ms=cuda_ms(lambda: katt.fused_attention_plain(q, k, v, mask)),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf, kf, vf, attn_mask=mask[:, None, None, :])),
+        bound=(4 * B * H * T * T * dh / PEAK_F32,
+               (3 * q.numel() * 2 + q.numel() * 4 + mask.numel()) / PEAK_BYTES))
 
 
 if __name__ == "__main__":

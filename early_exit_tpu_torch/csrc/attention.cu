@@ -4,7 +4,7 @@
 // (fused_attention -> _attn_kernel): q, k, v (B, H, T, dh) in bf16 or
 // float32 are upcast to float32; Q K^T * (1/sqrt(dh)) -> key mask to -1e9
 // -> softmax -> P V, nothing of the (T, T) scores leaving the chip; the
-// output is (B, H, T, dh) float32, for dh = 32 and any T. The device code
+// output is (B, H, T, dh) float32, for dh = 16, 32 or 64 and any T. The device code
 // (register-tiled float32 products over streamed K and V tiles), its bound
 // and what holds it back on this card are in attention_f32.cuh, which the
 // float32 Conformer block shares.
@@ -17,16 +17,16 @@
 extern "C" int eet_attention(const void* q, const void* k, const void* v, const void* mask,
                              void* out, int B, int H, int T, int DH, int in_bf16, float scale,
                              void* stream_) {
-  if (DH != 32) return cudaErrorInvalidValue;
+  if (DH != 16 && DH != 32 && DH != 64) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   const long long hs = (long long)T * DH, bs = hs * H;
   const unsigned char* m = static_cast<const unsigned char*>(mask);
   float* o = static_cast<float*>(out);
   if (in_bf16)
     return attention_f32(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                         static_cast<const bf16*>(v), m, nullptr, o, B, H, T, bs, hs, DH, bs,
-                         hs, DH, scale, s);
+                         static_cast<const bf16*>(v), m, nullptr, o, B, H, T, DH, bs, hs, DH,
+                         bs, hs, DH, scale, s);
   return attention_f32(static_cast<const float*>(q), static_cast<const float*>(k),
-                       static_cast<const float*>(v), m, nullptr, o, B, H, T, bs, hs, DH, bs, hs,
-                       DH, scale, s);
+                       static_cast<const float*>(v), m, nullptr, o, B, H, T, DH, bs, hs, DH, bs,
+                       hs, DH, scale, s);
 }

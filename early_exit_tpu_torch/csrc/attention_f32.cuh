@@ -32,6 +32,17 @@
 // a raw buffer first and are widened to float32 once per tile. The
 // probabilities pass from the score layout to the P V layout through a
 // per-warp strip of shared memory.
+//
+// Head widths: the kernel is a template over dh in {16, 32, 64} (the
+// widths the TPU kernel's callers use; the JAX package's attention takes
+// any dh). A tile row is DHP = max(dh, 32) floats, so the swizzle always
+// has its 8 chunks to spread over: at dh = 64 a row is 256 bytes, its 16
+// chunks swizzled within each 128 bytes; at dh = 16 the row keeps 32
+// floats of which the scores read only the first 16 (the chunks of the
+// other half are never written or read) and P V computes 32 columns, the
+// 16 past dh on whatever the tile holds there, never stored: half of
+// P V's FMAs are wasted at dh = 16, which keeps one lane layout for all
+// three widths. A lane owns DHP / 32 groups of 4 output columns.
 #pragma once
 
 #include "common.cuh"
@@ -39,16 +50,17 @@
 constexpr int AF_WARPS = 4;    // 16 queries each
 constexpr int AF_QTILE = 16 * AF_WARPS;
 constexpr int AF_KT = 64;      // keys per stage
-constexpr int AF_DH = 32;      // head width: 8 chunks of 4 floats
 
-template <typename TIn>
+template <typename TIn, int DH>
 struct AttF32Smem {
+  static_assert(DH == 16 || DH == 32 || DH == 64, "head widths 16, 32 and 64");
+  static constexpr int DHP = DH < 32 ? 32 : DH;           // floats per tile row
   static constexpr bool kRaw = sizeof(TIn) != sizeof(float);
   static constexpr int kStages = kRaw ? 1 : 2;            // float32 K|V tiles
-  static constexpr int kTileFloats = 2 * AF_KT * AF_DH;   // K then V
+  static constexpr int kTileFloats = 2 * AF_KT * DHP;     // K then V
   static constexpr int kFloats =
-      AF_QTILE * AF_DH + AF_WARPS * 16 * 32 + kStages * kTileFloats;
-  static constexpr int kRawBytes = kRaw ? 2 * AF_KT * AF_DH * (int)sizeof(TIn) : 0;
+      AF_QTILE * DHP + AF_WARPS * 16 * 32 + kStages * kTileFloats;
+  static constexpr int kRawBytes = kRaw ? 2 * AF_KT * DH * (int)sizeof(TIn) : 0;
   static constexpr int kBytes = kFloats * (int)sizeof(float) + kRawBytes;
 };
 
@@ -87,20 +99,24 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b, float ac
 // between frames; a frame's dh values are contiguous and 16-byte aligned.
 // Keys t are valid where mask[b*T + t] != 0, or, with mask == nullptr,
 // where t < lengths[b].
-template <typename TIn>
+template <typename TIn, int DH>
 __global__ void __launch_bounds__(AF_WARPS * 32)
 attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
                      const TIn* __restrict__ v, const unsigned char* __restrict__ mask,
                      const int* __restrict__ lengths, float* __restrict__ out, int T,
                      long long in_bs, long long in_hs, long long in_ts, long long out_bs,
                      long long out_hs, long long out_ts, float scale) {
-  using S = AttF32Smem<TIn>;
-  constexpr int DH = AF_DH;
+  using S = AttF32Smem<TIn, DH>;
+  constexpr int DHP = S::DHP;
+  constexpr int CHP = DHP / 4;                    // 4-float chunks of a tile row
+  constexpr int CHI = DH / 4;                     // of them holding the head's values
+  constexpr int CHI_LOG = CHI == 4 ? 2 : CHI == 8 ? 3 : 4;  // shifts, as at dh 32 alone
+  constexpr int NG = DHP / 32;                    // a lane's groups of 4 output columns
   constexpr int CH = DH * (int)sizeof(TIn) / 16;  // 16-byte chunks of an input row
   extern __shared__ __align__(16) unsigned char af_smem[];
-  float* Qs = reinterpret_cast<float*>(af_smem);       // [64][32], chunk ^ (row & 7)
-  float* Ps = Qs + AF_QTILE * DH;                       // per warp [16][32], chunk ^ (row & 7)
-  float* KVs = Ps + AF_WARPS * 16 * 32;                 // per stage K [64][32] with
+  float* Qs = reinterpret_cast<float*>(af_smem);       // [64][DHP], chunk ^ (row & 7)
+  float* Ps = Qs + AF_QTILE * DHP;                      // per warp [16][32], chunk ^ (row & 7)
+  float* KVs = Ps + AF_WARPS * 16 * 32;                 // per stage K [64][DHP] with
                                                         // chunk ^ ((row >> 2) & 7), then V
   TIn* raw = reinterpret_cast<TIn*>(KVs + S::kStages * S::kTileFloats);
 
@@ -124,7 +140,7 @@ attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
         dst = smem_u32(raw) + ((which * AF_KT + r) * CH + c) * 16;
       } else {
         const int pc = which ? c : c ^ ((r >> 2) & 7);
-        dst = smem_u32(KVs + (t & 1) * S::kTileFloats) + ((which * AF_KT + r) * 8 + pc) * 16;
+        dst = smem_u32(KVs + (t & 1) * S::kTileFloats) + ((which * AF_KT + r) * CHP + pc) * 16;
       }
       cp_async16(dst, src, key < T ? 16 : 0);
     }
@@ -132,25 +148,27 @@ attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   };
 
   start_copy(0);
-  for (int idx = tid; idx < AF_QTILE * 8; idx += AF_WARPS * 32) {
-    const int r = idx >> 3, c = idx & 7;
+  for (int idx = tid; idx < AF_QTILE * CHI; idx += AF_WARPS * 32) {
+    const int r = idx >> CHI_LOG, c = idx & (CHI - 1);
     float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < T) qv = load4f(q + in0 + (long long)(q0 + r) * in_ts + c * 4);
-    *reinterpret_cast<float4*>(Qs + r * DH + ((c ^ (r & 7)) << 2)) = qv;
+    *reinterpret_cast<float4*>(Qs + r * DHP + ((c ^ (r & 7)) << 2)) = qv;
   }
 
-  float s[4][4], o[4][4], m[4], z[4];
-  int qoff[4], qsw[4];  // this lane's query rows in Qs / Ps: offset and swizzle
+  float s[4][4], o[4][4 * NG], m[4], z[4];
+  int qoff[4], qsw[4];  // this lane's query rows in Qs: offset and swizzle
+  int poff[4];          // and in its warp's strip of Ps (qoff itself at DHP = 32)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     z[i] = 0.f;
-    qoff[i] = (qg + 4 * i) * DH;
+    qoff[i] = (qg + 4 * i) * DHP;
+    poff[i] = DHP == 32 ? qoff[i] : (qg + 4 * i) * 32;
     qsw[i] = (qg + 4 * i) & 7;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+    for (int j = 0; j < 4 * NG; ++j) o[i][j] = 0.f;
   }
-  const float* Qw = Qs + warp * 16 * DH;
+  const float* Qw = Qs + warp * 16 * DHP;
   float* Pw = Ps + warp * 16 * 32;
   const bool active = q0 + warp * 16 < T;
 
@@ -161,34 +179,35 @@ attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
     const float* Kt = KVs + (S::kRaw ? 0 : (t & 1) * S::kTileFloats);
     if (S::kRaw) {
       float* dstt = KVs;
-      for (int idx = tid; idx < 2 * AF_KT * 8; idx += AF_WARPS * 32) {
-        const int which = idx / (AF_KT * 8), r = (idx >> 3) % AF_KT, c = idx & 7;
+      for (int idx = tid; idx < 2 * AF_KT * CHI; idx += AF_WARPS * 32) {
+        const int which = idx / (AF_KT * CHI), r = (idx >> CHI_LOG) % AF_KT,
+                  c = idx & (CHI - 1);
         const int pc = which ? c : c ^ ((r >> 2) & 7);
-        *reinterpret_cast<float4*>(dstt + (which * AF_KT + r) * DH + (pc << 2)) =
+        *reinterpret_cast<float4*>(dstt + (which * AF_KT + r) * DHP + (pc << 2)) =
             load4f(raw + (which * AF_KT + r) * DH + c * 4);
       }
       __syncthreads();
     }
     if (t + 1 < n_tiles) start_copy(t + 1);
     if (!active) continue;
-    const float* Vt = Kt + AF_KT * DH;
+    const float* Vt = Kt + AF_KT * DHP;
 
     for (int ks = 0; ks < AF_KT; ks += 32) {
       const int key0 = t * AF_KT + ks + 4 * kg;  // this lane's four keys
       if (t * AF_KT + ks >= T) break;
-      // scores: 4 queries x 4 keys, over the 8 chunks of d
+      // scores: 4 queries x 4 keys, over the dh / 4 chunks of d
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-      const float* Kl = Kt + (ks + 4 * kg) * DH;
+      const float* Kl = Kt + (ks + 4 * kg) * DHP;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < CHI; ++c) {
         float4 qv[4], kv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) qv[i] = load4f(Qw + qoff[i] + ((c ^ qsw[i]) << 2));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = load4f(Kl + j * DH + ((c ^ kg) << 2));
+        for (int j = 0; j < 4; ++j) kv[j] = load4f(Kl + j * DHP + ((c ^ kg) << 2));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -225,38 +244,64 @@ attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
         rs += __shfl_xor_sync(0xffffffffu, rs, 4);
         z[i] = z[i] * alpha + rs;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] *= alpha;
-        *reinterpret_cast<float4*>(Pw + qoff[i] + ((kg ^ qsw[i]) << 2)) =
+        for (int j = 0; j < 4 * NG; ++j) o[i][j] *= alpha;
+        *reinterpret_cast<float4*>(Pw + poff[i] + ((kg ^ qsw[i]) << 2)) =
             make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
       }
       __syncwarp();
-      // P V: 4 queries x 4 columns, over the 8 chunks of 4 keys
-      const float* Vl = Vt + ks * DH + 4 * kg;
+      // P V: 4 queries x 4 NG columns, over the 8 chunks of 4 keys
+      const float* Vl = Vt + ks * DHP + 4 * kg;
+      if constexpr (NG == 1) {  // dh 16 and 32: one group of 4 columns a lane
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        float4 pv[4], vv[4];
+        for (int c = 0; c < 8; ++c) {
+          float4 pv[4], vv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = load4f(Pw + qoff[i] + ((c ^ qsw[i]) << 2));
+          for (int i = 0; i < 4; ++i) pv[i] = load4f(Pw + qoff[i] + ((c ^ qsw[i]) << 2));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = load4f(Vl + (4 * c + j) * DH);
+          for (int j = 0; j < 4; ++j) vv[j] = load4f(Vl + (4 * c + j) * DHP);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          o[i][0] = fmaf(pv[i].x, vv[0].x, o[i][0]);
-          o[i][1] = fmaf(pv[i].x, vv[0].y, o[i][1]);
-          o[i][2] = fmaf(pv[i].x, vv[0].z, o[i][2]);
-          o[i][3] = fmaf(pv[i].x, vv[0].w, o[i][3]);
-          o[i][0] = fmaf(pv[i].y, vv[1].x, o[i][0]);
-          o[i][1] = fmaf(pv[i].y, vv[1].y, o[i][1]);
-          o[i][2] = fmaf(pv[i].y, vv[1].z, o[i][2]);
-          o[i][3] = fmaf(pv[i].y, vv[1].w, o[i][3]);
-          o[i][0] = fmaf(pv[i].z, vv[2].x, o[i][0]);
-          o[i][1] = fmaf(pv[i].z, vv[2].y, o[i][1]);
-          o[i][2] = fmaf(pv[i].z, vv[2].z, o[i][2]);
-          o[i][3] = fmaf(pv[i].z, vv[2].w, o[i][3]);
-          o[i][0] = fmaf(pv[i].w, vv[3].x, o[i][0]);
-          o[i][1] = fmaf(pv[i].w, vv[3].y, o[i][1]);
-          o[i][2] = fmaf(pv[i].w, vv[3].z, o[i][2]);
-          o[i][3] = fmaf(pv[i].w, vv[3].w, o[i][3]);
+          for (int i = 0; i < 4; ++i) {
+            o[i][0] = fmaf(pv[i].x, vv[0].x, o[i][0]);
+            o[i][1] = fmaf(pv[i].x, vv[0].y, o[i][1]);
+            o[i][2] = fmaf(pv[i].x, vv[0].z, o[i][2]);
+            o[i][3] = fmaf(pv[i].x, vv[0].w, o[i][3]);
+            o[i][0] = fmaf(pv[i].y, vv[1].x, o[i][0]);
+            o[i][1] = fmaf(pv[i].y, vv[1].y, o[i][1]);
+            o[i][2] = fmaf(pv[i].y, vv[1].z, o[i][2]);
+            o[i][3] = fmaf(pv[i].y, vv[1].w, o[i][3]);
+            o[i][0] = fmaf(pv[i].z, vv[2].x, o[i][0]);
+            o[i][1] = fmaf(pv[i].z, vv[2].y, o[i][1]);
+            o[i][2] = fmaf(pv[i].z, vv[2].z, o[i][2]);
+            o[i][3] = fmaf(pv[i].z, vv[2].w, o[i][3]);
+            o[i][0] = fmaf(pv[i].w, vv[3].x, o[i][0]);
+            o[i][1] = fmaf(pv[i].w, vv[3].y, o[i][1]);
+            o[i][2] = fmaf(pv[i].w, vv[3].z, o[i][2]);
+            o[i][3] = fmaf(pv[i].w, vv[3].w, o[i][3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float4 pv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) pv[i] = load4f(Pw + poff[i] + ((c ^ qsw[i]) << 2));
+#pragma unroll
+          for (int g = 0; g < NG; ++g) {
+            float4 vv[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) vv[j] = load4f(Vl + (4 * c + j) * DHP + 32 * g);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {  // key 4 c + j
+                const float p = j == 0 ? pv[i].x : j == 1 ? pv[i].y : j == 2 ? pv[i].z : pv[i].w;
+                o[i][4 * g + 0] = fmaf(p, vv[j].x, o[i][4 * g + 0]);
+                o[i][4 * g + 1] = fmaf(p, vv[j].y, o[i][4 * g + 1]);
+                o[i][4 * g + 2] = fmaf(p, vv[j].z, o[i][4 * g + 2]);
+                o[i][4 * g + 3] = fmaf(p, vv[j].w, o[i][4 * g + 3]);
+              }
+            }
+          }
         }
       }
       __syncwarp();  // the strip is free for the next 32 keys
@@ -267,22 +312,52 @@ attention_f32_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + warp * 16 + qg + 4 * i;
     if (qi >= T) continue;
-    *reinterpret_cast<float4*>(out + b * out_bs + h * out_hs + qi * out_ts + 4 * kg) =
-        make_float4(o[i][0] / z[i], o[i][1] / z[i], o[i][2] / z[i], o[i][3] / z[i]);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = 32 * g + 4 * kg;
+      if (DH < DHP && col >= DH) continue;  // dh 16: the lanes past its columns
+      *reinterpret_cast<float4*>(out + b * out_bs + h * out_hs + qi * out_ts + col) =
+          make_float4(o[i][4 * g] / z[i], o[i][4 * g + 1] / z[i], o[i][4 * g + 2] / z[i],
+                      o[i][4 * g + 3] / z[i]);
+    }
   }
 }
 
-// dh = 32 only; any T > 0.
+template <typename TIn, int DH>
+static cudaError_t attention_f32_dh(const TIn* q, const TIn* k, const TIn* v,
+                                    const unsigned char* mask, const int* lengths, float* out,
+                                    int B, int H, int T, long long in_bs, long long in_hs,
+                                    long long in_ts, long long out_bs, long long out_hs,
+                                    long long out_ts, float scale, cudaStream_t s) {
+  constexpr int bytes = AttF32Smem<TIn, DH>::kBytes;
+  static_assert(bytes <= 232448, "the shared memory a block can opt in to");
+  if (bytes > 48 * 1024)  // above the default: opt in (dh = 64)
+    EET_TRY(cudaFuncSetAttribute(attention_f32_kernel<TIn, DH>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  const dim3 grid((T + AF_QTILE - 1) / AF_QTILE, H, B);
+  attention_f32_kernel<TIn, DH><<<grid, AF_WARPS * 32, bytes, s>>>(
+      q, k, v, mask, lengths, out, T, in_bs, in_hs, in_ts, out_bs, out_hs, out_ts, scale);
+  return cudaGetLastError();
+}
+
+// dh = 16, 32 or 64 (anything else: cudaErrorInvalidValue); any T > 0.
 template <typename TIn>
 static cudaError_t attention_f32(const TIn* q, const TIn* k, const TIn* v,
                                  const unsigned char* mask, const int* lengths, float* out,
-                                 int B, int H, int T, long long in_bs, long long in_hs,
+                                 int B, int H, int T, int DH, long long in_bs, long long in_hs,
                                  long long in_ts, long long out_bs, long long out_hs,
                                  long long out_ts, float scale, cudaStream_t s) {
-  constexpr int bytes = AttF32Smem<TIn>::kBytes;
-  static_assert(bytes <= 48 * 1024, "fits the shared memory a block gets without opting in");
-  const dim3 grid((T + AF_QTILE - 1) / AF_QTILE, H, B);
-  attention_f32_kernel<TIn><<<grid, AF_WARPS * 32, bytes, s>>>(
-      q, k, v, mask, lengths, out, T, in_bs, in_hs, in_ts, out_bs, out_hs, out_ts, scale);
-  return cudaGetLastError();
+  switch (DH) {
+    case 16:
+      return attention_f32_dh<TIn, 16>(q, k, v, mask, lengths, out, B, H, T, in_bs, in_hs,
+                                       in_ts, out_bs, out_hs, out_ts, scale, s);
+    case 32:
+      return attention_f32_dh<TIn, 32>(q, k, v, mask, lengths, out, B, H, T, in_bs, in_hs,
+                                       in_ts, out_bs, out_hs, out_ts, scale, s);
+    case 64:
+      return attention_f32_dh<TIn, 64>(q, k, v, mask, lengths, out, B, H, T, in_bs, in_hs,
+                                       in_ts, out_bs, out_hs, out_ts, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

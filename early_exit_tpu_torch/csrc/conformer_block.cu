@@ -61,7 +61,7 @@
 //     warp-specialised wgmma + TMA kernel with int8 operands
 //     (m64n256k32 .s32.s8.s8, both operands K-major);
 //   - five of the eight quantizations happen in the kernels that make the
-//     values: the four LayerNorms (one warp a row, D <= 256, the row in registers
+//     values: the four LayerNorms (one warp a row, D <= 512, the row in registers
 //     from the one read of x to the int8 store: no float32 LayerNorm
 //     output goes through device memory) and the conv module (a block's
 //     32 rows wait in shared memory for their absmax). The attention
@@ -306,15 +306,18 @@ static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float
 }
 
 // LayerNorm in float32 of a bf16 row, quantized on the way out: only the
-// int8 row and its scale are written. One warp per row, D <= 256: lane l
-// holds the row's 8 values at 8 l (lanes past D / 8 hold none) in
-// registers from the one read to the int8 store. The arithmetic is the
-// LayerNorm kernel's above with its contractions written out (every FMA
-// the compiler forms there is an explicit __fmaf_rn here, every other
-// operation rounded on its own), so the plain version can repeat it
-// exactly: each lane sums its 8 values in order, then a butterfly over
-// the warp.
-constexpr int LNQ_MAX_D = 256;
+// int8 row and its scale are written. One warp per row, D <= 512: lane l
+// holds the row's 8-value chunks l and l + 32 (values 8 l .. 8 l + 7 and
+// 256 + 8 l ..; a chunk past D / 8 is none) in registers from the one
+// read to the int8 store. The arithmetic is the LayerNorm kernel's above
+// with its contractions written out (every FMA the compiler forms there
+// is an explicit __fmaf_rn here, every other operation rounded on its
+// own), so the plain version can repeat it exactly: each lane sums its
+// first chunk's 8 values in order, then its second's, then a butterfly
+// over the warp. At D <= 256 a lane has one chunk, as before the second
+// was added.
+constexpr int LNQ_CHUNKS = 2;
+constexpr int LNQ_MAX_D = 8 * 32 * LNQ_CHUNKS;
 
 __global__ void __launch_bounds__(LN_THREADS)
 layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
@@ -323,15 +326,19 @@ layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const bool has = lane < D / 8;
-  float e[8];
+  float e[LNQ_CHUNKS][8];
+  bool has[LNQ_CHUNKS];
   float s = 0.f, ss = 0.f;
-  if (has) {
-    load8(x + (size_t)row * D + lane * 8, e);
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      s = __fadd_rn(s, e[k]);
-      ss = __fmaf_rn(e[k], e[k], ss);
+  for (int c = 0; c < LNQ_CHUNKS; ++c) {
+    has[c] = lane + 32 * c < D / 8;
+    if (has[c]) {
+      load8(x + (size_t)row * D + (lane + 32 * c) * 8, e[c]);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        s = __fadd_rn(s, e[c][k]);
+        ss = __fmaf_rn(e[c][k], e[c][k], ss);
+      }
     }
   }
   s = warp_sum(s);
@@ -340,17 +347,23 @@ layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__
   const float var = fmaxf(__fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)D)), 0.f);
   const float rstd = rsqrtf(__fadd_rn(var, eps));
   float amax = 0.f;
-  if (has) {
+#pragma unroll
+  for (int c = 0; c < LNQ_CHUNKS; ++c) {
+    if (!has[c]) continue;
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      const int c = lane * 8 + k;
-      e[k] = __fmaf_rn(__fmul_rn(__fsub_rn(e[k], mu), rstd), g[c], b[c]);
-      amax = fmaxf(amax, fabsf(e[k]));
+      const int col = (lane + 32 * c) * 8 + k;
+      e[c][k] = __fmaf_rn(__fmul_rn(__fsub_rn(e[c][k], mu), rstd), g[col], b[col]);
+      amax = fmaxf(amax, fabsf(e[c][k]));
     }
   }
   const float scale = row_scale_of(warp_max(amax));
   if (lane == 0) sx[row] = scale;
-  if (has) *reinterpret_cast<uint2*>(q + (size_t)row * D + lane * 8) = quantize8(e, scale);
+#pragma unroll
+  for (int c = 0; c < LNQ_CHUNKS; ++c)
+    if (has[c])
+      *reinterpret_cast<uint2*>(q + (size_t)row * D + (lane + 32 * c) * 8) =
+          quantize8(e[c], scale);
 }
 
 // D a multiple of 8, at most LNQ_MAX_D
@@ -582,18 +595,31 @@ attention_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
   }
 }
 
+template <int DH, typename TOut, bool kSoftmax>
+static cudaError_t attention_dh(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
+                                int D, int H, float scale, int sm_bf16, cudaStream_t s) {
+  const int Tp = (T + 15) / 16 * 16;
+  const int KT = Tp < ATT_KT ? Tp : ATT_KT;
+  const size_t bytes = AttLayout<DH>::bytes(KT);
+  EET_TRY(cudaFuncSetAttribute(attention_kernel<DH, TOut, kSoftmax>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+  const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
+  attention_kernel<DH, TOut, kSoftmax><<<grid, ATT_WARPS * 32, bytes, s>>>(
+      qkv, lengths, out, T, D, Tp, KT, scale, sm_bf16);
+  return cudaGetLastError();
+}
+
+// Head widths D / H = 16, 32 and 64 (anything else: cudaErrorInvalidValue).
 template <typename TOut, bool kSoftmax = true>
 static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
-  const int Tp = (T + 15) / 16 * 16;
-  const int KT = Tp < ATT_KT ? Tp : ATT_KT;
-  const size_t bytes = AttLayout<32>::bytes(KT);
-  EET_TRY(cudaFuncSetAttribute(attention_kernel<32, TOut, kSoftmax>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
-  const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS), H, B);
-  attention_kernel<32, TOut, kSoftmax><<<grid, ATT_WARPS * 32, bytes, s>>>(qkv, lengths, out, T, D, Tp,
-                                                                 KT, scale, sm_bf16);
-  return cudaGetLastError();
+  if (H <= 0 || D % H) return cudaErrorInvalidValue;
+  switch (D / H) {
+    case 16: return attention_dh<16, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+    case 32: return attention_dh<32, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+    case 64: return attention_dh<64, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // --------------------------------------------------------- conv module
@@ -864,7 +890,7 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
   EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_QKV), fw(W_BQKV), no_res, s_big, R, 3 * D, D, s));
   // q | k | v of a frame are one (3D) row of s_big; head h at column h*DH
   EET_TRY(attention_f32<float>(s_big, s_big + D, s_big + 2 * D, nullptr, lengths, s_att, B, H,
-                               T, (long long)T * 3 * D, DH, 3 * D, (long long)T * D, DH, D,
+                               T, DH, (long long)T * 3 * D, DH, 3 * D, (long long)T * D, DH, D,
                                scale, s));
   EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_O), fw(W_BO), y, y, R, D, D, s));
   EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));

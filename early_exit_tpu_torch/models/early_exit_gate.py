@@ -94,6 +94,31 @@ def head_logp_conf(model: EarlyConformer, h: torch.Tensor, mask: torch.Tensor,
     return logp, exit_confidence(conf_lp, mask, score)
 
 
+def gate_exit(model: EarlyConformer, e: int, h: torch.Tensor, chosen_lp: torch.Tensor,
+              chosen_exit: torch.Tensor, done: torch.Tensor, mask: torch.Tensor,
+              thr: torch.Tensor, *, score: str, temperature: Optional[float],
+              branch_ops=()):
+    """Exit e (0-based) of the gate: exit e's blocks on h (B, T', D), the
+    hidden state before them (and the splitformer's branch beside them at
+    its branch exits, on the same h, with `branch_ops` from
+    `branch_operands`), its head and confidence against thr (); the rows
+    not yet done that clear it (every row at the last exit) take exit e's
+    log-probs into chosen_lp (B, T', V) and e + 1 into chosen_exit (B,).
+    Returns (the exit's hidden state, chosen_lp, chosen_exit, done)."""
+    cfg = model.cfg
+    npe = cfg.n_enc_layers_per_exit
+    branches = model.branch_exits() if cfg.model_type == "splitformer" else {}
+    out = model.stack(h, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
+    if e in branches:
+        out = model.add_branch(branches[e], h, out, mask, *branch_ops)
+    logp, conf = head_logp_conf(model, out, mask, e, score, temperature)
+    ok = conf >= thr if e < cfg.n_enc_exits - 1 else torch.ones_like(done)
+    newly = ~done & ok
+    chosen_lp = torch.where(newly[:, None, None], logp, chosen_lp)
+    chosen_exit = torch.where(newly, e + 1, chosen_exit).to(torch.int32)
+    return out, chosen_lp, chosen_exit, done | ok
+
+
 @torch.no_grad()
 def gated_apply(model: EarlyConformer, feats: torch.Tensor,
                 lengths: torch.Tensor, *, threshold, item_mask=None,
@@ -109,7 +134,7 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     log-probs stay unscaled."""
     cfg = model.cfg
     require_gated(cfg)
-    E, npe = cfg.n_enc_exits, cfg.n_enc_layers_per_exit
+    E = cfg.n_enc_exits
     branches = model.branch_exits() if cfg.model_type == "splitformer" else {}
     temps = per_exit(temperatures, E)
     h, sub_len, mask = model.frontend_embed(feats, lengths)
@@ -139,19 +164,11 @@ def gated_apply(model: EarlyConformer, feats: torch.Tensor,
     def run_exit(e):
         def run(h, chosen_lp, chosen_exit, done, n_run, mask, thr, *ops):
             shape = mask.shape
-            h_in = h.view(*shape, D)
-            h = model.stack(h_in, mask, first_layer=e * npe, n_layers=(e + 1) * npe)
-            if e in branches:
-                h = model.add_branch(branches[e], h_in, h, mask, *ops)
-            logp, conf = head_logp_conf(model, h, mask, e, score,
-                                        None if temps is None else temps[e])
-            ok = conf >= thr[e] if e < E - 1 else torch.ones_like(done)
-            newly = ~done & ok
-            chosen_lp = torch.where(newly[:, None, None], logp,
-                                    chosen_lp.view(*shape, V))
-            chosen_exit = torch.where(newly, e + 1, chosen_exit).to(torch.int32)
-            return (h.reshape(-1), chosen_lp.reshape(-1), chosen_exit, done | ok,
-                    n_run + 1)
+            h, chosen_lp, chosen_exit, done = gate_exit(
+                model, e, h.view(*shape, D), chosen_lp.view(*shape, V), chosen_exit, done,
+                mask, thr[e], score=score, temperature=None if temps is None else temps[e],
+                branch_ops=ops)
+            return (h.reshape(-1), chosen_lp.reshape(-1), chosen_exit, done, n_run + 1)
         return run
 
     for e in range(E):

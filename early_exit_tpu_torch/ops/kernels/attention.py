@@ -26,6 +26,8 @@ from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.ops.kernels import _build
 
 NEG = -1e9
+# the head widths the kernel is instantiated for (attention_f32.cuh)
+HEAD_WIDTHS = (16, 32, 64)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -49,8 +51,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid. Returns (B, H, T, dh) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes dh = 32 and any T > 0 (K and V are streamed) and raises
-    on anything else."""
+    which takes dh = 16, 32 or 64 and any T > 0 (K and V are streamed) and
+    raises on anything else."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     return torch.ops.eet.fused_attention(q, k, v, mask.to(torch.bool))
@@ -65,9 +67,9 @@ def _fused_attention_cuda(q, k, v, mask):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_attention kernel takes bf16 or float32 "
                          f"q/k/v, got {q.dtype}")
-    if dh != 32:
-        raise ValueError(f"fused_attention kernel needs 32-wide heads, "
-                         f"got dh={dh}")
+    if dh not in HEAD_WIDTHS:
+        raise ValueError(f"fused_attention kernel needs heads {HEAD_WIDTHS} "
+                         f"wide, got dh={dh}")
     if T <= 0:
         raise ValueError(f"fused_attention kernel needs T > 0, got {T}")
     lib = _lib()

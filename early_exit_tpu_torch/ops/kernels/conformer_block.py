@@ -65,8 +65,10 @@ _FLOAT32 = {n for n in PARAM_ORDER if "_ln_" in n} | {
 _FLOAT32_INT8 = _FLOAT32 | set(_MATMULS.values()) | {
     n + "_s" for n in _MATMULS}
 # the widest row the W8A8 LayerNorm + quantize kernel takes (LNQ_MAX_D in
-# the source): one warp, 8 values a lane
-LNQ_MAX_D = 256
+# the source): one warp, two chunks of 8 values a lane
+LNQ_MAX_D = 512
+# the head widths D / n_heads the block's attention is instantiated for
+HEAD_WIDTHS = (16, 32, 64)
 
 
 def fold_block_params(sd: Mapping[str, torch.Tensor], *,
@@ -380,10 +382,10 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
     f = _layout(params, quantize)
     B, T, D = x.shape
     Fd = f["ffn1_w1"].shape[1]
-    if D % 128 or Fd % 128 or D // n_heads != 32 or D % n_heads:
+    if D % 128 or Fd % 128 or D % n_heads or D // n_heads not in HEAD_WIDTHS:
         raise ValueError(
             f"conformer_block kernel needs d_model and d_ff multiples of 128 "
-            f"and 32-wide heads; got D={D} F={Fd} heads={n_heads}")
+            f"and heads {HEAD_WIDTHS} wide; got D={D} F={Fd} heads={n_heads}")
     if entry == "w8a8" and D > LNQ_MAX_D:
         raise ValueError(f"conformer_block kernel (w8a8) needs d_model <= "
                          f"{LNQ_MAX_D} (its LayerNorm + quantize keeps a row in "
@@ -626,13 +628,14 @@ def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                               eps: float = 1e-5):
     """The W8A8 entry's LayerNorm + quantize in PyTorch ops, repeating the
     kernel's float32 arithmetic operation for operation: lane l of a warp
-    sums the row's values 8 l .. 8 l + 7 in order (x and x^2, the latter
-    by fused multiply-add), a butterfly over the 32 lanes totals them,
-    then the one-pass statistics of `_ln_one_pass` with the kernel's two
-    fused multiply-adds; the output is quantized row by row as
-    `quantize_int8` does. x (R, D), D a multiple of 8 up to 256 -> (q int8
-    (R, D), sx float32 (R,)). A fused multiply-add is taken in float64,
-    where the product is exact, and rounded once to float32."""
+    sums the row's values 8 l .. 8 l + 7 in order, then 256 + 8 l .. 256 +
+    8 l + 7 (x and x^2, the latter by fused multiply-add), a butterfly
+    over the 32 lanes totals them, then the one-pass statistics of
+    `_ln_one_pass` with the kernel's two fused multiply-adds; the output is
+    quantized row by row as `quantize_int8` does. x (R, D), D a multiple
+    of 8 up to 512 -> (q int8 (R, D), sx float32 (R,)). A fused
+    multiply-add is taken in float64, where the product is exact, and
+    rounded once to float32."""
     def fma(a, b_, c):
         return (a.double() * b_.double() + c.double()).float()
 
@@ -641,14 +644,17 @@ def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"layer_norm_quantize needs D a multiple of 8 up to "
                          f"{LNQ_MAX_D}; got {D}")
     v = x.float()
-    ch = torch.zeros(R, 32, 8, dtype=torch.float32, device=x.device)   # [row][lane]
+    n_ch = LNQ_MAX_D // 256                     # chunks of 8 a lane
+    ch = torch.zeros(R, n_ch * 32, 8, dtype=torch.float32, device=x.device)
     ch[:, :D // 8] = v.reshape(R, D // 8, 8)
+    ch = ch.reshape(R, n_ch, 32, 8)             # [row][chunk][lane]
     s = torch.zeros(R, 32, dtype=torch.float32, device=x.device)
     ss = torch.zeros_like(s)
-    for k in range(8):
-        e = ch[:, :, k]
-        s = s + e
-        ss = fma(e, e, ss)
+    for c in range(n_ch):
+        for k in range(8):
+            e = ch[:, c, :, k]
+            s = s + e
+            ss = fma(e, e, ss)
     lane = torch.arange(32, device=x.device)
     for o in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ o]
@@ -669,8 +675,8 @@ def layer_norm_quantize(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     of the float32 LayerNorm and their scales. For checks: the block
     never calls it. Calls the op `eet::layer_norm_quantize`: a CPU tensor
     takes the plain version; a CUDA tensor launches the kernel (D a
-    multiple of 8 up to 256: a warp holds a row in registers, 8 values a
-    lane) or raises."""
+    multiple of 8 up to 512: a warp holds a row in registers, up to 16
+    values a lane) or raises."""
     _device_ok("layer_norm_quantize", x)
     return torch.ops.eet.layer_norm_quantize(x, g, b, eps)
 

@@ -18,7 +18,7 @@ import torch
 
 from early_exit_tpu_torch.ops.kernels import _build
 
-VOCAB = 256          # the kernel's fixed head width
+MAX_D = 512          # the widest hidden row the kernel takes (HS_MAX_D)
 
 
 def head_argmax_plain(hidden: torch.Tensor, w: torch.Tensor,
@@ -40,8 +40,9 @@ def head_argmax(hidden: torch.Tensor, w: torch.Tensor,
     """hidden (E, B, T, D), w (E, D, V), b (E, V) -> ids (E, B, T) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16 operands, V == 256, D a multiple of 64 up to 256: the
-    kernel keeps an exit's whole head in shared memory) or raises."""
+    kernel (bf16 operands, any V >= 1, D a multiple of 64 up to 512: the
+    head stays in shared memory where it fits, V <= 256 and D <= 256, and
+    streams through it in tiles of 256 columns otherwise) or raises."""
     if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head_argmax: unsupported device {hidden.device}")
     return torch.ops.eet.head_argmax(hidden, w, b)
@@ -53,9 +54,10 @@ def _head_argmax_fake(hidden, w, b):
 
 def _head_argmax_cuda(hidden, w, b):
     E, B, T, D = hidden.shape
+    V = w.shape[-1] if w.dim() == 3 else 0
     dev = hidden.device
-    want = {"hidden": (hidden, (E, B, T, D)), "w": (w, (E, D, VOCAB)),
-            "b": (b, (E, VOCAB))}
+    want = {"hidden": (hidden, (E, B, T, D)), "w": (w, (E, D, V)),
+            "b": (b, (E, V))}
     for name, (t, shape) in want.items():
         if (t.device != dev or t.dtype != torch.bfloat16
                 or tuple(t.shape) != shape or not t.is_contiguous()):
@@ -63,14 +65,20 @@ def _head_argmax_cuda(hidden, w, b):
                 f"head_argmax kernel: {name} must be a contiguous bf16 tensor "
                 f"of shape {shape} on {dev}; got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
-    if D % 64 or D > 256:
+    if D % 64 or not 0 < D <= MAX_D or V < 1:
         raise ValueError(f"head_argmax kernel needs D a multiple of 64 up to "
-                         f"256, got {D}")
+                         f"{MAX_D} and V >= 1, got D={D} V={V}")
+    Vp = -(-V // 8) * 8
+    if Vp != V:
+        # TMA reads rows of a multiple of 16 bytes: a copy with V padded to
+        # a multiple of 8 columns, which the kernel masks
+        w = torch.nn.functional.pad(w, (0, Vp - V))
+        b = torch.nn.functional.pad(b, (0, Vp - V))
     out = torch.empty(E, B, T, dtype=torch.int32, device=dev)
     lib = _lib()
     err = lib.eet_head_argmax_bf16(_build.ptr(hidden), _build.ptr(w),
                                    _build.ptr(b), _build.ptr(out), E, B * T,
-                                   D, _build.stream_ptr(dev))
+                                   D, V, Vp, _build.stream_ptr(dev))
     _build.check(lib, err, "head_argmax kernel")
     head_argmax.launches += 1
     return out
@@ -84,6 +92,6 @@ def _lib():
     fn = lib.eet_head_argmax_bf16
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
         fn.restype = i
     return lib

@@ -25,8 +25,9 @@ Bundle format, a plain zip archive:
   vocab.json (optional)            id -> piece table for `detokenize`
 
 Keys, as in the JAX package: "<B>x<S>" (a bucket), "poly" (symbolic
-(b, s), min_samples <= s <= symbolic_max_samples), "gated/<key>",
-"cascade_a/<B>x<S>", "cascade_b/<B>x<S>".
+(b, s), min_samples <= s <= symbolic_max_samples), "gated/<B>x<S>",
+"cascade_a/<B>x<S>", "cascade_b/<B>x<S>"; the gated poly program is one
+program an exit, "gated/poly/<e>" (`GatedFirstExit`).
 
 Program contracts (all outputs int32 but conf):
   all-exit:  (wav f32 (B, S), n_samples i32 (B,)) ->
@@ -167,6 +168,73 @@ class GatedServeProgram(_Program):
                 item_mask=(n_samples > 0).to(torch.float32), score=self.gate_score)
         toks, n_tok = ctc.greedy_decode(logp, sub_len, blank=self.model.cfg.blank_id)
         return toks.to(torch.int32), n_tok.to(torch.int32), chosen.to(torch.int32)
+
+
+class GatedFirstExit(_Program):
+    """The stepped gated program: one program an exit, with no
+    `torch.cond`, which `ExportedRecognizer.gated` steps on the host while
+    a row is not done, as `gated_apply`'s conds run them. The poly
+    programs of every model take this form: AOTInductor (torch 2.11)
+    cannot compile the splitformer's cond program (ROADMAP C8), and on an
+    H100 the flagship's stepped program beats its cond program when the
+    rows stop at an early exit (the cond program's skipped branches still
+    copy the whole carry) and is slower when every row runs every exit
+    (one program call and one greedy decode an exit): `chip_smoke.py`
+    phase 11 times both (PERF.md). This is exit 1: the features, the
+    embedding, what the later exits
+    read (the mask, the sub-lengths, the splitformer's branch operands),
+    exit 1's blocks (and branch), head and gate (`gate_exit`). (wav,
+    n_samples, threshold ()) -> (hidden, chosen_lp, chosen_exit, done,
+    mask, sub_len, *branch operands (down, ds_mask, up, or none), tokens,
+    n_tok), the greedy tokens of chosen_lp."""
+
+    def __init__(self, model, audio_cfg, gate_score, e: int = 0):
+        npe = model.cfg.n_enc_layers_per_exit
+        super().__init__(model, audio_cfg, gate_score, range(e * npe, (e + 1) * npe))
+        self.e = e
+
+    def _exit(self, h, chosen_lp, chosen_exit, done, mask, sub_len, ops, threshold):
+        from early_exit_tpu_torch.models.early_exit_gate import gate_exit
+        with self._pinned():
+            h, chosen_lp, chosen_exit, done = gate_exit(
+                self.model, self.e, h, chosen_lp, chosen_exit, done, mask, threshold,
+                score=self.gate_score, temperature=None, branch_ops=ops)
+        toks, n_tok = ctc.greedy_decode(chosen_lp, sub_len, blank=self.model.cfg.blank_id)
+        return h, chosen_lp, chosen_exit, done, toks.to(torch.int32), n_tok.to(torch.int32)
+
+    def forward(self, wav, n_samples, threshold):
+        feats, lengths = self._features(wav, n_samples)
+        h, sub_len, mask = self.model.frontend_embed(feats, lengths)
+        B, T, _ = h.shape
+        ops = (self.model.branch_operands(T, lengths, sub_len)
+               if self.model.cfg.model_type == "splitformer" else ())
+        mask, *ops = (t.clone(memory_format=torch.contiguous_format) for t in (mask, *ops))
+        done = (n_samples > 0).to(torch.float32) < 0.5       # padding rows are done
+        chosen_lp = torch.zeros(B, T, self.model.cfg.vocab_size, device=wav.device)
+        chosen_exit = torch.zeros(B, dtype=torch.int32, device=wav.device)
+        h, chosen_lp, chosen_exit, done, toks, n_tok = self._exit(
+            h, chosen_lp, chosen_exit, done, mask, sub_len, ops, threshold)
+        return (h, chosen_lp, chosen_exit, done, mask, sub_len, *ops, toks, n_tok)
+
+
+class GatedNextExit(GatedFirstExit):
+    """Exit e + 1 > 1 of the stepped gated program (`GatedFirstExit`) of a
+    model with no branch: (hidden, chosen_lp, chosen_exit, done, mask,
+    sub_len, threshold) -> (hidden, chosen_lp, chosen_exit, done, tokens,
+    n_tok)."""
+
+    def forward(self, h, chosen_lp, chosen_exit, done, mask, sub_len, threshold):
+        return self._exit(h, chosen_lp, chosen_exit, done, mask, sub_len, (), threshold)
+
+
+class GatedNextBranchExit(GatedFirstExit):
+    """`GatedNextExit` of the splitformer, which takes its branch's
+    operands (down, ds_mask, up) before the threshold."""
+
+    def forward(self, h, chosen_lp, chosen_exit, done, mask, sub_len, down, ds_mask, up,
+                threshold):
+        return self._exit(h, chosen_lp, chosen_exit, done, mask, sub_len,
+                          (down, ds_mask, up), threshold)
 
 
 class CascadeA(_Program):
@@ -380,8 +448,9 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     as the JAX package's runner pads it. On the CPU a fused stack runs the
     block kernel's plain version only up to T' = 512, as the JAX package:
     the bound must keep the model's largest stack length (`_stack_frames`)
-    there, or export raises. The splitformer's gated poly program exports
-    for "cpu" only (raises by name for "cuda").
+    there, or export raises. The gated poly program is one program an exit
+    ("gated/poly/<e>", `GatedFirstExit`), stepped by
+    `ExportedRecognizer.gated`, for every model.
 
     Any CTC model of the registry exports its all-exit program (the
     zipformer's has one exit). gated: also the gated programs (threshold
@@ -402,14 +471,6 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     if not shapes and symbolic_max_samples is None:
         raise ValueError("export_recognizer: need shapes and/or "
                          "symbolic_max_samples")
-    if (gated and symbolic_max_samples is not None and "cuda" in platforms
-            and cfg.model_type == "splitformer"):
-        raise NotImplementedError(
-            "export_recognizer: the splitformer's gated poly program does not compile "
-            "for 'cuda': AOTInductor (torch 2.11) autotunes the kernels of the gate's "
-            "torch.cond branches with example sizes taken from the program's own "
-            "precomputed sizes, and an example kernel faults; export it for 'cpu', or "
-            "the gated buckets and the all-exit poly program for 'cuda'")
     unknown = set(platforms) - {"cpu", "cuda"}
     if unknown:
         raise ValueError(f"export_recognizer: unknown platforms {sorted(unknown)}; "
@@ -476,9 +537,7 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
             eps["poly"] = _capture(serve, (wav, n), ({0: nb, 1: ns}, {0: nb}),
                                    size_oblivious=True)
             if gated_p is not None:
-                eps["gated/poly"] = _capture(gated_p, (wav, n, thr),
-                                             ({0: nb, 1: ns}, {0: nb}, None),
-                                             size_oblivious=True)
+                eps.update(_capture_gated_exits(m, audio_cfg, gate_score, wav, n, nb, ns))
         programs[plat] = {k: _saved(ep) for k, ep in eps.items()}
         ops[plat] = {k: _ops_called(ep) for k, ep in eps.items()}
     # shapes per bucket, and the exits, from the captured all-exit
@@ -517,6 +576,34 @@ def export_recognizer(model, audio_cfg, shapes: Sequence[Tuple[int, int]] = (), 
     if "cuda" in platforms and compile_aoti:
         compile_bundles({"": bundle})
     return bundle
+
+
+def _capture_gated_exits(model, audio_cfg, gate_score, wav, n, nb, ns) -> dict:
+    """The stepped gated poly program, one program an exit
+    (`GatedFirstExit`, then `GatedNextExit` or, for the splitformer,
+    `GatedNextBranchExit`): "gated/poly/<e>", e = 0 .. E-1. The later
+    exits' T' (and the branch's ceil(T'/2)) are dimensions of their own,
+    captured on the example outputs of the exits before them."""
+    E = model.cfg.n_enc_exits
+    thr = torch.zeros((), device=wav.device)
+    first = GatedFirstExit(model, audio_cfg, gate_score)
+    eps = {"gated/poly/0": _capture(first, (wav, n, thr), ({0: nb, 1: ns}, {0: nb}, None),
+                                    size_oblivious=True)}
+    with torch.no_grad():
+        h, lp, chosen, done, mask, sub_len, *ops = first(wav, n, thr)[:-2]
+    dyn = torch.export.Dim.DYNAMIC
+    nt, nd = dyn(min=1), dyn(min=1)
+    op_shapes = ({0: nd}, {0: nb, 1: nd}, {0: nt}) if ops else ()
+    shapes = ({0: nb, 1: nt}, {0: nb, 1: nt}, {0: nb}, {0: nb}, {0: nb, 1: nt}, {0: nb},
+              *op_shapes, None)
+    step_cls = GatedNextBranchExit if ops else GatedNextExit
+    for e in range(1, E):
+        step = step_cls(model, audio_cfg, gate_score, e)
+        args = (h, lp, chosen, done, mask, sub_len, *ops, thr)
+        eps[f"gated/poly/{e}"] = _capture(step, args, shapes, size_oblivious=True)
+        with torch.no_grad():
+            h, lp, chosen, done, _, _ = step(*args)
+    return eps
 
 
 def compile_bundles(bundles: Dict[str, ExportBundle]) -> None:
@@ -698,9 +785,25 @@ class ExportedRecognizer:
             raise ValueError("bundle was exported without gated=True")
         key, wav, n_samples, b = self._padded(wav, n_samples)
         thr = torch.tensor(float(threshold), dtype=torch.float32, device=self.device)
-        toks, n_tok, chosen = self._fn("gated/" + key)(wav, n_samples, thr)
+        if f"gated/{key}/0" in self._progs:
+            toks, n_tok, chosen = self._gated_exits(key, wav, n_samples, thr)
+        else:
+            toks, n_tok, chosen = self._fn("gated/" + key)(wav, n_samples, thr)
         return (toks[:b].cpu().numpy(), n_tok[:b].cpu().numpy(),
                 chosen[:b].cpu().numpy())
+
+    def _gated_exits(self, key, wav, n_samples, thr):
+        """A gated program of one program an exit (`GatedFirstExit`): the
+        next exit runs while a row is not done, as `gated_apply`'s conds
+        run it (one read of `done` an exit)."""
+        h, lp, chosen, done, mask, sub_len, *ops, toks, n_tok = self._fn(f"gated/{key}/0")(
+            wav, n_samples, thr)
+        for e in range(1, self.manifest["n_exits"]):
+            if bool(done.all()):
+                break
+            h, lp, chosen, done, toks, n_tok = self._fn(f"gated/{key}/{e}")(
+                h, lp, chosen, done, mask, sub_len, *ops, thr)
+        return toks, n_tok, chosen
 
     @torch.no_grad()
     def cascade(self, wav: np.ndarray, n_samples: np.ndarray,

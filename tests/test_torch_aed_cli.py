@@ -25,6 +25,7 @@ from early_exit_tpu_torch import inference as port_inference
 from early_exit_tpu_torch import train as port_train
 
 from test_torch_infer_cli import jax_inference  # noqa: F401
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = ["--d_model", "32", "--n_enc_exits", "2", "--n_enc_layers_per_exit", "1",
         "--n_heads", "4", "--d_feed_forward", "64", "--depthwise_kernel_size", "7",

@@ -34,6 +34,7 @@ from early_exit_tpu_torch.training import checkpoint as ck
 from early_exit_tpu_torch.training import trainer
 
 from test_torch_train_step import ZERO_GRAD, _grad_store, _rel_l2
+from torch_one_thread import one_thread  # noqa: F401
 
 KW = dict(model_type="full_conformer", d_model=32, n_heads=4, d_feed_forward=64,
           n_enc_exits=2, n_enc_layers_per_exit=1, n_dec_layers=2,

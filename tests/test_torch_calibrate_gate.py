@@ -32,6 +32,7 @@ from early_exit_tpu_torch.cli import get_args
 from early_exit_tpu_torch.data.librispeech import SyntheticDataset
 from early_exit_tpu_torch.data.pipeline import Pipeline
 from early_exit_tpu_torch.models import gate_calibration as gc
+from torch_one_thread import one_thread  # noqa: F401
 
 DIMS = ["--d_model", "32", "--n_heads", "4", "--d_feed_forward", "64",
         "--n_enc_exits", "3", "--n_enc_layers_per_exit", "1",

@@ -29,6 +29,7 @@ from early_exit_tpu_torch.data.synthetic import synth_batch
 from early_exit_tpu_torch.models.early_exit_gate import gated_apply
 from early_exit_tpu_torch.serving import cascade
 from early_exit_tpu_torch.serving.recognizer import Recognizer
+from torch_one_thread import one_thread  # noqa: F401
 
 KW = dict(d_model=32, n_enc_exits=4, n_enc_layers_per_exit=1, n_heads=4,
           d_feed_forward=64, depthwise_kernel_size=7, vocab_size=16,

@@ -33,6 +33,7 @@ from early_exit_tpu_torch.ops import ctc, frontend
 from early_exit_tpu_torch.serving import export as exp
 from early_exit_tpu_torch.serving.packing import PACK_BATCH
 from early_exit_tpu_torch.serving.recognizer import Recognizer
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNFUSED = dict(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,
@@ -401,7 +402,8 @@ def test_fused_cascade_matches_jax(fused):
 
 def test_exported_graph_calls_block_op_once_per_layer(fused):
     want = {"10x4000": 4, "gated/10x4000": 4, "cascade_a/10x4000": 2,
-            "cascade_b/10x4000": 2, "poly": 4, "gated/poly": 4}
+            "cascade_b/10x4000": 2, "poly": 4,
+            **{f"gated/poly/{e}": 1 for e in range(4)}}
     nodes = fused.rec.manifest["op_nodes"]["cpu"]
     assert {k: c["eet::conformer_block"] for k, c in nodes.items()} == want
     assert fused.rec.manifest["ops"] == ["eet::conformer_block"]

@@ -44,6 +44,7 @@ from early_exit_tpu_torch.optim.noam import global_norm
 
 from test_torch_infer_cli import jax_inference  # noqa: F401
 from test_torch_train_step import _batch, _jax_step, _port
+from torch_one_thread import one_thread  # noqa: F401
 
 D, H, FF, K = 32, 4, 64, 7
 TINY = dict(d_model=D, n_heads=H, d_feed_forward=FF, n_enc_exits=2,

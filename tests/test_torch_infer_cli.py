@@ -35,6 +35,7 @@ from early_exit_tpu.training import checkpoint as jck
 from early_exit_tpu_torch import inference as port_inference
 
 from test_torch_infer_data import write_corpus
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--d_model", "32", "--n_enc_exits", "2", "--n_enc_layers_per_exit", "1",
@@ -137,6 +138,28 @@ def test_cli_lines_equal_jax(setup, jax_inference, capsys, case):
     if case == "streaming_gated":                  # chunks at both exits
         hist = [ln for ln in got if "streaming exit histogram" in ln][0]
         assert "{1: 0," not in hist and ", 2: 0}" not in hist, hist
+
+
+def test_cli_character_vocabulary_equals_jax(setup, jax_inference, capsys, tmp_path):
+    """--bpe false (the JAX CLI's character vocabulary, V = 32) with
+    --fused_block true: the port's block and head take any vocabulary,
+    and its lines equal the JAX CLI's (the block kernel's plain version
+    here, the Pallas kernel in interpret mode there)."""
+    cfg = JModelConfig(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,
+                       n_enc_layers_per_exit=1, depthwise_kernel_size=7, vocab_size=32)
+    params, state = jec.init(jax.random.PRNGKey(9), cfg)
+    params["heads"]["w"] = params["heads"]["w"] * 6.0
+    jck.save_pytree({"params": params, "model_state": state}, str(tmp_path / "char"))
+    argv = ["--decoder_mode", "ctc", "--data_root", str(setup / "corpus"),
+            "--eval_splits", "test-clean", *TINY, "--load_model_path", str(tmp_path / "char"),
+            "--bpe", "false", "--fused_block", "true"]
+    jax_inference.main(argv)
+    want = _lines(capsys.readouterr().out)
+    port_inference.main(argv + ["--device", "cpu"])
+    got = _lines(capsys.readouterr().out)
+    assert got == want
+    assert sum("BEAM_OUT_" in ln for ln in got) == 12
+    assert any(ln.split(":", 2)[-1].strip() for ln in got if "BEAM_OUT_" in ln)
 
 
 @pytest.mark.parametrize("flags,match", [

@@ -39,6 +39,7 @@ from early_exit_tpu_torch.decoding.api import DecoderSuite
 from early_exit_tpu_torch.decoding.lexicon_beam import LexiconBeamDecoder
 from early_exit_tpu_torch.decoding.ngram_lm import ArpaLM
 from early_exit_tpu_torch.tokenizer import load_tokenizer
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPM = os.path.join(REPO, "assets", "spm")

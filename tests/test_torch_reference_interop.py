@@ -26,6 +26,7 @@ from early_exit_tpu_torch.configs import ModelConfig
 
 from test_torch_import import (_RefEarlyConformer, _RefFullConformer, _RefZipformer,
                                _torch_model_and_sd)
+from torch_one_thread import one_thread  # noqa: F401
 
 BASE = dict(d_model=32, n_heads=4, d_feed_forward=48, n_enc_exits=2,
             n_enc_layers_per_exit=2, depthwise_kernel_size=7, vocab_size=11, n_mels=9,

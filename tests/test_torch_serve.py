@@ -33,6 +33,7 @@ from early_exit_tpu.serving import StreamingRecognizer as JRec
 from early_exit_tpu.training import checkpoint as jck
 from early_exit_tpu_torch import serve
 from early_exit_tpu_torch.serving import load_test
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEO = ["--chunk_s", "0.5", "--left_s", "1.0", "--right_s", "0.2"]

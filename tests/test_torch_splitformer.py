@@ -40,6 +40,7 @@ from early_exit_tpu_torch.models.registry import build_model
 from early_exit_tpu_torch.models.splitformer import Splitformer
 from early_exit_tpu_torch.ops import frontend
 from early_exit_tpu_torch.utils.model_utils import count_parameters
+from torch_one_thread import one_thread  # noqa: F401
 
 KW = dict(model_type="splitformer", d_model=32, n_heads=4, d_feed_forward=64,
           n_enc_exits=3, n_enc_layers_per_exit=1, depthwise_kernel_size=7,

@@ -42,6 +42,7 @@ from early_exit_tpu_torch.configs import AudioConfig, ModelConfig
 from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.serving import StreamingRecognizer, StreamPool
 from early_exit_tpu_torch.serving import streaming
+from torch_one_thread import one_thread  # noqa: F401
 
 KW = dict(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,
           n_enc_layers_per_exit=1, depthwise_kernel_size=7, vocab_size=32,

@@ -23,6 +23,7 @@ from early_exit_tpu_torch.data.synthetic import SyntheticDataset
 from early_exit_tpu_torch.serving import StreamPool
 from early_exit_tpu_torch.serving.recognizer import Recognizer
 from test_torch_early_conformer import _edits
+from torch_one_thread import one_thread  # noqa: F401
 
 GEO = dict(chunk_s=1.0, left_s=3.0, right_s=0.5, all_exits=True)
 TOKEN_DISAGREE = 0.01

@@ -37,6 +37,7 @@ from early_exit_tpu_torch.serving.recognizer import Recognizer
 from early_exit_tpu_torch.tokenizer import load_decoder
 from early_exit_tpu_torch.training import checkpoint as ck
 from early_exit_tpu_torch.training.trainer import Trainer
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,

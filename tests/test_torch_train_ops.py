@@ -35,6 +35,7 @@ from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.ops import ctc, specaugment
 from early_exit_tpu_torch.optim.noam import NoamAdamW, noam_schedule
 from early_exit_tpu_torch.training import trainer
+from torch_one_thread import one_thread  # noqa: F401
 
 
 def _close(got, ref, rtol=1e-5):

@@ -25,6 +25,7 @@ from early_exit_tpu_torch import interop
 from early_exit_tpu_torch.configs import ModelConfig, TrainConfig
 from early_exit_tpu_torch.optim.noam import global_norm
 from early_exit_tpu_torch.training import trainer
+from torch_one_thread import one_thread  # noqa: F401
 
 TINY = dict(d_model=32, n_heads=4, d_feed_forward=64, n_enc_exits=2,
             n_enc_layers_per_exit=1, depthwise_kernel_size=7, vocab_size=16,

@@ -80,7 +80,7 @@ def test_block_gemm_s8_plain_matches_jax_int8_product(epilogue):
     assert not torch.equal(got, plain)
 
 
-@pytest.mark.parametrize("D", [32, 256])    # lanes past D / 8 idle; every lane, the flagship's D
+@pytest.mark.parametrize("D", [32, 256, 512])    # lanes past D / 8 idle; every lane, the flagship's D; two chunks a lane
 def test_layer_norm_quantize_plain_matches_jax(D):
     r = np.random.RandomState(D)
     x = np.array(jnp.asarray(_x(D, (M, D)), jnp.bfloat16).astype(jnp.float32))

@@ -35,6 +35,7 @@ from early_exit_tpu_torch.models.zipformer import EarlyZipformer
 from early_exit_tpu_torch.utils.model_utils import count_parameters
 
 from test_torch_splitformer import bf16_token_disagreement
+from torch_one_thread import one_thread  # noqa: F401
 
 KW = dict(model_type="early_zipformer", d_model=32, n_heads=4, d_feed_forward=64,
           n_enc_exits=19, n_enc_layers_per_exit=1, depthwise_kernel_size=7,

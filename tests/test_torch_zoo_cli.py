@@ -38,6 +38,7 @@ from early_exit_tpu_torch.serving.recognizer import Recognizer
 from early_exit_tpu_torch.serving.streaming import StreamingRecognizer, StreamPool
 from early_exit_tpu_torch.tokenizer import load_decoder
 from early_exit_tpu_torch import checkpoint
+from torch_one_thread import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--d_model", "32", "--n_heads", "4", "--d_feed_forward", "64",

@@ -34,6 +34,7 @@ from early_exit_tpu_torch.configs import AudioConfig, ModelConfig
 from early_exit_tpu_torch.models import registry
 from early_exit_tpu_torch.serving import export as exp
 from early_exit_tpu_torch.serving.recognizer import Recognizer
+from torch_one_thread import one_thread  # noqa: F401
 
 N_EXITS = {"splitformer": 3, "early_zipformer": 19}
 SHAPE = (4, 8000)      # an even batch: the median conf lies between two rows

@@ -139,8 +139,9 @@ def test_poly_manifest_and_ops(pair):
     assert man["n_exits"] == pair["jrec"].manifest["n_exits"]
     blocks = N_EXITS[pair["name"]]
     assert man["op_nodes"]["cpu"]["poly"] == {"eet::conformer_block": blocks}
-    if pair["name"] == "splitformer":
-        assert man["op_nodes"]["cpu"]["gated/poly"] == {"eet::conformer_block": blocks}
+    if pair["name"] == "splitformer":       # the gated program: one program an exit
+        assert [man["op_nodes"]["cpu"][f"gated/poly/{e}"] for e in range(blocks)] == [
+            {"eet::conformer_block": 1}] * blocks
     # from the bound up the program runs the length as given; only a
     # shorter request is padded up to it, as the JAX package's runner does
     for s in (HOP * 10, HOP * 10 + 1, HOP * 13, MAX_S):
@@ -217,12 +218,14 @@ def test_bound_and_cpu_limit_follow_the_model():
 
 def test_export_cli_takes_symbolic_max_for_the_zoo(pair):
     """The fixture's bundle came from `export_serving --export_symbolic_max`
-    with --export_shapes "": the poly programs only."""
-    n = 2 if pair["name"] == "splitformer" else 1
-    assert f"exported {n} program(s)" in pair["cli"]
-    assert sorted(pair["bundle"].programs["cpu"]) == (
-        ["gated/poly", "poly"] if n == 2 else ["poly"])
-    assert pair["bundle"].manifest["gated"] == (n == 2)
+    with --export_shapes "": the poly programs only (the splitformer's
+    gated one as one program an exit)."""
+    gated = pair["name"] == "splitformer"
+    keys = ["poly"] + ([f"gated/poly/{e}" for e in range(N_EXITS["splitformer"])]
+                       if gated else [])
+    assert f"exported {len(keys)} program(s)" in pair["cli"]
+    assert sorted(pair["bundle"].programs["cpu"]) == sorted(keys)
+    assert pair["bundle"].manifest["gated"] == gated
 
 
 def _floor_atoms(sizes):
@@ -244,41 +247,47 @@ def _node_sizes(node):
 
 
 def test_gated_poly_cond_branches_derive_no_size(pair):
-    """The splitformer's gated poly program computes every divided size
-    (the branch's ceil(T'/2) frames, the pad's residue) before the gate's
-    conds and passes it in as an operand: no cond branch makes a floor
-    division or a residue of a symbolic dimension that none of its
-    operands' sizes holds. (AOTInductor, torch 2.11, failed on the sizes
-    made inside a branch with `AssertionError: ps5`; it still refuses the
-    program for another reason, `test_gated_poly_for_cuda_is_refused_by_name`.)"""
+    """The splitformer's gated poly program holds no cond (one program an
+    exit, `GatedFirstExit`, stepped on the host), and only its first exit
+    computes a divided size (the branch's ceil(T'/2) frames, the pad's
+    residue): the later exits take those sizes as operands and make no
+    floor division or residue of a symbolic dimension that none of their
+    inputs' sizes holds. (AOTInductor, torch 2.11, failed on the sizes
+    that the cond program's branches made, `AssertionError: ps5`, and on
+    the cond program itself: ROADMAP C8.)"""
     if pair["name"] == "early_zipformer":
-        assert "gated/poly" not in pair["rec"]._progs
+        assert not any(k.startswith("gated/") for k in pair["rec"]._progs)
         return
-    ep = torch.export.load(io.BytesIO(pair["bundle"].programs["cpu"]["gated/poly"]))
-    top = ep.graph_module
-    conds = [nd for nd in top.graph.nodes if nd.op == "call_function"
-             and nd.target is torch.ops.higher_order.cond]
-    assert len(conds) == N_EXITS["splitformer"]
     divided = 0
-    for nd in conds:
-        for branch in nd.args[1:3]:
-            gm = getattr(top, branch.target)
-            ops = _floor_atoms(e for p in gm.graph.nodes if p.op == "placeholder"
-                               for e in _node_sizes(p))
-            made = _floor_atoms(e for x in gm.graph.nodes if x.op != "placeholder"
-                                for e in _node_sizes(x))
-            assert made <= ops, (branch.target, made - ops)
-            divided += len(made)
+    for e in range(N_EXITS["splitformer"]):
+        ep = torch.export.load(io.BytesIO(pair["bundle"].programs["cpu"][f"gated/poly/{e}"]))
+        gm = ep.graph_module
+        assert not any(nd.op == "call_function" and nd.target is torch.ops.higher_order.cond
+                       for g in gm.modules() if isinstance(g, torch.fx.GraphModule)
+                       for nd in g.graph.nodes)
+        ops = _floor_atoms(x for p in gm.graph.nodes if p.op == "placeholder"
+                           for x in _node_sizes(p))
+        made = _floor_atoms(x for nd in gm.graph.nodes if nd.op != "placeholder"
+                            for x in _node_sizes(nd))
+        if e:
+            assert made <= ops, (e, made - ops)
+        divided += len(made)
     assert divided > 0          # the branch exits' blocks run at ceil(T'/2)
 
 
-def test_gated_poly_for_cuda_is_refused_by_name():
-    """AOTInductor (torch 2.11) cannot compile the splitformer's gated poly
-    program: it autotunes the kernels of the gate's cond branches with the
-    program's own precomputed sizes, and the example kernels fault. The
-    refusal comes before any capture, so it needs no card."""
-    from early_exit_tpu_torch.models import registry
-    model = registry.build_model(ModelConfig(**_kw("splitformer", True)))
-    with pytest.raises(NotImplementedError, match="gated poly program does not compile"):
-        exp.export_recognizer(model, AudioConfig(n_mels=8), [], platforms=("cuda",),
-                              symbolic_max_samples=MAX_S, gated=True)
+def test_gated_poly_runs_exits_until_every_row_is_done(pair, monkeypatch):
+    """`ExportedRecognizer.gated` steps the splitformer's exit programs on
+    the host and stops at the first exit where every row is done, as
+    `gated_apply`'s conds skip the rest: at threshold 0 one program runs,
+    at 1.01 all of them, and the chosen exits say so."""
+    if pair["name"] == "early_zipformer":
+        return
+    rec, called = pair["rec"], []
+    fn = rec._fn
+    monkeypatch.setattr(rec, "_fn", lambda key: called.append(key) or fn(key))
+    wav, n = _wav(3, HOP * 12, seed=5)
+    for thr, runs in ((0.0, 1), (1.01, N_EXITS["splitformer"])):
+        called.clear()
+        _, _, chosen = rec.gated(wav, n, thr)
+        assert called == [f"gated/poly/{e}" for e in range(runs)]
+        assert (chosen == runs).all()

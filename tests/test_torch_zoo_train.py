@@ -41,6 +41,7 @@ from early_exit_tpu_torch.models.registry import build_model
 from early_exit_tpu_torch.optim.noam import global_norm
 from early_exit_tpu_torch.training import checkpoint as ck
 from early_exit_tpu_torch.training import trainer
+from torch_one_thread import one_thread  # noqa: F401
 
 BASE = dict(d_model=32, n_heads=4, d_feed_forward=64, n_enc_layers_per_exit=1,
             depthwise_kernel_size=7, vocab_size=16, n_mels=8, compute_dtype="float32",
