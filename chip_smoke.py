@@ -4,7 +4,7 @@
     python3 chip_smoke.py --row_times [CHECKOUT]   # rows 1-3s' times only
 
 Phases (any failure exits non-zero, with no result line; they run in
-the order 1-10, 12, 13, 15-17, 18b-d, 19, 11, 14, 18a: the serving programs
+the order 1-10, 12, 13, 15-17, 18b-d, 19, 20, 11, 14, 18a: the serving programs
 of phases 11, 14c and 18a are captured and compiled by AOTInductor in a
 child process at nice 10 (`export_child`, EXPORT_WORKERS compiles at a
 time) beside phases 8-18d, and served once they all are):
@@ -345,6 +345,32 @@ time) beside phases 8-18d, and served once they all are):
      timed on; the new rows' times (1@d512, 1b@d512, 1c@d512, 2@V32,
      2@V5000·D512, 3@dh64) beside their plain versions, library calls and
      bounds (`block_rows`, `head_row`, `attention_row`, as phase 4's).
+     19a then takes every width the JAX package's Pallas kernels take, on
+     the card's padded layout (`widths_kernels_any`): the block at
+     WIDTH_BLOCKS_ANY (Conformer-S, d 64, d 196, d 1024) in every entry
+     and in the two profiles added in PR 18 (float32 compute with the
+     bf16 softmax, bf16 compute with a float32 residual), held by
+     `held_block`, whose bf16-compute references take the kernel's own
+     products, LayerNorms and attention, that attention launch held in
+     its turn on the block's own q, k, v against exact sums
+     (`attention_figures`), as `attention_held` holds it on seeded q, k,
+     v; the attention kernel at
+     dh 36, 49, 128; the head at D 144, 196, 1024 (resident, streamed,
+     k-tiled); the LayerNorm + quantize at d 144, 196, 1024.
+
+ 20. Conformer-S served (`conformer_s_phase`): a seeded Conformer-S (d 144,
+     4 heads of 36, ff 576, k 32, 16 blocks, 8 exits, BPE-256) through
+     `Recognizer.transcribe` at B=128 x 10 s (16 block and 1 head
+     launches; blocks 1 and 16 held by `held_block`, the head against the
+     plain head, tokens against the plain path printed), the forward's
+     audio-s/s and profile; the bf16 and W8A8 cascades at thresholds 0,
+     1.01 and exit 2's median, chosen exits equal to the while-loop gate's;
+     the inference CLI over N_CLI_S utterances in four fused profiles
+     (bf16, --compute_dtype float32, --residual_dtype float32, --quantize
+     int8) and unfused with --attention_impl pallas, launches and
+     audio-s/s each; a d-1024 model in every profile on 16 requests; the
+     new rows' times (1, 1b, 1c, (i), (ii) at d 144 and d 1024, 2 at D 144
+     and D 1024, 3 at dh 36 and dh 128).
 
 `--row_times [CHECKOUT]` times rows 1-3s alone at the flagship's shapes
 for the package of another checkout (`row_times`): parent and change are
@@ -427,6 +453,15 @@ HEAD_NEAR_TIE_ULPS = 2
 # width and unit-scale inputs.
 ATT_RTOL = 1e-5
 F32_BLOCK_ATOL = 5e-5
+# a float32 block output of a profile with bf16 rounding points (float32
+# compute with the bf16 softmax; bf16 compute with a float32 residual)
+# "differs" from its reference (`held_block`) where the two are more than
+# this share of a bf16 ulp of max(|y|, 1) apart. On the CPU, where kernel
+# and plain version are one arithmetic, the plain version against the
+# reference that takes the kernel's products and float64 LayerNorm sums
+# differed on 0-0.3% of the values at d 64, 144 and 196 by this measure,
+# the controls (P's or the SiLU's bf16 rounding skipped) on 13-34%
+F32_OUT_ULPS = 0.25
 # the bf16 block's product against its plain arithmetic: the float32 sums
 # over k run in another order, so a sum that lies at a rounding boundary of
 # bf16 moves by one ulp. SiLU just above a power of two maps that ulp onto
@@ -525,6 +560,26 @@ WIDTH_ATT_T = (1, 65, 249, 785)
 WIDTH_HEADS = tuple((V, D) for D in (256, 512) for V in (32, 128, 500, 5000))
 D512 = dict(d_model=512, n_heads=8, d_feed_forward=2048, depthwise_kernel_size=31,
             n_enc_exits=6, n_enc_layers_per_exit=2)
+# phase 19a, every width the JAX package's Pallas kernels take: the block
+# (d, heads, ff, k) at Conformer-S, the dress rehearsal's width, d 196 (dh
+# 49, d not a multiple of 8) and d 1024 (dh 128, W8A8 past d 512, the
+# conv module's channel split), in every entry and both new profiles; the
+# attention at dh 36, 49 and 128; the head at D 144, 196 and 1024 beside V
+# 32, 256 and 5000; the W8A8 LayerNorm + quantize at d 144, 196 and 1024
+WIDTH_BLOCKS_ANY = {"conformer_s": (144, 4, 576, 32), "rehearsal": (64, 4, 128, 7),
+                    "d196": (196, 4, 784, 31), "d1024": (1024, 8, 4096, 31)}
+WIDTH_ATT_DH_ANY = (36, 49, 128)
+WIDTH_HEADS_ANY = tuple((V, D) for D in (144, 196, 1024) for V in (32, 256, 5000))
+WIDTH_LNQ_ANY = (144, 196, 1024)
+# phase 20: Conformer-S (Gulati et al. 2020, arXiv:2005.08100, Table 1:
+# 16 layers, encoder dim 144, 4 heads, conv kernel 32, FFN 4 x 144), an
+# exit every 2 blocks, BPE-256; and a d-1024 model (8 heads of 128, ff
+# 4096) of one block an exit, 2 exits, whose paths carry 19a's d-1024 rows
+CONFORMER_S = dict(d_model=144, n_heads=4, d_feed_forward=576, depthwise_kernel_size=32,
+                   n_enc_exits=8, n_enc_layers_per_exit=2)
+D1024 = dict(d_model=1024, n_heads=8, d_feed_forward=4096, depthwise_kernel_size=31,
+             n_enc_exits=2, n_enc_layers_per_exit=1)
+N_CLI_S = 8              # phase 20's CLI runs: the first utterances of phase 9's corpus
 
 
 def fail(msg: str) -> None:
@@ -587,6 +642,15 @@ def bf16_figures(y, ref):
             float((d > 0).float().mean()))
 
 
+def f32_differing(y, ref) -> float:
+    """The share of the values of a float32 output y that differ from ref
+    by more than F32_OUT_ULPS of a bf16 ulp of max(|ref|, 1)."""
+    import torch
+    r = ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(1.0))) - 7)
+    return float(((y.float() - r).abs() > F32_OUT_ULPS * ulp).float().mean())
+
+
 @contextlib.contextmanager
 def plain_versions(kcb, katt):
     """Within the block, the port's wrappers run the kernels' plain
@@ -642,8 +706,8 @@ def exact_sums():
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     one_pass = kcb._ln_one_pass
 
-    def ln(v, g, b, eps):
-        v64 = v.double()
+    def ln(v, g, b, eps, d=None):
+        v64 = v.double()[..., :d]
         mu = v64.mean(-1, keepdim=True)
         var = (v64.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0.0)
         return (v.float() - mu.float()) * (var.float() + eps).rsqrt() * g + b
@@ -656,31 +720,36 @@ def exact_sums():
 
 
 @contextlib.contextmanager
-def kernel_products_and_norms(attention64: bool = True):
+def kernel_products_and_norms(f=None):
     """Within the block's plain version, its ten products run through the
     bf16 block's own product (`block_gemm`, bias added after, as the plain
     version adds it) and its LayerNorms through the block's own LayerNorm
-    (`block_layer_norm`); every other sum (the attention's, the softmax
-    denominator's) in float64, as `exact_sums` takes them. attention64
-    False: the attention's products in float32, as the plain version
-    takes them (another sum order, for the reference's own spread)."""
+    (`block_layer_norm`, of a bf16 or, bf16 compute with a float32
+    residual, a float32 row); every other sum (the attention's, the
+    softmax denominator's) in float64, as `exact_sums` takes them.
+    f (the block's layout): its final LayerNorm of a float32
+    residual stays the plain version's, float32 as the kernel writes it
+    (the LayerNorm op writes bf16)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     one_pass, matmul = kcb._ln_one_pass, torch.matmul
 
-    def ln(v, g, b, eps):
+    def ln(v, g, b, eps, d=None):
+        if v.dtype == torch.float32 and f is not None and g is f["final_ln_g"]:
+            return one_pass(v, g, b, eps, d)
+        # a float32 residual (bf16 compute) is read as it is, a bf16 one too
+        rows = v if v.dtype == torch.float32 else v.to(torch.bfloat16)
         kcb._ln_one_pass = one_pass      # the CPU's block_layer_norm is plain
         try:
-            y = kcb.block_layer_norm(v.to(torch.bfloat16).reshape(-1, v.shape[-1])
-                                     .contiguous(), g, b, eps)
+            y = kcb.block_layer_norm(rows.reshape(-1, v.shape[-1]).contiguous(), g, b,
+                                     eps, d or 0)
         finally:
             kcb._ln_one_pass = ln
         return y.reshape(v.shape).float()
 
     def mm(a, b):
         if b.dim() != 2:                 # the attention's products
-            return (matmul(a.double(), b.double()).to(a.dtype) if attention64
-                    else matmul(a, b))
+            return matmul(a.double(), b.double()).to(a.dtype)
         a2 = a.reshape(-1, a.shape[-1]).to(torch.bfloat16).contiguous()
         zero = torch.zeros(b.shape[1], dtype=torch.bfloat16, device=a.device)
         torch.matmul = matmul            # the CPU's block_gemm is plain
@@ -700,27 +769,26 @@ def kernel_products_and_norms(attention64: bool = True):
 
 
 @contextlib.contextmanager
-def kernel_quantized_norms(f, attention64: bool = True):
+def kernel_quantized_norms(f):
     """Within the W8A8 block's plain version (folded params f), each
     LayerNorm that feeds a product is the block's own LayerNorm + quantize
     (`layer_norm_quantize`): the product's row quantize takes its int8
     values and scales as they are. The final LayerNorm is the block's own
-    (`block_layer_norm`), and the attention's products and the softmax
-    denominator are taken in float64, as `kernel_products_and_norms` takes
-    them (attention64 False: the attention's products in float32). The
-    products themselves are exact on both sides."""
+    (`block_layer_norm`). The products themselves are exact on both sides;
+    the attention is the kernel's (`held_block` adds `kernel_attention`)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
-    one_pass, quantize, matmul = kcb._ln_one_pass, kcb.quantize_int8, torch.matmul
+    one_pass, quantize = kcb._ln_one_pass, kcb.quantize_int8
     made = {}
 
-    def ln(v, g, b, eps):
+    def ln(v, g, b, eps, d=None):
         rows = v.to(torch.bfloat16).reshape(-1, v.shape[-1]).contiguous()
         kcb._ln_one_pass = one_pass      # the CPU's kernels are plain
         try:
             if g is f["final_ln_g"]:
-                return kcb.block_layer_norm(rows, g, b, eps).reshape(v.shape).float()
-            q, sx = kcb.layer_norm_quantize(rows, g, b, eps)
+                return kcb.block_layer_norm(rows, g, b, eps, d or 0).reshape(
+                    v.shape).float()
+            q, sx = kcb.layer_norm_quantize(rows, g, b, eps, d or 0)
         finally:
             kcb._ln_one_pass = ln
         q, sx = q.reshape(v.shape), sx.reshape(*v.shape[:-1], 1)
@@ -731,17 +799,87 @@ def kernel_quantized_norms(f, attention64: bool = True):
     def quantize_int8(v, axis=-1):
         hit = made.pop(id(v), None)
         return hit[1:] if hit is not None and hit[0] is v else quantize(v, axis)
-
-    def mm(a, b):
-        if b.dim() != 2 and attention64:
-            return matmul(a.double(), b.double()).to(a.dtype)
-        return matmul(a, b)
-    kcb._ln_one_pass, kcb.quantize_int8, torch.matmul = ln, quantize_int8, mm
+    kcb._ln_one_pass, kcb.quantize_int8 = ln, quantize_int8
     try:
-        with exact_key_sums():
-            yield
+        yield
     finally:
-        kcb._ln_one_pass, kcb.quantize_int8, torch.matmul = one_pass, quantize, matmul
+        kcb._ln_one_pass, kcb.quantize_int8 = one_pass, quantize
+
+
+@contextlib.contextmanager
+def kernel_attention(held=None):
+    """Within the block's plain version, the attention of q, k and v (its
+    scores, softmax and P V) is the bf16 entries' own attention kernel
+    (`block_attention`), so that a block held with the kernel's products
+    and LayerNorms differs from its reference only where the rest of it
+    rounds another way. held (a list): each launch is held too, on the
+    block's own q, k and v, against the plain attention with every sum
+    exact (`attention_figures`), its (softmax dtype, figures) appended."""
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    plain = kcb._attention
+
+    def att(q, k, v, valid, dh, cd, sm, no_softmax):
+        if q.device.type == "cpu":       # the CPU's kernel is the plain version
+            return plain(q, k, v, valid, dh, cd, sm, no_softmax)
+        y = kcb.block_attention(q.contiguous(), k.contiguous(), v.contiguous(), valid, dh, sm)
+        if held is not None:
+            held.append((sm, attention_figures(y, q, k, v, valid, dh, sm, plain)))
+        return y
+    kcb._attention = att
+    try:
+        yield
+    finally:
+        kcb._attention = plain
+
+
+def attention_figures(y, q, k, v, valid, dh, sm, plain):
+    """The bf16 entries' attention kernel's output y (`block_attention`) on
+    q, k, v (B, H, T, heads padded past dh with zero columns) and the key
+    mask valid (B, T), against the plain attention `plain` (the block's
+    `_attention`) with every sum exact (`exact_sums`), by phase 2's rule:
+    within BLOCK_MAX_ULPS bf16 ulps of max(|y|, 1) and at most a share of
+    the values differing. The bf16 softmax's output is bf16, its share at
+    most min(BLOCK_DIFFERING, a third of the control's), the control being
+    the same reference with P's bf16 rounding skipped; the float32
+    softmax's output is float32 with P rounded to bf16, so a value differs
+    where it lies more than F32_OUT_ULPS of a bf16 ulp away
+    (`f32_differing`), at most BLOCK_DIFFERING of them. The rows of an
+    item with no valid key are not compared (the kernel spreads them over
+    the keys of its 16-key tiles, the plain version over T, and the block
+    zeroes them); every item's padded columns must be zero. Returns
+    (max|d|, max ulps, share differing, its limit, the control's share or
+    None, held)."""
+    import torch
+    keep = valid.any(-1)
+    with exact_sums():
+        y_p = plain(q, k, v, valid, dh, torch.bfloat16, sm, False)[keep]
+        y_c = None
+        if sm == torch.bfloat16:
+            with skipped_rounding(None):
+                y_c = plain(q, k, v, valid, dh, torch.bfloat16, sm, False)[keep]
+    y_in = y[keep]
+    err, _, ulps, frac = bf16_figures(y_in, y_p)
+    if y_c is not None:
+        ctl = bf16_figures(y_in, y_c)[3]
+        limit = min(BLOCK_DIFFERING, ctl / 3)
+    else:
+        ctl, limit, frac = None, BLOCK_DIFFERING, f32_differing(y_in, y_p)
+    held = (ulps <= BLOCK_MAX_ULPS and frac <= limit and bool(torch.isfinite(y.float()).all())
+            and not bool((y[..., dh:] != 0).any()))
+    return err, ulps, frac, limit, ctl, held
+
+
+def attention_line(sm, fig) -> str:
+    """`attention_figures`'s figures as a line's end."""
+    import torch
+    err, ulps, frac, limit, ctl, _ = fig
+    if sm == torch.bfloat16:
+        return (f"bf16 softmax: vs plain (exact sums) max ulps {ulps} values differing {frac} "
+                f"(held: {BLOCK_MAX_ULPS} ulps, {limit:.4g}; the control, P's rounding "
+                f"skipped, {ctl})")
+    return (f"float32 softmax: vs plain (exact sums) max|d| {err} max ulps {ulps} values "
+            f"differing by over {F32_OUT_ULPS} ulp {frac} (held: {BLOCK_MAX_ULPS} ulps, "
+            f"{limit})")
 
 
 @contextlib.contextmanager
@@ -1707,6 +1845,8 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
         widths = widths_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
                               checkpoint.load_calib(), errs19)
         print(f"phase 19: {time.perf_counter() - t19:.1f} s on {card}")
+        conformer_s = conformer_s_phase(dev, card, reset_counts, read_counts, corp, tmp, wav,
+                                        counts, errs19)
         t11 = time.perf_counter()
         exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
                                 out_k, ladder, export_job, work_dir)
@@ -1792,8 +1932,28 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
              "early_exit_tpu_torch/csrc/head_argmax.cu",
              "early_exit_tpu/ops/pallas/head_argmax.py:53 (V 5000, D 512)"),
             ("3@dh64", "attention_dh64", "early_exit_tpu_torch/csrc/attention.cu",
-             "early_exit_tpu/ops/pallas/attention.py:51 (dh 64)")):
-        t = widths[key]
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 64)"),
+            *((key, name, blk_src, blk_line + f" ({how}{at})")
+              for at_key, at in (("144", "Conformer-S: d 144, 4 heads of 36 padded to 48 "
+                                         "(64 in float32), ff 576, k 32"),
+                                 ("d1024", "d 1024, 8 heads of 128, ff 4096"))
+              for key, name, how in (
+                  (f"1@{at_key}", f"conformer_block_{at_key}", ""),
+                  (f"1b@{at_key}", f"conformer_block_w8a8_{at_key}", "quantize='int8', "),
+                  (f"1c@{at_key}", f"conformer_block_f32_{at_key}", "compute_dtype=float32, "),
+                  (f"(i)@{at_key}", f"conformer_block_f32_sm_bf16_{at_key}",
+                   "compute_dtype=float32, attn_softmax_dtype=bfloat16, body :276-300; "),
+                  (f"(ii)@{at_key}", f"conformer_block_bf16_res_f32_{at_key}",
+                   "residual_dtype=float32, "))),
+            ("2@D144", "head_argmax_D144", "early_exit_tpu_torch/csrc/head_argmax.cu",
+             "early_exit_tpu/ops/pallas/head_argmax.py:53 (D 144, V 256)"),
+            ("2@D1024", "head_argmax_D1024", "early_exit_tpu_torch/csrc/head_argmax.cu",
+             "early_exit_tpu/ops/pallas/head_argmax.py:53 (D 1024, V 256)"),
+            ("3@dh36", "attention_dh36", "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 36, padded to 64)"),
+            ("3@dh128", "attention_dh128", "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 128)")):
+        t = widths[key] if key in widths else conformer_s[key]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": line,
                      "launches": t["launches"], "path": t["path"],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -5588,58 +5748,118 @@ def measure_phase(dev, card, reset_counts, read_counts, folded, x, lengths, kw) 
 
 
 def held_block(f, x, lengths, kw, what: str):
-    """A bf16 or W8A8 block launch at the new widths on seeded weights,
-    held by phase 2's rule against a reference that rounds where the kernel
-    rounds: every value within BLOCK_MAX_ULPS bf16 ulps of max(|y|, 1), and
-    a share of the values differing at all within the limit below. The
-    bf16 entry's reference is its plain version run with the kernel's own
+    """A block launch at the new widths on seeded weights, held by phase
+    2's rule against a reference that rounds where the kernel rounds:
+    every value within BLOCK_MAX_ULPS bf16 ulps of max(|y|, 1), and a share
+    of the values differing within the limit below (for a float32 output
+    -- float32 compute with the bf16 softmax, bf16 compute with the float32
+    residual -- differing by more than F32_OUT_ULPS of a bf16 ulp: the
+    float32 sums of the two sides differ in their last places everywhere,
+    and the float32 residual carries the effect of one product rounded the
+    other way to every row its keys reach). The
+    bf16 entries' reference is the plain version run with the kernel's own
     products and LayerNorms (`kernel_products_and_norms`, as phase 13d
     holds the zipformer's stacks); the W8A8 entry's, its plain version run
-    with the kernel's own LayerNorm + quantize (`kernel_quantized_norms`).
-    The ulps bound widens to the reference's own spread where that is
-    larger: the same reference with the attention's products in float32
-    (another sum order) against it. Two controls, the same reference with
-    the bf16 rounding of P (bf16 softmax) or of the FFN's SiLU skipped,
-    set the share's limit: SEEDED_DIFFERING of the entry, and at most a
-    third of the nearer control's share, so that a misplaced rounding falls
-    outside it even where the block barely moves its input. The figures
-    against the plain version itself are printed beside them. Returns
-    (max|d| against the plain version, the kernel's output)."""
+    with the kernel's own LayerNorm + quantize (`kernel_quantized_norms`);
+    float32 compute's, its plain version with every sum exact
+    (`exact_sums`), where what remains is the bf16 rounding of the
+    scores. The bf16-compute references take the kernel's own attention
+    as well (`kernel_attention`): with the attention's sums exact
+    instead, one score that rounds the other way reaches its whole row,
+    and at d 1024 such rows were as many as a third of a misplaced
+    rounding's. That attention launch is held in its turn, on the block's
+    own q, k and v, against the plain attention with every sum exact and
+    with P's control (`attention_figures`, `attention_held`'s rule). The
+    ulps bound widens to the reference's own spread where that is larger:
+    for float32 compute, the plain version itself against the reference.
+    Controls, the same reference with a bf16 rounding skipped -- of the
+    FFN's SiLU (bf16 compute), or of P (float32 compute with the bf16
+    softmax) -- set the share's limit:
+    SEEDED_DIFFERING of the entry, and at most a third of the nearer
+    control's share, so that a misplaced rounding falls outside it even
+    where the block barely moves its input. The figures against the plain
+    version itself are printed beside them. Returns (max|d| against the
+    plain version, the kernel's output)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     int8 = kw.get("quantize") == "int8"
+    f32_compute = kw.get("compute_dtype") == torch.float32
     y_k = kcb.conformer_block(f, x, lengths, **kw)
     y_p = kcb.conformer_block_plain(f, x, lengths, **kw)
     err, mean, ulps_p, frac_p = bf16_figures(y_k, y_p)
+    f32_out = y_k.dtype == torch.float32
 
-    def ref(attention64=True):
-        return (kernel_quantized_norms(f, attention64) if int8
-                else kernel_products_and_norms(attention64))
-    controls = [("the FFN's SiLU", f["ffn1_w1"].shape[1])]
-    if kw.get("attn_softmax_dtype") == torch.bfloat16:
-        controls.insert(0, ("P", None))
-    with ref():
+    def figures(y, ref):
+        """(max ulps, share differing) of y against ref"""
+        ulps, frac = bf16_figures(y, ref)[2:]
+        return ulps, f32_differing(y, ref) if f32_out else frac
+
+    @contextlib.contextmanager
+    def ref(held=None):
+        if f32_compute:
+            with exact_sums():
+                yield
+            return
+        with (kernel_quantized_norms(f) if int8 else kernel_products_and_norms(f=f)), \
+                kernel_attention(held):
+            yield
+    controls = ([("P", None)] if f32_compute else
+                [("the FFN's SiLU", f["ffn1_w1"].shape[1])])
+    held = []
+    with ref(held):
         y_g = kcb.conformer_block_plain(f, x, lengths, **kw)
+    with ref():
         ctl = []
         for name, width in controls:
             with skipped_rounding(width):
                 y_c = kcb.conformer_block_plain(f, x, lengths, **kw)
-            ctl.append((name, *bf16_figures(y_k, y_c)[2:]))
+            ctl.append((name, *figures(y_k, y_c)))
             del y_c
-    with ref(attention64=False):
-        spread = bf16_figures(kcb.conformer_block_plain(f, x, lengths, **kw), y_g)[2]
-    ulps, frac = bf16_figures(y_k, y_g)[2:]
+    spread, spread_frac = figures(y_p, y_g) if f32_compute else (0.0, 0.0)
+    ulps, frac = figures(y_k, y_g)
     bound = max(BLOCK_MAX_ULPS, spread)
     limit = min(SEEDED_DIFFERING["w8a8" if int8 else "bf16"], min(c for _, _, c in ctl) / 3)
     print(f"{what}: vs its reference max ulps {ulps} values differing {frac} (held: "
-          f"{bound} ulps, the reference's own spread {spread}; {limit:.4g}); controls, "
+          f"{bound} ulps, the reference's own spread {spread} ulps, {spread_frac} of the "
+          f"values; {limit:.4g}); controls, "
           f"the reference with the rounding of "
           + ", ".join(f"{n} skipped: max ulps {u} values differing {c}" for n, u, c in ctl)
           + f"; vs the plain version max|d| {err} mean|d| {mean} max ulps {ulps_p} "
-          f"values differing {frac_p}")
+          f"values differing {frac_p}"
+          + "".join(f"; its attention on the block's q, k, v, {attention_line(sm, fig)}"
+                    for sm, fig in held))
     if not torch.isfinite(y_k.float()).all() or ulps > bound or frac > limit:
         fail(f"{what}: the block kernel lies outside phase 2's rule of its reference")
+    if not all(fig[-1] for _, fig in held):
+        fail(f"{what}: the block's attention kernel disagrees with its plain version on "
+             f"the block's own q, k and v")
     return err, y_k
+
+
+def attention_held(B, H, T, dh, dev, g, what: str) -> float:
+    """The bf16 entries' attention (`block_attention`, the mma.sync kernel
+    inside the bf16, W8A8 and float32-residual blocks) on seeded q, k, v
+    of B items, H heads of dh padded as the block pads them (zero
+    columns), T keys, lengths T x (B - 2), a short item and an empty one,
+    in both softmax dtypes, each held by `attention_figures`. Returns the
+    largest max|d|."""
+    import torch
+    import torch.nn.functional as F
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    dhp = kcb.padded_head(dh)
+    q, k, v = (F.pad(torch.randn(B, H, T, dh, generator=g), (0, dhp - dh)).to(
+        dev, torch.bfloat16) for _ in range(3))
+    lens = torch.tensor([T] * (B - 2) + [max(T // 7, 1), 0], device=dev)
+    valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+    worst = 0.0
+    for sm in (torch.bfloat16, torch.float32):
+        y = kcb.block_attention(q, k, v, valid, dh, sm)
+        fig = attention_figures(y, q, k, v, valid, dh, sm, kcb._attention)
+        worst = max(worst, fig[0])
+        print(f"{what}, {attention_line(sm, fig)}")
+        if not fig[-1]:
+            fail(f"{what}: the block's attention kernel disagrees with its plain version")
+    return worst
 
 
 def heads_held(hh, ww, bb, what: str, exact: bool):
@@ -5676,20 +5896,21 @@ def heads_held(hh, ww, bb, what: str, exact: bool):
     return ids_k
 
 
-def seeded_block(D: int, H: int, F: int, seed: int, dev):
-    """One Conformer block at (d_model D, H heads, d_ff F, k 31) from the
-    port's initialisation at `seed`, folded three ways (bf16, float32,
-    W8A8), on `dev`: (f_bf16, f_f32, f_w8a8)."""
+def seeded_block(D: int, H: int, F: int, seed: int, dev, K: int = 31):
+    """One Conformer block at (d_model D, H heads, d_ff F, k K) from the
+    port's initialisation at `seed`, folded three ways in the card's
+    padded layout (bf16, float32, W8A8), on `dev`: (f_bf16, f_f32,
+    f_w8a8)."""
     import torch
     from early_exit_tpu_torch.models.conformer import ConformerConfig, ConformerStack
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
-    stack = ConformerStack(ConformerConfig(d_model=D, n_heads=H, d_ff=F, kernel_size=31), 1)
+    stack = ConformerStack(ConformerConfig(d_model=D, n_heads=H, d_ff=F, kernel_size=K), 1)
     stack.init(torch.Generator().manual_seed(seed))
     sd = stack.blocks[0].state_dict()
     on = lambda f: {k: v.to(dev) for k, v in f.items()}
-    return (on(kcb.fold_block_params(sd)),
-            on(kcb.fold_block_params(sd, compute_dtype=torch.float32)),
-            on(kcb.fold_block_params(sd, quantize="int8")))
+    return (on(kcb.fold_block_params(sd, n_heads=H)),
+            on(kcb.fold_block_params(sd, compute_dtype=torch.float32, n_heads=H)),
+            on(kcb.fold_block_params(sd, quantize="int8", n_heads=H)))
 
 
 def dyadic_head(E, B, T, D, V, seed, dev):
@@ -5700,13 +5921,16 @@ def dyadic_head(E, B, T, D, V, seed, dev):
     hidden, (E, D, V) head, (E, V) bias, bf16. Columns V - 1 and, past
     256, 256 are copies of columns 100 and 255: exact ties across the
     kernel's 256-column V tiles, which win on part of the rows."""
-    import numpy as np
     import torch
-    r = np.random.RandomState(seed)
-    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(dev)
-    h = bf(r.randint(-4, 5, (E, B, T, D)) / 4)
-    w = bf(r.randint(-4, 5, (E, D, V)) / 16)
-    b = bf(r.randint(-8, 9, (E, V)) / 16)
+    # drawn on the device: the main path's rows at D 1024 are 196M values
+    r = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi, shape, div):
+        return (torch.randint(lo, hi, shape, generator=r, device=dev).float() / div).to(
+            torch.bfloat16)
+    h = draw(-4, 5, (E, B, T, D), 4)
+    w = draw(-4, 5, (E, D, V), 16)
+    b = draw(-8, 9, (E, V), 16)
     # the pairs win on part of the rows: exit 0 lifts (255, 256), exit 1
     # (100, V - 1), by 2 (a logit's spread is ~0.1 sqrt(D))
     for e, (src, dst) in enumerate(((255, 256), (min(100, V - 1), V - 1))):
@@ -5734,6 +5958,8 @@ def widths_kernels(dev, card) -> dict:
     with torch.no_grad():
         # -- the block, three entries, B=8 at T'=249 with a short and an empty item
         for name, (D, H, F) in WIDTH_BLOCKS.items():
+            attention_held(8, H, 249, D // H, dev, g, f"19a. the block's attention at {H} "
+                           f"heads of {D // H} (B=8, T'=249, lengths 249 x 6, 35, 0)")
             fb, f32, f8 = seeded_block(D, H, F, 190, dev)
             x = torch.randn(8, 249, D, generator=g).to(dev, torch.bfloat16)
             lengths = torch.tensor([249] * 6 + [37, 0], dtype=torch.int32, device=dev)
@@ -5808,7 +6034,117 @@ def widths_kernels(dev, card) -> dict:
               f"and {n_s} scales differ")
         if n_q or n_s:
             fail("layer_norm_quantize kernel differs from its plain version at d 512")
+        errs.update(widths_kernels_any(dev, g))
     print(f"phase 19a: {time.perf_counter() - t0:.1f} s on {card}")
+    return errs
+
+
+def widths_kernels_any(dev, g) -> dict:
+    """Phase 19a, the rest: every width the JAX package's Pallas kernels
+    take, on the card's padded layout (WIDTH_BLOCKS_ANY in the five
+    entries -- bf16, W8A8 with either softmax, float32 and float32
+    compute with the bf16 softmax -- and bf16 compute with the float32
+    residual, held by `held_block` or, float32, within F32_BLOCK_ATOL;
+    WIDTH_ATT_DH_ANY at WIDTH_ATT_T; WIDTH_HEADS_ANY on dyadic inputs;
+    WIDTH_LNQ_ANY value for value). Returns the largest max|d| of each
+    new row's checks."""
+    import torch
+    import torch.nn.functional as F
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    bf, f32 = torch.bfloat16, torch.float32
+    errs = {}
+    for name, (D, H, Fd, K) in WIDTH_BLOCKS_ANY.items():
+        t0 = time.perf_counter()
+        err = attention_held(8, H, 249, D // H, dev, g, f"19a. the block's attention at {H} "
+                             f"heads of {D // H} (padded to {kcb.padded_head(D // H)}; B=8, "
+                             f"T'=249, lengths 249 x 6, 35, 0)")
+        if name in ("conformer_s", "d1024"):
+            key = "1@144" if name == "conformer_s" else "1@d1024"
+            errs[key] = max(errs.get(key, 0.0), err)
+        fb, ff, f8 = seeded_block(D, H, Fd, 191, dev, K)
+        P = kcb.pitch(D)
+        x = F.pad(torch.randn(8, 249, D, generator=g), (0, P - D)).to(dev, bf)
+        lengths = torch.tensor([249] * 6 + [37, 0], dtype=torch.int32, device=dev)
+        kw = dict(n_heads=H, kernel_size=K, d_model=D)
+        plan = kcb.block_plan(D, H, Fd, K)
+        for entry, f, over in (
+                ("bf16", fb, dict(attn_softmax_dtype=bf)),
+                ("w8a8", f8, dict(attn_softmax_dtype=bf, quantize="int8")),
+                ("w8a8, float32 softmax", f8, dict(quantize="int8")),
+                ("float32", ff, dict(compute_dtype=f32, residual_dtype=f32)),
+                ("float32 compute, bf16 softmax", ff,
+                 dict(compute_dtype=f32, residual_dtype=f32, attn_softmax_dtype=bf)),
+                ("bf16 compute, float32 residual", fb,
+                 dict(residual_dtype=f32, attn_softmax_dtype=bf))):
+            k = {**kw, **over}
+            xx = x.to(k.get("residual_dtype", bf))
+            what = (f"19a. conformer_block {entry} at d {D} (pitch {P}), {H} heads of "
+                    f"{D // H} (padded to {kcb.padded_head(D // H)}), "
+                    f"ff {Fd} (to {plan.ff_pad}), k {K}, seeded (B=8, T'=249, lengths 249 x 6, "
+                    f"37, 0)")
+            if entry != "float32":
+                err, y_k = held_block(f, xx, lengths, k, what)
+            else:
+                y_k = kcb.conformer_block(f, xx, lengths, **k)
+                err = float((y_k - kcb.conformer_block_plain(f, xx, lengths, **k)).abs().max())
+                print(f"{what}: vs plain max|d| {err} (tolerance {F32_BLOCK_ATOL})")
+                if not torch.isfinite(y_k).all() or err > F32_BLOCK_ATOL:
+                    fail(f"{what}: the float32 block kernel disagrees with its plain version")
+            if (y_k[-1] != 0).any() or (y_k[..., D:] != 0).any():
+                fail(f"{what}: the empty item or the padded columns are not all zeros")
+            if name in ("conformer_s", "d1024"):
+                row = {"bf16": "1", "float32": "1c", "float32 compute, bf16 softmax": "(i)",
+                       "bf16 compute, float32 residual": "(ii)"}.get(entry, "1b")
+                row += "@144" if name == "conformer_s" else "@d1024"
+                errs[row] = max(errs.get(row, 0.0), err)
+        del fb, ff, f8
+        print(f"19a. the block at d {D}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for dh in WIDTH_ATT_DH_ANY:
+        for T in WIDTH_ATT_T:
+            lens = torch.tensor([T, max(T // 2, 1), 0], device=dev)
+            mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+            q, k, v = (torch.randn(3, 4, T, dh, generator=g).to(dev) for _ in range(3))
+            for dt in (bf, f32):
+                qq, kk, vv = (t.to(dt) for t in (q, k, v))
+                o_k = katt.fused_attention(qq, kk, vv, mask)
+                o_p = katt.fused_attention_plain(qq, kk, vv, mask)
+                torch.cuda.synchronize()
+                rel = float((o_k - o_p).abs().max() / vv.float().abs().max())
+                print(f"19a. attention vs plain, dh {dh} (padded to "
+                      f"{next(w for w in katt.HEAD_WIDTHS if w >= dh)}), T={T}, {dt}: max|d| / "
+                      f"max|v| {rel:.3e} (tolerance {ATT_RTOL})")
+                if not rel <= ATT_RTOL or o_k.shape != q.shape:
+                    fail(f"attention kernel disagrees with its plain version at dh {dh}, "
+                         f"T={T}, {dt}")
+                row = f"3@dh{dh}"
+                errs[row] = max(errs.get(row, 0.0), float((o_k - o_p).abs().max()))
+    print(f"19a. the attention kernel at dh {WIDTH_ATT_DH_ANY}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for V, D in WIDTH_HEADS_ANY:
+        for E, B, T in ((3, 3, 83), (6, 128, 249)):
+            h, w, b = dyadic_head(E, B, T, D, V, V + D, dev)
+            kind = ("resident" if V <= 256 and D <= 256 else "streamed" if D <= 512
+                    else "k-tiled")
+            heads_held(h, w, b, f"19a. dyadic, {B} x {T} rows an exit ({kind} head)",
+                       exact=True)
+            del h, w, b
+    print(f"19a. the head at (V, D) {WIDTH_HEADS_ANY}: {time.perf_counter() - t0:.1f} s")
+    for D in WIDTH_LNQ_ANY:
+        P = kcb.pitch(D)
+        rows = F.pad(torch.randn(4099, D, generator=g), (0, P - D)).to(dev, bf)
+        gg = F.pad(1 + 0.3 * torch.randn(D, generator=g), (0, P - D)).to(dev)
+        bb = F.pad(0.2 * torch.randn(D, generator=g), (0, P - D)).to(dev)
+        q_k, s_k = kcb.layer_norm_quantize(rows, gg, bb, d_model=D)
+        q_p, s_p = kcb.layer_norm_quantize_plain(rows, gg, bb, d_model=D)
+        torch.cuda.synchronize()
+        n_q, n_s = int((q_k != q_p).sum()), int((s_k != s_p).sum())
+        print(f"19a. layer_norm_quantize vs plain at d {D} (pitch {P}, 4099 rows): {n_q} "
+              f"int8 values and {n_s} scales differ")
+        if n_q or n_s:
+            fail(f"layer_norm_quantize kernel differs from its plain version at d {D}")
     return errs
 
 
@@ -6131,6 +6467,324 @@ def widths_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
     return rows
 
 
+def conformer_s_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts,
+                      errs) -> dict:
+    """Phase 20: Conformer-S (`CONFORMER_S`, the port's init at seed 0,
+    BPE-256, 16 blocks, 8 exits) served on the card through the normal
+    entries at B=128 x 10 s: (a) `Recognizer.transcribe` (16 bf16 block
+    launches and 1 head launch; the first and the last block launch held by
+    `held_block` on the kernel path's own input, each exit's head ids
+    against the plain head's, the per-exit token disagreement against the
+    plain-version path printed), the forward's audio-s/s; (b)
+    `Recognizer.cascade_pass` with bf16 and W8A8 blocks at thresholds 0,
+    1.01 and exit 2's median confidence: chosen exits equal to the
+    while-loop gate's (`gated_apply`) on every row; (c) `python -m
+    early_exit_tpu_torch.inference --fused_block true` over the first
+    N_CLI_S utterances of phase 9's corpus in the four profiles (bf16,
+    --compute_dtype float32 with the CLI's bf16 softmax, --residual_dtype
+    float32, --quantize int8) and unfused with --attention_impl pallas,
+    each with its launches and audio-s/s; (d) the d-1024 model (`D1024`)
+    on 16 requests in bf16, W8A8, float32, float32 with the bf16 softmax,
+    the float32 residual and unfused with the attention kernel; (e) the new
+    rows' times at B=128 x 10 s. errs: 19a's largest max|d| of each row.
+    Returns the rows."""
+    import dataclasses
+    import torch
+    from early_exit_tpu_torch import checkpoint, inference
+    from early_exit_tpu_torch.configs import inference_profile
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops import ctc
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.ops.kernels import head_argmax as kha
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_decoder
+    from early_exit_tpu_torch.training import checkpoint as tck
+    t_start = time.perf_counter()
+    B, N = wav.shape
+    calib = checkpoint.load_calib()
+    tok = load_decoder(checkpoint.bound_tokenizer(calib))
+    cfg = dataclasses.replace(inference_profile(fused_block=True), **CONFORMER_S)
+    model = seeded_model(cfg, 0, dev)
+    rec = Recognizer(model, tok, device=dev, calib=calib)
+    folded = model.stack.folded()
+    L, npe, E = len(folded), cfg.n_enc_layers_per_exit, cfg.n_enc_exits
+    D, H, K = cfg.d_model, cfg.n_heads, cfg.depthwise_kernel_size
+    kw = dict(n_heads=H, kernel_size=K, compute_dtype=cfg.dtype, residual_dtype=cfg.rdtype,
+              attn_softmax_dtype=cfg.sm_dtype, d_model=D)
+    heads_w, heads_b = model.heads_w.to(torch.bfloat16), model.heads_b.to(torch.bfloat16)
+    launches = {}
+
+    def launches_of(fn, what, **want):
+        reset_counts()
+        out = fn()
+        got = read_counts()
+        full = {k: want.get(k, 0) for k in got}
+        print(f"20. {what}: launches {got}")
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return out, got
+
+    with torch.no_grad():
+        # -- 20a. all-exit greedy
+        out_k, got = launches_of(lambda: rec.transcribe(wav, counts),
+                                 f"20a. Conformer-S all-exit path (B={B} x 10 s)",
+                                 conformer_block_bf16=L, head_argmax=1)
+        launches["1@144"] = got["conformer_block_bf16"]
+        launches["2@D144"] = got["head_argmax"]
+        feats, lengths_f = rec._features(wav, counts)
+        x, sub_len, mask = model.frontend_embed(feats, lengths_f)
+        x = torch.nn.functional.pad(x, (0, kcb.pitch(D) - D)).contiguous()
+        lengths = mask.sum(1, dtype=torch.int32)
+        hs, hp, xk, xp = [], [], x, x
+        for i, f in enumerate(folded):
+            if i in (0, L - 1):
+                err, y_k = held_block(f, xk, lengths, kw, f"20a. Conformer-S block {i + 1} on "
+                                      f"the kernel path's own input (B={B} x 10 s)")
+                errs["1@144"] = max(errs.get("1@144", 0.0), err)
+            else:
+                y_k = kcb.conformer_block(f, xk, lengths, **kw)
+            xk, xp = y_k, kcb.conformer_block_plain(f, xp, lengths, **kw)
+            if (i + 1) % npe == 0:
+                hs.append(xk[..., :D])
+                hp.append(xp[..., :D])
+        hid = torch.stack(hs).contiguous()
+        heads_held(hid, heads_w, heads_b, "20a. Conformer-S: the head kernel at D 144 on the "
+                   "kernel path's hidden states", exact=False)
+        ids_pp = kha.head_argmax_plain(torch.stack(hp), heads_w, heads_b)
+        Ee, Bn, T = ids_pp.shape
+        tp, n_p = ctc.greedy_decode_ids(ids_pp.reshape(Ee * Bn, T), sub_len.repeat(Ee))
+        dis = disagreement(out_k.tokens, out_k.n_tokens, tp.reshape(Ee, Bn, T).cpu(),
+                           n_p.reshape(Ee, Bn).cpu())
+        print(f"20a. Conformer-S greedy tokens, kernel path vs plain-version path: per exit "
+              f"{[f'{e}/{t}' for e, t in dis]} (edits / tokens; the 1% contract is "
+              f"reported, not applied: the seeded model transcribes nothing); tokens per "
+              f"utterance at exit {E} {float(out_k.n_tokens[-1].float().mean()):.1f}")
+        del hs, hp, xk, xp, hid
+        full = torch.full_like(counts, N)
+        e2e = cuda_ms(lambda: rec.exit_ids(wav, full), 5, 1)
+        print(f"20a. the Conformer-S all-exit forward (exit_ids) on {card}: {e2e:.3f} ms per "
+              f"{B} x 10 s = {B * N / 16000 / (e2e / 1e3):.1f} audio-s/s")
+        profile_forward(lambda: rec.exit_ids(wav, full), "Conformer-S all-exit forward", card,
+                        B, top=12)
+
+        # -- 20b. the cascade, bf16 and W8A8 blocks, at thresholds 0, 1.01
+        # and exit 2's median confidence (temperature 1)
+        k_casc = 2
+        q_model = seeded_model(dataclasses.replace(cfg, quantize="int8"), 0, dev)
+        rec_q = Recognizer(q_model, tok, device=dev, calib=calib)
+        gated = {}
+        for entry, r in (("bf16", rec), ("w8a8", rec_q)):
+            lp, sl = r.model.encode_exit(*r._features(wav, counts), k_casc)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sl[:, None]
+            conf = scaled_confidence(lp, m, "maxprob", 1.0)
+            med = float(conf.sort().values[B // 2 - 1:B // 2 + 1].mean())
+            for label, thr in (("0", 0.0), ("1.01", 1.01),
+                               ("exit 2's median", [2.0, med] + [2.0] * (E - 2))):
+                r.calib = {"score": "maxprob", "thresholds": thr, "cascade_k": k_casc}
+                reset_counts()
+                out = r.transcribe_gated(wav, counts)
+                got = read_counts()
+                want = k_casc * npe + ((E - k_casc) * npe if out.rows_packed else 0)
+                gate_out = r.transcribe_gated(wav, counts, strategy="whileloop")
+                agree = int((out.chosen_exit == gate_out.chosen_exit).sum())
+                hist = torch.bincount(out.chosen_exit.long(), minlength=E + 1)[1:].tolist()
+                print(f"20b. Conformer-S cascade, {entry} blocks, threshold {label}: launches "
+                      f"{got} (expected {want} {entry} block launches); rows per exit {hist}, "
+                      f"escalated {100 * out.escalated_share:.2f}% ({out.rows_packed} rows "
+                      f"packed); chosen exits equal to the while-loop gate's on {agree}/{B} rows")
+                others = {k: v for k, v in got.items() if k != "conformer_block_" + entry and v}
+                if got["conformer_block_" + entry] != want or others or agree != B:
+                    fail(f"20b. Conformer-S cascade ({entry}, threshold {label}): launches "
+                         f"{got} or chosen exits unlike the while-loop gate's on {B - agree} rows")
+                gated[(entry, label)] = got["conformer_block_" + entry]
+            r.calib = calib
+        launches["1b@144"] = gated[("w8a8", "exit 2's median")]
+        q0 = q_model.stack.folded()[0]
+        del rec_q, q_model
+
+    # -- 20c. the inference CLI over the first N_CLI_S utterances
+    root = os.path.join(tmp, "conformer_s_corpus")
+    for i in range(N_CLI_S):
+        u = corp["corpus"][i]
+        spk, ch = u.utterance_id.split("-")[:2]
+        src = os.path.join(corp["root"], "LibriSpeech", "test-clean", spk, ch)
+        dst = os.path.join(root, "LibriSpeech", "test-clean", spk, ch)
+        os.makedirs(dst, exist_ok=True)
+        shutil.copy(os.path.join(src, u.utterance_id + ".flac"), dst)
+        with open(os.path.join(dst, f"{spk}-{ch}.trans.txt"), "a") as fo:
+            fo.write(f"{u.utterance_id} {u.transcript}\n")
+    audio_s = sum(len(w) for w in corp["waves"][:N_CLI_S]) / 16000.0
+    ck = os.path.join(tmp, "conformer_s")
+    tck.save_epoch(ck, 0, model)
+    flags = [a for k, v in CONFORMER_S.items() for a in (f"--{k}", str(v))]
+    n_batches = [0]
+    exit_outputs = inference.exit_outputs
+
+    def counted(*a, **k):
+        n_batches[0] += 1
+        return exit_outputs(*a, **k)
+
+    cli_rates = {}
+    inference.exit_outputs = counted
+    try:
+        for name, extra, entry, head in (
+                ("bf16", [], "conformer_block_bf16", 1),
+                ("--compute_dtype float32", ["--compute_dtype", "float32"],
+                 "conformer_block_f32_sm_bf16", 0),
+                ("--residual_dtype float32", ["--residual_dtype", "float32"],
+                 "conformer_block_bf16_res_f32", 1),
+                ("--quantize int8", ["--quantize", "int8"], "conformer_block_w8a8", 1),
+                ("--fused_block false --attention_impl pallas",
+                 ["--fused_block", "false", "--attention_impl", "pallas"], "attention", 0)):
+            argv = ["--decoder_mode", "ctc", "--load_model_path",
+                    os.path.join(ck, "mod000-transformer"), "--data_root", root,
+                    "--eval_splits", "test-clean", "--fused_block", "true", *flags, *extra]
+            n_batches[0] = 0
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                inference.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = read_counts()
+            nb, out = n_batches[0], buf.getvalue()
+            n_lines = sum("BEAM_OUT_" in ln for ln in out.splitlines())
+            want = {k: 0 for k in got}
+            want[entry] = L * nb
+            want["head_argmax"] = head * nb
+            cli_rates[name] = audio_s / wall
+            print(f"20c. `python -m early_exit_tpu_torch.inference --decoder_mode ctc "
+                  f"--fused_block true {' '.join(flags + extra)}` over {N_CLI_S} utterances "
+                  f"({audio_s:.1f} s): launches {got} over {nb} sub-batches; {n_lines} "
+                  f"BEAM_OUT lines; {cli_rates[name]:.1f} audio-s/s on {card}")
+            if nb == 0 or got != want or n_lines != E * N_CLI_S:
+                fail(f"20c. the Conformer-S CLI ({name}): {got} over {nb} sub-batches, "
+                     f"{n_lines} lines; expected {want} and {E} lines an utterance")
+            launches[{"bf16": "1@144", "--compute_dtype float32": "(i)@144",
+                      "--residual_dtype float32": "(ii)@144", "--quantize int8": "1b@144",
+                      "--fused_block false --attention_impl pallas": "3@dh36"}[name] + ":cli"] = \
+                got[entry]
+    finally:
+        inference.exit_outputs = exit_outputs
+
+    with torch.no_grad():
+        # -- 20d. the d-1024 model on 16 requests in each profile
+        cfg_k = dataclasses.replace(inference_profile(fused_block=True), **D1024)
+        Lk = D1024["n_enc_exits"] * D1024["n_enc_layers_per_exit"]
+        models_k = {}
+        for name, over, entry, head in (
+                ("bf16", {}, "conformer_block_bf16", 1),
+                ("W8A8", dict(quantize="int8"), "conformer_block_w8a8", 1),
+                ("float32", dict(compute_dtype="float32", attn_softmax_dtype="float32"),
+                 "conformer_block_f32", 0),
+                ("float32 compute, bf16 softmax", dict(compute_dtype="float32"),
+                 "conformer_block_f32_sm_bf16", 0),
+                ("float32 residual", dict(residual_dtype="float32"),
+                 "conformer_block_bf16_res_f32", 1),
+                ("unfused, attention_impl='pallas'",
+                 dict(fused_block=False, attention_impl="pallas"), "attention", 0)):
+            m_k = seeded_model(dataclasses.replace(cfg_k, **over), 3, dev)
+            _, got = launches_of(lambda: Recognizer(m_k, tok, device=dev).transcribe(
+                wav[:16], counts[:16]), f"20d. d-1024 (8 heads of 128, 2 exits of 1 block) "
+                f"{name} (16 requests)", **{entry: Lk, "head_argmax": head})
+            row = {"bf16": "1@d1024", "W8A8": "1b@d1024", "float32": "1c@d1024",
+                   "float32 compute, bf16 softmax": "(i)@d1024", "float32 residual":
+                   "(ii)@d1024", "unfused, attention_impl='pallas'": "3@dh128"}[name]
+            launches[row] = got[entry]
+            if head:
+                launches["2@D1024"] = got["head_argmax"]
+            if name in ("bf16", "float32", "W8A8"):
+                models_k[name] = m_k
+            else:
+                del m_k
+
+        # -- 20e. the new rows' times at B=128 x 10 s
+        feats, lengths_f = rec._features(wav, full)
+        x, _, mask = model.frontend_embed(feats, lengths_f)
+        lengths = mask.sum(1, dtype=torch.int32)
+        f32_model = seeded_model(dataclasses.replace(cfg, compute_dtype="float32",
+                                                     attn_softmax_dtype="float32"), 0, dev)
+        _, got = launches_of(lambda: Recognizer(f32_model, tok, device=dev).transcribe(
+            wav[:16], counts[:16]), "20e. Conformer-S in float32 (16 requests)",
+            conformer_block_f32=L)
+        launches["1c@144"] = got["conformer_block_f32"]
+        rows = block_rows(folded[0], f32_model.stack.folded()[0], q0, x.contiguous(),
+                          lengths, kw, sd=model.stack.blocks[0].state_dict(), new_profiles=True)
+        rows_k = {}
+        xk1, _, mk1 = models_k["bf16"].frontend_embed(feats, lengths_f)
+        kwk = dict(n_heads=cfg_k.n_heads, kernel_size=cfg_k.depthwise_kernel_size,
+                   compute_dtype=cfg_k.dtype, residual_dtype=cfg_k.rdtype,
+                   attn_softmax_dtype=cfg_k.sm_dtype, d_model=cfg_k.d_model)
+        rows_k = block_rows(models_k["bf16"].stack.folded()[0],
+                            models_k["float32"].stack.folded()[0],
+                            models_k["W8A8"].stack.folded()[0], xk1.contiguous(),
+                            mk1.sum(1, dtype=torch.int32), kwk,
+                            sd=models_k["bf16"].stack.blocks[0].state_dict(), new_profiles=True)
+        _, hs144 = model.stack(x.contiguous(), mask, collect_outputs=True, collect_every=npe)
+        _, hsk = models_k["bf16"].stack(xk1.contiguous(), mk1, collect_outputs=True,
+                                        collect_every=1)
+        big = torch.empty(8192, 8192, device=dev).normal_()
+        behind = lambda: torch.matmul(big, big)
+        m_b = models_k["bf16"]
+        out_rows = {
+            "2@D144": head_row(hs144.to(torch.bfloat16).contiguous(), heads_w, heads_b,
+                               behind=behind),
+            "2@D1024": head_row(hsk.to(torch.bfloat16).contiguous(),
+                                m_b.heads_w.to(torch.bfloat16), m_b.heads_b.to(torch.bfloat16),
+                                behind=behind)}
+        del big, models_k, m_b, hs144, hsk
+        T = x.shape[1]
+        gq = torch.Generator(device="cpu").manual_seed(36)
+        for name, h, dh in (("3@dh36", H, D // H), ("3@dh128", 8, 128)):
+            qb, kb, vb = (torch.randn(B, h, T, dh, generator=gq).to(dev, torch.bfloat16)
+                          for _ in range(3))
+            maskf = torch.arange(T, device=dev)[None, :] < lengths[:, None]
+            out_rows[name] = attention_row(qb, kb, vb, maskf)
+            del qb, kb, vb
+        for key, src in (("1@144", rows["bf16"]), ("1b@144", rows["w8a8"]),
+                         ("1c@144", rows["f32"]), ("(i)@144", rows["f32_sm_bf16"]),
+                         ("(ii)@144", rows["bf16_res_f32"]), ("1@d1024", rows_k["bf16"]),
+                         ("1b@d1024", rows_k["w8a8"]), ("1c@d1024", rows_k["f32"]),
+                         ("(i)@d1024", rows_k["f32_sm_bf16"]),
+                         ("(ii)@d1024", rows_k["bf16_res_f32"])):
+            out_rows[key] = src
+        paths = {
+            "1@144": f"the Conformer-S all-exit path (20a, B={B}); the CLI (20c): "
+                     f"{launches['1@144:cli']}; the cascade's (20b): " + ", ".join(
+                         f"{n} (threshold {t})" for (e, t), n in gated.items() if e == "bf16"),
+            "1b@144": f"the Conformer-S W8A8 cascade (20b), exit 2's median threshold; the "
+                      f"--quantize int8 CLI (20c): {launches['1b@144:cli']}",
+            "1c@144": "Conformer-S in float32, 16 requests (20e)",
+            "(i)@144": "the Conformer-S CLI with --compute_dtype float32 (the bf16 softmax, 20c)",
+            "(ii)@144": "the Conformer-S CLI with --residual_dtype float32 (20c)",
+            "2@D144": "the Conformer-S all-exit path (20a)",
+            "3@dh36": "the Conformer-S CLI unfused with --attention_impl pallas (20c)",
+            "3@dh128": "the d-1024 model unfused with attention_impl='pallas', 16 requests "
+                       "(20d)",
+            "2@D1024": "the d-1024 model's all-exit path, 16 requests (20d)"}
+        for key in ("1@d1024", "1b@d1024", "1c@d1024", "(i)@d1024", "(ii)@d1024"):
+            paths[key] = "the d-1024 model's all-exit path in its profile, 16 requests (20d)"
+        launches["(i)@144"] = launches["(i)@144:cli"]
+        launches["(ii)@144"] = launches["(ii)@144:cli"]
+        launches["3@dh36"] = launches["3@dh36:cli"]
+    print(f"20e. times on {card} (B={B}, T'={T}, CUDA events; Conformer-S d {D}, {H} heads "
+          f"of {D // H}, ff {cfg.d_feed_forward}, k {K}; d-1024 8 heads of 128, ff 4096):")
+    for name, t in out_rows.items():
+        by = "operations" if t["bound"][0] >= t["bound"][1] else "bytes"
+        t["bound_ms"], t["bound_by"] = 1e3 * max(t["bound"]), by
+        t["max_abs_err"] = errs.get(name, 0.0)
+        t["launches"], t["path"] = launches[name], paths[name]
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}: "
+              f"{t['bound'][0] * 1e3:.4f} ms ops, {t['bound'][1] * 1e3:.4f} ms bytes), "
+              f"{t['launches']} launches on a path")
+    print(f"20. CLI audio-s/s on {card}: " + ", ".join(f"{n} {v:.1f}" for n, v in
+                                                      cli_rates.items()))
+    print(f"phase 20: {time.perf_counter() - t_start:.1f} s on {card}")
+    return out_rows
+
+
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
                     top: int = 25, grad: bool = False, shape: str = None) -> float:
     """Device time per kernel name over `iters` calls of `forward` (each
@@ -6171,8 +6825,8 @@ def block_library(f, x, lengths, n_heads, mm=None):
     B, T, D = x.shape
     valid = torch.arange(T, device=x.device)[None, :] < lengths[:, None]
     if mm is None:
-        def mm(v, w, b):
-            return torch.matmul(v, f[w]) + f[b]
+        def mm(v, w, b):     # an activation of another type than the weight's: cast
+            return torch.matmul(v.to(f[w].dtype), f[w]) + f[b]
 
     def ln(v, g, b):
         return F.layer_norm(v, (D,), g.to(v.dtype), b.to(v.dtype))
@@ -6190,7 +6844,10 @@ def block_library(f, x, lengths, n_heads, mm=None):
     y = mm(ln(x, f["conv_ln_g"], f["conv_ln_b"]), "pw1_w", "pw1_b")
     y = F.glu(y, dim=-1) * valid[..., None]
     k_ = f["dw_w"].shape[0]
-    y = F.conv1d(y.transpose(1, 2), f["dw_w"].t()[:, None, :], f["dw_b"].to(y.dtype),
+    yt = y.transpose(1, 2)
+    if k_ % 2 == 0:          # an even kernel: the extra tap on the right, as the block's
+        yt = F.pad(yt, (0, 1))
+    y = F.conv1d(yt, f["dw_w"].t()[:, None, :], f["dw_b"].to(y.dtype),
                  padding=(k_ - 1) // 2, groups=D).transpose(1, 2)
     y = F.silu(y * f["bn_scale"].to(y.dtype) + f["bn_shift"].to(y.dtype))
     x = x + mm(y, "pw2_w", "pw2_b")
@@ -6212,7 +6869,7 @@ def library_int8_mm(f):
     return mm
 
 
-def block_rows(fb, f32, q8, x, lengths, kw) -> dict:
+def block_rows(fb, f32, q8, x, lengths, kw, sd=None, new_profiles=False) -> dict:
     """Rows 1, 1c and 1b: the block's bf16, float32 and W8A8 entries on
     the folded params fb, f32 and q8 at x's shape (B, T', D), bf16, by
     CUDA events: {"bf16", "f32", "w8a8"} -> {ms, plain_ms, library_ms,
@@ -6220,13 +6877,30 @@ def block_rows(fb, f32, q8, x, lengths, kw) -> dict:
     float32 throughout. bound: (seconds of operations, seconds of bytes):
     the ten products, the scores and P V, and the conv's taps at the
     card's peak rate for their type (the W8A8 products at int8's); x read
-    and y written once, the weights and lengths read once."""
+    and y written once, the weights and lengths read once -- all at the
+    model's widths, not the padded layout's. sd (the block's state_dict):
+    the layouts are the card's padded ones; the library yardstick and the
+    weights' bytes take the unpadded layouts folded from sd. new_profiles:
+    also "f32_sm_bf16" (float32 compute with the bf16 softmax, on f32;
+    its yardstick the float32 composition) and "bf16_res_f32" (bf16
+    compute with a float32 residual, on fb; the bf16 composition on a
+    float32 residual)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
-    B, T, D = x.shape
-    R, F, H = B * T, fb["ffn1_w1"].shape[1], kw["n_heads"]
+    B, T, P = x.shape
+    D = kw.get("d_model") or P
+    R, H = B * T, kw["n_heads"]
+    F = fb["ffn1_w1"].shape[1] if sd is None else sd["ffn1.w1"].shape[1]
     gemm_ops = 2 * R * D * (4 * F + 3 * D + D + 2 * D + D)
     blk_flops = gemm_ops + 4 * B * H * T * T * (D // H) + 2 * R * D * kw["kernel_size"]
+    if sd is None:
+        lb, l32, l8 = fb, f32, q8
+    else:
+        lb, l32, l8 = (kcb.fold_block_params(sd, compute_dtype=cd, quantize=q)
+                       for cd, q in ((torch.bfloat16, None), (torch.float32, None),
+                                     (torch.bfloat16, "int8")))
+        lb, l32, l8 = ({k: v.to(x.device) for k, v in f.items()} for f in (lb, l32, l8))
+    xl = x[..., :D].contiguous()
 
     def nbytes(f, names=None):
         return sum(t.numel() * t.element_size() for n, t in f.items()
@@ -6235,25 +6909,41 @@ def block_rows(fb, f32, q8, x, lengths, kw) -> dict:
                 attn_softmax_dtype=torch.float32)
     kw8 = dict(kw, quantize="int8")
     x32 = x.float()
-    return {
+    rows = {
         "bf16": dict(
             ms=cuda_ms(lambda: kcb.conformer_block(fb, x, lengths, **kw)),
             plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(fb, x, lengths, **kw), 5, 1),
-            library_ms=cuda_ms(lambda: block_library(fb, x, lengths, H)),
-            bound=(blk_flops / PEAK_BF16, (2 * R * D * 2 + nbytes(fb) + B * 4) / PEAK_BYTES)),
+            library_ms=cuda_ms(lambda: block_library(lb, xl, lengths, H)),
+            bound=(blk_flops / PEAK_BF16, (2 * R * D * 2 + nbytes(lb) + B * 4) / PEAK_BYTES)),
         "f32": dict(
             ms=cuda_ms(lambda: kcb.conformer_block(f32, x32, lengths, **kw32), 10, 2),
             plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(f32, x32, lengths, **kw32),
                              5, 1),
-            library_ms=cuda_ms(lambda: block_library(f32, x32, lengths, H), 10, 2),
-            bound=(blk_flops / PEAK_F32, (2 * R * D * 4 + nbytes(f32) + B * 4) / PEAK_BYTES)),
+            library_ms=cuda_ms(lambda: block_library(l32, xl.float(), lengths, H), 10, 2),
+            bound=(blk_flops / PEAK_F32, (2 * R * D * 4 + nbytes(l32) + B * 4) / PEAK_BYTES)),
         "w8a8": dict(
             ms=cuda_ms(lambda: kcb.conformer_block(q8, x, lengths, **kw8)),
             plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(q8, x, lengths, **kw8), 5, 1),
-            library_ms=cuda_ms(lambda: block_library(q8, x, lengths, H,
-                                                     mm=library_int8_mm(q8))),
+            library_ms=cuda_ms(lambda: block_library(l8, xl, lengths, H,
+                                                     mm=library_int8_mm(l8))),
             bound=(gemm_ops / PEAK_INT8 + (blk_flops - gemm_ops) / PEAK_BF16,
-                   (2 * R * D * 2 + nbytes(q8, kcb.PARAM_ORDER_INT8) + B * 4) / PEAK_BYTES))}
+                   (2 * R * D * 2 + nbytes(l8, kcb.PARAM_ORDER_INT8) + B * 4) / PEAK_BYTES))}
+    if new_profiles:
+        kwi = dict(kw32, attn_softmax_dtype=torch.bfloat16)
+        kwii = dict(kw, residual_dtype=torch.float32)
+        rows["f32_sm_bf16"] = dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(f32, x32, lengths, **kwi), 10, 2),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(f32, x32, lengths, **kwi),
+                             5, 1),
+            library_ms=rows["f32"]["library_ms"],
+            bound=rows["f32"]["bound"])
+        rows["bf16_res_f32"] = dict(
+            ms=cuda_ms(lambda: kcb.conformer_block(fb, x32, lengths, **kwii)),
+            plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(fb, x32, lengths, **kwii),
+                             5, 1),
+            library_ms=cuda_ms(lambda: block_library(lb, xl.float(), lengths, H)),
+            bound=(blk_flops / PEAK_BF16, (2 * R * D * 4 + nbytes(lb) + B * 4) / PEAK_BYTES))
+    return rows
 
 
 def head_row(hid, w, b, behind=None) -> dict:

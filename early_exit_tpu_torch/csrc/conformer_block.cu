@@ -1,9 +1,14 @@
-// One inference Conformer block for Hopper (sm_90a), in three entries:
-// the bf16 profile, float32, and W8A8 (int8 products in the bf16 profile).
+// One inference Conformer block for Hopper (sm_90a), in four entries: the
+// bf16 profile, float32 (with either softmax dtype), W8A8 (int8 products
+// in the bf16 profile), and bf16 compute with a float32 residual.
 //
 // Replaces the TPU kernel early_exit_tpu/ops/pallas/conformer_block.py
-// (fused_block_apply -> _block_kernel, with compute_dtype bf16 or float32
-// and quantize="int8"). That kernel keeps a whole block
+// (fused_block_apply -> _block_kernel, with compute_dtype bf16 or float32,
+// residual_dtype and attn_softmax_dtype, and quantize="int8"), at any
+// width but heads past 128: the wrapper pads d_model and d_ff to
+// multiples of 16 and each head to an instantiated width with zero
+// weights (`block_plan`), and every entry takes the true d_model for its
+// LayerNorms and 1/sqrt of the true head width as its scale. That kernel keeps a whole block
 // of two items resident in VMEM; a block's shared memory (227 KB) holds
 // nothing of that size, so here one C entry launches a sequence of
 // kernels on the caller's stream, with the intermediates in device
@@ -61,10 +66,12 @@
 //     warp-specialised wgmma + TMA kernel with int8 operands
 //     (m64n256k32 .s32.s8.s8, both operands K-major);
 //   - five of the eight quantizations happen in the kernels that make the
-//     values: the four LayerNorms (one warp a row, D <= 512, the row in registers
-//     from the one read of x to the int8 store: no float32 LayerNorm
-//     output goes through device memory) and the conv module (a block's
-//     32 rows wait in shared memory for their absmax). The attention
+//     values: the four LayerNorms (one warp a row, the row in registers
+//     from the one read of x to the int8 store up to D 512, reread past
+//     it: no float32 LayerNorm output goes through device memory) and the
+//     conv module (a block's 32 rows wait in shared memory for their
+//     absmax, where they fit beside its tile; at d 1024 it writes float32
+//     rows and a pass quantizes them). The attention
 //     output (a row's 8 heads are 8 blocks) and the W1 output (a row's
 //     2048 columns are 8 tiles) keep a quantize pass each.
 
@@ -84,7 +91,10 @@ constexpr int GTHREADS = 256;
 // 8 x 8 block of the tile as four 4 x 4 quadrants.
 constexpr int FBM = 128, FBN = 128, FBK = 8;
 
-template <int EPI>
+// kRaggedN: N a multiple of 4 but not of 128 (a padded Conformer-S width,
+// 576 or 144): the last column tile's loads past N read zeros and its
+// stores past N are dropped. N % 128 == 0 runs the code it ran before.
+template <int EPI, bool kRaggedN = false>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
                 const float* __restrict__ bias, const float* res, float* out, int M, int N,
@@ -107,7 +117,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
     const int gm = m0 + a_row;
     ra = gm < M ? *reinterpret_cast<const float4*>(A + (size_t)gm * K + k0 + a_k)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    rb = *reinterpret_cast<const float4*>(W + (size_t)(k0 + b_k) * N + n0 + b_n);
+    rb = !kRaggedN || n0 + b_n < N
+             ? *reinterpret_cast<const float4*>(W + (size_t)(k0 + b_k) * N + n0 + b_n)
+             : make_float4(0.f, 0.f, 0.f, 0.f);
   };
   auto store_tile = [&](int buf) {
     As[buf][a_k + 0][a_row] = ra.x;
@@ -151,6 +163,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh) {
       const int gn = n0 + jh * 64 + tx * 4;
+      if (kRaggedN && gn >= N) continue;
       const float4 bv = *reinterpret_cast<const float4*>(bias + gn);
       float4 rv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (EPI == EPI_RES || EPI == EPI_RES_HALF)
@@ -170,16 +183,26 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
   }
 }
 
+template <bool kRaggedN>
+static void gemm_f32_launch(int epi, dim3 grid, const float* A, const float* W,
+                            const float* bias, const float* res, float* out, int M, int N,
+                            int K, cudaStream_t s) {
+  switch (epi) {
+    case EPI_BIAS: gemm_f32_kernel<EPI_BIAS, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_SILU: gemm_f32_kernel<EPI_SILU, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    case EPI_RES: gemm_f32_kernel<EPI_RES, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+    default: gemm_f32_kernel<EPI_RES_HALF, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+  }
+}
+
+// K a multiple of 8, N of 4
 static cudaError_t gemm_f32(int epi, const float* A, const float* W, const float* bias,
                             const float* res, float* out, int M, int N, int K,
                             cudaStream_t s) {
-  const dim3 grid(N / FBN, (M + FBM - 1) / FBM);
-  switch (epi) {
-    case EPI_BIAS: gemm_f32_kernel<EPI_BIAS><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    case EPI_SILU: gemm_f32_kernel<EPI_SILU><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    case EPI_RES: gemm_f32_kernel<EPI_RES><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    default: gemm_f32_kernel<EPI_RES_HALF><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-  }
+  if (K % FBK || N % 4) return cudaErrorInvalidValue;
+  const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  if (N % FBN) gemm_f32_launch<true>(epi, grid, A, W, bias, res, out, M, N, K, s);
+  else gemm_f32_launch<false>(epi, grid, A, W, bias, res, out, M, N, K, s);
   return cudaGetLastError();
 }
 
@@ -237,7 +260,11 @@ static cudaError_t quantize_rows(const TIn* x, int8_t* q, float* sx, int rows, i
 // ----------------------------------------------------------- LayerNorm
 // One warp per row, one-pass float32 statistics. With `lengths`, rows
 // t >= lengths[b] are written as zeros. x and y may alias when their
-// types agree.
+// types agree. A row holds D values (the pitch, a multiple of 8) of which
+// the first Dt are the model's: the columns past Dt of a padded layout
+// are zeros in x, g and b, so the sums take them as they are and the
+// statistics divide by Dt (the JAX kernel's mean over its true D), and
+// the outputs there are zeros again.
 constexpr int LN_THREADS = 256;
 // MODE: LN_ONE_PASS (every entry), or, in the ablation library only
 // (EET_ABLATE), LN_SCALE (x * g + b, no statistics) and LN_TWO_PASS
@@ -247,7 +274,7 @@ enum { LN_ONE_PASS = 0, LN_SCALE = 1, LN_TWO_PASS = 2 };
 template <typename TIn, typename TOut, int MODE = LN_ONE_PASS>
 __global__ void __launch_bounds__(LN_THREADS)
 layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
-                  const float* __restrict__ b, int rows, int D, float eps,
+                  const float* __restrict__ b, int rows, int D, int Dt, float eps,
                   const int* __restrict__ lengths, int T) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -267,19 +294,20 @@ layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
       }
     }
     s = warp_sum(s);
-    mu = s / D;
+    mu = s / Dt;
     if constexpr (MODE == LN_TWO_PASS) {
       ss = 0.f;
       for (int v = lane; v < D / 8; v += 32) {
         float e[8];
         load8(xr + v * 8, e);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) ss += (e[q] - mu) * (e[q] - mu);
+        for (int q = 0; q < 8; ++q)
+          if (v * 8 + q < Dt) ss += (e[q] - mu) * (e[q] - mu);
       }
-      rstd = rsqrtf(warp_sum(ss) / D + eps);
+      rstd = rsqrtf(warp_sum(ss) / Dt + eps);
     } else {
       ss = warp_sum(ss);
-      rstd = rsqrtf(fmaxf(ss / D - mu * mu, 0.f) + eps);
+      rstd = rsqrtf(fmaxf(ss / Dt - mu * mu, 0.f) + eps);
     }
   }
   const bool zero = lengths != nullptr && (row % T) >= lengths[row / T];
@@ -297,32 +325,36 @@ layer_norm_kernel(const TIn* x, TOut* y, const float* __restrict__ g,
 
 template <typename TIn, typename TOut, int MODE = LN_ONE_PASS>
 static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float* b,
-                              int rows, int D, float eps, const int* lengths, int T,
+                              int rows, int D, int Dt, float eps, const int* lengths, int T,
                               cudaStream_t s) {
   const int per_block = LN_THREADS / 32;
   layer_norm_kernel<TIn, TOut, MODE><<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
-      x, y, g, b, rows, D, eps, lengths, T);
+      x, y, g, b, rows, D, Dt, eps, lengths, T);
   return cudaGetLastError();
 }
 
 // LayerNorm in float32 of a bf16 row, quantized on the way out: only the
-// int8 row and its scale are written. One warp per row, D <= 512: lane l
-// holds the row's 8-value chunks l and l + 32 (values 8 l .. 8 l + 7 and
-// 256 + 8 l ..; a chunk past D / 8 is none) in registers from the one
-// read to the int8 store. The arithmetic is the LayerNorm kernel's above
-// with its contractions written out (every FMA the compiler forms there
-// is an explicit __fmaf_rn here, every other operation rounded on its
-// own), so the plain version can repeat it exactly: each lane sums its
-// first chunk's 8 values in order, then its second's, then a butterfly
-// over the warp. At D <= 256 a lane has one chunk, as before the second
-// was added.
+// int8 row and its scale are written. One warp per row: lane l takes the
+// row's 8-value chunks l, l + 32, l + 64, ... (values 8 l .. 8 l + 7, 256
+// + 8 l .., a chunk past D / 8 is none). The arithmetic is the LayerNorm
+// kernel's above with its contractions written out (every FMA the
+// compiler forms there is an explicit __fmaf_rn here, every other
+// operation rounded on its own), so the plain version can repeat it
+// exactly: each lane sums its chunks' 8 values in order, chunk after
+// chunk, then a butterfly over the warp; the statistics divide by Dt, the
+// true width, as the LayerNorm kernel's do. Up to LNQ_MAX_D (two chunks a
+// lane) the row stays in registers from the one read to the int8 store;
+// a wider row (d 1024) is read three times, once for the sums, once for
+// the absmax and once to quantize, by the same arithmetic (the row sits in
+// L1 between the reads), so the values are the ones the plain version
+// computes whatever the width.
 constexpr int LNQ_CHUNKS = 2;
 constexpr int LNQ_MAX_D = 8 * 32 * LNQ_CHUNKS;
 
 __global__ void __launch_bounds__(LN_THREADS)
 layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
                            const float* __restrict__ b, int8_t* __restrict__ q,
-                           float* __restrict__ sx, int rows, int D, float eps) {
+                           float* __restrict__ sx, int rows, int D, int Dt, float eps) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
@@ -343,8 +375,8 @@ layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__
   }
   s = warp_sum(s);
   ss = warp_sum(ss);
-  const float mu = __fdiv_rn(s, (float)D);
-  const float var = fmaxf(__fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)D)), 0.f);
+  const float mu = __fdiv_rn(s, (float)Dt);
+  const float var = fmaxf(__fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)Dt)), 0.f);
   const float rstd = rsqrtf(__fadd_rn(var, eps));
   float amax = 0.f;
 #pragma unroll
@@ -366,13 +398,64 @@ layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__
           quantize8(e[c], scale);
 }
 
-// D a multiple of 8, at most LNQ_MAX_D
+// the same arithmetic on a row past LNQ_MAX_D, reread for each pass
+__global__ void __launch_bounds__(LN_THREADS)
+layer_norm_quantize_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                                const float* __restrict__ b, int8_t* __restrict__ q,
+                                float* __restrict__ sx, int rows, int D, int Dt, float eps) {
+  const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const bf16* xr = x + (size_t)row * D;
+  float s = 0.f, ss = 0.f;
+  for (int v = lane; v < D / 8; v += 32) {
+    float e[8];
+    load8(xr + v * 8, e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      s = __fadd_rn(s, e[k]);
+      ss = __fmaf_rn(e[k], e[k], ss);
+    }
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mu = __fdiv_rn(s, (float)Dt);
+  const float var = fmaxf(__fmaf_rn(-mu, mu, __fdiv_rn(ss, (float)Dt)), 0.f);
+  const float rstd = rsqrtf(__fadd_rn(var, eps));
+  auto normed = [&](int v, float (&e)[8]) {
+    load8(xr + v * 8, e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      e[k] = __fmaf_rn(__fmul_rn(__fsub_rn(e[k], mu), rstd), g[v * 8 + k], b[v * 8 + k]);
+  };
+  float amax = 0.f;
+  for (int v = lane; v < D / 8; v += 32) {
+    float e[8];
+    normed(v, e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) amax = fmaxf(amax, fabsf(e[k]));
+  }
+  const float scale = row_scale_of(warp_max(amax));
+  if (lane == 0) sx[row] = scale;
+  for (int v = lane; v < D / 8; v += 32) {
+    float e[8];
+    normed(v, e);
+    *reinterpret_cast<uint2*>(q + (size_t)row * D + v * 8) = quantize8(e, scale);
+  }
+}
+
+// D (the pitch) a multiple of 8; Dt <= D the true width
 static cudaError_t layer_norm_quantize(const bf16* x, const float* g, const float* b, int8_t* q,
-                                       float* sx, int rows, int D, float eps, cudaStream_t s) {
-  if (D % 8 || D > LNQ_MAX_D) return cudaErrorInvalidValue;
+                                       float* sx, int rows, int D, int Dt, float eps,
+                                       cudaStream_t s) {
+  if (D % 8 || Dt <= 0 || Dt > D) return cudaErrorInvalidValue;
   const int per_block = LN_THREADS / 32;
-  layer_norm_quantize_kernel<<<(rows + per_block - 1) / per_block, LN_THREADS, 0, s>>>(
-      x, g, b, q, sx, rows, D, eps);
+  const dim3 grid((rows + per_block - 1) / per_block);
+  if (D <= LNQ_MAX_D)
+    layer_norm_quantize_kernel<<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D, Dt, eps);
+  else
+    layer_norm_quantize_wide_kernel<<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D, Dt,
+                                                               eps);
   return cudaGetLastError();
 }
 
@@ -609,7 +692,14 @@ static cudaError_t attention_dh(const bf16* qkv, const int* lengths, TOut* out, 
   return cudaGetLastError();
 }
 
-// Head widths D / H = 16, 32 and 64 (anything else: cudaErrorInvalidValue).
+// D: the inner width H x DH of the q|k|v rows (3D a row) and of out (D a
+// row), where DH is an instantiated head width: 16, 32, 48, 64 or 128
+// (anything else: cudaErrorInvalidValue). A model's head of another width
+// up to 128 is padded to the next of them in the fold (zero q, k and v
+// columns, zero rows of Wo), and `scale` is 1/sqrt of its true width. At
+// DH 128 the key tile (KT x 136) and the transposed values (128 x KT + 8)
+// take 137 KB of shared memory at KT = 256, and a lane holds 64 float32
+// sums of P V.
 template <typename TOut, bool kSoftmax = true>
 static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
@@ -617,7 +707,9 @@ static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int
   switch (D / H) {
     case 16: return attention_dh<16, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
     case 32: return attention_dh<32, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+    case 48: return attention_dh<48, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
     case 64: return attention_dh<64, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+    case 128: return attention_dh<128, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -626,32 +718,50 @@ static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int
 // GLU over the PW1 output (rows, 2D) -> zero rows t >= len -> depthwise
 // 'SAME' conv over time (float32 accumulation, one rounding to T) ->
 // + bias -> folded BatchNorm -> SiLU (float32) -> TOut. One block per
-// (time tile, item); the GLU tile with its halo sits in shared memory.
-// T is the compute type; TOut is T, or int8_t for the W8A8 entry: the
-// unrounded float32 values of the block's 32 rows wait in shared memory
-// while a warp takes each row's absmax, and leave quantized, with their
-// scales in sx, as the PW2 product reads them.
+// (time tile, channel tile, item); the GLU tile with its halo sits in
+// shared memory. A block takes all D channels where the tile fits in
+// shared memory (every width up to d 1024 in bf16, d 512 in float32) and
+// else a run of CT of them, a multiple of 8 (`conv_channels`; 512 at d
+// 1024 in float32 with k 31): the channels never mix, so the split
+// changes no value. T is the compute type; TOut is T, float, or int8_t
+// for the W8A8 entry: the unrounded float32 values of the block's 32
+// rows wait in shared memory while a warp takes each row's absmax, and
+// leave quantized, with their scales in sx, as the PW2 product reads
+// them. A quantized output needs whole rows in one block; where they do
+// not fit beside the GLU tile (d 1024 and k 31: 254 KB), the W8A8 entry
+// writes float32 rows instead and quantizes them in a pass of their own.
 constexpr int CONV_TT = 32, CONV_THREADS = 256;
 // ABL (the ablation library only, 0 in every entry): bits of the parts
 // taken out -- the GLU gate (a passes through), the depthwise conv (the
 // centre row passes through), the SiLU.
 enum { CV_NO_GLU = 1, CV_NO_DW = 2, CV_NO_SILU = 4 };
 
+// Channels a conv block holds at width D: D where the tile fits, else the
+// most that fit, a multiple of 8; 0 where a quantized output (whole rows)
+// does not fit. The wrapper's plan (`block_plan`) repeats this rule.
+static int conv_channels(int D, int ksize, int esize, bool quant) {
+  const size_t per = (size_t)(CONV_TT + ksize - 1) * esize + (quant ? CONV_TT * 4 : 0);
+  if (per * D <= SMEM_LIMIT) return D;
+  return quant ? 0 : (int)(SMEM_LIMIT / per) / 8 * 8;
+}
+
 template <typename T_, typename TOut, int ABL = 0>
 __global__ void __launch_bounds__(CONV_THREADS)
 conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
                    const T_* __restrict__ dw, const float* __restrict__ dw_b,
                    const float* __restrict__ bn_scale, const float* __restrict__ bn_shift,
-                   TOut* __restrict__ out, float* __restrict__ sx, int T, int D, int ksize) {
+                   TOut* __restrict__ out, float* __restrict__ sx, int T, int D, int CT,
+                   int ksize) {
   constexpr bool kQuant = std::is_same<TOut, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   T_* tile = reinterpret_cast<T_*>(smem);
-  const int b = blockIdx.y, t0 = blockIdx.x * CONV_TT;
+  const int b = blockIdx.z, t0 = blockIdx.x * CONV_TT, c0 = blockIdx.y * CT;
   const int len = lengths[b], padl = (ksize - 1) / 2;
   const int rows = CONV_TT + ksize - 1;
-  float* ytile = reinterpret_cast<float*>(smem + (size_t)rows * D * sizeof(T_));
-  for (int idx = threadIdx.x; idx < rows * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D, t = t0 - padl + r;
+  const int nc = min(CT, D - c0);  // this block's channels
+  float* ytile = reinterpret_cast<float*>(smem + (size_t)rows * CT * sizeof(T_));
+  for (int idx = threadIdx.x; idx < rows * nc; idx += blockDim.x) {
+    const int r = idx / nc, c = c0 + idx % nc, t = t0 - padl + r;
     float v = 0.f;
     if (t >= 0 && t < len) {
       const T_* gr = g + ((size_t)b * T + t) * 2 * D;
@@ -661,13 +771,13 @@ conv_module_kernel(const T_* __restrict__ g, const int* __restrict__ lengths,
     tile[idx] = from_f<T_>(v);
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < CONV_TT * D; idx += blockDim.x) {
-    const int r = idx / D, c = idx % D, t = t0 + r;
+  for (int idx = threadIdx.x; idx < CONV_TT * nc; idx += blockDim.x) {
+    const int r = idx / nc, cc = idx % nc, c = c0 + cc, t = t0 + r;
     if (t >= T) continue;
     float acc = 0.f;
-    if (ABL & CV_NO_DW) acc = to_f(tile[(r + padl) * D + c]);
+    if (ABL & CV_NO_DW) acc = to_f(tile[(r + padl) * nc + cc]);
     else
-      for (int j = 0; j < ksize; ++j) acc += to_f(tile[(r + j) * D + c]) * to_f(dw[j * D + c]);
+      for (int j = 0; j < ksize; ++j) acc += to_f(tile[(r + j) * nc + cc]) * to_f(dw[j * D + c]);
     float y = rnd<T_>(acc) + dw_b[c];
     y = y * bn_scale[c] + bn_shift[c];
     if (!(ABL & CV_NO_SILU)) y = y / (1.f + expf(-y));
@@ -698,15 +808,16 @@ static cudaError_t conv_module(const T_* g, const int* lengths, const T_* dw,
                                const float* dw_b, const float* bn_scale, const float* bn_shift,
                                TOut* out, float* sx, int B, int T, int D, int ksize,
                                cudaStream_t s) {
-  const size_t rows_bytes = (size_t)(CONV_TT + ksize - 1) * D * sizeof(T_);
-  const size_t bytes =
-      rows_bytes + (std::is_same<TOut, int8_t>::value ? (size_t)CONV_TT * D * sizeof(float) : 0);
-  if (bytes > SMEM_LIMIT || rows_bytes % 16) return cudaErrorInvalidValue;
+  constexpr bool kQuant = std::is_same<TOut, int8_t>::value;
+  const int CT = conv_channels(D, ksize, sizeof(T_), kQuant);
+  if (CT < 8 || D % 8) return cudaErrorInvalidValue;
+  const size_t rows_bytes = (size_t)(CONV_TT + ksize - 1) * CT * sizeof(T_);
+  const size_t bytes = rows_bytes + (kQuant ? (size_t)CONV_TT * CT * sizeof(float) : 0);
   EET_TRY(cudaFuncSetAttribute(conv_module_kernel<T_, TOut, ABL>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
-  const dim3 grid((T + CONV_TT - 1) / CONV_TT, B);
+  const dim3 grid((T + CONV_TT - 1) / CONV_TT, (D + CT - 1) / CT, B);
   conv_module_kernel<T_, TOut, ABL><<<grid, CONV_THREADS, bytes, s>>>(
-      g, lengths, dw, dw_b, bn_scale, bn_shift, out, sx, T, D, ksize);
+      g, lengths, dw, dw_b, bn_scale, bn_shift, out, sx, T, D, CT, ksize);
   return cudaGetLastError();
 }
 
@@ -720,11 +831,20 @@ enum {
   W_FINAL_LN_G, W_FINAL_LN_B, W_COUNT
 };
 
+// Every entry takes the block's widths as its layout holds them
+// (`block_plan` in the wrapper): D the residual's row (the pitch, a
+// multiple of 16) of which Dt are the model's, H heads of DH (the
+// instantiated width a head is padded to; the q|k|v rows are 3 H DH wide
+// and the attention output H DH), F the FFN's width (padded to 16) and
+// ksize; `scale` is 1/sqrt of the true head width. The flagship's layout
+// pads nothing (D = Dt = 256, DH = 32, F = 2048).
+//
 // x, y: (B*T, D) bf16 (may not alias); lengths: (B,) int32;
-// scratch: s_ln (B*T, D), s_big (B*T, max(F, 3D)), s_att (B*T, D), bf16.
+// scratch: s_ln (B*T, D), s_big (B*T, max(F, 3 H DH)), s_att (B*T,
+// max(D, H DH)), bf16.
 extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* lengths_,
-                                        int B, int T, int D, int H, int F, int ksize,
-                                        int sm_bf16, float scale, float eps,
+                                        int B, int T, int D, int Dt, int H, int DH, int F,
+                                        int ksize, int sm_bf16, float scale, float eps,
                                         const void* const* w, void* s_ln_, void* s_big_,
                                         void* s_att_, void* stream_) {
   const bf16* x = static_cast<const bf16*>(x_);
@@ -736,28 +856,101 @@ extern "C" int eet_conformer_block_bf16(const void* x_, void* y_, const void* le
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
-  const int R = B * T;
+  const int R = B * T, Di = H * DH;
 
   // macaron half-FFN: y = x + 0.5 * FFN(LN(x))
-  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN1_W1), bw(W_FFN1_B1), nullptr, s_big, R, F, D, s));
   EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN1_W2), bw(W_FFN1_B2), x, y, R, D, F, s));
   // MHSA
-  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
-  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * D, D, s));
-  EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s));
-  EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, D, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * Di, D, s));
+  EET_TRY(attention(s_big, lengths, s_att, B, T, Di, H, scale, sm_bf16, s));
+  EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, Di, s));
   // convolution module
-  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
   EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
                       s_att, nullptr, B, T, D, ksize, s));
   EET_TRY(gemm(EPI_RES, s_att, bw(W_PW2), bw(W_BPW2), y, y, R, D, D, s));
   // second half-FFN, final LayerNorm with padded rows zeroed
-  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN2_W1), bw(W_FFN2_B1), nullptr, s_big, R, F, D, s));
   EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN2_W2), bw(W_FFN2_B2), y, y, R, D, F, s));
-  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
+  return 0;
+}
+
+// ------------------------------------------- bf16 products, float32 residual
+// y[i] = x[i] + w * d[i]: the float32 residual add of a bf16 branch output
+// (w 1 or 0.5), the JAX kernel's x + half * y.astype(rdtype), one rounding
+// of the exact value (w d is exact). n a multiple of 8.
+__global__ void __launch_bounds__(256)
+residual_add_kernel(const float* x, const bf16* __restrict__ d, float* y, float w, size_t n) {
+  for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 8; i < n;
+       i += (size_t)gridDim.x * blockDim.x * 8) {
+    float xv[8], dv[8];
+    load8(x + i, xv);
+    load8(d + i, dv);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) xv[q] = __fmaf_rn(w, dv[q], xv[q]);
+    store8(y + i, xv);
+  }
+}
+
+static cudaError_t residual_add(const float* x, const bf16* d, float* y, float w, size_t n,
+                                cudaStream_t s) {
+  const size_t blocks = (n / 8 + 255) / 256;
+  residual_add_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, s>>>(x, d, y, w, n);
+  return cudaGetLastError();
+}
+
+// The bf16 profile with a float32 residual stream (compute bf16, residual
+// float32, either softmax dtype): the LayerNorms read the float32 stream
+// and write bf16 (the products' inputs, as the JAX kernel casts them),
+// the products and everything between them are the bf16 entry's, and each
+// branch output, bf16, is added to the stream in float32 by
+// residual_add; the final LayerNorm writes float32. The products'
+// epilogues stay bf16: the three residual products write their branch
+// output into s_ln, free by then, and residual_add takes it from there.
+// x, y: (B*T, D) float32 (may not alias); scratch as the bf16 entry's.
+extern "C" int eet_conformer_block_bf16_f32res(const void* x_, void* y_, const void* lengths_,
+                                               int B, int T, int D, int Dt, int H, int DH,
+                                               int F, int ksize, int sm_bf16, float scale,
+                                               float eps, const void* const* w, void* s_ln_,
+                                               void* s_big_, void* s_att_, void* stream_) {
+  const float* x = static_cast<const float*>(x_);
+  float* y = static_cast<float*>(y_);
+  const int* lengths = static_cast<const int*>(lengths_);
+  bf16* s_ln = static_cast<bf16*>(s_ln_);
+  bf16* s_big = static_cast<bf16*>(s_big_);
+  bf16* s_att = static_cast<bf16*>(s_att_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
+  const int R = B * T, Di = H * DH;
+  const size_t n = (size_t)R * D;
+
+  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN1_W1), bw(W_FFN1_B1), nullptr, s_big, R, F, D, s));
+  EET_TRY(gemm(EPI_BIAS, s_big, bw(W_FFN1_W2), bw(W_FFN1_B2), nullptr, s_ln, R, D, F, s));
+  EET_TRY(residual_add(x, s_ln, y, 0.5f, n, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * Di, D, s));
+  EET_TRY(attention(s_big, lengths, s_att, B, T, Di, H, scale, sm_bf16, s));
+  EET_TRY(gemm(EPI_BIAS, s_att, bw(W_O), bw(W_BO), nullptr, s_ln, R, D, Di, s));
+  EET_TRY(residual_add(y, s_ln, y, 1.f, n, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
+  EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
+                      s_att, nullptr, B, T, D, ksize, s));
+  EET_TRY(gemm(EPI_BIAS, s_att, bw(W_PW2), bw(W_BPW2), nullptr, s_ln, R, D, D, s));
+  EET_TRY(residual_add(y, s_ln, y, 1.f, n, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm(EPI_SILU, s_ln, bw(W_FFN2_W1), bw(W_FFN2_B1), nullptr, s_big, R, F, D, s));
+  EET_TRY(gemm(EPI_BIAS, s_big, bw(W_FFN2_W2), bw(W_FFN2_B2), nullptr, s_ln, R, D, F, s));
+  EET_TRY(residual_add(y, s_ln, y, 0.5f, n, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
   return 0;
 }
 
@@ -779,12 +972,13 @@ enum {
 };
 
 static cudaError_t ablate_ln(int ab, const bf16* x, bf16* y, const float* g, const float* b,
-                             int R, int D, float eps, const int* lengths, int T,
+                             int R, int D, int Dt, float eps, const int* lengths, int T,
                              cudaStream_t s) {
-  if (ab & AB_LN) return layer_norm<bf16, bf16, LN_SCALE>(x, y, g, b, R, D, eps, lengths, T, s);
+  if (ab & AB_LN)
+    return layer_norm<bf16, bf16, LN_SCALE>(x, y, g, b, R, D, Dt, eps, lengths, T, s);
   if (ab & AB_LN2P)
-    return layer_norm<bf16, bf16, LN_TWO_PASS>(x, y, g, b, R, D, eps, lengths, T, s);
-  return layer_norm(x, y, g, b, R, D, eps, lengths, T, s);
+    return layer_norm<bf16, bf16, LN_TWO_PASS>(x, y, g, b, R, D, Dt, eps, lengths, T, s);
+  return layer_norm(x, y, g, b, R, D, Dt, eps, lengths, T, s);
 }
 
 template <int ABL>
@@ -815,9 +1009,9 @@ static cudaError_t ablate_conv(int ab, const bf16* g, const int* lengths, const 
 // The bf16 entry's arguments, then the bits; with ablate 0 it launches
 // exactly the bf16 entry's kernels with the same arguments.
 extern "C" int eet_conformer_block_bf16_ablate(const void* x_, void* y_, const void* lengths_,
-                                               int B, int T, int D, int H, int F, int ksize,
-                                               int sm_bf16, float scale, float eps,
-                                               const void* const* w, void* s_ln_,
+                                               int B, int T, int D, int Dt, int H, int DH,
+                                               int F, int ksize, int sm_bf16, float scale,
+                                               float eps, const void* const* w, void* s_ln_,
                                                void* s_big_, void* s_att_, void* stream_,
                                                int ab) {
   const bf16* x = static_cast<const bf16*>(x_);
@@ -829,49 +1023,57 @@ extern "C" int eet_conformer_block_bf16_ablate(const void* x_, void* y_, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
-  const int R = B * T;
+  const int R = B * T, Di = H * DH;
   const int epi_w1 = ab & AB_SILU ? EPI_BIAS : EPI_SILU;
 
   if (ab & AB_FFN) {
     EET_TRY(cudaMemcpyAsync(y, x, (size_t)R * D * sizeof(bf16), cudaMemcpyDeviceToDevice, s));
   } else {
-    EET_TRY(ablate_ln(ab, x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(ablate_ln(ab, x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, Dt, eps, nullptr, T,
+                      s));
     EET_TRY(gemm(epi_w1, s_ln, bw(W_FFN1_W1), bw(W_FFN1_B1), nullptr, s_big, R, F, D, s));
     EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN1_W2), bw(W_FFN1_B2), x, y, R, D, F, s));
   }
   if (!(ab & AB_ATTN)) {
-    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
-    EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * D, D, s));
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, Dt, eps, nullptr, T,
+                      s));
+    EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_QKV), bw(W_BQKV), nullptr, s_big, R, 3 * Di, D, s));
     if (ab & AB_SOFTMAX)
-      EET_TRY((attention<bf16, false>(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s)));
+      EET_TRY((attention<bf16, false>(s_big, lengths, s_att, B, T, Di, H, scale, sm_bf16, s)));
     else
-      EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, sm_bf16, s));
-    EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, D, s));
+      EET_TRY(attention(s_big, lengths, s_att, B, T, Di, H, scale, sm_bf16, s));
+    EET_TRY(gemm(EPI_RES, s_att, bw(W_O), bw(W_BO), y, y, R, D, Di, s));
   }
   if (!(ab & AB_CONV)) {
-    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, Dt, eps, nullptr, T,
+                      s));
     EET_TRY(gemm(EPI_BIAS, s_ln, bw(W_PW1), bw(W_BPW1), nullptr, s_big, R, 2 * D, D, s));
     EET_TRY(ablate_conv(ab, s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
                         fw(W_BN_SHIFT), s_att, B, T, D, ksize, s));
     EET_TRY(gemm(EPI_RES, s_att, bw(W_PW2), bw(W_BPW2), y, y, R, D, D, s));
   }
   if (!(ab & AB_FFN)) {
-    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+    EET_TRY(ablate_ln(ab, y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, Dt, eps, nullptr, T,
+                      s));
     EET_TRY(gemm(epi_w1, s_ln, bw(W_FFN2_W1), bw(W_FFN2_B1), nullptr, s_big, R, F, D, s));
     EET_TRY(gemm(EPI_RES_HALF, s_big, bw(W_FFN2_W2), bw(W_FFN2_B2), y, y, R, D, F, s));
   }
-  EET_TRY(ablate_ln(ab, y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  EET_TRY(ablate_ln(ab, y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
   return 0;
 }
 #endif  // EET_ABLATE
 
 // The float32 entry. x, y: (B*T, D) float32 (may not alias); every weight
-// float32, same order; scratch as above in float32. Scores are masked to
-// -1e9 and the softmax is float32.
+// float32, same order; scratch as above in float32. sm_bf16 0: scores
+// masked to -1e9 and the float32 softmax of attention_f32.cuh; sm_bf16 1
+// (float32 compute with the bf16 softmax, the JAX CLI's --compute_dtype
+// float32 at inference): the same attention with the bf16 entry's score
+// pipeline (its kLowp instantiation), P V in float32.
 extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* lengths_, int B,
-                                       int T, int D, int H, int F, int ksize, float scale,
-                                       float eps, const void* const* w, void* s_ln_,
-                                       void* s_big_, void* s_att_, void* stream_) {
+                                       int T, int D, int Dt, int H, int DH, int F, int ksize,
+                                       int sm_bf16, float scale, float eps,
+                                       const void* const* w, void* s_ln_, void* s_big_,
+                                       void* s_att_, void* stream_) {
   const float* x = static_cast<const float*>(x_);
   float* y = static_cast<float*>(y_);
   const int* lengths = static_cast<const int*>(lengths_);
@@ -880,28 +1082,33 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
   float* s_att = static_cast<float*>(s_att_);
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
-  const int R = B * T, DH = D / H;
+  const int R = B * T, Di = H * DH;
   const float* no_res = nullptr;
 
-  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(x, s_ln, fw(W_FFN1_LN_G), fw(W_FFN1_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN1_W1), fw(W_FFN1_B1), no_res, s_big, R, F, D, s));
   EET_TRY(gemm_f32(EPI_RES_HALF, s_big, fw(W_FFN1_W2), fw(W_FFN1_B2), x, y, R, D, F, s));
-  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, eps, nullptr, T, s));
-  EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_QKV), fw(W_BQKV), no_res, s_big, R, 3 * D, D, s));
-  // q | k | v of a frame are one (3D) row of s_big; head h at column h*DH
-  EET_TRY(attention_f32<float>(s_big, s_big + D, s_big + 2 * D, nullptr, lengths, s_att, B, H,
-                               T, DH, (long long)T * 3 * D, DH, 3 * D, (long long)T * D, DH, D,
-                               scale, s));
-  EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_O), fw(W_BO), y, y, R, D, D, s));
-  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_ATTN_LN_G), fw(W_ATTN_LN_B), R, D, Dt, eps, nullptr, T, s));
+  EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_QKV), fw(W_BQKV), no_res, s_big, R, 3 * Di, D, s));
+  // q | k | v of a frame are one (3 Di) row of s_big; head h at column h*DH
+  const long long in_bs = (long long)T * 3 * Di, out_bs = (long long)T * Di;
+  if (sm_bf16)
+    EET_TRY((attention_f32<float, true>(s_big, s_big + Di, s_big + 2 * Di, nullptr, lengths,
+                                        s_att, B, H, T, DH, in_bs, DH, 3 * Di, out_bs, DH, Di,
+                                        scale, s)));
+  else
+    EET_TRY(attention_f32<float>(s_big, s_big + Di, s_big + 2 * Di, nullptr, lengths, s_att, B,
+                                 H, T, DH, in_bs, DH, 3 * Di, out_bs, DH, Di, scale, s));
+  EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_O), fw(W_BO), y, y, R, D, Di, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_CONV_LN_G), fw(W_CONV_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm_f32(EPI_BIAS, s_ln, fw(W_PW1), fw(W_BPW1), no_res, s_big, R, 2 * D, D, s));
   EET_TRY(conv_module<float, float>(s_big, lengths, fw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
                                     fw(W_BN_SHIFT), s_att, nullptr, B, T, D, ksize, s));
   EET_TRY(gemm_f32(EPI_RES, s_att, fw(W_PW2), fw(W_BPW2), y, y, R, D, D, s));
-  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, eps, nullptr, T, s));
+  EET_TRY(layer_norm(y, s_ln, fw(W_FFN2_LN_G), fw(W_FFN2_LN_B), R, D, Dt, eps, nullptr, T, s));
   EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN2_W1), fw(W_FFN2_B1), no_res, s_big, R, F, D, s));
   EET_TRY(gemm_f32(EPI_RES_HALF, s_big, fw(W_FFN2_W2), fw(W_FFN2_B2), y, y, R, D, F, s));
-  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
   return 0;
 }
 
@@ -909,15 +1116,17 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
 // with each of the 10 product weights as its transposed int8 twin (N, K)
 // and each of their biases in float32; ws: the float32 per-output-channel
 // scale row at each product weight's index (nullptr elsewhere). Scratch:
-// s_q (B*T, max(F, D)) int8; s_sx (B*T) float32; s_big (B*T, max(F, 3D))
-// and s_att (B*T, D) bf16; s_f (B*T, D) float32, only with the float32
-// softmax (nullptr otherwise).
+// s_q (B*T, max(F, D, H DH)) int8; s_sx (B*T) float32; s_big (B*T,
+// max(F, 3 H DH)) and s_att (B*T, max(D, H DH)) bf16; s_f (B*T, max(D,
+// H DH)) float32, with the float32 softmax or where the conv module's
+// quantized rows do not fit in a block (conv_channels 0), nullptr
+// otherwise.
 extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* lengths_, int B,
-                                        int T, int D, int H, int F, int ksize, int sm_bf16,
-                                        float scale, float eps, const void* const* w,
-                                        const void* const* ws, void* s_f_, void* s_q_,
-                                        void* s_sx_, void* s_big_, void* s_att_,
-                                        void* stream_) {
+                                        int T, int D, int Dt, int H, int DH, int F, int ksize,
+                                        int sm_bf16, float scale, float eps,
+                                        const void* const* w, const void* const* ws,
+                                        void* s_f_, void* s_q_, void* s_sx_, void* s_big_,
+                                        void* s_att_, void* stream_) {
   const bf16* x = static_cast<const bf16*>(x_);
   bf16* y = static_cast<bf16*>(y_);
   const int* lengths = static_cast<const int*>(lengths_);
@@ -929,11 +1138,12 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
   auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
-  const int R = B * T;
-  if (!sm_bf16 && s_f == nullptr) return cudaErrorInvalidValue;
+  const int R = B * T, Di = H * DH;
+  const bool conv_split = conv_channels(D, ksize, sizeof(bf16), true) == 0;
+  if ((!sm_bf16 || conv_split) && s_f == nullptr) return cudaErrorInvalidValue;
   // LayerNorm in float32, quantized rows in s_q / s_sx
   auto ln_q = [&](const bf16* v, int g, int b) {
-    return layer_norm_quantize(v, fw(g), fw(b), s_q, s_sx, R, D, eps, s);
+    return layer_norm_quantize(v, fw(g), fw(b), s_q, s_sx, R, D, Dt, eps, s);
   };
   // out = epilogue(quantized s_q @ weight wi); bi: its bias
   auto mm = [&](int epi, int wi, int bi, const bf16* res, bf16* out, int N, int K) {
@@ -951,23 +1161,30 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
   EET_TRY(ffn(x, y, W_FFN1_LN_G, W_FFN1_LN_B, W_FFN1_W1, W_FFN1_B1, W_FFN1_W2, W_FFN1_B2));
   // MHSA: one quantized LayerNorm output feeds q, k and v
   EET_TRY(ln_q(y, W_ATTN_LN_G, W_ATTN_LN_B));
-  EET_TRY(mm(EPI_BIAS, W_QKV, W_BQKV, nullptr, s_big, 3 * D, D));
+  EET_TRY(mm(EPI_BIAS, W_QKV, W_BQKV, nullptr, s_big, 3 * Di, D));
   if (sm_bf16) {
-    EET_TRY(attention(s_big, lengths, s_att, B, T, D, H, scale, 1, s));
-    EET_TRY(quantize_rows(s_att, s_q, s_sx, R, D, s));
+    EET_TRY(attention(s_big, lengths, s_att, B, T, Di, H, scale, 1, s));
+    EET_TRY(quantize_rows(s_att, s_q, s_sx, R, Di, s));
   } else {
-    EET_TRY(attention(s_big, lengths, s_f, B, T, D, H, scale, 0, s));
-    EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+    EET_TRY(attention(s_big, lengths, s_f, B, T, Di, H, scale, 0, s));
+    EET_TRY(quantize_rows(s_f, s_q, s_sx, R, Di, s));
   }
-  EET_TRY(mm(EPI_RES, W_O, W_BO, y, y, D, D));
-  // convolution module, its output quantized as it is made
+  EET_TRY(mm(EPI_RES, W_O, W_BO, y, y, D, Di));
+  // convolution module, its output quantized as it is made (or, where its
+  // rows do not fit in a block, written in float32 and quantized after)
   EET_TRY(ln_q(y, W_CONV_LN_G, W_CONV_LN_B));
   EET_TRY(mm(EPI_BIAS, W_PW1, W_BPW1, nullptr, s_big, 2 * D, D));
-  EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
-                      s_q, s_sx, B, T, D, ksize, s));
+  if (conv_split) {
+    EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
+                        s_f, nullptr, B, T, D, ksize, s));
+    EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+  } else {
+    EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
+                        s_q, s_sx, B, T, D, ksize, s));
+  }
   EET_TRY(mm(EPI_RES, W_PW2, W_BPW2, y, y, D, D));
   EET_TRY(ffn(y, y, W_FFN2_LN_G, W_FFN2_LN_B, W_FFN2_W1, W_FFN2_B1, W_FFN2_W2, W_FFN2_B2));
-  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, eps, lengths, T, s));
+  EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
   return 0;
 }
 
@@ -996,21 +1213,46 @@ extern "C" int eet_gemm_s8(const void* aq, const void* sx, const void* wt, const
                  static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
 }
 
-// The bf16 entry's LayerNorm on its own, for checks: x (rows, D) bf16 ->
-// y (rows, D) bf16, every row normalized (none zeroed).
+// The bf16 entries' LayerNorm on its own, for checks: x (rows, D) bf16,
+// or float32 (in_f32: bf16 compute with a float32 residual) -> y (rows,
+// D) bf16, every row normalized (none zeroed), statistics over the first
+// Dt of the D values.
 extern "C" int eet_layer_norm_bf16(const void* x, const void* g, const void* b, void* y,
-                                   int rows, int D, float eps, void* stream_) {
-  return layer_norm(static_cast<const bf16*>(x), static_cast<bf16*>(y),
-                    static_cast<const float*>(g), static_cast<const float*>(b), rows, D, eps,
-                    nullptr, 1, static_cast<cudaStream_t>(stream_));
+                                   int rows, int D, int Dt, float eps, int in_f32,
+                                   void* stream_) {
+  const float* gf = static_cast<const float*>(g);
+  const float* bf = static_cast<const float*>(b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  if (in_f32)
+    return layer_norm(static_cast<const float*>(x), static_cast<bf16*>(y), gf, bf, rows, D, Dt,
+                      eps, nullptr, 1, s);
+  return layer_norm(static_cast<const bf16*>(x), static_cast<bf16*>(y), gf, bf, rows, D, Dt,
+                    eps, nullptr, 1, s);
+}
+
+// The bf16 entries' attention on its own, for checks: qkv (B*T, 3 Di)
+// bf16, the q|k|v rows the QKV product writes, heads of Di / H -> out
+// (B*T, Di), bf16 or, out_f32 (the W8A8 entry with the float32 softmax),
+// float32.
+extern "C" int eet_block_attention(const void* qkv, const void* lengths, void* out, int B,
+                                   int T, int Di, int H, float scale, int sm_bf16, int out_f32,
+                                   void* stream_) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const int* len = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  if (out_f32)
+    return attention(q, len, static_cast<float*>(out), B, T, Di, H, scale, sm_bf16, s);
+  return attention(q, len, static_cast<bf16*>(out), B, T, Di, H, scale, sm_bf16, s);
 }
 
 // The W8A8 entry's LayerNorm + quantize on its own, for checks: x (rows,
-// D) bf16 -> q (rows, D) int8 and sx (rows) float32.
+// D) bf16 -> q (rows, D) int8 and sx (rows) float32, statistics over the
+// first Dt of the D values.
 extern "C" int eet_layer_norm_quantize(const void* x, const void* g, const void* b, void* q,
-                                       void* sx, int rows, int D, float eps, void* stream_) {
+                                       void* sx, int rows, int D, int Dt, float eps,
+                                       void* stream_) {
   return layer_norm_quantize(static_cast<const bf16*>(x), static_cast<const float*>(g),
                              static_cast<const float*>(b), static_cast<int8_t*>(q),
-                             static_cast<float*>(sx), rows, D, eps,
+                             static_cast<float*>(sx), rows, D, Dt, eps,
                              static_cast<cudaStream_t>(stream_));
 }

@@ -31,17 +31,22 @@
 //     reduces by shuffles with the lowest index winning ties, and only the
 //     int32 ids are stored.
 //
-// Any vocabulary V >= 1 and any D a multiple of 64 up to 512. The head is
-// taken in V tiles of 256 columns (the wgmma's N); columns past V, in the
-// last tile, are zeros or stale shared memory, never read from the bias
-// and never candidates. Two designs:
-//   - resident (V <= 256 and D <= 256, the flagship's V = 256 among them):
+// Any vocabulary V >= 1 and any D a multiple of 8. The head is taken in V
+// tiles of 256 columns (the wgmma's N); columns past V, in the last tile,
+// are zeros or stale shared memory, never read from the bias and never
+// candidates. D is taken in boxes of 64 k: where D is not a multiple of
+// 64, TMA fills the hidden rows' last box past D with zeros, so the head
+// rows that box meets (the next exit's first rows, or zeros past the last
+// exit) add exact zeros and the sums are those over D. Three designs, by
+// Dk, D rounded up to 64:
+//   - resident (V <= 256 and Dk <= 256, the flagship's V = 256 among them):
 //     the design above, the one tile of the head in shared memory per
 //     exit; boxes of 64 columns wholly past V are not loaded. The kernel is
 //     a template over kRagged (V < 256), so V = 256 runs the code it ran
 //     before the ragged masks were added;
-//   - streaming (V > 256 or D > 256: the head no longer fits beside the
-//     hidden rows, 256 KB at D = 512 for one tile): a work item is 128 rows
+//   - streaming (V > 256 or Dk > 256, up to Dk 512: the head no longer
+//     fits beside the hidden rows, 256 KB at D = 512 for one tile): a work
+//     item is 128 rows
 //     of one exit, 64 for each consumer warpgroup, in a ring of A stages
 //     (two at D <= 256, one of 128 KB at D = 512). The head streams through
 //     a ring of three [64 k][256 n] W stages (32 KB each) in the order (V
@@ -50,7 +55,12 @@
 //     carried from tile to tile in column order, so a tie across a tile
 //     boundary keeps the lower index. Each item reads the head again, from
 //     L2 (5 MB at D = 512, V = 5000): at large V the kernel is bound by
-//     that L2 traffic and the tensor cores rather than by the hidden rows.
+//     that L2 traffic and the tensor cores rather than by the hidden rows;
+//   - k-tiled (Dk > 512, d 1024: a stage of 128 hidden rows would take 256
+//     KB): the streaming design with no A stages. Each stage of a ring of
+//     four holds one [128 rows][64 k] box of the item's hidden rows beside
+//     the [64 k][256 n] head stage it meets (48 KB), so the rows are read
+//     once for each V tile, from L2 after the first.
 // V % 8 != 0 is padded to a multiple of 8 by the wrapper (TMA wants 16-byte
 // row strides); the padding columns are masked like those past V.
 
@@ -148,7 +158,7 @@ head_argmax_kernel(const __grid_constant__ CUtensorMap map_h,
   const int tiles = (rows + HA_BM - 1) / HA_BM, work = E * tiles;
   const int first = (int)((long long)blockIdx.x * work / gridDim.x);
   const int last = (int)((long long)(blockIdx.x + 1) * work / gridDim.x);
-  const int KB = D / 64;
+  const int KB = (D + 63) / 64;
   const int nbox = kRagged ? tile_boxes(Vp, 0) : HA_V / 64;
 
   if (threadIdx.x == 0) {
@@ -170,13 +180,13 @@ head_argmax_kernel(const __grid_constant__ CUtensorMap map_h,
     for (int i = first, n = 0; i < last; ++i, ++n) {
       const int e = i / tiles, t = i % tiles, s = n % HA_STAGES;
       mbar_wait(a_empty + 8 * s, ((n / HA_STAGES) & 1) ^ 1);  // passes the first time
-      mbar_expect_tx(a_full + 8 * s, HA_BM * D * 2);
+      mbar_expect_tx(a_full + 8 * s, HA_BM * 64 * KB * 2);
       for (int kb = 0; kb < KB; ++kb)
         tma_load_2d(a_base + s * HA_A_BYTES + kb * (HA_BM * 128), &map_h, a_full + 8 * s,
                     64 * kb, e * rows + HA_BM * t);
       if (e != cur) {  // the run enters exit e: its head, once every consumer is done with the last
         if (epoch > 0) mbar_wait(w_empty, (epoch - 1) & 1);
-        mbar_expect_tx(w_full, D * 64 * nbox * 2);
+        mbar_expect_tx(w_full, 64 * KB * 64 * nbox * 2);
         for (int kb = 0; kb < KB; ++kb)
           for (int j = 0; j < nbox; ++j)
             tma_load_2d(w_base + kb * HA_KB_BYTES + j * WG_BOX_BYTES, &map_w, w_full, 64 * j,
@@ -231,8 +241,9 @@ head_argmax_stream_kernel(const __grid_constant__ CUtensorMap map_h,
                           const bf16* __restrict__ bias, int* __restrict__ out, int E, int rows,
                           int D, int V, int Vp) {
   extern __shared__ unsigned char ha_smem[];
-  const int AS = hs_a_stages(D);
-  const int a_bytes = HS_BM * D * 2;
+  const int KB = (D + 63) / 64, NV = (Vp + HA_V - 1) / HA_V;
+  const int AS = hs_a_stages(64 * KB);
+  const int a_bytes = HS_BM * 64 * KB * 2;
   const uint32_t w_base = (smem_u32(ha_smem) + 1023u) & ~1023u;
   const uint32_t a_base = w_base + HS_W_RING;
   const uint32_t w_full = a_base + AS * a_bytes, w_empty = w_full + 8 * HS_WSTAGES;
@@ -241,7 +252,6 @@ head_argmax_stream_kernel(const __grid_constant__ CUtensorMap map_h,
   const int tiles = (rows + HS_BM - 1) / HS_BM, work = E * tiles;
   const int first = (int)((long long)blockIdx.x * work / gridDim.x);
   const int last = (int)((long long)(blockIdx.x + 1) * work / gridDim.x);
-  const int KB = D / 64, NV = (Vp + HA_V - 1) / HA_V;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < HS_WSTAGES; ++s) {
@@ -315,6 +325,92 @@ head_argmax_stream_kernel(const __grid_constant__ CUtensorMap map_h,
   }
 }
 
+// The k-tiled design: the run's stages are numbered w = 0, 1, ... over
+// its items' (V tile, 64 k) pairs, in slot w % HK_STAGES, phase (w /
+// HK_STAGES) & 1; a stage is the A box then the head stage.
+constexpr int HK_STAGES = 4;
+constexpr int HK_A_BYTES = HS_BM * 128;  // [128 rows][64 k] bf16
+constexpr int HK_STAGE_BYTES = HK_A_BYTES + HA_KB_BYTES;
+constexpr int HK_SMEM = 1024 + HK_STAGES * HK_STAGE_BYTES + 2 * HK_STAGES * 8;
+static_assert(HK_SMEM <= HS_SMEM_LIMIT, "the k-tiled ring fits");
+
+__global__ void __launch_bounds__(HA_THREADS, 1)
+head_argmax_ktile_kernel(const __grid_constant__ CUtensorMap map_h,
+                         const __grid_constant__ CUtensorMap map_w,
+                         const bf16* __restrict__ bias, int* __restrict__ out, int E, int rows,
+                         int D, int V, int Vp) {
+  extern __shared__ unsigned char ha_smem[];
+  const uint32_t base = (smem_u32(ha_smem) + 1023u) & ~1023u;
+  const uint32_t full = base + HK_STAGES * HK_STAGE_BYTES, empty = full + 8 * HK_STAGES;
+  const int group = threadIdx.x >> 7;
+  const int tiles = (rows + HS_BM - 1) / HS_BM, work = E * tiles;
+  const int first = (int)((long long)blockIdx.x * work / gridDim.x);
+  const int last = (int)((long long)(blockIdx.x + 1) * work / gridDim.x);
+  const int KB = (D + 63) / 64, NV = (Vp + HA_V - 1) / HA_V;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HK_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);                   // the producer's expect_tx
+      mbar_init(empty + 8 * s, HA_CONSUMERS * 4);   // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (group == HA_CONSUMERS) {
+    // ---- producer: lane 0 of the warpgroup's first warp
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 != 0) return;
+    int w = 0;
+    for (int i = first; i < last; ++i) {
+      const int e = i / tiles, t = i % tiles;
+      for (int vt = 0; vt < NV; ++vt) {
+        const int nbox = tile_boxes(Vp, vt);
+        for (int kb = 0; kb < KB; ++kb, ++w) {
+          const int ws = w % HK_STAGES;
+          const uint32_t stage = base + ws * HK_STAGE_BYTES;
+          mbar_wait(empty + 8 * ws, ((w / HK_STAGES) & 1) ^ 1);  // passes the first time
+          mbar_expect_tx(full + 8 * ws, HK_A_BYTES + 64 * 64 * 2 * nbox);
+          tma_load_2d(stage, &map_h, full + 8 * ws, 64 * kb, e * rows + HS_BM * t);
+          for (int j = 0; j < nbox; ++j)
+            tma_load_2d(stage + HK_A_BYTES + j * WG_BOX_BYTES, &map_w, full + 8 * ws,
+                        HA_V * vt + 64 * j, e * D + 64 * kb);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup g takes rows [64 g, 64 g + 64) of every item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x & 127) >> 5;
+    const int fc = 2 * (lane & 3);
+    float d[128];
+    int w = 0;
+    for (int i = first; i < last; ++i) {
+      const int e = i / tiles, t = i % tiles;
+      float best[2] = {-INFINITY, -INFINITY};
+      int idx[2] = {0, 0};
+      for (int vt = 0; vt < NV; ++vt) {
+        for (int kb = 0; kb < KB; ++kb, ++w) {
+          const int ws = w % HK_STAGES;
+          const uint32_t stage = base + ws * HK_STAGE_BYTES;
+          mbar_wait(full + 8 * ws, (w / HK_STAGES) & 1);
+          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          const uint64_t da = desc_k_major(stage + group * (64 * 128));
+          const uint64_t db = desc_mn_major(stage + HK_A_BYTES);
+#pragma unroll
+          for (int k16 = 0; k16 < 4; ++k16)
+            wgmma_m64n256k16(d, da + 2 * k16, db + (16 * 128 / 16) * k16, kb | k16);
+          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+          if (lane == 0) mbar_arrive(empty + 8 * ws);
+        }
+        fold_tile<true>(d, bias + (size_t)e * Vp, HA_V * vt, V, fc, best, idx);
+      }
+      store_ids(best, idx, out, e, rows, HS_BM * t + 64 * group + 16 * warp, lane);
+    }
+  }
+}
+
 template <class Kernel>
 static cudaError_t launch_head(Kernel kernel, int smem, int (&sms_of)[64], int work,
                                const CUtensorMap& mh, const CUtensorMap& mw, const bf16* bias,
@@ -328,20 +424,21 @@ static cudaError_t launch_head(Kernel kernel, int smem, int (&sms_of)[64], int w
 
 // hidden: (E, rows, D) bf16; W: (E, D, Vp) bf16; bias: (E, Vp) bf16;
 // out: (E, rows) int32, the argmax over the first V columns. D a multiple
-// of 64 up to 512; 1 <= V <= Vp, Vp a multiple of 8; the three tensors
-// 16-byte aligned.
+// of 8; 1 <= V <= Vp, Vp a multiple of 8; the three tensors 16-byte
+// aligned.
 extern "C" int eet_head_argmax_bf16(const void* hidden, const void* w, const void* bias,
                                     void* out, int E, int rows, int D, int V, int Vp,
                                     void* stream) {
-  if (E <= 0 || rows <= 0 || D <= 0 || D % 64 || D > HS_MAX_D || V <= 0 || V > Vp || Vp % 8 ||
+  if (E <= 0 || rows <= 0 || D <= 0 || D % 8 || V <= 0 || V > Vp || Vp % 8 ||
       ((uintptr_t)hidden | (uintptr_t)w | (uintptr_t)bias) % 16)
     return (int)cudaErrorInvalidValue;
   const bf16* b = static_cast<const bf16*>(bias);
   int* o = static_cast<int*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int Dk = (D + 63) / 64 * 64;
   CUtensorMap mh, mw;
   EET_TRY(tensor_map(w, 2, Vp, (uint64_t)E * D, 64, 64, &mw));
-  if (V <= HA_V && D <= HA_MAX_D) {  // resident
+  if (V <= HA_V && Dk <= HA_MAX_D) {  // resident
     EET_TRY(tensor_map(hidden, 2, D, (uint64_t)E * rows, 64, HA_BM, &mh));
     const int work = E * ((rows + HA_BM - 1) / HA_BM);
     if (V == HA_V) {
@@ -355,12 +452,17 @@ extern "C" int eet_head_argmax_bf16(const void* hidden, const void* w, const voi
   }
   EET_TRY(tensor_map(hidden, 2, D, (uint64_t)E * rows, 64, HS_BM, &mh));
   const int work = E * ((rows + HS_BM - 1) / HS_BM);
+  if (Dk > HS_MAX_D) {  // k-tiled
+    static int sms_of[64] = {};
+    return (int)launch_head(head_argmax_ktile_kernel, HK_SMEM, sms_of, work, mh, mw, b, o, E,
+                            rows, D, V, Vp, s);
+  }
   // the largest opt-in the kernel may ask for, set once; each launch asks
   // for its own D's
   static int sms_of[64] = {};
   int sms = 0;
   EET_TRY(sm_count(head_argmax_stream_kernel, hs_smem(HS_MAX_D), sms_of, &sms));
-  head_argmax_stream_kernel<<<work < sms ? work : sms, HA_THREADS, hs_smem(D), s>>>(
+  head_argmax_stream_kernel<<<work < sms ? work : sms, HA_THREADS, hs_smem(Dk), s>>>(
       mh, mw, b, o, E, rows, D, V, Vp);
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,12 @@ through the block kernel (`ops/kernels/conformer_block.py`) when
 it mirrors the JAX dispatch: the kernel up to T' = 512 (the TPU kernel's
 VMEM budget), the unfused blocks beyond. On the GPU it always launches
 the kernel, at any T'. The kernel layout is folded from the weights
-when they change (`ConformerStack.folded`); an exported program pins
-its own copy, held as buffers (`pin_folded`). A group-norm block
+when they change (`ConformerStack.folded`), at the card's padded widths
+(`kcb.block_plan`: nothing is padded at the flagship's); an exported
+program pins its own copy, held as buffers (`pin_folded`). Where d_model
+is not a multiple of `kcb.PITCH`, the residual is padded with zero
+columns once where the fused blocks begin and cut where they end. A
+group-norm block
 never takes the kernel: the kernel folds BatchNorm running statistics,
 so a group-norm configuration with `fused_block` or W8A8 raises
 (`GROUP_NORM_FUSED`).
@@ -342,7 +346,8 @@ class ConformerStack(nn.Module):
         if self._folded_key != key:
             self._folded = [kcb.fold_block_params(b.state_dict(),
                                                   compute_dtype=self.cfg.dtype,
-                                                  quantize=self.cfg.quant)
+                                                  quantize=self.cfg.quant,
+                                                  n_heads=self.cfg.n_heads)
                             for b in self.blocks]
             self._folded_key = key
         return self._folded
@@ -383,7 +388,10 @@ class ConformerStack(nn.Module):
             else:
                 lengths = torch.full((x.shape[0],), x.shape[1],
                                      dtype=torch.int32, device=x.device)
-            h = x.to(self.cfg.rdtype).contiguous()
+            D = self.cfg.d_model
+            pad = kcb.pitch(D) - D
+            h = x.to(self.cfg.rdtype)
+            h = (torch.nn.functional.pad(h, (0, pad)) if pad else h).contiguous()
             for i, f in enumerate(self.folded()[first_layer:last]):
                 h = kcb.conformer_block(
                     f, h, lengths, n_heads=self.cfg.n_heads,
@@ -391,9 +399,11 @@ class ConformerStack(nn.Module):
                     compute_dtype=self.cfg.dtype,
                     residual_dtype=self.cfg.rdtype,
                     attn_softmax_dtype=self.cfg.sm_dtype,
-                    quantize=self.cfg.quant)
+                    quantize=self.cfg.quant, d_model=D)
                 if collect_outputs and (i + 1) % k == 0:
-                    outs.append(h)
+                    outs.append(h[..., :D] if pad else h)
+            if pad:
+                h = h[..., :D]
         else:
             h = x
             for i, block in enumerate(self.blocks[first_layer:last]):

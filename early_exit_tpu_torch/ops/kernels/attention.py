@@ -26,8 +26,9 @@ from early_exit_tpu_torch.nn import core
 from early_exit_tpu_torch.ops.kernels import _build
 
 NEG = -1e9
-# the head widths the kernel is instantiated for (attention_f32.cuh)
-HEAD_WIDTHS = (16, 32, 64)
+# the head widths the kernel is instantiated for (attention_f32.cuh); a
+# head of another width up to 128 is padded with zero columns to the next
+HEAD_WIDTHS = (16, 32, 48, 64, 128)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,8 +52,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid. Returns (B, H, T, dh) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes dh = 16, 32 or 64 and any T > 0 (K and V are streamed) and
-    raises on anything else."""
+    which takes any dh up to 128 and any T > 0 (K and V are streamed) and
+    raises on anything else. A dh other than 16, 32, 48, 64 or 128 is padded
+    with zero columns to the next of them (copies of q, k and v; zeros
+    add nothing to the scores, which keep 1/sqrt of the true dh, and make
+    zero output columns, which are cut off)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     return torch.ops.eet.fused_attention(q, k, v, mask.to(torch.bool))
@@ -67,9 +71,10 @@ def _fused_attention_cuda(q, k, v, mask):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_attention kernel takes bf16 or float32 "
                          f"q/k/v, got {q.dtype}")
-    if dh not in HEAD_WIDTHS:
-        raise ValueError(f"fused_attention kernel needs heads {HEAD_WIDTHS} "
-                         f"wide, got dh={dh}")
+    dhp = next((w for w in HEAD_WIDTHS if w >= dh), None)
+    if dhp is None:
+        raise NotImplementedError(f"fused_attention kernel: heads of {dh} are not "
+                                  f"ported; it takes heads up to {HEAD_WIDTHS[-1]} wide")
     if T <= 0:
         raise ValueError(f"fused_attention kernel needs T > 0, got {T}")
     lib = _lib()
@@ -83,14 +88,16 @@ def _fused_attention_cuda(q, k, v, mask):
                 f"fused_attention: {name} must be a contiguous {dtype} tensor "
                 f"of shape {shape} on {q.device}; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
-    out = torch.empty(B, H, T, dh, dtype=torch.float32, device=q.device)
+    if dhp != dh:
+        q, k, v = (torch.nn.functional.pad(t, (0, dhp - dh)) for t in (q, k, v))
+    out = torch.empty(B, H, T, dhp, dtype=torch.float32, device=q.device)
     err = lib.eet_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(mask),
-        _build.ptr(out), B, H, T, dh, int(q.dtype == torch.bfloat16),
+        _build.ptr(out), B, H, T, dhp, int(q.dtype == torch.bfloat16),
         1.0 / math.sqrt(dh), _build.stream_ptr(q.device))
     _build.check(lib, err, "fused_attention kernel")
     fused_attention.launches += 1
-    return out
+    return out if dhp == dh else out[..., :dh].contiguous()
 
 
 fused_attention.launches = 0

@@ -6,10 +6,23 @@ Replaces `early_exit_tpu/ops/pallas/conformer_block.py::fused_block_apply`
 plain version repeats the TPU kernel's arithmetic op for op -- including
 its one-pass LayerNorm variance, max(E[x^2] - mu^2, 0) -- on any device,
 in any compute dtype and with or without W8A8 quantization; the CPU path
-and the tests use it. The CUDA source has three entries: the bf16
-profile (bf16 compute and residual, bf16 or float32 softmax), float32
-(everything float32) and W8A8 (`quantize="int8"` in the bf16 profile).
-Any other mix raises on the card. The bf16 entry's ten products run
+and the tests use it. The CUDA source has four entries for five
+profiles (`_entry`): bf16 (bf16 compute and residual, bf16 or float32
+softmax), W8A8 (`quantize="int8"` in the bf16 profile), float32
+(everything float32, or with the bf16 softmax) and bf16 compute with a
+float32 residual. The mixes none takes raise by name on the card.
+
+The card takes every width the TPU kernel takes but heads wider than
+128, through a padded layout (`block_plan`, `fold_block_params(...,
+n_heads=H)`): d_model and d_ff round up to multiples of 16 (`PITCH`) and
+each head to the next width the attentions are instantiated at
+(`HEAD_WIDTHS`), with zero weights, biases, LayerNorm
+vectors and BatchNorm rows in the padding, so the padded columns of
+every intermediate are exact zeros; the LayerNorms count the true
+d_model and the scores take 1/sqrt of the true head width. A residual
+of a d_model that is not a multiple of 16 arrives padded to its pitch
+(`ConformerStack` pads it once for a stack). The flagship's widths pad
+nothing. The bf16 entry's ten products run
 through one wgmma + TMA kernel (`csrc/gemm_bf16.cuh`), the W8A8 entry's
 through its int8 instantiation (`csrc/gemm_s8.cuh`); `block_gemm` and
 `block_gemm_s8` expose them on their own for checks and timing,
@@ -27,6 +40,7 @@ and whose CUDA implementation is the launch below (`_*_cuda`), so that
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Dict, List, Mapping, Optional
 
@@ -35,6 +49,11 @@ import torch.nn.functional as F
 
 from early_exit_tpu_torch.nn.core import int8_matmul, quantize_int8
 from early_exit_tpu_torch.ops.kernels import _build
+# the head widths both attentions are instantiated at (the mma.sync one of
+# bf16 q, k, v in the bf16, W8A8 and float32-residual entries; the float32
+# one of attention_f32.cuh, shared with row 3, in the float32 entry). A
+# head of another width up to 128 is padded with zero columns to the next
+from early_exit_tpu_torch.ops.kernels.attention import HEAD_WIDTHS
 
 # the C entries' weight order
 PARAM_ORDER = (
@@ -64,17 +83,155 @@ _FLOAT32 = {n for n in PARAM_ORDER if "_ln_" in n} | {
     "dw_b", "bn_scale", "bn_shift"}
 _FLOAT32_INT8 = _FLOAT32 | set(_MATMULS.values()) | {
     n + "_s" for n in _MATMULS}
-# the widest row the W8A8 LayerNorm + quantize kernel takes (LNQ_MAX_D in
-# the source): one warp, two chunks of 8 values a lane
+# the widest row the W8A8 LayerNorm + quantize kernel keeps in registers
+# (LNQ_MAX_D in the source: one warp, two chunks of 8 values a lane); a
+# wider one is read again for each of its passes
 LNQ_MAX_D = 512
-# the head widths D / n_heads the block's attention is instantiated for
-HEAD_WIDTHS = (16, 32, 64)
+# d_model (the residual's row) and d_ff are padded to multiples of PITCH:
+# 16-byte rows for TMA's int8 operands, 32-byte float32 rows
+PITCH = 16
+# the conv module's time tile and the shared memory a block may take
+# (CONV_TT and SMEM_LIMIT in the source), for `conv_channels`
+CONV_TT = 32
+SMEM_LIMIT = 232448
+# the entries' names, by (compute, residual, softmax) dtype name and
+# whether quantized: the C entry each launches is in `_ENTRY_FN`
+ENTRIES = ("bf16", "w8a8", "f32", "f32_sm_bf16", "bf16_res_f32")
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pitch(d_model: int) -> int:
+    """The residual's row in the kernel layout: d_model padded to PITCH."""
+    return _round_up(d_model, PITCH)
+
+
+def padded_head(dh: int) -> int:
+    """The instantiated width a head of dh is padded to; dh itself past 128 (the card refuses it by name,
+    `block_plan`; the plain version takes it)."""
+    return next((w for w in HEAD_WIDTHS if w >= dh), dh)
+
+
+def conv_channels(d: int, kernel_size: int, elem_bytes: int, quant: bool) -> int:
+    """Channels a conv-module block holds at pitch d (`conv_channels` in
+    the source): d where the GLU tile with its halo (and, quantized, the
+    float32 rows that wait for their absmax) fits in shared memory, else
+    the most that fit, a multiple of 8; 0 where a quantized output, which
+    needs whole rows, does not fit."""
+    per = (CONV_TT + kernel_size - 1) * elem_bytes + (CONV_TT * 4 if quant else 0)
+    if per * d <= SMEM_LIMIT:
+        return d
+    return 0 if quant else SMEM_LIMIT // per // 8 * 8
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """One launch of the block kernel as the card runs it (`block_plan`):
+    the C entry, the model's widths and the padded ones of its layout (the
+    head's is the attention's instantiation), and how the conv module and
+    the W8A8 LayerNorm + quantize are laid out. Pure Python: the tests plan every width on the CPU, and
+    the launch checks the layout's shapes against it."""
+    entry: str
+    d_model: int          # the LayerNorms' count
+    pitch: int            # the residual's row
+    n_heads: int
+    head_dim: int         # the scores' scale is 1/sqrt(head_dim)
+    head_pad: int         # the instantiated width of the attention
+    d_ff: int
+    ff_pad: int
+    kernel_size: int
+    conv_channels: int    # channels a conv block holds (pitch: all)
+    conv_split: bool      # W8A8: the conv output quantized in a pass of its own
+    lnq_wide: bool        # W8A8: the LayerNorm + quantize rereads its row
+
+    @property
+    def inner(self) -> int:
+        """The attention's width, n_heads x head_pad."""
+        return self.n_heads * self.head_pad
+
+
+def block_plan(d_model: int, n_heads: int, d_ff: int, kernel_size: int, *,
+               compute_dtype: torch.dtype = torch.bfloat16,
+               residual_dtype: torch.dtype = torch.bfloat16,
+               attn_softmax_dtype: torch.dtype = torch.float32,
+               quantize: Optional[str] = None) -> BlockPlan:
+    """How the card runs a block of these widths in this profile; raises
+    by name for what it does not take (ROADMAP Queue B'): a profile no
+    entry takes (`_entry`) and heads wider than 128."""
+    entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
+    if n_heads <= 0 or d_model % n_heads:
+        raise ValueError(f"conformer_block: d_model {d_model} is not a multiple of "
+                         f"n_heads {n_heads}")
+    dh = d_model // n_heads
+    f32 = compute_dtype == torch.float32
+    head_pad = padded_head(dh)
+    if head_pad > HEAD_WIDTHS[-1]:
+        raise NotImplementedError(
+            f"conformer_block kernel: heads of {dh} (d_model {d_model} / {n_heads}) are "
+            f"not ported; the card's attentions take heads up to 128 wide")
+    p = pitch(d_model)
+    quant = entry == "w8a8"
+    elem = 4 if f32 else 2
+    ct = conv_channels(p, kernel_size, elem, quant)
+    split = quant and ct == 0
+    if split:
+        ct = conv_channels(p, kernel_size, elem, False)
+    if ct < 8:
+        raise NotImplementedError(
+            f"conformer_block kernel: a depthwise kernel of {kernel_size} taps does not "
+            f"fit the conv module's shared-memory tile")
+    return BlockPlan(
+        entry=entry, d_model=d_model, pitch=p, n_heads=n_heads, head_dim=dh,
+        head_pad=head_pad, d_ff=d_ff, ff_pad=_round_up(d_ff, PITCH),
+        kernel_size=kernel_size, conv_channels=ct, conv_split=split, lnq_wide=quant and p > LNQ_MAX_D)
+
+
+def _pad_layout(out: Dict[str, torch.Tensor], n_heads: int) -> Dict[str, torch.Tensor]:
+    """The float layout (unpadded, `fold_block_params` before its casts)
+    padded to the card's widths: d_model to `pitch`, d_ff to PITCH, each
+    head to `padded_head`, every added weight, bias and vector zero.
+    PW1's two halves (the GLU's a and gate) are padded each to the pitch,
+    as the kernel splits its output at the pitch. Returns `out` itself
+    where nothing is padded."""
+    D, Fd = out["ffn1_w1"].shape
+    H = n_heads
+    dh = D // H
+    P, Fp, dhp = pitch(D), _round_up(Fd, PITCH), padded_head(dh)
+    if (P, Fp, dhp) == (D, Fd, dh):
+        return out
+
+    def pad(t, *sizes):      # zero-pad each axis to the size given (None: as is)
+        widths = []
+        for n, want in zip(reversed(t.shape), reversed(sizes)):
+            widths += [0, 0 if want is None else want - n]
+        return F.pad(t, widths)
+
+    def heads(t):            # (..., H * dh) -> (..., H * dhp), head by head
+        return pad(t.reshape(*t.shape[:-1], H, dh), *(None,) * t.dim(), dhp).reshape(
+            *t.shape[:-1], H * dhp)
+
+    r = {k: pad(v, P) for k, v in out.items() if v.dim() == 1 and v.shape[0] == D}
+    for pre in ("ffn1", "ffn2"):
+        r[pre + "_w1"] = pad(out[pre + "_w1"], P, Fp)
+        r[pre + "_b1"] = pad(out[pre + "_b1"], Fp)
+        r[pre + "_w2"] = pad(out[pre + "_w2"], Fp, P)
+    r["wqkv"] = torch.cat([pad(heads(w), P, None) for w in out["wqkv"].split(D, 1)], 1)
+    r["bqkv"] = torch.cat([heads(b) for b in out["bqkv"].split(D)])
+    r["wo"] = pad(heads(out["wo"].t()).t(), None, P)
+    r["pw1_w"] = torch.cat([pad(w, P, P) for w in out["pw1_w"].split(D, 1)], 1)
+    r["pw1_b"] = torch.cat([pad(b, P) for b in out["pw1_b"].split(D)])
+    r["pw2_w"] = pad(out["pw2_w"], P, P)
+    r["dw_w"] = pad(out["dw_w"], None, P)
+    return r
 
 
 def fold_block_params(sd: Mapping[str, torch.Tensor], *,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       eps: float = 1e-5,
-                      quantize: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                      quantize: Optional[str] = None,
+                      n_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """One block's tensors (a `ConformerBlock.state_dict()`) -> the
     kernel's layout: matmul weights and biases in the compute dtype,
     q/k/v concatenated into one (D, 3D) product, LayerNorm vectors float32,
@@ -84,7 +241,14 @@ def fold_block_params(sd: Mapping[str, torch.Tensor], *,
     int8 twin, quantized per output channel from the raw float32 weight,
     with its scale row `<name>_s` (float32, (N,)); the products' biases
     stay float32 (added after the int32 -> float32 rescale). `<name>_t`
-    is the twin transposed to (N, K), the layout the CUDA kernel reads."""
+    is the twin transposed to (N, K), the layout the CUDA kernel reads.
+
+    n_heads given: the card's padded layout (`_pad_layout`; the widths of
+    `block_plan`), quantized after the padding (a zero row or column
+    moves no scale). Without it the layout keeps the model's widths: the
+    plain version's and the library yardstick's, against which the tests
+    hold the padded layout value for value (the card refuses it where the
+    two differ)."""
     cd = compute_dtype
     bn_scale = sd["conv.bn_g"].float() * torch.rsqrt(sd["conv.bn_var"].float() + eps)
     bn_shift = sd["conv.bn_b"].float() - sd["conv.bn_mean"].float() * bn_scale
@@ -104,6 +268,8 @@ def fold_block_params(sd: Mapping[str, torch.Tensor], *,
     for pre in ("ffn1", "ffn2"):
         for k in ("ln_g", "ln_b", "w1", "b1", "w2", "b2"):
             out[f"{pre}_{k}"] = sd[f"{pre}.{k}"]
+    if n_heads is not None:
+        out = _pad_layout(out, n_heads)
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize must be None or 'int8': {quantize!r}")
     if quantize != "int8":
@@ -118,10 +284,13 @@ def fold_block_params(sd: Mapping[str, torch.Tensor], *,
             for k, v in out.items()}
 
 
-def _ln_one_pass(v, g, b, eps):
+def _ln_one_pass(v, g, b, eps, d=None):
+    """The one-pass LayerNorm; d: the true width of a padded row (its
+    statistics over the first d values, whose padding is zeros)."""
     v32 = v.float()
-    mu = v32.mean(-1, keepdim=True)
-    var = (v32.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0.0)
+    s = v32 if d is None or d == v.shape[-1] else v32[..., :d]
+    mu = s.mean(-1, keepdim=True)
+    var = (s.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0.0)
     return (v32 - mu) * torch.rsqrt(var + eps) * g + b
 
 
@@ -148,10 +317,15 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                           attn_softmax_dtype: torch.dtype = torch.float32,
                           quantize: Optional[str] = None,
                           eps: float = 1e-5,
-                          ablate=frozenset()) -> torch.Tensor:
+                          ablate=frozenset(),
+                          d_model: Optional[int] = None) -> torch.Tensor:
     """The kernel's function in PyTorch ops. x: (B, T, D); lengths: (B,).
     With quantize="int8", f is the W8A8 layout and every product
-    quantizes its float input row by row.
+    quantizes its float input row by row. On the card's padded layout
+    (`fold_block_params(..., n_heads=H)`), x has the pitch's columns and
+    d_model is the true width: the LayerNorms count it, the heads are
+    split at the layout's padded width and scaled by 1/sqrt of the true
+    one, and the padded columns stay zeros, as in the kernel.
 
     ablate: for timing by difference only (`ablate_fused_block`), parts
     of the block taken out with the TPU kernel's semantics (`ABLATIONS`):
@@ -164,6 +338,9 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
     int8 = quantize == "int8"
     _ablate_bits(ablate)
 
+    B, T, D = x.shape
+    d_true = d_model or D
+
     def ln(v, g, b):
         if "ln" in ablate:
             return v.float() * g + b
@@ -172,9 +349,8 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
             mu = v32.mean(-1, keepdim=True)
             var = (v32 - mu).square().mean(-1, keepdim=True)
             return (v32 - mu) * torch.rsqrt(var + eps) * g + b
-        return _ln_one_pass(v, g, b, eps)
+        return _ln_one_pass(v, g, b, eps, d_true)
 
-    B, T, D = x.shape
     valid = (torch.arange(T, device=x.device)[None, :]
              < lengths.to(x.device)[:, None])                   # (B, T)
 
@@ -201,7 +377,7 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         x = x + 0.5 * ffn(x, "ffn1").to(rd)
     if "attn" not in ablate:
         x = _mhsa(x, ln(x, f["attn_ln_g"], f["attn_ln_b"]), mm, valid, n_heads,
-                  cd, rd, attn_softmax_dtype, "softmax" in ablate)
+                  d_true // n_heads, cd, rd, attn_softmax_dtype, "softmax" in ablate)
     if "conv" not in ablate:
         x = _conv_module(x, ln(x, f["conv_ln_g"], f["conv_ln_b"]), f, mm, silu, valid,
                          kernel_size, cd, rd, ablate)
@@ -212,13 +388,23 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                        torch.zeros((), dtype=rd, device=x.device))
 
 
-def _mhsa(x, y, mm, valid, n_heads, cd, rd, attn_softmax_dtype, no_softmax):
-    """x + the MHSA module on its LayerNormed input y, per-item key mask."""
-    B, T, D = x.shape
-    dh = D // n_heads
+def _mhsa(x, y, mm, valid, n_heads, dh, cd, rd, attn_softmax_dtype, no_softmax):
+    """x + the MHSA module on its LayerNormed input y, per-item key mask;
+    heads of dh, in the layout's width (padded past dh with zeros)."""
+    B, T, _ = x.shape
     qkv = mm(y, "wqkv", "bqkv")
-    q, k, v = (t.reshape(B, T, n_heads, dh).transpose(1, 2)
-               for t in qkv.split(D, dim=-1))
+    inner = qkv.shape[-1] // 3
+    q, k, v = (t.reshape(B, T, n_heads, inner // n_heads).transpose(1, 2)
+               for t in qkv.split(inner, dim=-1))
+    oh = _attention(q, k, v, valid, dh, cd, attn_softmax_dtype, no_softmax)
+    att = oh.transpose(1, 2).reshape(B, T, inner)
+    return x + mm(att, "wo", "bo").to(rd)
+
+
+def _attention(q, k, v, valid, dh, cd, attn_softmax_dtype, no_softmax):
+    """The block's attention: q, k, v (B, H, T, heads padded past dh) ->
+    P V (B, H, T, the same width); a bf16 softmax gives it in the compute
+    dtype, a float32 one unrounded."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2))     # (B,H,T,T)
     col_valid = valid[:, None, None, :]
     if attn_softmax_dtype == torch.bfloat16:
@@ -235,8 +421,7 @@ def _mhsa(x, y, mm, valid, n_heads, cd, rd, attn_softmax_dtype, no_softmax):
         s = (s * (1.0 / math.sqrt(dh))).masked_fill(~col_valid, -1e9)
         p = (s if no_softmax else torch.softmax(s, dim=-1)).to(cd)
         oh = torch.matmul(p.float(), v.to(cd).float())
-    att = oh.transpose(1, 2).reshape(B, T, D)
-    return x + mm(att, "wo", "bo").to(rd)
+    return oh
 
 
 def _conv_module(x, y, f, mm, silu, valid, kernel_size, cd, rd, ablate):
@@ -284,22 +469,29 @@ def _check_epilogue(name: str, epilogue: str, res: Optional[torch.Tensor]) -> No
 
 
 def _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize) -> str:
-    """Which C entry takes this profile on the card; raises by name for a
-    mix none takes."""
+    """Which of `ENTRIES` takes this profile on the card; raises by name
+    for a mix none takes (ROADMAP Queue B')."""
     cd, rd, sm = compute_dtype, residual_dtype, attn_softmax_dtype
+    bf, f32 = torch.bfloat16, torch.float32
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize must be None or 'int8': {quantize!r}")
-    if sm not in (torch.bfloat16, torch.float32):
+    if sm not in (bf, f32):
         raise ValueError(f"unsupported softmax dtype {sm}")
-    if cd == rd == torch.bfloat16:
-        return "w8a8" if quantize == "int8" else "bf16"
-    if cd == rd == sm == torch.float32 and quantize != "int8":
-        return "f32"
+    if quantize == "int8":
+        if cd == rd == bf:
+            return "w8a8"
+    elif cd == rd == bf:
+        return "bf16"
+    elif cd == bf and rd == f32:
+        return "bf16_res_f32"
+    elif cd == rd == f32:
+        return "f32" if sm == f32 else "f32_sm_bf16"
     raise NotImplementedError(
         f"conformer_block kernel: compute {cd}, residual {rd}, softmax {sm}, "
-        f"quantize {quantize!r} is not ported; the card takes bf16 compute "
-        "and residual (either softmax dtype, with or without "
-        "quantize='int8') or float32 throughout without quantization")
+        f"quantize {quantize!r} is not ported; the card takes bf16 compute with a "
+        "bf16 or float32 residual (either softmax dtype; quantize='int8' with the "
+        "bf16 residual only) and float32 compute and residual (either softmax "
+        "dtype) without quantization")
 
 
 def op_params(f: Mapping[str, torch.Tensor],
@@ -327,22 +519,24 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                     residual_dtype: torch.dtype = torch.bfloat16,
                     attn_softmax_dtype: torch.dtype = torch.float32,
                     quantize: Optional[str] = None,
+                    d_model: Optional[int] = None,
                     out: torch.Tensor | None = None) -> torch.Tensor:
     """One inference Conformer block. x: (B, T, D); lengths: (B,) int32;
     f: from `fold_block_params` (with the same `quantize`). Returns
-    (B, T, D) in the residual dtype (copied into `out` when given).
+    (B, T, D) in the residual dtype (copied into `out` when given). On
+    the card's padded layout (`fold_block_params(..., n_heads=H)`) x has
+    the pitch's columns and d_model is the model's width.
 
     Calls the op `eet::conformer_block`. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel: the bf16 entry, the W8A8
-    entry (`quantize="int8"`, bf16 compute and residual, d_model <= 256)
-    or the float32 entry, each at any T > 0 (their attention streams the
-    keys through shared memory in tiles). Any other dtype mix, width or
-    head width raises."""
+    version; a CUDA tensor launches the kernel of its profile (`_entry`)
+    at any T > 0 (the attentions stream the keys through shared memory in
+    tiles) on the layout `block_plan` describes, or raises by name."""
     _device_ok("conformer_block", x)
     y = torch.ops.eet.conformer_block(
         x, lengths, op_params(f, quantize), n_heads, kernel_size,
         *(str(dt).removeprefix("torch.") for dt in
-          (compute_dtype, residual_dtype, attn_softmax_dtype)), quantize or "none")
+          (compute_dtype, residual_dtype, attn_softmax_dtype)), quantize or "none",
+        d_model or 0)
     if out is None:
         return y
     out.copy_(y)
@@ -354,57 +548,68 @@ def conformer_block(f: Mapping[str, torch.Tensor], x: torch.Tensor,
 # the export format's numbering, which torch 2.11 reads as another type.
 
 def _conformer_block_cpu(x, lengths, params, n_heads, kernel_size, compute_dtype,
-                         residual_dtype, attn_softmax_dtype, quantize):
+                         residual_dtype, attn_softmax_dtype, quantize, d_model=0):
     return conformer_block_plain(
         _layout(params, quantize), x, lengths, n_heads=n_heads,
         kernel_size=kernel_size, compute_dtype=getattr(torch, compute_dtype),
         residual_dtype=getattr(torch, residual_dtype),
-        attn_softmax_dtype=getattr(torch, attn_softmax_dtype), quantize=quantize)
+        attn_softmax_dtype=getattr(torch, attn_softmax_dtype), quantize=quantize,
+        d_model=d_model or None)
 
 
 def _conformer_block_fake(x, lengths, params, n_heads, kernel_size, compute_dtype,
-                          residual_dtype, attn_softmax_dtype, quantize):
+                          residual_dtype, attn_softmax_dtype, quantize, d_model=0):
     return x.new_empty(x.shape, dtype=getattr(torch, residual_dtype))
 
 
+# the C entry of each of `ENTRIES` (bf16 compute with a float32 residual
+# has one of its own; float32 with either softmax shares one)
+_ENTRY_FN = {"bf16": "eet_conformer_block_bf16", "w8a8": "eet_conformer_block_w8a8",
+             "f32": "eet_conformer_block_f32", "f32_sm_bf16": "eet_conformer_block_f32",
+             "bf16_res_f32": "eet_conformer_block_bf16_f32res"}
+
+
 def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtype,
-                          residual_dtype, attn_softmax_dtype, quantize, ablate=None):
-    """The kernel launch: checks, scratch, the C entry of the profile.
-    ablate (bits of `ABLATIONS`, the bf16 entry only): the ablation
-    library's entry instead, counted by `conformer_block_ablate`."""
+                          residual_dtype, attn_softmax_dtype, quantize, d_model=0,
+                          ablate=None):
+    """The kernel launch: the plan, checks of the layout against it,
+    scratch, the C entry of the profile. ablate (bits of `ABLATIONS`, the
+    bf16 entry only): the ablation library's entry instead, counted by
+    `conformer_block_ablate`."""
     compute_dtype, residual_dtype, attn_softmax_dtype = (
         getattr(torch, name) for name in (compute_dtype, residual_dtype,
                                           attn_softmax_dtype))
-    entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
+    B, T, P = x.shape
+    f = _layout(params, quantize)
+    plan = block_plan(d_model or P, n_heads, f["ffn1_w1"].shape[1], kernel_size,
+                      compute_dtype=compute_dtype, residual_dtype=residual_dtype,
+                      attn_softmax_dtype=attn_softmax_dtype, quantize=quantize)
+    entry = plan.entry
     if ablate is not None and entry != "bf16":
         raise NotImplementedError(f"conformer_block_ablate: the ablation library "
                                   f"has the bf16 entry only, not {entry}")
-    f = _layout(params, quantize)
-    B, T, D = x.shape
-    Fd = f["ffn1_w1"].shape[1]
-    if D % 128 or Fd % 128 or D % n_heads or D // n_heads not in HEAD_WIDTHS:
+    Fd, Di = plan.ff_pad, plan.inner
+    if (P, f["ffn1_w1"].shape[1], f["wqkv"].shape[1]) != (plan.pitch, Fd, 3 * Di):
         raise ValueError(
-            f"conformer_block kernel needs d_model and d_ff multiples of 128 "
-            f"and heads {HEAD_WIDTHS} wide; got D={D} F={Fd} heads={n_heads}")
-    if entry == "w8a8" and D > LNQ_MAX_D:
-        raise ValueError(f"conformer_block kernel (w8a8) needs d_model <= "
-                         f"{LNQ_MAX_D} (its LayerNorm + quantize keeps a row in "
-                         f"one warp's registers); got D={D}")
+            f"conformer_block kernel: the layout is not padded for the card: x has "
+            f"{P} columns, d_ff {f['ffn1_w1'].shape[1]}, q|k|v {f['wqkv'].shape[1]}; "
+            f"d_model {plan.d_model} with {n_heads} heads takes {plan.pitch}, {Fd} and "
+            f"{3 * Di} (fold_block_params(..., n_heads={n_heads}), d_model=...)")
     if T <= 0:
         raise ValueError(f"conformer_block kernel ({entry}) needs T > 0, got {T}")
     lib = _lib()
     dev, xdt = x.device, residual_dtype
-    _check(x, "x", xdt, (B, T, D), dev)
+    _check(x, "x", xdt, (B, T, P), dev)
     _check(lengths, "lengths", torch.int32, (B,), dev)
-    shapes = {"ffn1_w1": (D, Fd), "ffn1_b1": (Fd,), "ffn1_w2": (Fd, D),
-              "ffn2_w1": (D, Fd), "ffn2_b1": (Fd,), "ffn2_w2": (Fd, D),
-              "wqkv": (D, 3 * D), "bqkv": (3 * D,), "wo": (D, D),
-              "pw1_w": (D, 2 * D), "pw1_b": (2 * D,), "pw2_w": (D, D),
-              "dw_w": (kernel_size, D)}
+    shapes = {"ffn1_w1": (P, Fd), "ffn1_b1": (Fd,), "ffn1_w2": (Fd, P),
+              "ffn2_w1": (P, Fd), "ffn2_b1": (Fd,), "ffn2_w2": (Fd, P),
+              "wqkv": (P, 3 * Di), "bqkv": (3 * Di,), "wo": (Di, P),
+              "pw1_w": (P, 2 * P), "pw1_b": (2 * P,), "pw2_w": (P, P),
+              "dw_w": (kernel_size, P)}
     f32_names = _FLOAT32_INT8 if entry == "w8a8" else _FLOAT32
     ptrs, scale_ptrs = [], []
     for name in PARAM_ORDER:
-        shape = shapes.get(name, (D,))
+        shape = shapes.get(name, (P,))
         if entry == "w8a8" and name in _MATMULS:
             _check(f[name + "_t"], name + "_t", torch.int8, shape[::-1], dev)
             _check(f[name + "_s"], name + "_s", torch.float32, shape[1:], dev)
@@ -417,40 +622,35 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
         scale_ptrs.append(None)
     y = torch.empty_like(x)
     R = B * T
-    s_ln = torch.empty(R, D, dtype=xdt, device=dev)
-    s_big = torch.empty(R, max(Fd, 3 * D), dtype=xdt, device=dev)
-    s_att = torch.empty(R, D, dtype=xdt, device=dev)
+    sdt = compute_dtype       # the scratch holds compute-dtype activations
+    s_ln = torch.empty(R, P, dtype=sdt, device=dev)
+    s_big = torch.empty(R, max(Fd, 3 * Di), dtype=sdt, device=dev)
+    s_att = torch.empty(R, max(P, Di), dtype=sdt, device=dev)
     wptrs = (ctypes.c_void_p * len(PARAM_ORDER))(*ptrs)
     sm_bf16 = attn_softmax_dtype == torch.bfloat16
-    scale = 1.0 / math.sqrt(D // n_heads)
+    scale = 1.0 / math.sqrt(plan.head_dim)
     if sm_bf16:       # the scores are scaled in bf16
         scale = torch.tensor(scale, dtype=torch.bfloat16).item()
-    head = (_build.ptr(x), _build.ptr(y), _build.ptr(lengths), B, T, D,
-            n_heads, Fd, kernel_size)
+    head = (_build.ptr(x), _build.ptr(y), _build.ptr(lengths), B, T, P, plan.d_model,
+            n_heads, plan.head_pad, Fd, kernel_size, int(sm_bf16), scale, 1e-5, wptrs)
+    scratch = (_build.ptr(s_ln), _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev))
     if ablate is not None:
         lib = _ablate_lib()
-        err = lib.eet_conformer_block_bf16_ablate(
-            *head, int(sm_bf16), scale, 1e-5, wptrs, _build.ptr(s_ln),
-            _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev), ablate)
+        err = lib.eet_conformer_block_bf16_ablate(*head, *scratch, ablate)
         _build.check(lib, err, "conformer_block_ablate kernel")
         conformer_block_ablate.launches += 1
         return y
-    if entry == "bf16":
-        err = lib.eet_conformer_block_bf16(
-            *head, int(sm_bf16), scale, 1e-5, wptrs, _build.ptr(s_ln),
-            _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev))
-    elif entry == "f32":
-        err = lib.eet_conformer_block_f32(
-            *head, scale, 1e-5, wptrs, _build.ptr(s_ln), _build.ptr(s_big),
-            _build.ptr(s_att), _build.stream_ptr(dev))
+    if entry != "w8a8":
+        err = getattr(lib, _ENTRY_FN[entry])(*head, *scratch)
     else:
-        # float32 scratch only for the float32-softmax attention output
-        s_f = None if sm_bf16 else torch.empty(R, D, dtype=torch.float32, device=dev)
-        s_q = torch.empty(R, max(Fd, D), dtype=torch.int8, device=dev)
+        # float32 scratch for the float32-softmax attention output and for
+        # conv rows quantized in a pass of their own
+        s_f = (torch.empty(R, max(P, Di), dtype=torch.float32, device=dev)
+               if not sm_bf16 or plan.conv_split else None)
+        s_q = torch.empty(R, max(Fd, P, Di), dtype=torch.int8, device=dev)
         s_sx = torch.empty(R, dtype=torch.float32, device=dev)
         err = lib.eet_conformer_block_w8a8(
-            *head, int(sm_bf16), scale, 1e-5, wptrs,
-            (ctypes.c_void_p * len(PARAM_ORDER))(*scale_ptrs),
+            *head, (ctypes.c_void_p * len(PARAM_ORDER))(*scale_ptrs),
             None if s_f is None else _build.ptr(s_f), _build.ptr(s_q), _build.ptr(s_sx),
             _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev))
     _build.check(lib, err, f"conformer_block kernel ({entry})")
@@ -461,7 +661,7 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
 
 # launches of any entry, and of each: counted where a kernel is launched
 conformer_block.launches = 0
-conformer_block.entry_launches = {"bf16": 0, "f32": 0, "w8a8": 0}
+conformer_block.entry_launches = {e: 0 for e in ENTRIES}
 
 
 def conformer_block_ablate(f: Mapping[str, torch.Tensor], x: torch.Tensor,
@@ -625,26 +825,26 @@ block_gemm_s8.launches = 0
 
 
 def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                              eps: float = 1e-5):
+                              eps: float = 1e-5, d_model: int = 0):
     """The W8A8 entry's LayerNorm + quantize in PyTorch ops, repeating the
     kernel's float32 arithmetic operation for operation: lane l of a warp
     sums the row's values 8 l .. 8 l + 7 in order, then 256 + 8 l .. 256 +
-    8 l + 7 (x and x^2, the latter by fused multiply-add), a butterfly
-    over the 32 lanes totals them, then the one-pass statistics of
-    `_ln_one_pass` with the kernel's two fused multiply-adds; the output is
-    quantized row by row as `quantize_int8` does. x (R, D), D a multiple
-    of 8 up to 512 -> (q int8 (R, D), sx float32 (R,)). A fused
-    multiply-add is taken in float64, where the product is exact, and
-    rounded once to float32."""
+    8 l + 7, and so on to the end of the row (x and x^2, the latter by
+    fused multiply-add), a butterfly over the 32 lanes totals them, then
+    the one-pass statistics of `_ln_one_pass` over the true width d_model
+    (0: all D; the padding past it is zeros) with the kernel's two fused
+    multiply-adds; the output is quantized row by row as `quantize_int8`
+    does. x (R, D), D a multiple of 8 -> (q int8 (R, D), sx float32 (R,)).
+    A fused multiply-add is taken in float64, where the product is exact,
+    and rounded once to float32."""
     def fma(a, b_, c):
         return (a.double() * b_.double() + c.double()).float()
 
     R, D = x.shape
-    if D % 8 or D > LNQ_MAX_D:
-        raise ValueError(f"layer_norm_quantize needs D a multiple of 8 up to "
-                         f"{LNQ_MAX_D}; got {D}")
+    if D % 8:
+        raise ValueError(f"layer_norm_quantize needs D a multiple of 8; got {D}")
     v = x.float()
-    n_ch = LNQ_MAX_D // 256                     # chunks of 8 a lane
+    n_ch = max(LNQ_MAX_D, _round_up(D, 256)) // 256     # chunks of 8 a lane
     ch = torch.zeros(R, n_ch * 32, 8, dtype=torch.float32, device=x.device)
     ch[:, :D // 8] = v.reshape(R, D // 8, 8)
     ch = ch.reshape(R, n_ch, 32, 8)             # [row][chunk][lane]
@@ -659,7 +859,7 @@ def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     for o in (16, 8, 4, 2, 1):
         s = s + s[:, lane ^ o]
         ss = ss + ss[:, lane ^ o]
-    d = torch.full((R, 1), float(D), dtype=torch.float32, device=x.device)
+    d = torch.full((R, 1), float(d_model or D), dtype=torch.float32, device=x.device)
     mu = s[:, :1] / d
     var = fma(-mu, mu, ss[:, :1] / d).clamp_min(0.0)
     rstd = torch.rsqrt(var + eps)
@@ -669,28 +869,28 @@ def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 def layer_norm_quantize(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                        eps: float = 1e-5):
+                        eps: float = 1e-5, d_model: int = 0):
     """The W8A8 entry's LayerNorm + quantize on its own: x (R, D) bf16, g
     and b (D,) float32 -> (q int8 (R, D), sx float32 (R,)), the int8 rows
-    of the float32 LayerNorm and their scales. For checks: the block
-    never calls it. Calls the op `eet::layer_norm_quantize`: a CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (D a
-    multiple of 8 up to 512: a warp holds a row in registers, up to 16
-    values a lane) or raises."""
+    of the float32 LayerNorm and their scales; d_model: the true width of
+    a padded row (0: D). For checks: the block never calls it. Calls the
+    op `eet::layer_norm_quantize`: a CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel (D a multiple of 8: a warp holds a row
+    of up to 512 in registers, and rereads a wider one) or raises."""
     _device_ok("layer_norm_quantize", x)
-    return torch.ops.eet.layer_norm_quantize(x, g, b, eps)
+    return torch.ops.eet.layer_norm_quantize(x, g, b, eps, d_model)
 
 
-def _layer_norm_quantize_fake(x, g, b, eps):
+def _layer_norm_quantize_fake(x, g, b, eps, d_model=0):
     return (x.new_empty(x.shape, dtype=torch.int8),
             x.new_empty(x.shape[:1], dtype=torch.float32))
 
 
-def _layer_norm_quantize_cuda(x, g, b, eps):
+def _layer_norm_quantize_cuda(x, g, b, eps, d_model=0):
     R, D = x.shape
-    if R <= 0 or D % 8 or D > LNQ_MAX_D:
-        raise ValueError(f"layer_norm_quantize kernel needs rows > 0 and D a "
-                         f"multiple of 8 up to {LNQ_MAX_D}; got {R} x {D}")
+    if R <= 0 or D % 8 or not 0 <= d_model <= D:
+        raise ValueError(f"layer_norm_quantize kernel needs rows > 0, D a multiple "
+                         f"of 8 and d_model <= D; got {R} x {D}, d_model {d_model}")
     _check(x, "x", torch.bfloat16, (R, D), x.device)
     _check(g, "g", torch.float32, (D,), x.device)
     _check(b, "b", torch.float32, (D,), x.device)
@@ -699,7 +899,7 @@ def _layer_norm_quantize_cuda(x, g, b, eps):
     lib = _lib()
     err = lib.eet_layer_norm_quantize(
         _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(q), _build.ptr(sx),
-        R, D, eps, _build.stream_ptr(x.device))
+        R, D, d_model or D, eps, _build.stream_ptr(x.device))
     _build.check(lib, err, "layer_norm_quantize kernel")
     layer_norm_quantize.launches += 1
     return q, sx
@@ -709,32 +909,36 @@ layer_norm_quantize.launches = 0
 
 
 def block_layer_norm_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                           eps: float = 1e-5) -> torch.Tensor:
+                           eps: float = 1e-5, d_model: int = 0) -> torch.Tensor:
     """The block's LayerNorm as its plain version computes it, rounded to
-    x's dtype."""
-    return _ln_one_pass(x, g, b, eps).to(x.dtype)
+    bf16; d_model: the true width of a padded row (0: all of it)."""
+    return _ln_one_pass(x, g, b, eps, d_model or None).to(torch.bfloat16)
 
 
 def block_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """The bf16 entry's LayerNorm kernel on its own: x (R, D) bf16, g and b
-    (D,) float32 -> (R, D) bf16. For checks: the block never calls it. A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (D a multiple of 8) or raises."""
+                     eps: float = 1e-5, d_model: int = 0) -> torch.Tensor:
+    """The bf16 entries' LayerNorm kernel on its own: x (R, D) bf16 (or
+    float32, bf16 compute with a float32 residual), g and b (D,) float32
+    -> (R, D) bf16, statistics over the first d_model values (0: D). For
+    checks: the block never calls it. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (D a multiple of 8) or
+    raises."""
     _device_ok("block_layer_norm", x)
     if x.device.type == "cpu":
-        return block_layer_norm_plain(x, g, b, eps)
+        return block_layer_norm_plain(x, g, b, eps, d_model)
     R, D = x.shape
-    if R <= 0 or D % 8:
-        raise ValueError(f"block_layer_norm kernel needs rows > 0 and D a multiple "
-                         f"of 8; got {R} x {D}")
-    _check(x, "x", torch.bfloat16, (R, D), x.device)
+    if R <= 0 or D % 8 or not 0 <= d_model <= D:
+        raise ValueError(f"block_layer_norm kernel needs rows > 0, D a multiple of 8 "
+                         f"and d_model <= D; got {R} x {D}, d_model {d_model}")
+    in_f32 = x.dtype == torch.float32
+    _check(x, "x", torch.float32 if in_f32 else torch.bfloat16, (R, D), x.device)
     _check(g, "g", torch.float32, (D,), x.device)
     _check(b, "b", torch.float32, (D,), x.device)
-    y = torch.empty_like(x)
+    y = torch.empty(R, D, dtype=torch.bfloat16, device=x.device)
     lib = _lib()
     err = lib.eet_layer_norm_bf16(_build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(y),
-                                  R, D, eps, _build.stream_ptr(x.device))
+                                  R, D, d_model or D, eps, int(in_f32),
+                                  _build.stream_ptr(x.device))
     _build.check(lib, err, "block_layer_norm kernel")
     block_layer_norm.launches += 1
     return y
@@ -743,12 +947,66 @@ def block_layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 block_layer_norm.launches = 0
 
 
+def block_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          valid: torch.Tensor, head_dim: int,
+                          attn_softmax_dtype: torch.dtype) -> torch.Tensor:
+    """The bf16 entries' attention as the plain version computes it: q, k,
+    v (B, H, T, padded heads) bf16, valid (B, T) bool -> P V (B, H, T,
+    padded heads), bf16 with the bf16 softmax, float32 with the float32
+    one."""
+    return _attention(q, k, v, valid, head_dim, torch.bfloat16, attn_softmax_dtype, False)
+
+
+def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                    head_dim: int, attn_softmax_dtype: torch.dtype) -> torch.Tensor:
+    """The bf16 entries' attention kernel on its own (the mma.sync kernel
+    the bf16, W8A8 and float32-residual entries launch between their QKV
+    and Wo products), on q, k, v as `block_attention_plain` takes them;
+    head_dim: the true width (the scale). For checks: the block never
+    calls it. A CPU tensor takes the plain version; a CUDA tensor packs
+    q|k|v into the block's rows, launches the kernel (valid must be a
+    prefix of each row: lengths) or raises."""
+    _device_ok("block_attention", q)
+    if q.device.type == "cpu":
+        return block_attention_plain(q, k, v, valid, head_dim, attn_softmax_dtype)
+    B, H, T, dhp = q.shape
+    lengths = torch.count_nonzero(valid, dim=1).to(torch.int32)
+    if not torch.equal(valid, torch.arange(T, device=q.device)[None, :] < lengths[:, None]):
+        raise ValueError("block_attention kernel takes a key mask that is a prefix of each row")
+    qkv = torch.stack([q, k, v]).to(torch.bfloat16).permute(1, 3, 0, 2, 4).reshape(
+        B * T, 3 * H * dhp).contiguous()
+    sm_bf16 = attn_softmax_dtype == torch.bfloat16
+    out = torch.empty(B * T, H * dhp, device=q.device,
+                      dtype=torch.bfloat16 if sm_bf16 else torch.float32)
+    scale = 1.0 / math.sqrt(head_dim)
+    if sm_bf16:
+        scale = torch.tensor(scale, dtype=torch.bfloat16).item()
+    lib = _lib()
+    err = lib.eet_block_attention(_build.ptr(qkv), _build.ptr(lengths), _build.ptr(out), B, T,
+                                  H * dhp, H, scale, int(sm_bf16), int(not sm_bf16),
+                                  _build.stream_ptr(q.device))
+    _build.check(lib, err, "block_attention kernel")
+    block_attention.launches += 1
+    return out.reshape(B, T, H, dhp).transpose(1, 2)
+
+
+block_attention.launches = 0
+
+
+# the C entries' leading arguments: x, y, lengths, B, T, D (the pitch),
+# Dt (the true width), H, DH (the padded head), F (padded), ksize,
+# sm_bf16, scale, eps, the weights
+def _head_args():
+    vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return [vp, vp, vp, i, i, i, i, i, i, i, i, i, fl, fl, ctypes.POINTER(vp)]
+
+
 def _ablate_lib():
     lib = _build.load("conformer_block_ablate")
     if lib.eet_conformer_block_bf16_ablate.argtypes is None:
-        vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp = ctypes.c_void_p
         lib.eet_conformer_block_bf16_ablate.argtypes = (
-            [vp, vp, vp, i, i, i, i, i, i, i, fl, fl, ctypes.POINTER(vp), vp, vp, vp, vp, i])
+            _head_args() + [vp, vp, vp, vp, ctypes.c_int])
         lib.eet_conformer_block_bf16_ablate.restype = ctypes.c_int
     return lib
 
@@ -758,19 +1016,21 @@ def _lib():
     if lib.eet_conformer_block_bf16.argtypes is None:
         vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         pp = ctypes.POINTER(vp)
-        head = [vp, vp, vp, i, i, i, i, i, i]
-        lib.eet_conformer_block_bf16.argtypes = head + [i, fl, fl, pp, vp, vp, vp, vp]
-        lib.eet_conformer_block_f32.argtypes = head + [fl, fl, pp, vp, vp, vp, vp]
-        lib.eet_conformer_block_w8a8.argtypes = head + [i, fl, fl, pp, pp, vp, vp, vp,
-                                                        vp, vp, vp]
+        for fn in ("eet_conformer_block_bf16", "eet_conformer_block_f32",
+                   "eet_conformer_block_bf16_f32res"):
+            getattr(lib, fn).argtypes = _head_args() + [vp, vp, vp, vp]
+        lib.eet_conformer_block_w8a8.argtypes = _head_args() + [pp, vp, vp, vp, vp, vp, vp]
         lib.eet_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.eet_gemm_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
-        lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, fl, vp]
-        lib.eet_layer_norm_bf16.argtypes = [vp, vp, vp, vp, i, i, fl, vp]
+        lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, i, fl, vp]
+        lib.eet_layer_norm_bf16.argtypes = [vp, vp, vp, vp, i, i, i, fl, i, vp]
+        lib.eet_block_attention.argtypes = [vp, vp, vp, i, i, i, i, fl, i, i, vp]
         for entry in (lib.eet_conformer_block_bf16, lib.eet_conformer_block_f32,
+                      lib.eet_conformer_block_bf16_f32res,
                       lib.eet_conformer_block_w8a8, lib.eet_gemm_bf16,
                       lib.eet_gemm_s8, lib.eet_layer_norm_quantize,
-                      lib.eet_layer_norm_bf16, lib.eet_conformer_block_param_count):
+                      lib.eet_layer_norm_bf16, lib.eet_block_attention,
+                      lib.eet_conformer_block_param_count):
             entry.restype = i
         lib.eet_conformer_block_param_count.argtypes = []
         if lib.eet_conformer_block_param_count() != len(PARAM_ORDER):

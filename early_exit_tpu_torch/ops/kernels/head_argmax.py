@@ -18,9 +18,6 @@ import torch
 
 from early_exit_tpu_torch.ops.kernels import _build
 
-MAX_D = 512          # the widest hidden row the kernel takes (HS_MAX_D)
-
-
 def head_argmax_plain(hidden: torch.Tensor, w: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """hidden (E, B, T, D), w (E, D, V), b (E, V) -> ids (E, B, T) int32."""
@@ -40,9 +37,10 @@ def head_argmax(hidden: torch.Tensor, w: torch.Tensor,
     """hidden (E, B, T, D), w (E, D, V), b (E, V) -> ids (E, B, T) int32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16 operands, any V >= 1, D a multiple of 64 up to 512: the
-    head stays in shared memory where it fits, V <= 256 and D <= 256, and
-    streams through it in tiles of 256 columns otherwise) or raises."""
+    kernel (bf16 operands, any V >= 1 and any D: the head stays in shared
+    memory where it fits, V <= 256 and D <= 256, streams through it in
+    tiles of 256 columns up to D 512, and in tiles of 64 k beside the
+    hidden rows' past it) or raises."""
     if hidden.device.type not in ("cpu", "cuda"):
         raise ValueError(f"head_argmax: unsupported device {hidden.device}")
     return torch.ops.eet.head_argmax(hidden, w, b)
@@ -65,20 +63,23 @@ def _head_argmax_cuda(hidden, w, b):
                 f"head_argmax kernel: {name} must be a contiguous bf16 tensor "
                 f"of shape {shape} on {dev}; got {t.dtype} {tuple(t.shape)} "
                 f"on {t.device}")
-    if D % 64 or not 0 < D <= MAX_D or V < 1:
-        raise ValueError(f"head_argmax kernel needs D a multiple of 64 up to "
-                         f"{MAX_D} and V >= 1, got D={D} V={V}")
-    Vp = -(-V // 8) * 8
+    if D < 1 or V < 1:
+        raise ValueError(f"head_argmax kernel needs D >= 1 and V >= 1, got D={D} V={V}")
+    # TMA reads rows of a multiple of 16 bytes: copies with V padded to a
+    # multiple of 8 columns, which the kernel masks, and D to a multiple of
+    # 8 with zero hidden values and zero head rows, which add nothing
+    Vp, Dp = -(-V // 8) * 8, -(-D // 8) * 8
+    if Dp != D:
+        hidden = torch.nn.functional.pad(hidden, (0, Dp - D))
+        w = torch.nn.functional.pad(w, (0, 0, 0, Dp - D))
     if Vp != V:
-        # TMA reads rows of a multiple of 16 bytes: a copy with V padded to
-        # a multiple of 8 columns, which the kernel masks
         w = torch.nn.functional.pad(w, (0, Vp - V))
         b = torch.nn.functional.pad(b, (0, Vp - V))
     out = torch.empty(E, B, T, dtype=torch.int32, device=dev)
     lib = _lib()
     err = lib.eet_head_argmax_bf16(_build.ptr(hidden), _build.ptr(w),
                                    _build.ptr(b), _build.ptr(out), E, B * T,
-                                   D, V, Vp, _build.stream_ptr(dev))
+                                   Dp, V, Vp, _build.stream_ptr(dev))
     _build.check(lib, err, "head_argmax kernel")
     head_argmax.launches += 1
     return out

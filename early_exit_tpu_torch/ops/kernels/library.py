@@ -15,14 +15,15 @@ checks), and the block kernel is launched up to 12 times per forward.
 
     eet::conformer_block(x, lengths, params[], n_heads, kernel_size,
                          compute_dtype, residual_dtype, attn_softmax_dtype,
-                         quantize) -> y
+                         quantize, d_model=0) -> y
         params: the block layout in `conformer_block.op_params` order;
-        the entry (bf16, float32, W8A8) follows the dtypes (by name,
-        "bfloat16" or "float32") and quantize ("none" or "int8")
+        the entry (`conformer_block.ENTRIES`) follows the dtypes (by
+        name, "bfloat16" or "float32") and quantize ("none" or "int8");
+        d_model: the true width of a padded layout (0: x's columns)
     eet::block_gemm(a, w, bias, res?, epilogue, out!) -> ()
     eet::block_gemm_s8(aq, sx, wt, sw, bias, res?, epilogue, out!) -> ()
         `out` is written in place and may be `res`, as in the block
-    eet::layer_norm_quantize(x, g, b, eps) -> (q, sx)
+    eet::layer_norm_quantize(x, g, b, eps, d_model=0) -> (q, sx)
     eet::head_argmax(hidden, w, b) -> ids
     eet::fused_attention(q, k, v, mask) -> o
 
@@ -44,7 +45,7 @@ _SCHEMAS = {
     "conformer_block": (
         "conformer_block(Tensor x, Tensor lengths, Tensor[] params, int n_heads, "
         "int kernel_size, str compute_dtype, str residual_dtype, "
-        "str attn_softmax_dtype, str quantize) -> Tensor",
+        "str attn_softmax_dtype, str quantize, int d_model=0) -> Tensor",
         kcb._conformer_block_cpu, kcb._conformer_block_cuda,
         kcb._conformer_block_fake),
     "block_gemm": (
@@ -56,8 +57,8 @@ _SCHEMAS = {
         "Tensor? res, str epilogue, Tensor(a!) out) -> ()",
         kcb._block_gemm_s8_cpu, kcb._block_gemm_s8_cuda, lambda *args: None),
     "layer_norm_quantize": (
-        "layer_norm_quantize(Tensor x, Tensor g, Tensor b, float eps) "
-        "-> (Tensor, Tensor)",
+        "layer_norm_quantize(Tensor x, Tensor g, Tensor b, float eps, "
+        "int d_model=0) -> (Tensor, Tensor)",
         kcb.layer_norm_quantize_plain, kcb._layer_norm_quantize_cuda,
         kcb._layer_norm_quantize_fake),
     "head_argmax": (

@@ -164,8 +164,11 @@ def test_kernel_entries_and_the_mixes_that_raise():
     assert kcb._entry(bf, bf, bf, "int8") == "w8a8"
     assert kcb._entry(bf, bf, f32, "int8") == "w8a8"
     assert kcb._entry(f32, f32, f32, None) == "f32"
-    for mix in ((f32, f32, f32, "int8"), (f32, f32, bf, None),
-                (bf, f32, f32, None), (f32, bf, f32, None)):
+    assert kcb._entry(f32, f32, bf, None) == "f32_sm_bf16"
+    assert kcb._entry(bf, f32, f32, None) == "bf16_res_f32"
+    assert kcb._entry(bf, f32, bf, "none") == "bf16_res_f32"
+    for mix in ((f32, f32, f32, "int8"), (bf, f32, bf, "int8"),
+                (f32, bf, f32, None), (f32, bf, bf, None)):
         with pytest.raises(NotImplementedError, match="not ported"):
             kcb._entry(*mix)
     with pytest.raises(ValueError, match="quantize"):
