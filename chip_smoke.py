@@ -372,8 +372,31 @@ time) beside phases 8-18d, and served once they all are):
      new rows' times (1, 1b, 1c, (i), (ii) at d 144 and d 1024, 2 at D 144
      and D 1024, 3 at dh 36 and dh 128).
 
-`--row_times [CHECKOUT]` times rows 1-3s alone at the flagship's shapes
-for the package of another checkout (`row_times`): parent and change are
+ 21. Every dtype mix and heads past 128 (`profiles_phase`): (a) the four
+     mixes the block took last (W8A8 with bf16 compute and a float32
+     residual, W8A8 with float32 compute and a float32 or bf16 residual,
+     float32 compute with a bf16 residual), each with either softmax, held
+     by `held_block` at the flagship's width (its trained block 1),
+     Conformer-S (padded heads of 48) and d 1024 with 4 heads of 256, and
+     the bf16, W8A8 and float32 entries at heads of 256; (b) both
+     attentions (the bf16 entries' mma.sync one and the float32 entries'
+     attention_f32.cuh, `block_attention`) at dh 160, 256 and 384 in both
+     softmax dtypes against exact sums, and the attention kernel (row 3)
+     at (128, 4, 249, 256) against its plain version; (c) the flagship in
+     the 8 new profiles through `Recognizer.transcribe` at B=128 x 10 s
+     (12 block launches each, tokens against the plain-version path, 1%
+     at exits 2-6), the three W8A8 mixes through the cascade (chosen exits
+     equal to the while-loop gate's at thresholds 0, 1.01 and exit 2's
+     median), and the inference CLI with the mixes' flags over N_CLI_S
+     utterances, each exit's WER beside the bf16 profile's; (d) a seeded
+     d-1024 model with 4 heads of 256 in bf16, W8A8, float32, W8A8 with
+     float32 compute, float32 compute with a bf16 residual and unfused
+     with the attention kernel, on 16 requests; (e) the new rows' times
+     (1e, 1f, 1g, 1h at the flagship; 1, 1b, 1c and 3 at heads of 256).
+
+`--row_times [CHECKOUT]` times rows 1-3s, (i) and (ii) alone at the
+flagship's shapes and rows 1, 1b, 1c, (i) and (ii) at Conformer-S's, for
+the package of another checkout (`row_times`): parent and change are
 compared in one call to the card as p, c, c, p.
 
 The line before the last is the `kernels` JSON (every time in it is this
@@ -580,6 +603,31 @@ CONFORMER_S = dict(d_model=144, n_heads=4, d_feed_forward=576, depthwise_kernel_
 D1024 = dict(d_model=1024, n_heads=8, d_feed_forward=4096, depthwise_kernel_size=31,
              n_enc_exits=2, n_enc_layers_per_exit=1)
 N_CLI_S = 8              # phase 20's CLI runs: the first utterances of phase 9's corpus
+# phase 21: the block kernel's four last dtype mixes, named by their entry:
+# (compute, residual, quantize), each run with either softmax; their rows
+# (at the flagship, the bf16 softmax) and the JAX CLI's flags for them
+MIXES = {"w8a8_res_f32": ("bfloat16", "float32", "int8"),
+         "w8a8_f32": ("float32", "float32", "int8"),
+         "w8a8_f32_res_bf16": ("float32", "bfloat16", "int8"),
+         "f32_res_bf16": ("float32", "bfloat16", "none")}
+MIX_ROWS = {"w8a8_res_f32": "1e", "w8a8_f32": "1f", "w8a8_f32_res_bf16": "1g",
+            "f32_res_bf16": "1h"}
+MIX_FLAGS = {"w8a8_res_f32": ["--quantize", "int8", "--residual_dtype", "float32"],
+             "w8a8_f32": ["--quantize", "int8", "--compute_dtype", "float32"],
+             "w8a8_f32_res_bf16": ["--quantize", "int8", "--compute_dtype", "float32",
+                                   "--residual_dtype", "bfloat16"],
+             "f32_res_bf16": ["--compute_dtype", "float32", "--residual_dtype", "bfloat16"]}
+# heads past 128: a d-1024 model of 4 heads of 256 (phase 20d's shape with
+# 4 heads in place of 8), the attentions held at dh 160, 256 and 384, the
+# bf16 softmax's share of differing values at most WIDE_ATT_SHARE there
+WIDE = dict(d_model=1024, n_heads=4, d_feed_forward=4096, depthwise_kernel_size=31,
+            n_enc_exits=2, n_enc_layers_per_exit=1)
+WIDE_ATT_DH = (160, 256, 384)
+WIDE_ATT_SHARE = 0.01
+# 21a's blocks (d, heads, ff, k): the flagship's trained block 1,
+# Conformer-S and d 1024 with 4 heads of 256, seeded
+HELD_WIDTHS = {"flagship": (256, 8, 2048, 31), "conformer_s": (144, 4, 576, 32),
+               "wide": (1024, 4, 4096, 31)}
 
 
 def fail(msg: str) -> None:
@@ -772,17 +820,23 @@ def kernel_products_and_norms(f=None):
 def kernel_quantized_norms(f):
     """Within the W8A8 block's plain version (folded params f), each
     LayerNorm that feeds a product is the block's own LayerNorm + quantize
-    (`layer_norm_quantize`): the product's row quantize takes its int8
-    values and scales as they are. The final LayerNorm is the block's own
-    (`block_layer_norm`). The products themselves are exact on both sides;
-    the attention is the kernel's (`held_block` adds `kernel_attention`)."""
+    (`layer_norm_quantize`, of a bf16 or a float32 row): the product's
+    row quantize takes its int8 values and scales as they are. The final
+    LayerNorm of a bf16 stream is the block's own (`block_layer_norm`), of
+    a float32 one the plain version's, float32 as the kernel writes it.
+    The products themselves are exact on both sides; with bf16 compute the
+    attention is the kernel's (`held_block` adds `kernel_attention`)."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     one_pass, quantize = kcb._ln_one_pass, kcb.quantize_int8
     made = {}
 
     def ln(v, g, b, eps, d=None):
-        rows = v.to(torch.bfloat16).reshape(-1, v.shape[-1]).contiguous()
+        # a float32 residual stream is read as it is, a bf16 one too
+        f32 = v.dtype == torch.float32
+        rows = (v if f32 else v.to(torch.bfloat16)).reshape(-1, v.shape[-1]).contiguous()
+        if f32 and g is f["final_ln_g"]:   # float32 out, as the kernel writes it
+            return one_pass(v, g, b, eps, d)
         kcb._ln_one_pass = one_pass      # the CPU's kernels are plain
         try:
             if g is f["final_ln_g"]:
@@ -809,8 +863,9 @@ def kernel_quantized_norms(f):
 @contextlib.contextmanager
 def kernel_attention(held=None):
     """Within the block's plain version, the attention of q, k and v (its
-    scores, softmax and P V) is the bf16 entries' own attention kernel
-    (`block_attention`), so that a block held with the kernel's products
+    scores, softmax and P V) is the entries' own attention kernel
+    (`block_attention`: the bf16 entries' for bf16 q, k, v, the float32
+    entries' for float32 ones), so that a block held with the kernel's products
     and LayerNorms differs from its reference only where the rest of it
     rounds another way. held (a list): each launch is held too, on the
     block's own q, k and v, against the plain attention with every sum
@@ -833,8 +888,10 @@ def kernel_attention(held=None):
 
 
 def attention_figures(y, q, k, v, valid, dh, sm, plain):
-    """The bf16 entries' attention kernel's output y (`block_attention`) on
-    q, k, v (B, H, T, heads padded past dh with zero columns) and the key
+    """The entries' attention kernel's output y (`block_attention`) on q,
+    k, v (B, H, T, heads padded past dh with zero columns; bf16, or
+    float32 for the float32 entries' attention, whose output is float32
+    and is counted past F32_OUT_ULPS with either softmax) and the key
     mask valid (B, T), against the plain attention `plain` (the block's
     `_attention`) with every sum exact (`exact_sums`), by phase 2's rule:
     within BLOCK_MAX_ULPS bf16 ulps of max(|y|, 1) and at most a share of
@@ -851,16 +908,19 @@ def attention_figures(y, q, k, v, valid, dh, sm, plain):
     None, held)."""
     import torch
     keep = valid.any(-1)
+    cd = q.dtype      # float32 q, k, v: the float32 entries' attention
     with exact_sums():
-        y_p = plain(q, k, v, valid, dh, torch.bfloat16, sm, False)[keep]
+        y_p = plain(q, k, v, valid, dh, cd, sm, False)[keep]
         y_c = None
         if sm == torch.bfloat16:
             with skipped_rounding(None):
-                y_c = plain(q, k, v, valid, dh, torch.bfloat16, sm, False)[keep]
+                y_c = plain(q, k, v, valid, dh, cd, sm, False)[keep]
     y_in = y[keep]
     err, _, ulps, frac = bf16_figures(y_in, y_p)
     if y_c is not None:
-        ctl = bf16_figures(y_in, y_c)[3]
+        share = (f32_differing if y.dtype == torch.float32
+                 else (lambda a, b: bf16_figures(a, b)[3]))
+        ctl, frac = share(y_in, y_c), share(y_in, y_p)
         limit = min(BLOCK_DIFFERING, ctl / 3)
     else:
         ctl, limit, frac = None, BLOCK_DIFFERING, f32_differing(y_in, y_p)
@@ -905,13 +965,16 @@ def skipped_rounding(width=None):
 
 def row_times(root: str) -> None:
     """`python3 chip_smoke.py --row_times CHECKOUT`: the kernel times of
-    rows 1, 1b, 1c, 2, 3 and 3s at the flagship's main-path shapes (B=128
-    x 10 s, T'=249; 3s a streaming round's (32, 8, 112, 32) with 75 keys
-    masked) for the package of the checkout at CHECKOUT (this one, or
-    another commit's unpacked beside it), built there: the median of 5
-    CUDA-event timings of 20 calls each, as one line "ROWS {json}". Two
-    commits are compared on one card in alternating calls (parent, change,
-    change, parent)."""
+    rows 1, 1b, 1c, 2, 3, 3s, (i) (float32 compute, bf16 softmax) and (ii)
+    (bf16 compute, float32 residual) at the flagship's main-path shapes
+    (B=128 x 10 s, T'=249; 3s a streaming round's (32, 8, 112, 32) with 75
+    keys masked), and of rows 1, 1b, 1c, (i) and (ii) at Conformer-S's (a
+    seeded block of d 144, 4 heads of 36, ff 576, k 32 on the padded
+    layout, over seeded inputs of the same B and T'), for the package of
+    the checkout at CHECKOUT (this one, or another commit's unpacked
+    beside it), built there: the median of 5 CUDA-event timings of 20
+    calls each, as one line "ROWS {json}". Two commits are compared on one
+    card in alternating calls (parent, change, change, parent)."""
     import statistics
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -919,6 +982,7 @@ def row_times(root: str) -> None:
     import torch
     from early_exit_tpu_torch import checkpoint, runtime
     from early_exit_tpu_torch.data.synthetic import synth_batch
+    from early_exit_tpu_torch.models.conformer import ConformerConfig, ConformerStack
     from early_exit_tpu_torch.ops import frontend
     from early_exit_tpu_torch.ops.kernels import KERNEL_SOURCES, _build
     from early_exit_tpu_torch.ops.kernels import attention as katt
@@ -967,12 +1031,38 @@ def row_times(root: str) -> None:
         ms = torch.ones(32, 112, dtype=torch.bool, device=dev)
         ms[:, :75] = False
         big = torch.empty(8192, 8192, device=dev).normal_()
+        kwi = dict(kw32, attn_softmax_dtype=torch.bfloat16)
+        kwii = dict(kw, residual_dtype=torch.float32)
+        # Conformer-S's block, seeded, on its padded layout
+        st = ConformerStack(ConformerConfig(d_model=144, n_heads=4, d_ff=576, kernel_size=32), 1)
+        st.init(torch.Generator().manual_seed(191))
+        sd = st.blocks[0].state_dict()
+        fs = {(cd, q): {k: v.to(dev) for k, v in kcb.fold_block_params(
+            sd, compute_dtype=cd, quantize=q, n_heads=4).items()}
+            for cd, q in ((torch.bfloat16, None), (torch.bfloat16, "int8"),
+                          (torch.float32, None))}
+        xs = torch.randn(B, x.shape[1], 144, generator=g).to(dev, torch.bfloat16)
+        x32, xs32 = x.float(), xs.float()
+        kws = dict(kw, n_heads=4, kernel_size=32, d_model=144)
+        kws32 = dict(kws, compute_dtype=torch.float32, residual_dtype=torch.float32,
+                     attn_softmax_dtype=torch.float32)
+        fsb, fs8, fs32 = (fs[torch.bfloat16, None], fs[torch.bfloat16, "int8"],
+                          fs[torch.float32, None])
         fns = {"1": lambda: kcb.conformer_block(f0, x, lengths, **kw),
                "1b": lambda: kcb.conformer_block(q8, x, lengths, quantize="int8", **kw),
                "1c": lambda: kcb.conformer_block(f32, x.float(), lengths, **kw32),
                "2": lambda: kha.head_argmax(hid, hw, hb),
                "3": lambda: katt.fused_attention(qb, kb, vb, maskf),
-               "3s": lambda: katt.fused_attention(qs, ks, vs, ms)}
+               "3s": lambda: katt.fused_attention(qs, ks, vs, ms),
+               "(i)": lambda: kcb.conformer_block(f32, x32, lengths, **kwi),
+               "(ii)": lambda: kcb.conformer_block(f0, x32, lengths, **kwii),
+               "1@144": lambda: kcb.conformer_block(fsb, xs, lengths, **kws),
+               "1b@144": lambda: kcb.conformer_block(fs8, xs, lengths, quantize="int8", **kws),
+               "1c@144": lambda: kcb.conformer_block(fs32, xs32, lengths, **kws32),
+               "(i)@144": lambda: kcb.conformer_block(
+                   fs32, xs32, lengths, **dict(kws32, attn_softmax_dtype=torch.bfloat16)),
+               "(ii)@144": lambda: kcb.conformer_block(
+                   fsb, xs32, lengths, **dict(kws, residual_dtype=torch.float32))}
         out = {}
         for name, fn in fns.items():
             # the short launches behind ~20 ms of float32 FMAs
@@ -1056,7 +1146,7 @@ def stop_descendants(pid: int) -> None:
 
 
 def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
-    """Phases 1 (after the build) to 18, the kernels line and the last
+    """Phases 1 (after the build) to 21, the kernels line and the last
     line."""
     import numpy as np
     import torch
@@ -1847,6 +1937,7 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
         print(f"phase 19: {time.perf_counter() - t19:.1f} s on {card}")
         conformer_s = conformer_s_phase(dev, card, reset_counts, read_counts, corp, tmp, wav,
                                         counts, errs19)
+        mixes = profiles_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts)
         t11 = time.perf_counter()
         exported = export_phase(dev, card, reset_counts, read_counts, rec_k, wav, counts,
                                 out_k, ladder, export_job, work_dir)
@@ -1952,8 +2043,20 @@ def run_phases(t_start, dev, card, kind, child_pool, work_dir) -> None:
             ("3@dh36", "attention_dh36", "early_exit_tpu_torch/csrc/attention.cu",
              "early_exit_tpu/ops/pallas/attention.py:51 (dh 36, padded to 64)"),
             ("3@dh128", "attention_dh128", "early_exit_tpu_torch/csrc/attention.cu",
-             "early_exit_tpu/ops/pallas/attention.py:51 (dh 128)")):
-        t = widths[key] if key in widths else conformer_s[key]
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 128)"),
+            *((MIX_ROWS[m], f"conformer_block_{m}", blk_src,
+               blk_line + f" (compute_dtype={MIXES[m][0]}, residual_dtype={MIXES[m][1]}, "
+               f"quantize={MIXES[m][2]!r}, attn_softmax_dtype=bfloat16; the flagship)")
+              for m in MIXES),
+            ("1@dh256", "conformer_block_dh256", blk_src,
+             blk_line + " (d 1024, 4 heads of 256, ff 4096)"),
+            ("1b@dh256", "conformer_block_w8a8_dh256", blk_src,
+             blk_line + " (quantize='int8', d 1024, 4 heads of 256)"),
+            ("1c@dh256", "conformer_block_f32_dh256", blk_src,
+             blk_line + " (compute_dtype=float32, d 1024, 4 heads of 256)"),
+            ("3@dh256", "attention_dh256", "early_exit_tpu_torch/csrc/attention.cu",
+             "early_exit_tpu/ops/pallas/attention.py:51 (dh 256)")):
+        t = widths.get(key) or conformer_s.get(key) or mixes[key]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": line,
                      "launches": t["launches"], "path": t["path"],
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
@@ -5763,7 +5866,10 @@ def held_block(f, x, lengths, kw, what: str):
     with the kernel's own LayerNorm + quantize (`kernel_quantized_norms`);
     float32 compute's, its plain version with every sum exact
     (`exact_sums`), where what remains is the bf16 rounding of the
-    scores. The bf16-compute references take the kernel's own attention
+    scores; W8A8 with float32 compute's, that with the kernel's LayerNorm
+    + quantize and its attention (whose output is quantized: a float32 sum
+    in another order moves an int8 level at a tie). The bf16-compute
+    references take the kernel's own attention
     as well (`kernel_attention`): with the attention's sums exact
     instead, one score that rounds the other way reaches its whole row,
     and at d 1024 such rows were as many as a third of a misplaced
@@ -5772,12 +5878,19 @@ def held_block(f, x, lengths, kw, what: str):
     with P's control (`attention_figures`, `attention_held`'s rule). The
     ulps bound widens to the reference's own spread where that is larger:
     for float32 compute, the plain version itself against the reference.
-    Controls, the same reference with a bf16 rounding skipped -- of the
-    FFN's SiLU (bf16 compute), or of P (float32 compute with the bf16
-    softmax) -- set the share's limit:
+    Controls, the same reference with a bf16 rounding misplaced -- the
+    FFN's SiLU's skipped (bf16 compute); with float32 compute P's skipped
+    (the bf16 softmax, where the reference's attention is the plain one)
+    and bf16 compute's roundings made (every product's
+    output, as a float32-compute epilogue that rounds as the bf16 product
+    does would) -- set the share's limit:
     SEEDED_DIFFERING of the entry, and at most a third of the nearer
     control's share, so that a misplaced rounding falls outside it even
-    where the block barely moves its input. The figures against the plain
+    where the block barely moves its input -- or, float32 compute, 1.5
+    times the plain version's own share against the reference where that
+    is larger (an exact-sum reference is as far from any float32 order of
+    the sums, and a bf16 residual carries each value that rounds the other
+    way to its row). The figures against the plain
     version itself are printed beside them. Returns (max|d| against the
     plain version, the kernel's output)."""
     import torch
@@ -5796,6 +5909,10 @@ def held_block(f, x, lengths, kw, what: str):
 
     @contextlib.contextmanager
     def ref(held=None):
+        if f32_compute and int8:
+            with exact_sums(), kernel_quantized_norms(f), kernel_attention(held):
+                yield
+            return
         if f32_compute:
             with exact_sums():
                 yield
@@ -5803,22 +5920,35 @@ def held_block(f, x, lengths, kw, what: str):
         with (kernel_quantized_norms(f) if int8 else kernel_products_and_norms(f=f)), \
                 kernel_attention(held):
             yield
-    controls = ([("P", None)] if f32_compute else
-                [("the FFN's SiLU", f["ffn1_w1"].shape[1])])
+    # (name, the context that misplaces a rounding, keywords it changes)
+    if f32_compute:
+        # P's control acts on the plain attention only: W8A8's reference
+        # takes the kernel's
+        controls = ([("P", lambda: skipped_rounding(None), {})]
+                    if kw.get("attn_softmax_dtype") == torch.bfloat16 and not int8 else [])
+        controls.append(("the compute dtype's (every product output, P V and the "
+                         "conv rounded to bf16)", contextlib.nullcontext,
+                         {"compute_dtype": torch.bfloat16}))
+    else:
+        controls = [("the FFN's SiLU", lambda: skipped_rounding(f["ffn1_w1"].shape[1]), {})]
     held = []
     with ref(held):
         y_g = kcb.conformer_block_plain(f, x, lengths, **kw)
     with ref():
         ctl = []
-        for name, width in controls:
-            with skipped_rounding(width):
-                y_c = kcb.conformer_block_plain(f, x, lengths, **kw)
+        for name, make, over in controls:
+            with make():
+                y_c = kcb.conformer_block_plain(f, x, lengths, **{**kw, **over})
             ctl.append((name, *figures(y_k, y_c)))
             del y_c
     spread, spread_frac = figures(y_p, y_g) if f32_compute else (0.0, 0.0)
     ulps, frac = figures(y_k, y_g)
     bound = max(BLOCK_MAX_ULPS, spread)
-    limit = min(SEEDED_DIFFERING["w8a8" if int8 else "bf16"], min(c for _, _, c in ctl) / 3)
+    # float32 compute with bf16 rounding points: the plain version, as sound
+    # as the kernel, lies spread_frac from the exact-sum reference (5% of
+    # the values at d 1024 with a bf16 residual), so the kernel may too
+    limit = min(SEEDED_DIFFERING["w8a8" if int8 else "bf16"],
+                max(min(c for _, _, c in ctl) / 3, 1.5 * spread_frac))
     print(f"{what}: vs its reference max ulps {ulps} values differing {frac} (held: "
           f"{bound} ulps, the reference's own spread {spread} ulps, {spread_frac} of the "
           f"values; {limit:.4g}); controls, "
@@ -6785,6 +6915,403 @@ def conformer_s_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, coun
     return out_rows
 
 
+def profiles_phase(dev, card, reset_counts, read_counts, corp, tmp, wav, counts) -> dict:
+    """Phase 21: the block kernel in the four dtype mixes it took last
+    (`MIXES`, each with either softmax) and both attentions at heads past
+    128. (a) `held_block` of each new profile at the flagship's width (its
+    trained block 1 on the frontend's output), Conformer-S (heads of 36
+    padded to 48) and d 1024 with 4 heads of 256 (seeded), and of the
+    bf16, W8A8 and float32 entries at heads of 256; the W8A8 LayerNorm +
+    quantize of float32 rows value for value. (b) Both attentions
+    (`block_attention` on bf16 and float32 q, k, v) at `WIDE_ATT_DH` in
+    both softmax dtypes by `attention_figures`, the bf16 softmax at most
+    WIDE_ATT_SHARE of values differing, the float32 softmax within
+    F32_OUT_ULPS of a bf16 ulp everywhere; the attention kernel (row 3)
+    at (128, 4, 249, 256) within ATT_RTOL of max|v|. (c) The flagship in
+    the 8 new profiles through `Recognizer.transcribe` at B=128 x 10 s:
+    12 launches of the profile's entry, greedy tokens within
+    TOKEN_DISAGREE of the plain-version path at exits 2-6 (exit 1's
+    printed); the three W8A8 mixes through the cascade under the committed
+    calibration and at thresholds 0, 1.01 and exit 2's median, chosen
+    exits equal to the while-loop gate's; the inference CLI with each
+    mix's flags (the CLI's bf16 softmax) over the first N_CLI_S
+    utterances of phase 9's corpus, each exit's WER beside the bf16
+    profile's. (d) `WIDE` (4 heads of 256, seeded) on 16 requests in
+    bf16, W8A8, float32, W8A8 with float32 compute, float32 compute with
+    a bf16 residual and unfused with the attention kernel: launches, and
+    tokens against the plain-version path printed (random weights
+    transcribe nothing). (e) The new rows' times. Returns the rows."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from early_exit_tpu_torch import checkpoint, inference, interop
+    from early_exit_tpu_torch.configs import inference_profile
+    from early_exit_tpu_torch.models.conformer import ConformerConfig, ConformerStack
+    from early_exit_tpu_torch.models.gate_calibration import scaled_confidence
+    from early_exit_tpu_torch.ops.kernels import attention as katt
+    from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
+    from early_exit_tpu_torch.serving.recognizer import Recognizer
+    from early_exit_tpu_torch.tokenizer import load_decoder
+    t_start = time.perf_counter()
+    bf, f32 = torch.bfloat16, torch.float32
+    DT = {"bfloat16": bf, "float32": f32}
+    B, N = wav.shape
+    calib = checkpoint.load_calib()
+    tok = load_decoder(checkpoint.bound_tokenizer(calib))
+    tree = checkpoint.load_tree(checkpoint.FLAGSHIP_CKPT)
+    base = inference_profile(fused_block=True)
+    g = torch.Generator().manual_seed(21)
+    errs, launches, paths = {}, {}, {}
+
+    def profile_kw(mix, sm):
+        cd, rd, q = MIXES[mix]
+        return dict(compute_dtype=DT[cd], residual_dtype=DT[rd], attn_softmax_dtype=DT[sm],
+                    quantize=None if q == "none" else q)
+
+    def launches_of(fn, what, **want):
+        reset_counts()
+        out = fn()
+        got = read_counts()
+        full = {k: want.get(k, 0) for k in got}
+        print(f"{what}: launches {got}")
+        if got != full:
+            fail(f"{what}: launches {got}, expected {full}")
+        return out, got
+
+    with torch.no_grad():
+        # -- 21a. held blocks: the flagship's trained block 1, Conformer-S and
+        # d 1024 with 4 heads of 256 (seeded), B=8 x T'=249
+        t0 = time.perf_counter()
+        flag = Recognizer(interop.from_jax_params(tree["params"], tree["model_state"], base),
+                          tok, device=dev, calib=calib)
+        feats, flen = flag._features(wav[:8], counts[:8])
+        x_flag, _, mask8 = flag.model.frontend_embed(feats, flen)
+        len_flag = mask8.sum(1, dtype=torch.int32)
+        sd_flag = flag.model.stack.blocks[0].state_dict()
+        del flag
+        lengths8 = torch.tensor([249] * 6 + [37, 0], dtype=torch.int32, device=dev)
+        for name, (D, H, Fd, K) in HELD_WIDTHS.items():
+            if name == "flagship":
+                sd, x0, lens = sd_flag, x_flag.contiguous(), len_flag
+            else:
+                st = ConformerStack(ConformerConfig(d_model=D, n_heads=H, d_ff=Fd,
+                                                    kernel_size=K), 1)
+                st.init(torch.Generator().manual_seed(191))
+                sd = st.blocks[0].state_dict()
+                x0 = F.pad(torch.randn(8, 249, D, generator=g), (0, kcb.pitch(D) - D)).to(dev)
+                lens = lengths8
+            runs = [(mix, sm) for mix in MIXES for sm in ("bfloat16", "float32")]
+            if name == "wide":
+                runs += [("bf16", "bfloat16"), ("w8a8", "bfloat16"), ("f32", "float32")]
+            for mix, sm in runs:
+                k = (profile_kw(mix, sm) if mix in MIXES else
+                     dict(compute_dtype=f32 if mix == "f32" else bf,
+                          residual_dtype=f32 if mix == "f32" else bf,
+                          attn_softmax_dtype=DT[sm], quantize="int8" if mix == "w8a8" else None))
+                f = {n: v.to(dev) for n, v in kcb.fold_block_params(
+                    sd, compute_dtype=k["compute_dtype"], quantize=k["quantize"],
+                    n_heads=H).items()}
+                kw = dict(n_heads=H, kernel_size=K, d_model=D, **k)
+                xx = x0.to(k["residual_dtype"])
+                entry = kcb._entry(k["compute_dtype"], k["residual_dtype"],
+                                   k["attn_softmax_dtype"], k["quantize"])
+                what = (f"21a. conformer_block {entry} ({sm} softmax) at d {D}, {H} heads of "
+                        f"{D // H} (padded to {kcb.padded_head(D // H)}), ff {Fd}, k {K}, "
+                        + ("the flagship's block 1 on the frontend's output" if name ==
+                           "flagship" else "seeded") + " (B=8, T'=249)")
+                err, y_k = held_block(f, xx, lens, kw, what)
+                if name != "flagship" and ((y_k[-1] != 0).any() or (y_k[..., D:] != 0).any()):
+                    fail(f"{what}: the empty item or the padded columns are not all zeros")
+                row = (MIX_ROWS.get(mix) if name == "flagship" and sm == "bfloat16" else
+                       {"bf16": "1@dh256", "w8a8": "1b@dh256", "f32": "1c@dh256"}.get(mix)
+                       if name == "wide" else None)
+                if row:
+                    errs[row] = max(errs.get(row, 0.0), err)
+                del f, y_k
+        for D in (144, 256, 1024):
+            P = kcb.pitch(D)
+            rows = F.pad(3 * torch.randn(4099, D, generator=g), (0, P - D)).to(dev, f32)
+            gg = F.pad(1 + 0.3 * torch.randn(D, generator=g), (0, P - D)).to(dev)
+            bb = F.pad(0.2 * torch.randn(D, generator=g), (0, P - D)).to(dev)
+            q_k, s_k = kcb.layer_norm_quantize(rows, gg, bb, d_model=D)
+            q_p, s_p = kcb.layer_norm_quantize_plain(rows, gg, bb, d_model=D)
+            torch.cuda.synchronize()
+            n_q, n_s = int((q_k != q_p).sum()), int((s_k != s_p).sum())
+            print(f"21a. layer_norm_quantize of float32 rows vs plain at d {D} (4099 rows): "
+                  f"{n_q} int8 values and {n_s} scales differ")
+            if n_q or n_s:
+                fail(f"layer_norm_quantize kernel differs from its plain version on float32 "
+                     f"rows at d {D}")
+        print(f"21a: {time.perf_counter() - t0:.1f} s")
+
+        # -- 21b. both attentions at heads past 128
+        t0 = time.perf_counter()
+        for dh in WIDE_ATT_DH:
+            dhp = kcb.padded_head(dh)
+            H, T = 2, 249
+            qkv = [F.pad(torch.randn(8, H, T, dh, generator=g), (0, dhp - dh)).to(dev)
+                   for _ in range(3)]
+            for cd, which in ((bf, "the bf16 entries' (mma.sync)"),
+                              (f32, "the float32 entries' (attention_f32.cuh)")):
+                q, k, v = (t.to(cd) for t in qkv)
+                valid = torch.arange(T, device=dev)[None, :] < lengths8[:, None]
+                for sm in (bf, f32):
+                    y = kcb.block_attention(q, k, v, valid, dh, sm)
+                    fig = attention_figures(y, q, k, v, valid, dh, sm, kcb._attention)
+                    _, ulps, frac, _, _, held = fig
+                    strict = frac <= WIDE_ATT_SHARE if sm == bf else ulps <= F32_OUT_ULPS
+                    print(f"21b. {which} attention at dh {dh} (padded to {dhp}; B=8, {H} "
+                          f"heads, T'=249, lengths 249 x 6, 37, 0), {attention_line(sm, fig)}; "
+                          f"held here: {'share <= ' + str(WIDE_ATT_SHARE) if sm == bf else 'max ulps <= ' + str(F32_OUT_ULPS)}")
+                    if not (held and strict):
+                        fail(f"21b. {which} attention at dh {dh} ({sm} softmax) disagrees with "
+                             f"its plain version")
+        T = 249
+        q3, k3, v3 = (torch.randn(B, 4, T, 256, generator=g).to(dev, bf) for _ in range(3))
+        len3 = torch.full((B,), T, device=dev)
+        len3[1::3] = 137
+        mask3 = torch.arange(T, device=dev)[None, :] < len3[:, None]
+        o_k = katt.fused_attention(q3, k3, v3, mask3)
+        o_p = katt.fused_attention_plain(q3, k3, v3, mask3)
+        torch.cuda.synchronize()
+        rel = float((o_k - o_p).abs().max() / v3.float().abs().max())
+        errs["3@dh256"] = float((o_k - o_p).abs().max())
+        print(f"21b. the attention kernel (row 3) at (128, 4, 249, 256) vs plain: max|d| / "
+              f"max|v| {rel:.3e} (tolerance {ATT_RTOL})")
+        if not rel <= ATT_RTOL:
+            fail("21b. the attention kernel disagrees with its plain version at dh 256")
+        del o_k, o_p
+        print(f"21b: {time.perf_counter() - t0:.1f} s")
+
+        # -- 21c. the flagship in the 8 new profiles, all-exit, B=128 x 10 s
+        t0 = time.perf_counter()
+        recs = {}
+        for mix in MIXES:
+            for sm in ("bfloat16", "float32"):
+                k = profile_kw(mix, sm)
+                cfg = dataclasses.replace(base, compute_dtype=MIXES[mix][0],
+                                          residual_dtype=MIXES[mix][1],
+                                          attn_softmax_dtype=sm, quantize=MIXES[mix][2])
+                rec = Recognizer(interop.from_jax_params(tree["params"], tree["model_state"],
+                                                         cfg), tok, device=dev, calib=calib)
+                entry = kcb._entry(k["compute_dtype"], k["residual_dtype"],
+                                   k["attn_softmax_dtype"], k["quantize"])
+                head = int(k["compute_dtype"] == bf)
+                out, got = launches_of(lambda: rec.transcribe(wav, counts),
+                                       f"21c. the flagship, {entry} ({sm} softmax), all-exit "
+                                       f"(B={B} x 10 s)", **{"conformer_block_" + entry: 12,
+                                                             "head_argmax": head})
+                with plain_versions(kcb, katt):
+                    out_p = rec.transcribe(wav, counts)
+                dis = disagreement(out.tokens, out.n_tokens, out_p.tokens, out_p.n_tokens)
+                shares = [e / max(t, 1) for e, t in dis]
+                print(f"21c. the flagship, {entry} ({sm} softmax): greedy tokens vs the "
+                      f"plain-version path per exit {[f'{e}/{t}' for e, t in dis]} (edits / "
+                      f"tokens; exit 1 {shares[0]:.4f} printed, exits 2-6 held to "
+                      f"{TOKEN_DISAGREE})")
+                if max(shares[1:]) > TOKEN_DISAGREE:
+                    fail(f"21c. the flagship in {entry} ({sm} softmax): tokens more than "
+                         f"{TOKEN_DISAGREE} apart from the plain-version path")
+                if sm == "bfloat16":
+                    launches[MIX_ROWS[mix]] = got["conformer_block_" + entry]
+                    paths[MIX_ROWS[mix]] = (f"the flagship's all-exit path in {entry} with the "
+                                            f"bf16 softmax (21c, B={B})")
+                    if k["quantize"]:
+                        recs[mix] = rec
+                del rec, out, out_p
+        # the three W8A8 mixes through the cascade
+        k_casc, E = 2, 6
+        for mix, rec in recs.items():
+            k = profile_kw(mix, "bfloat16")
+            entry = "conformer_block_" + kcb._entry(k["compute_dtype"], k["residual_dtype"],
+                                                    k["attn_softmax_dtype"], k["quantize"])
+            lp, sl = rec.model.encode_exit(*rec._features(wav, counts), k_casc)
+            m = torch.arange(lp.shape[1], device=dev)[None, :] < sl[:, None]
+            conf = scaled_confidence(lp, m, "maxprob", 1.0)
+            med = float(conf.sort().values[B // 2 - 1:B // 2 + 1].mean())
+            for label, cal in (("the committed calibration", calib),
+                               ("0", {"score": "maxprob", "thresholds": 0.0,
+                                      "cascade_k": k_casc}),
+                               ("1.01", {"score": "maxprob", "thresholds": 1.01,
+                                         "cascade_k": k_casc}),
+                               ("exit 2's median", {"score": "maxprob", "thresholds":
+                                                    [2.0, med] + [2.0] * (E - 2),
+                                                    "cascade_k": k_casc})):
+                rec.calib = cal
+                reset_counts()
+                out = rec.transcribe_gated(wav, counts)
+                got = read_counts()
+                want = 2 * (rec.calib.get("cascade_k") or k_casc)
+                want += 12 - want if out.rows_packed else 0
+                gate_out = rec.transcribe_gated(wav, counts, strategy="whileloop")
+                agree = int((out.chosen_exit == gate_out.chosen_exit).sum())
+                hist = torch.bincount(out.chosen_exit.long(), minlength=E + 1)[1:].tolist()
+                print(f"21c. the flagship's cascade in {entry[16:]}, {label}: launches {got} "
+                      f"(expected {want} block launches); rows per exit {hist}, escalated "
+                      f"{100 * out.escalated_share:.2f}%; chosen exits equal to the while-loop "
+                      f"gate's on {agree}/{B} rows")
+                others = {n: v for n, v in got.items() if n != entry and v}
+                if agree != B or others or got[entry] != want:
+                    fail(f"21c. the cascade in {entry[16:]} ({label}): launches {got}, chosen "
+                         f"exits unlike the gate's on {B - agree} rows")
+            rec.calib = calib
+            del lp, sl, conf
+        del recs
+        print(f"21c, served: {time.perf_counter() - t0:.1f} s")
+
+    # the inference CLI with each mix's flags over the first N_CLI_S utterances
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "profiles_corpus")
+    for i in range(N_CLI_S):
+        u = corp["corpus"][i]
+        spk, ch = u.utterance_id.split("-")[:2]
+        src = os.path.join(corp["root"], "LibriSpeech", "test-clean", spk, ch)
+        dst = os.path.join(root, "LibriSpeech", "test-clean", spk, ch)
+        os.makedirs(dst, exist_ok=True)
+        shutil.copy(os.path.join(src, u.utterance_id + ".flac"), dst)
+        with open(os.path.join(dst, f"{spk}-{ch}.trans.txt"), "a") as fo:
+            fo.write(f"{u.utterance_id} {u.transcript}\n")
+    audio_s = sum(len(w) for w in corp["waves"][:N_CLI_S]) / 16000.0
+    n_batches = [0]
+    exit_outputs = inference.exit_outputs
+
+    def counted(*a, **kk):
+        n_batches[0] += 1
+        return exit_outputs(*a, **kk)
+
+    wers = {}
+    inference.exit_outputs = counted
+    try:
+        for name, extra in (("bf16", []), *((m, MIX_FLAGS[m]) for m in MIXES)):
+            argv = ["--decoder_mode", "ctc", "--load_model_path",
+                    os.path.join(HERE, "assets", "flagship_ckpt"), "--data_root", root,
+                    "--eval_splits", "test-clean", "--fused_block", "true", *extra]
+            entry = "bf16" if name == "bf16" else name
+            cd = "bfloat16" if name == "bf16" else MIXES[name][0]
+            n_batches[0] = 0
+            reset_counts()
+            buf = io.StringIO()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                inference.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got = read_counts()
+            nb, out = n_batches[0], buf.getvalue()
+            want = {n: 0 for n in got}
+            want["conformer_block_" + entry] = 12 * nb
+            want["head_argmax"] = (cd == "bfloat16") * nb
+            wers[name] = {int(ln.split("WER exit ")[1].split(":")[0]):
+                          float(ln.split(": ")[1].split("%")[0])
+                          for ln in out.splitlines() if " WER exit " in ln}
+            print(f"21c. `python -m early_exit_tpu_torch.inference --decoder_mode ctc "
+                  f"--fused_block true {' '.join(extra)}` over {N_CLI_S} utterances "
+                  f"({audio_s:.1f} s): launches {got} over {nb} sub-batches; WER per exit "
+                  f"{wers[name]} (bf16: {wers['bf16']}); {audio_s / wall:.1f} audio-s/s on "
+                  f"{card}")
+            if nb == 0 or got != want or len(wers[name]) != 6:
+                fail(f"21c. the flagship's CLI ({name}): {got} over {nb} sub-batches, "
+                     f"{len(wers[name])} WER lines; expected {want}")
+            if name in MIX_ROWS:
+                launches[MIX_ROWS[name] + ":cli"] = got["conformer_block_" + entry]
+    finally:
+        inference.exit_outputs = exit_outputs
+    print(f"21c, the CLI: {time.perf_counter() - t0:.1f} s")
+
+    with torch.no_grad():
+        # -- 21d. 4 heads of 256 on 16 requests in each route
+        t0 = time.perf_counter()
+        cfg_w = dataclasses.replace(base, **WIDE)
+        L = WIDE["n_enc_exits"] * WIDE["n_enc_layers_per_exit"]
+        models = {}
+        for name, over, entry, head in (
+                ("bf16", {}, "conformer_block_bf16", 1),
+                ("W8A8", dict(quantize="int8"), "conformer_block_w8a8", 1),
+                ("float32", dict(compute_dtype="float32", attn_softmax_dtype="float32"),
+                 "conformer_block_f32", 0),
+                ("W8A8, float32 compute", dict(quantize="int8", compute_dtype="float32"),
+                 "conformer_block_w8a8_f32", 0),
+                ("float32 compute, bf16 residual",
+                 dict(compute_dtype="float32", residual_dtype="bfloat16"),
+                 "conformer_block_f32_res_bf16", 0),
+                ("unfused, attention_impl='pallas'",
+                 dict(fused_block=False, attention_impl="pallas"), "attention", 0)):
+            m_w = seeded_model(dataclasses.replace(cfg_w, **over), 3, dev)
+            rec = Recognizer(m_w, tok, device=dev)
+            out, got = launches_of(lambda: rec.transcribe(wav[:16], counts[:16]),
+                                   f"21d. d 1024, 4 heads of 256, 2 exits of 1 block, {name} "
+                                   f"(16 requests)", **{entry: L, "head_argmax": head})
+            with plain_versions(kcb, katt):
+                out_p = rec.transcribe(wav[:16], counts[:16])
+            dis = disagreement(out.tokens, out.n_tokens, out_p.tokens, out_p.n_tokens)
+            print(f"21d. {name}: greedy tokens vs the plain-version path per exit "
+                  f"{[f'{e}/{t}' for e, t in dis]} (edits / tokens; printed, not held: the "
+                  f"seeded model transcribes nothing)")
+            row = {"bf16": "1@dh256", "W8A8": "1b@dh256", "float32": "1c@dh256",
+                   "unfused, attention_impl='pallas'": "3@dh256"}.get(name)
+            if row:
+                launches[row] = got[entry]
+                paths[row] = (f"the d-1024 model with 4 heads of 256 ({name}), 16 requests "
+                              f"(21d)")
+            if name in ("bf16", "float32", "W8A8"):
+                models[name] = m_w
+            del rec, out, out_p
+        print(f"21d: {time.perf_counter() - t0:.1f} s")
+
+        # -- 21e. the new rows' times at B=128 x 10 s
+        t0 = time.perf_counter()
+        full = torch.full_like(counts, N)
+        fl = {}
+        for over in ({}, dict(quantize="int8"), dict(quantize="int8", compute_dtype="float32"),
+                     dict(compute_dtype="float32")):
+            cfg = dataclasses.replace(base, **over)
+            fl[tuple(over.items())] = interop.from_jax_params(
+                tree["params"], tree["model_state"], cfg).to(dev).eval()
+        m_b = fl[()]
+        rec_b = Recognizer(m_b, tok, device=dev)
+        feats, flen = rec_b._features(wav, full)
+        x, _, mask = m_b.frontend_embed(feats, flen)
+        lengths = mask.sum(1, dtype=torch.int32)
+        kw = dict(n_heads=8, kernel_size=31, compute_dtype=bf, residual_dtype=bf,
+                  attn_softmax_dtype=bf, d_model=256)
+        first = lambda key: fl[key].stack.folded()[0]
+        rows = block_rows(first(()), first((("compute_dtype", "float32"),)),
+                          first((("quantize", "int8"),)), x.contiguous(), lengths, kw,
+                          mixes=first((("quantize", "int8"), ("compute_dtype", "float32"))))
+        out_rows = {MIX_ROWS[m]: rows[m] for m in MIXES}
+        del fl, m_b, rec_b, rows
+        m_w = models["bf16"]
+        xw, _, mw = m_w.frontend_embed(feats, flen)
+        kww = dict(n_heads=WIDE["n_heads"], kernel_size=WIDE["depthwise_kernel_size"],
+                   compute_dtype=bf, residual_dtype=bf, attn_softmax_dtype=bf,
+                   d_model=WIDE["d_model"])
+        rows_w = block_rows(m_w.stack.folded()[0], models["float32"].stack.folded()[0],
+                            models["W8A8"].stack.folded()[0], xw.contiguous(),
+                            mw.sum(1, dtype=torch.int32), kww,
+                            sd=m_w.stack.blocks[0].state_dict())
+        out_rows["1@dh256"], out_rows["1b@dh256"], out_rows["1c@dh256"] = (
+            rows_w["bf16"], rows_w["w8a8"], rows_w["f32"])
+        out_rows["3@dh256"] = attention_row(q3, k3, v3, mask3)
+        del models, m_w, xw, q3, k3, v3
+        for key in ("1e", "1f", "1g", "1h"):
+            paths[key] += f"; the CLI with its flags (21c): {launches[key + ':cli']}"
+        print(f"21e: {time.perf_counter() - t0:.1f} s")
+    print(f"21e. times on {card} (B={B}, T'={x.shape[1]}, CUDA events; the flagship's width "
+          f"in the bf16 softmax for 1e-1h; d 1024 with 4 heads of 256, ff 4096, for the "
+          f"dh-256 rows; row 3 at (128, 4, 249, 256)):")
+    for name, t in out_rows.items():
+        by = "operations" if t["bound"][0] >= t["bound"][1] else "bytes"
+        t["bound_ms"], t["bound_by"] = 1e3 * max(t["bound"]), by
+        t["max_abs_err"] = errs.get(name, 0.0)
+        t["launches"], t["path"] = launches[name], paths[name]
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({by}: "
+              f"{t['bound'][0] * 1e3:.4f} ms ops, {t['bound'][1] * 1e3:.4f} ms bytes), "
+              f"{t['launches']} launches on a path")
+    print(f"phase 21: {time.perf_counter() - t_start:.1f} s on {card}")
+    return out_rows
+
+
 def profile_forward(forward, what: str, card: str, B: int, iters: int = 3,
                     top: int = 25, grad: bool = False, shape: str = None) -> float:
     """Device time per kernel name over `iters` calls of `forward` (each
@@ -6855,21 +7382,23 @@ def block_library(f, x, lengths, n_heads, mm=None):
     return ln(x, f["final_ln_g"], f["final_ln_b"]) * valid[..., None]
 
 
-def library_int8_mm(f):
+def library_int8_mm(f, out_dtype=None):
     """The W8A8 products for `block_library`: a row quantize in torch ops,
-    torch._int_mm on the int8 twins, the float32 rescale and bias."""
+    torch._int_mm on the int8 twins, the float32 rescale and bias, the
+    output in out_dtype (bf16 by default; float32 for float32 compute)."""
     import torch
+    out_dtype = out_dtype or torch.bfloat16
 
     def mm(v, name, bias):
         v2 = v.reshape(-1, v.shape[-1]).float()
         sx = v2.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127
         q = (v2 / sx).round().clamp(-127, 127).to(torch.int8)
         y = torch._int_mm(q, f[name + "_t"].t()).float() * (sx * f[name + "_s"]) + f[bias]
-        return y.to(torch.bfloat16).reshape(*v.shape[:-1], -1)
+        return y.to(out_dtype).reshape(*v.shape[:-1], -1)
     return mm
 
 
-def block_rows(fb, f32, q8, x, lengths, kw, sd=None, new_profiles=False) -> dict:
+def block_rows(fb, f32, q8, x, lengths, kw, sd=None, new_profiles=False, mixes=None) -> dict:
     """Rows 1, 1c and 1b: the block's bf16, float32 and W8A8 entries on
     the folded params fb, f32 and q8 at x's shape (B, T', D), bf16, by
     CUDA events: {"bf16", "f32", "w8a8"} -> {ms, plain_ms, library_ms,
@@ -6884,7 +7413,14 @@ def block_rows(fb, f32, q8, x, lengths, kw, sd=None, new_profiles=False) -> dict
     also "f32_sm_bf16" (float32 compute with the bf16 softmax, on f32;
     its yardstick the float32 composition) and "bf16_res_f32" (bf16
     compute with a float32 residual, on fb; the bf16 composition on a
-    float32 residual)."""
+    float32 residual). mixes (q8f, the W8A8 layout folded for float32
+    compute): the four mixes of phase 21, each in kw's softmax --
+    "w8a8_res_f32" (q8 on a float32 residual), "w8a8_f32" (q8f, float32
+    residual), "w8a8_f32_res_bf16" (q8f on the bf16 residual) and
+    "f32_res_bf16" (f32 on the bf16 residual) -- each beside its library
+    block in the same types (the W8A8 products of `library_int8_mm` with
+    the compute dtype's output); the W8A8 mixes' bound takes the products
+    at int8's rate and the rest at the compute dtype's."""
     import torch
     from early_exit_tpu_torch.ops.kernels import conformer_block as kcb
     B, T, P = x.shape
@@ -6943,6 +7479,30 @@ def block_rows(fb, f32, q8, x, lengths, kw, sd=None, new_profiles=False) -> dict
                              5, 1),
             library_ms=cuda_ms(lambda: block_library(lb, xl.float(), lengths, H)),
             bound=(blk_flops / PEAK_BF16, (2 * R * D * 4 + nbytes(lb) + B * 4) / PEAK_BYTES))
+    if mixes is not None:
+        q8f = mixes
+        l8f = q8f if sd is None else {k: v.to(x.device) for k, v in kcb.fold_block_params(
+            sd, compute_dtype=torch.float32, quantize="int8").items()}
+        f32_ = torch.float32
+        rest = blk_flops - gemm_ops
+        w8_bytes = nbytes(l8, kcb.PARAM_ORDER_INT8)
+        for name, f, lf, xin, kwm, lib_mm, peak_rest, io in (
+                ("w8a8_res_f32", q8, l8, x32, dict(kw8, residual_dtype=f32_),
+                 library_int8_mm(l8), PEAK_BF16, 8),
+                ("w8a8_f32", q8f, l8f, x32, dict(kw8, compute_dtype=f32_, residual_dtype=f32_),
+                 library_int8_mm(l8f, f32_), PEAK_F32, 8),
+                ("w8a8_f32_res_bf16", q8f, l8f, x, dict(kw8, compute_dtype=f32_),
+                 library_int8_mm(l8f, f32_), PEAK_F32, 4),
+                ("f32_res_bf16", f32, l32, x, dict(kw, compute_dtype=f32_), None, None, 4)):
+            lib_x = xl.float() if xin.dtype == f32_ else xl
+            rows[name] = dict(
+                ms=cuda_ms(lambda: kcb.conformer_block(f, xin, lengths, **kwm), 10, 2),
+                plain_ms=cuda_ms(lambda: kcb.conformer_block_plain(f, xin, lengths, **kwm), 5, 1),
+                library_ms=cuda_ms(lambda: block_library(lf, lib_x, lengths, H, mm=lib_mm), 10, 2),
+                bound=((blk_flops / PEAK_F32, (R * D * io + nbytes(l32) + B * 4) / PEAK_BYTES)
+                       if lib_mm is None else
+                       (gemm_ops / PEAK_INT8 + rest / peak_rest,
+                        (R * D * io + w8_bytes + B * 4) / PEAK_BYTES)))
     return rows
 
 

@@ -35,7 +35,8 @@
 //
 // Head widths: the kernel is a template over dh in {16, 32, 48, 64, 128};
 // a caller pads a head of another width up to 128 with zero columns to
-// the next of them (the scale stays 1/sqrt of the true width), which
+// the next of them (a head past 128 to a multiple of 128, for the chunked
+// kernel at the end of this file) (the scale stays 1/sqrt of the true width), which
 // changes no sum. A tile row is DHP = max(dh, 32) floats, 64 at dh = 48,
 // so the swizzle always has its 8 chunks to spread over: at dh = 64 and
 // 128 a row is 256 and 512 bytes, its chunks swizzled within each 128
@@ -602,7 +603,288 @@ static cudaError_t attention_f32_dh(const TIn* q, const TIn* k, const TIn* v,
   else return launch(attention_f32_kernel<TIn, DH>);
 }
 
-// dh = 16, 32, 48, 64 or 128 (anything else: cudaErrorInvalidValue); any T > 0.
+// Heads wider than 128: dh a multiple of AFW_DC = 128 (a caller pads a
+// head past 128 to the next multiple with zero columns). The kernels above
+// keep a (64, dh) float32 Q tile and two stages of (64, dh) K and V tiles
+// in shared memory, 256 KB at dh 128 x 2 past the 227 KB a block may take,
+// and 4 dh / 32 sums of P V a lane, 128 registers at dh 256. So here the
+// head is cut in chunks of 128 both ways, with the lanes, tiles and
+// swizzles of dh 128:
+//   - a block takes one (64-query tile, 128-column chunk of the output,
+//     head, item): a lane holds 64 sums of P V, and the grid has dh / 128
+//     blocks for each of the narrow kernels';
+//   - the scores of a 64-key tile accumulate in registers (32 a lane)
+//     over the dh / 128 chunks in order, each chunk's Q and K tiles
+//     (64 x 128 float32) loaded into shared memory in turn: each score
+//     sums over d in the narrow kernels' order;
+//   - the chunk's values then take the keys' place (64 x 128), one stage,
+//     loaded without cp.async: 72 KB of shared memory whatever dh.
+// Every block computes all the scores of its rows, dh / 128 times the
+// narrow kernels' share of them. kLowp: the three passes of
+// attention_f32_lowp_kernel; otherwise the online softmax of
+// attention_f32_kernel, over the same 32-key steps in the same order.
+constexpr int AFW_DC = 128;
+
+template <typename TIn, bool kLowp>
+__global__ void __launch_bounds__(AF_WARPS * 32)
+attention_f32_wide_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
+                          const TIn* __restrict__ v, const unsigned char* __restrict__ mask,
+                          const int* __restrict__ lengths, float* __restrict__ out, int T, int DH,
+                          long long in_bs, long long in_hs, long long in_ts, long long out_bs,
+                          long long out_hs, long long out_ts, float scale) {
+  constexpr int DC = AFW_DC, CHI = DC / 4, NG = DC / 32;
+  extern __shared__ __align__(16) unsigned char af_smem[];
+  float* Qs = reinterpret_cast<float*>(af_smem);  // [64][128], chunk ^ (row & 7)
+  float* Ps = Qs + AF_QTILE * DC;                   // per warp [16][32], chunk ^ (row & 7)
+  float* KV = Ps + AF_WARPS * 16 * 32;              // [64][128]: K, chunk ^ ((row >> 2) & 7),
+                                                    // then V as it is
+  const int n_oc = DH / DC, oc = blockIdx.x % n_oc;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x / n_oc * AF_QTILE;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qg = lane >> 3, kg = lane & 7;
+  const long long in0 = b * in_bs + h * in_hs;
+  const int len = mask == nullptr ? lengths[b] : 0;
+  const unsigned char* mrow = mask == nullptr ? nullptr : mask + (size_t)b * T;
+
+  // rows row0 .. row0 + 63 of src, columns c0 .. c0 + 127, into dst (zeros
+  // past T); sw: 0 Q's swizzle, 1 K's, 2 none
+  auto load_tile = [&](const TIn* src, int row0, int c0, float* dst, int sw) {
+    for (int idx = tid; idx < AF_QTILE * CHI; idx += AF_WARPS * 32) {
+      const int r = idx / CHI, c = idx % CHI, row = row0 + r;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < T) val = load4f(src + in0 + (long long)row * in_ts + c0 + c * 4);
+      const int pc = sw == 0 ? c ^ (r & 7) : sw == 1 ? c ^ ((r >> 2) & 7) : c;
+      *reinterpret_cast<float4*>(dst + r * DC + (pc << 2)) = val;
+    }
+  };
+
+  float sc[2][4][4], o[4][4 * NG], m[4], z[4];
+  int qoff[4], qsw[4], poff[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    z[i] = 0.f;
+    qoff[i] = (qg + 4 * i) * DC;
+    poff[i] = (qg + 4 * i) * 32;
+    qsw[i] = (qg + 4 * i) & 7;
+#pragma unroll
+    for (int j = 0; j < 4 * NG; ++j) o[i][j] = 0.f;
+  }
+  const float* Qw = Qs + warp * 16 * DC;
+  float* Pw = Ps + warp * 16 * 32;
+  const bool active = q0 + warp * 16 < T;
+  const int n_tiles = (T + AF_KT - 1) / AF_KT;
+
+  // the raw scores of key tile t: sc[h2] keys t*64 + 32 h2 + 4 kg + j
+  auto tile_scores = [&](int t) {
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[h2][i][j] = 0.f;
+    for (int dc = 0; dc < DH; dc += DC) {
+      __syncthreads();  // every warp is done with the previous tiles
+      load_tile(q, q0, dc, Qs, 0);
+      load_tile(k, t * AF_KT, dc, KV, 1);
+      __syncthreads();
+      if (!active) continue;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        if (t * AF_KT + 32 * h2 < T) {
+          const float* Kl = KV + (32 * h2 + 4 * kg) * DC;
+#pragma unroll 4
+          for (int c = 0; c < CHI; ++c) {
+            float4 qv[4], kv[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) qv[i] = load4f(Qw + qoff[i] + ((c ^ qsw[i]) << 2));
+#pragma unroll
+            for (int j = 0; j < 4; ++j) kv[j] = load4f(Kl + j * DC + ((c ^ kg) << 2));
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) sc[h2][i][j] = dot4(qv[i], kv[j], sc[h2][i][j]);
+          }
+        }
+      }
+    }
+  };
+  auto load_values = [&](int t) {
+    __syncthreads();  // every warp is done with the keys
+    load_tile(v, t * AF_KT, oc * DC, KV, 2);
+    __syncthreads();
+  };
+  // P V of one 32-key step, P in the warp's strip
+  auto pv = [&](int h2) {
+    __syncwarp();
+    const float* Vl = KV + 32 * h2 * DC + 4 * kg;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      float4 pvv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pvv[i] = load4f(Pw + poff[i] + ((c ^ qsw[i]) << 2));
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        float4 vv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) vv[j] = load4f(Vl + (4 * c + j) * DC + 32 * g);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // key 4 c + j
+            const float p = j == 0 ? pvv[i].x : j == 1 ? pvv[i].y : j == 2 ? pvv[i].z : pvv[i].w;
+            o[i][4 * g + 0] = fmaf(p, vv[j].x, o[i][4 * g + 0]);
+            o[i][4 * g + 1] = fmaf(p, vv[j].y, o[i][4 * g + 1]);
+            o[i][4 * g + 2] = fmaf(p, vv[j].z, o[i][4 * g + 2]);
+            o[i][4 * g + 3] = fmaf(p, vv[j].w, o[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the strip is free for the next 32 keys
+  };
+
+  if constexpr (!kLowp) {
+    for (int t = 0; t < n_tiles; ++t) {
+      tile_scores(t);
+      load_values(t);
+      if (!active) continue;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        if (t * AF_KT + 32 * h2 >= T) continue;
+        float s[4][4];
+        const int key0 = t * AF_KT + 32 * h2 + 4 * kg;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = key0 + j;
+          const bool in = key < T;
+          const bool ok = in && (mrow != nullptr ? mrow[key] != 0 : key < len);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            s[i][j] = ok ? sc[h2][i][j] * scale : (in ? -1e9f : -INFINITY);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = expf(m[i] - m_new);  // 0 on the first tile
+          m[i] = m_new;
+          float rs = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = expf(s[i][j] - m_new);
+            rs += s[i][j];
+          }
+          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+          rs += __shfl_xor_sync(0xffffffffu, rs, 4);
+          z[i] = z[i] * alpha + rs;
+#pragma unroll
+          for (int j = 0; j < 4 * NG; ++j) o[i][j] *= alpha;
+          *reinterpret_cast<float4*>(Pw + poff[i] + ((kg ^ qsw[i]) << 2)) =
+              make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        }
+        pv(h2);
+      }
+    }
+  } else {
+    const float neg = bf16r(-30000.f), scale_r = bf16r(scale);
+    for (int pass = 0; pass < 3; ++pass) {
+      if (active && pass > 0) {  // a pass is over: its row values, over the 8 lanes
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (pass == 1) {
+            m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+            m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+            m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 4));
+          } else {
+            z[i] += __shfl_xor_sync(0xffffffffu, z[i], 1);
+            z[i] += __shfl_xor_sync(0xffffffffu, z[i], 2);
+            z[i] += __shfl_xor_sync(0xffffffffu, z[i], 4);
+            z[i] = bf16r(z[i]);
+          }
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        tile_scores(t);
+        if (pass == 2) load_values(t);
+        if (!active) continue;
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          if (t * AF_KT + 32 * h2 >= T) continue;
+          float s[4][4];
+          const int key0 = t * AF_KT + 32 * h2 + 4 * kg;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = key0 + j;
+            const bool in = key < T;
+            const bool ok = in && (mrow != nullptr ? mrow[key] != 0 : key < len);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              s[i][j] = ok ? bf16r(bf16r(sc[h2][i][j]) * scale_r) : (in ? neg : -INFINITY);
+          }
+          if (pass < 2) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (pass == 0) m[i] = fmaxf(m[i], s[i][j]);
+                else if (s[i][j] != -INFINITY) z[i] += bf16r(expf(bf16r(s[i][j] - m[i])));
+              }
+            continue;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              s[i][j] = s[i][j] == -INFINITY
+                            ? 0.f
+                            : bf16r(bf16r(expf(bf16r(s[i][j] - m[i]))) / z[i]);
+            *reinterpret_cast<float4*>(Pw + poff[i] + ((kg ^ qsw[i]) << 2)) =
+                make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+          }
+          pv(h2);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + warp * 16 + qg + 4 * i;
+    if (qi >= T) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int col = oc * DC + 32 * g + 4 * kg;
+      const float zi = kLowp ? 1.f : z[i];  // the three passes normalized P already
+      float4 r = make_float4(o[i][4 * g], o[i][4 * g + 1], o[i][4 * g + 2], o[i][4 * g + 3]);
+      if (!kLowp) r = make_float4(r.x / zi, r.y / zi, r.z / zi, r.w / zi);
+      *reinterpret_cast<float4*>(out + b * out_bs + h * out_hs + qi * out_ts + col) = r;
+    }
+  }
+}
+
+template <typename TIn, bool kLowp>
+static cudaError_t attention_f32_wide(const TIn* q, const TIn* k, const TIn* v,
+                                      const unsigned char* mask, const int* lengths, float* out,
+                                      int B, int H, int T, int DH, long long in_bs,
+                                      long long in_hs, long long in_ts, long long out_bs,
+                                      long long out_hs, long long out_ts, float scale,
+                                      cudaStream_t s) {
+  constexpr int bytes = (2 * AF_QTILE * AFW_DC + AF_WARPS * 16 * 32) * (int)sizeof(float);
+  auto kernel = attention_f32_wide_kernel<TIn, kLowp>;
+  EET_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  const dim3 grid((T + AF_QTILE - 1) / AF_QTILE * (DH / AFW_DC), H, B);
+  kernel<<<grid, AF_WARPS * 32, bytes, s>>>(q, k, v, mask, lengths, out, T, DH, in_bs, in_hs,
+                                            in_ts, out_bs, out_hs, out_ts, scale);
+  return cudaGetLastError();
+}
+
+// dh = 16, 32, 48, 64 or 128, or a multiple of 128 (attention_f32_wide;
+// anything else: cudaErrorInvalidValue); any T > 0.
 template <typename TIn, bool kLowp = false>
 static cudaError_t attention_f32(const TIn* q, const TIn* k, const TIn* v,
                                  const unsigned char* mask, const int* lengths, float* out,
@@ -617,6 +899,9 @@ static cudaError_t attention_f32(const TIn* q, const TIn* k, const TIn* v,
     EET_ATT_F32_CASE(16) EET_ATT_F32_CASE(32) EET_ATT_F32_CASE(48) EET_ATT_F32_CASE(64)
     EET_ATT_F32_CASE(128)
     default:
+      if (DH > AFW_DC && DH % AFW_DC == 0)
+        return attention_f32_wide<TIn, kLowp>(q, k, v, mask, lengths, out, B, H, T, DH, in_bs,
+                                              in_hs, in_ts, out_bs, out_hs, out_ts, scale, s);
       return cudaErrorInvalidValue;
   }
 #undef EET_ATT_F32_CASE

@@ -1,12 +1,15 @@
-// One inference Conformer block for Hopper (sm_90a), in four entries: the
-// bf16 profile, float32 (with either softmax dtype), W8A8 (int8 products
-// in the bf16 profile), and bf16 compute with a float32 residual.
+// One inference Conformer block for Hopper (sm_90a), in four entries that
+// take every mix of the TPU kernel's dtypes: the bf16 profile; bf16
+// compute with a float32 residual; float32 compute with a float32 or bf16
+// residual (block_f32); W8A8 (int8 products) with bf16 or float32 compute
+// and a bf16 or float32 residual (block_w8a8). Each takes either softmax
+// dtype.
 //
 // Replaces the TPU kernel early_exit_tpu/ops/pallas/conformer_block.py
 // (fused_block_apply -> _block_kernel, with compute_dtype bf16 or float32,
 // residual_dtype and attn_softmax_dtype, and quantize="int8"), at any
-// width but heads past 128: the wrapper pads d_model and d_ff to
-// multiples of 16 and each head to an instantiated width with zero
+// width: the wrapper pads d_model and d_ff to multiples of 16 and each
+// head to an instantiated width (past 128, a multiple of 128) with zero
 // weights (`block_plan`), and every entry takes the true d_model for its
 // LayerNorms and 1/sqrt of the true head width as its scale. That kernel keeps a whole block
 // of two items resident in VMEM; a block's shared memory (227 KB) holds
@@ -94,11 +97,36 @@ constexpr int FBM = 128, FBN = 128, FBK = 8;
 // kRaggedN: N a multiple of 4 but not of 128 (a padded Conformer-S width,
 // 576 or 144): the last column tile's loads past N read zeros and its
 // stores past N are dropped. N % 128 == 0 runs the code it ran before.
-template <int EPI, bool kRaggedN = false>
+// TO: the type of res and out, float, or bf16 for the residual epilogues
+// of float32 compute with a bf16 residual: y rounded once to bf16, then
+// res + w y rounded once to bf16 (w y exact; the float32 sum of two bf16
+// values rounds to the bf16 value their exact sum does, as gemm_bf16.cuh
+// sets out for its packed adds).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+}
+__device__ __forceinline__ void load4(const bf16* p, float (&v)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
+  v[0] = bf2f(e[0]); v[1] = bf2f(e[1]); v[2] = bf2f(e[2]); v[3] = bf2f(e[3]);
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  uint2 u;
+  bf16* e = reinterpret_cast<bf16*>(&u);
+  e[0] = f2bf(v[0]); e[1] = f2bf(v[1]); e[2] = f2bf(v[2]); e[3] = f2bf(v[3]);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+template <int EPI, bool kRaggedN = false, typename TO = float>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, const float* res, float* out, int M, int N,
+                const float* __restrict__ bias, const TO* res, TO* out, int M, int N,
                 int K) {
+  constexpr bool kRoundY = std::is_same<TO, bf16>::value;
   __shared__ __align__(16) float As[2][FBK][FBM];  // transposed: [k][m]
   __shared__ __align__(16) float Bs[2][FBK][FBN];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -165,44 +193,51 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
       const int gn = n0 + jh * 64 + tx * 4;
       if (kRaggedN && gn >= N) continue;
       const float4 bv = *reinterpret_cast<const float4*>(bias + gn);
-      float4 rv = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (EPI == EPI_RES || EPI == EPI_RES_HALF)
-        rv = *reinterpret_cast<const float4*>(res + (size_t)gm * N + gn);
-      const float bb[4] = {bv.x, bv.y, bv.z, bv.w}, rr[4] = {rv.x, rv.y, rv.z, rv.w};
+      float rr[4] = {0.f, 0.f, 0.f, 0.f};
+      if (EPI == EPI_RES || EPI == EPI_RES_HALF) load4(res + (size_t)gm * N + gn, rr);
+      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
       float o[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         float v = acc[i][jh * 4 + q] + bb[q];
         if (EPI == EPI_SILU) v = silu_t<float>(v);
+        if (kRoundY) v = bf16r(v);
         if (EPI == EPI_RES) v = rr[q] + v;
         if (EPI == EPI_RES_HALF) v = rr[q] + 0.5f * v;
         o[q] = v;
       }
-      *reinterpret_cast<float4*>(out + (size_t)gm * N + gn) = make_float4(o[0], o[1], o[2], o[3]);
+      store4(out + (size_t)gm * N + gn, o);
     }
   }
 }
 
-template <bool kRaggedN>
+template <bool kRaggedN, typename TO>
 static void gemm_f32_launch(int epi, dim3 grid, const float* A, const float* W,
-                            const float* bias, const float* res, float* out, int M, int N,
+                            const float* bias, const TO* res, TO* out, int M, int N,
                             int K, cudaStream_t s) {
-  switch (epi) {
-    case EPI_BIAS: gemm_f32_kernel<EPI_BIAS, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    case EPI_SILU: gemm_f32_kernel<EPI_SILU, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    case EPI_RES: gemm_f32_kernel<EPI_RES, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
-    default: gemm_f32_kernel<EPI_RES_HALF, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); break;
+  if constexpr (std::is_same<TO, float>::value) {
+    switch (epi) {
+      case EPI_BIAS: gemm_f32_kernel<EPI_BIAS, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); return;
+      case EPI_SILU: gemm_f32_kernel<EPI_SILU, kRaggedN><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K); return;
+      default: break;
+    }
   }
+  if (epi == EPI_RES)
+    gemm_f32_kernel<EPI_RES, kRaggedN, TO><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K);
+  else
+    gemm_f32_kernel<EPI_RES_HALF, kRaggedN, TO><<<grid, GTHREADS, 0, s>>>(A, W, bias, res, out, M, N, K);
 }
 
-// K a multiple of 8, N of 4
+// K a multiple of 8, N of 4; TO bf16 for the residual epilogues only
+template <typename TO>
 static cudaError_t gemm_f32(int epi, const float* A, const float* W, const float* bias,
-                            const float* res, float* out, int M, int N, int K,
-                            cudaStream_t s) {
+                            const TO* res, TO* out, int M, int N, int K, cudaStream_t s) {
   if (K % FBK || N % 4) return cudaErrorInvalidValue;
+  if (!std::is_same<TO, float>::value && epi != EPI_RES && epi != EPI_RES_HALF)
+    return cudaErrorInvalidValue;
   const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  if (N % FBN) gemm_f32_launch<true>(epi, grid, A, W, bias, res, out, M, N, K, s);
-  else gemm_f32_launch<false>(epi, grid, A, W, bias, res, out, M, N, K, s);
+  if (N % FBN) gemm_f32_launch<true, TO>(epi, grid, A, W, bias, res, out, M, N, K, s);
+  else gemm_f32_launch<false, TO>(epi, grid, A, W, bias, res, out, M, N, K, s);
   return cudaGetLastError();
 }
 
@@ -333,8 +368,8 @@ static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float
   return cudaGetLastError();
 }
 
-// LayerNorm in float32 of a bf16 row, quantized on the way out: only the
-// int8 row and its scale are written. One warp per row: lane l takes the
+// LayerNorm in float32 of a bf16 (or float32) row, quantized on the way
+// out: only the int8 row and its scale are written. One warp per row: lane l takes the
 // row's 8-value chunks l, l + 32, l + 64, ... (values 8 l .. 8 l + 7, 256
 // + 8 l .., a chunk past D / 8 is none). The arithmetic is the LayerNorm
 // kernel's above with its contractions written out (every FMA the
@@ -351,8 +386,9 @@ static cudaError_t layer_norm(const TIn* x, TOut* y, const float* g, const float
 constexpr int LNQ_CHUNKS = 2;
 constexpr int LNQ_MAX_D = 8 * 32 * LNQ_CHUNKS;
 
+template <typename TIn>
 __global__ void __launch_bounds__(LN_THREADS)
-layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+layer_norm_quantize_kernel(const TIn* __restrict__ x, const float* __restrict__ g,
                            const float* __restrict__ b, int8_t* __restrict__ q,
                            float* __restrict__ sx, int rows, int D, int Dt, float eps) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
@@ -399,14 +435,15 @@ layer_norm_quantize_kernel(const bf16* __restrict__ x, const float* __restrict__
 }
 
 // the same arithmetic on a row past LNQ_MAX_D, reread for each pass
+template <typename TIn>
 __global__ void __launch_bounds__(LN_THREADS)
-layer_norm_quantize_wide_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+layer_norm_quantize_wide_kernel(const TIn* __restrict__ x, const float* __restrict__ g,
                                 const float* __restrict__ b, int8_t* __restrict__ q,
                                 float* __restrict__ sx, int rows, int D, int Dt, float eps) {
   const int row = blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * D;
+  const TIn* xr = x + (size_t)row * D;
   float s = 0.f, ss = 0.f;
   for (int v = lane; v < D / 8; v += 32) {
     float e[8];
@@ -444,18 +481,21 @@ layer_norm_quantize_wide_kernel(const bf16* __restrict__ x, const float* __restr
   }
 }
 
-// D (the pitch) a multiple of 8; Dt <= D the true width
-static cudaError_t layer_norm_quantize(const bf16* x, const float* g, const float* b, int8_t* q,
+// x: bf16 rows, or float32 (a float32 residual stream); D (the pitch) a
+// multiple of 8; Dt <= D the true width
+template <typename TIn>
+static cudaError_t layer_norm_quantize(const TIn* x, const float* g, const float* b, int8_t* q,
                                        float* sx, int rows, int D, int Dt, float eps,
                                        cudaStream_t s) {
   if (D % 8 || Dt <= 0 || Dt > D) return cudaErrorInvalidValue;
   const int per_block = LN_THREADS / 32;
   const dim3 grid((rows + per_block - 1) / per_block);
   if (D <= LNQ_MAX_D)
-    layer_norm_quantize_kernel<<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D, Dt, eps);
-  else
-    layer_norm_quantize_wide_kernel<<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D, Dt,
+    layer_norm_quantize_kernel<TIn><<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D, Dt,
                                                                eps);
+  else
+    layer_norm_quantize_wide_kernel<TIn><<<grid, LN_THREADS, 0, s>>>(x, g, b, q, sx, rows, D,
+                                                                    Dt, eps);
   return cudaGetLastError();
 }
 
@@ -692,14 +732,216 @@ static cudaError_t attention_dh(const bf16* qkv, const int* lengths, TOut* out, 
   return cudaGetLastError();
 }
 
+// Heads wider than 128: DH a multiple of ATT_DC = 128 (the fold pads a
+// head past 128 to the next multiple with zero columns). At DH 128 the
+// kernel above holds 32 registers of Q fragments and 64 float32 sums of P
+// V a lane; twice that does not fit in 255 registers, and its key tile
+// would not fit in shared memory beside the values. So the head is cut in
+// chunks of 128 both ways:
+//   - a block takes one (64-query tile, 128-column chunk of the output,
+//     head, item): a lane holds 64 sums of P V, as at DH 128, and the
+//     grid has DH / 128 blocks for each of the narrow kernel's;
+//   - the scores of a tile of ATTW_KT keys accumulate in registers (32 a
+//     lane) over the DH / 128 chunks of the head in order: the chunk's Q
+//     fragments from global memory (L1 and L2 serve the repeats), the
+//     chunk's keys through shared memory (ATTW_KT x 136). Each score's sum
+//     runs over dh in the order of the narrow kernel's, 16 at a time;
+//   - every block computes all the scores of its rows, in each of the
+//     three passes: the scores' work is DH / 128 times the narrow
+//     kernel's share. P V reads the transposed values of its chunk (128 x
+//     ATTW_KT + 8).
+// The passes, the rounding points and the order of every sum over the keys
+// are the narrow kernel's, so the result does not depend on the chunking.
+// Shared memory: 36 KB, whatever DH.
+constexpr int ATT_DC = 128, ATTW_KT = 64;
+
+template <typename TOut, bool kSoftmax>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attention_wide_kernel(const bf16* __restrict__ qkv, const int* __restrict__ lengths,
+                      TOut* __restrict__ out, int T, int D, int DH, int Tp, float scale,
+                      int sm_bf16) {
+  constexpr int KLD = ATT_DC + 8, VLD = ATTW_KT + 8, NJ = ATTW_KT / 8;
+  __shared__ __align__(16) bf16 Ks[ATTW_KT * KLD];
+  __shared__ __align__(16) bf16 Vt[ATT_DC * VLD];
+  const int n_oc = DH / ATT_DC, oc = blockIdx.x % n_oc;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int q0 = (blockIdx.x / n_oc * ATT_WARPS + warp) * 16;
+  const int len = lengths[b];
+  const size_t row3 = 3 * (size_t)D;
+  const bf16* base = qkv + (size_t)b * T * row3 + (size_t)h * DH;
+  const bool active = q0 < T;  // an idle warp still takes its part in the loads
+  const int r0 = q0 + g, r1 = r0 + 8;
+  constexpr int VPR = ATT_DC / 8;  // 16-byte vectors of a chunk's row
+
+  // the raw scores of keys k0 .. k0 + n - 1 (n a multiple of 16): st[jg]
+  // keys k0 + 8 jg + t2 (+1), rows r0 (0, 1) and r1 (2, 3)
+  float st[NJ][4];
+  auto tile_scores = [&](int k0, int n) {
+#pragma unroll
+    for (int jg = 0; jg < NJ; ++jg) st[jg][0] = st[jg][1] = st[jg][2] = st[jg][3] = 0.f;
+    for (int dc = 0; dc < DH; dc += ATT_DC) {
+      __syncthreads();  // every warp is done with the previous chunk
+      for (int idx = threadIdx.x; idx < n * VPR; idx += blockDim.x) {
+        const int j = idx / VPR, v = idx % VPR, tk = k0 + j;
+        *reinterpret_cast<uint4*>(Ks + j * KLD + v * 8) =
+            tk < T ? *reinterpret_cast<const uint4*>(base + tk * row3 + D + dc + v * 8)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+      __syncthreads();
+      if (!active) continue;
+      uint32_t qa[ATT_DC / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < ATT_DC / 16; ++kk) {
+        const int c = dc + kk * 16 + t2;
+        qa[kk][0] = r0 < T ? ld_pair(base + r0 * row3 + c) : 0u;
+        qa[kk][1] = r1 < T ? ld_pair(base + r1 * row3 + c) : 0u;
+        qa[kk][2] = r0 < T ? ld_pair(base + r0 * row3 + c + 8) : 0u;
+        qa[kk][3] = r1 < T ? ld_pair(base + r1 * row3 + c + 8) : 0u;
+      }
+#pragma unroll
+      for (int jg = 0; jg < NJ; ++jg) {
+        if (8 * jg < n) {
+#pragma unroll
+          for (int kk = 0; kk < ATT_DC / 16; ++kk) {
+            const bf16* kr = Ks + (8 * jg + g) * KLD + kk * 16 + t2;
+            mma_16816(st[jg], qa[kk], ld_pair(kr), ld_pair(kr + 8));
+          }
+        }
+      }
+    }
+  };
+  const float neg = sm_bf16 ? bf16r(-30000.f) : -1e9f;
+  // scaled and masked, as the narrow kernel's `scores`
+  auto masked = [&](int n0, float (&sv)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = sm_bf16 ? bf16r(bf16r(sv[i]) * scale) : sv[i] * scale;
+      sv[i] = n0 + t2 + (i & 1) < len ? v : neg;
+    }
+  };
+  auto quad_max = [](float v) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  };
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+  auto ex = [&](float v, float m) {
+    return sm_bf16 ? bf16r(expf(bf16r(v - m))) : expf(v - m);
+  };
+
+  float m0 = -INFINITY, m1 = -INFINITY, z0 = 0.f, z1 = 0.f;
+  if constexpr (kSoftmax) {
+    for (int k0 = 0; k0 < Tp; k0 += ATTW_KT) {
+      const int n = min(ATTW_KT, Tp - k0);
+      tile_scores(k0, n);
+      if (!active) continue;
+#pragma unroll
+      for (int jg = 0; jg < NJ; ++jg) {
+        if (8 * jg < n) {
+          masked(k0 + 8 * jg, st[jg]);
+          m0 = fmaxf(m0, fmaxf(st[jg][0], st[jg][1]));
+          m1 = fmaxf(m1, fmaxf(st[jg][2], st[jg][3]));
+        }
+      }
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    for (int k0 = 0; k0 < Tp; k0 += ATTW_KT) {
+      const int n = min(ATTW_KT, Tp - k0);
+      tile_scores(k0, n);
+      if (!active) continue;
+#pragma unroll
+      for (int jg = 0; jg < NJ; ++jg) {
+        if (8 * jg < n) {
+          masked(k0 + 8 * jg, st[jg]);
+          z0 += ex(st[jg][0], m0) + ex(st[jg][1], m0);
+          z1 += ex(st[jg][2], m1) + ex(st[jg][3], m1);
+        }
+      }
+    }
+    z0 = quad_sum(z0);
+    z1 = quad_sum(z1);
+    if (sm_bf16) {
+      z0 = bf16r(z0);
+      z1 = bf16r(z1);
+    }
+  }
+  auto prob = [&](float v, float m, float z) {
+    if constexpr (kSoftmax) return ex(v, m) / z;
+    else return v;
+  };
+
+  float o[ATT_DC / 8][4] = {};
+  const bf16* vbase = base + 2 * D + (size_t)oc * ATT_DC;
+  for (int k0 = 0; k0 < Tp; k0 += ATTW_KT) {
+    const int n = min(ATTW_KT, Tp - k0);
+    tile_scores(k0, n);
+    // this chunk's values of the tile, transposed (the last chunk's sync
+    // keeps Vt from the previous tile's P V)
+    for (int idx = threadIdx.x; idx < n * VPR; idx += blockDim.x) {
+      const int j = idx / VPR, v = idx % VPR, tk = k0 + j;
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      if (tk < T) vv = *reinterpret_cast<const uint4*>(vbase + tk * row3 + v * 8);
+      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) Vt[(v * 8 + q) * VLD + j] = ve[q];
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int jj = 0; jj < NJ / 2; ++jj) {
+      if (16 * jj >= n) continue;
+      float sa[4], sb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        sa[i] = st[2 * jj][i];
+        sb[i] = st[2 * jj + 1][i];
+      }
+      masked(k0 + 16 * jj, sa);
+      masked(k0 + 16 * jj + 8, sb);
+      const uint32_t pa[4] = {
+          pack_pair(prob(sa[0], m0, z0), prob(sa[1], m0, z0)),
+          pack_pair(prob(sa[2], m1, z1), prob(sa[3], m1, z1)),
+          pack_pair(prob(sb[0], m0, z0), prob(sb[1], m0, z0)),
+          pack_pair(prob(sb[2], m1, z1), prob(sb[3], m1, z1))};
+#pragma unroll
+      for (int nt = 0; nt < ATT_DC / 8; ++nt) {
+        const bf16* vr = Vt + (nt * 8 + g) * VLD + 16 * jj + t2;
+        mma_16816(o[nt], pa, ld_pair(vr), ld_pair(vr + 8));
+      }
+    }
+  }
+  if (!active) return;
+#pragma unroll
+  for (int nt = 0; nt < ATT_DC / 8; ++nt) {
+    const int c = h * DH + oc * ATT_DC + nt * 8 + t2;
+    if (r0 < T) store_pair(out + ((size_t)b * T + r0) * D + c, o[nt][0], o[nt][1]);
+    if (r1 < T) store_pair(out + ((size_t)b * T + r1) * D + c, o[nt][2], o[nt][3]);
+  }
+}
+
+template <typename TOut, bool kSoftmax>
+static cudaError_t attention_wide(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
+                                  int D, int H, float scale, int sm_bf16, cudaStream_t s) {
+  const int DH = D / H, Tp = (T + 15) / 16 * 16;
+  const dim3 grid((T + 16 * ATT_WARPS - 1) / (16 * ATT_WARPS) * (DH / ATT_DC), H, B);
+  attention_wide_kernel<TOut, kSoftmax><<<grid, ATT_WARPS * 32, 0, s>>>(
+      qkv, lengths, out, T, D, DH, Tp, scale, sm_bf16);
+  return cudaGetLastError();
+}
+
 // D: the inner width H x DH of the q|k|v rows (3D a row) and of out (D a
-// row), where DH is an instantiated head width: 16, 32, 48, 64 or 128
-// (anything else: cudaErrorInvalidValue). A model's head of another width
-// up to 128 is padded to the next of them in the fold (zero q, k and v
-// columns, zero rows of Wo), and `scale` is 1/sqrt of its true width. At
-// DH 128 the key tile (KT x 136) and the transposed values (128 x KT + 8)
-// take 137 KB of shared memory at KT = 256, and a lane holds 64 float32
-// sums of P V.
+// row), where DH is an instantiated head width, 16, 32, 48, 64 or 128, or
+// a multiple of 128 (attention_wide; anything else: cudaErrorInvalidValue).
+// A model's head of another width is padded to the next of them in the
+// fold (zero q, k and v columns, zero rows of Wo), and `scale` is 1/sqrt
+// of its true width. At DH 128 the key tile (KT x 136) and the transposed
+// values (128 x KT + 8) take 137 KB of shared memory at KT = 256, and a
+// lane holds 64 float32 sums of P V.
 template <typename TOut, bool kSoftmax = true>
 static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int B, int T,
                              int D, int H, float scale, int sm_bf16, cudaStream_t s) {
@@ -710,7 +952,10 @@ static cudaError_t attention(const bf16* qkv, const int* lengths, TOut* out, int
     case 48: return attention_dh<48, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
     case 64: return attention_dh<64, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
     case 128: return attention_dh<128, TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (D / H > ATT_DC && (D / H) % ATT_DC == 0)
+        return attention_wide<TOut, kSoftmax>(qkv, lengths, out, B, T, D, H, scale, sm_bf16, s);
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -1063,24 +1308,21 @@ extern "C" int eet_conformer_block_bf16_ablate(const void* x_, void* y_, const v
 }
 #endif  // EET_ABLATE
 
-// The float32 entry. x, y: (B*T, D) float32 (may not alias); every weight
-// float32, same order; scratch as above in float32. sm_bf16 0: scores
-// masked to -1e9 and the float32 softmax of attention_f32.cuh; sm_bf16 1
-// (float32 compute with the bf16 softmax, the JAX CLI's --compute_dtype
-// float32 at inference): the same attention with the bf16 entry's score
-// pipeline (its kLowp instantiation), P V in float32.
-extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* lengths_, int B,
-                                       int T, int D, int Dt, int H, int DH, int F, int ksize,
-                                       int sm_bf16, float scale, float eps,
-                                       const void* const* w, void* s_ln_, void* s_big_,
-                                       void* s_att_, void* stream_) {
-  const float* x = static_cast<const float*>(x_);
-  float* y = static_cast<float*>(y_);
-  const int* lengths = static_cast<const int*>(lengths_);
-  float* s_ln = static_cast<float*>(s_ln_);
-  float* s_big = static_cast<float*>(s_big_);
-  float* s_att = static_cast<float*>(s_att_);
-  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+// The float32-compute entry, TR the residual stream's type: float (the
+// float32 profile), or bf16 (float32 compute with a bf16 residual: the
+// LayerNorms read bf16 rows and write float32, the three residual
+// products round their y to bf16 and add it in bf16, gemm_f32<bf16>, and
+// the final LayerNorm writes bf16). x, y: (B*T, D) TR (may not alias);
+// every weight float32, same order; scratch as above in float32. sm_bf16
+// 0: scores masked to -1e9 and the float32 softmax of attention_f32.cuh;
+// sm_bf16 1 (float32 compute with the bf16 softmax, the JAX CLI's
+// --compute_dtype float32 at inference): the same attention with the bf16
+// entry's score pipeline (its kLowp instantiation), P V in float32.
+template <typename TR>
+static cudaError_t block_f32(const TR* x, TR* y, const int* lengths, int B, int T, int D, int Dt,
+                             int H, int DH, int F, int ksize, int sm_bf16, float scale, float eps,
+                             const void* const* w, float* s_ln, float* s_big, float* s_att,
+                             cudaStream_t s) {
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
   const int R = B * T, Di = H * DH;
   const float* no_res = nullptr;
@@ -1109,48 +1351,83 @@ extern "C" int eet_conformer_block_f32(const void* x_, void* y_, const void* len
   EET_TRY(gemm_f32(EPI_SILU, s_ln, fw(W_FFN2_W1), fw(W_FFN2_B1), no_res, s_big, R, F, D, s));
   EET_TRY(gemm_f32(EPI_RES_HALF, s_big, fw(W_FFN2_W2), fw(W_FFN2_B2), y, y, R, D, F, s));
   EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
-  return 0;
+  return cudaSuccess;
 }
 
-// The W8A8 entry. x, y: (B*T, D) bf16 (may not alias). w: the same order,
-// with each of the 10 product weights as its transposed int8 twin (N, K)
-// and each of their biases in float32; ws: the float32 per-output-channel
-// scale row at each product weight's index (nullptr elsewhere). Scratch:
-// s_q (B*T, max(F, D, H DH)) int8; s_sx (B*T) float32; s_big (B*T,
-// max(F, 3 H DH)) and s_att (B*T, max(D, H DH)) bf16; s_f (B*T, max(D,
-// H DH)) float32, with the float32 softmax or where the conv module's
-// quantized rows do not fit in a block (conv_channels 0), nullptr
-// otherwise.
-extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* lengths_, int B,
-                                        int T, int D, int Dt, int H, int DH, int F, int ksize,
-                                        int sm_bf16, float scale, float eps,
-                                        const void* const* w, const void* const* ws,
-                                        void* s_f_, void* s_q_, void* s_sx_, void* s_big_,
-                                        void* s_att_, void* stream_) {
-  const bf16* x = static_cast<const bf16*>(x_);
-  bf16* y = static_cast<bf16*>(y_);
+// res_bf16 0: x, y float32 (the float32 profile); 1: x, y bf16 (float32
+// compute with a bf16 residual)
+extern "C" int eet_conformer_block_f32(const void* x, void* y, const void* lengths_, int B,
+                                       int T, int D, int Dt, int H, int DH, int F, int ksize,
+                                       int sm_bf16, float scale, float eps,
+                                       const void* const* w, void* s_ln, void* s_big,
+                                       void* s_att, void* stream_, int res_bf16) {
   const int* lengths = static_cast<const int*>(lengths_);
-  float* s_f = static_cast<float*>(s_f_);
-  int8_t* s_q = static_cast<int8_t*>(s_q_);
-  float* s_sx = static_cast<float*>(s_sx_);
-  bf16* s_big = static_cast<bf16*>(s_big_);
-  bf16* s_att = static_cast<bf16*>(s_att_);
+  float* ln = static_cast<float*>(s_ln);
+  float* big = static_cast<float*>(s_big);
+  float* att = static_cast<float*>(s_att);
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
-  auto bw = [&](int i) { return static_cast<const bf16*>(w[i]); };
+  if (res_bf16)
+    return block_f32(static_cast<const bf16*>(x), static_cast<bf16*>(y), lengths, B, T, D, Dt, H,
+                     DH, F, ksize, sm_bf16, scale, eps, w, ln, big, att, s);
+  return block_f32(static_cast<const float*>(x), static_cast<float*>(y), lengths, B, T, D, Dt, H,
+                   DH, F, ksize, sm_bf16, scale, eps, w, ln, big, att, s);
+}
+
+// The W8A8 entry, TC the compute type and TR the residual stream's: the
+// bf16 profile (bf16, bf16), bf16 compute with a float32 residual (bf16,
+// float), float32 compute (float, float) and float32 compute with a bf16
+// residual (float, bf16), as the JAX kernel's matmul (:225-237) takes
+// each. The products are int8 in all four; what the type sets is where
+// their outputs round:
+//   - the LayerNorms read the TR stream (layer_norm_quantize<TR>);
+//   - a W1 / QKV / PW1 output is TC: rounded to bf16 with bf16 compute,
+//     unrounded float32 (EPI_F32) with float32 compute, where the SiLU,
+//     the attention (attention_f32.cuh, either softmax), the GLU, the
+//     depthwise conv and BatchNorm run in float32 and the next product
+//     quantizes the float32 values (quantize_rows<float>, conv_module<
+//     float, int8_t>);
+//   - a residual product's y joins the TR stream: with a bf16 stream it
+//     rounds to bf16 and adds in bf16 (the bf16 epilogues); with a float32
+//     one y is rounded to TC first (EPI_ROUND where TC is bf16) and added
+//     in float32 (EPI_F32);
+//   - the final LayerNorm writes TR.
+// x, y: (B*T, D) TR (may not alias). w: the same order, with each of the
+// 10 product weights as its transposed int8 twin (N, K) and each of their
+// biases in float32; ws: the float32 per-output-channel scale row at each
+// product weight's index (nullptr elsewhere). Scratch: s_q (B*T, max(F,
+// D, H DH)) int8; s_sx (B*T) float32; s_big (B*T, max(F, 3 H DH)) and
+// s_att (B*T, max(D, H DH)) TC; s_f (B*T, max(D, H DH)) float32, with bf16
+// compute and the float32 softmax or where the conv module's quantized
+// rows do not fit in a block (conv_channels 0), nullptr otherwise (float32
+// compute's float32 rows wait in s_att).
+template <typename TC, typename TR>
+static cudaError_t block_w8a8(const TR* x, TR* y, const int* lengths, int B, int T, int D, int Dt,
+                              int H, int DH, int F, int ksize, int sm_bf16, float scale,
+                              float eps, const void* const* w, const void* const* ws, float* s_f,
+                              int8_t* s_q, float* s_sx, TC* s_big, TC* s_att, cudaStream_t s) {
+  constexpr bool kF32 = std::is_same<TC, float>::value;
+  constexpr bool kResF32 = std::is_same<TR, float>::value;
+  auto tw = [&](int i) { return static_cast<const TC*>(w[i]); };
   auto fw = [&](int i) { return static_cast<const float*>(w[i]); };
   const int R = B * T, Di = H * DH;
-  const bool conv_split = conv_channels(D, ksize, sizeof(bf16), true) == 0;
-  if ((!sm_bf16 || conv_split) && s_f == nullptr) return cudaErrorInvalidValue;
+  const bool conv_split = conv_channels(D, ksize, sizeof(TC), true) == 0;
+  // float32 rows that wait for their quantization
+  float* f_rows = kF32 ? reinterpret_cast<float*>(s_att) : s_f;
+  if (!kF32 && (!sm_bf16 || conv_split) && s_f == nullptr) return cudaErrorInvalidValue;
   // LayerNorm in float32, quantized rows in s_q / s_sx
-  auto ln_q = [&](const bf16* v, int g, int b) {
+  auto ln_q = [&](const TR* v, int g, int b) {
     return layer_norm_quantize(v, fw(g), fw(b), s_q, s_sx, R, D, Dt, eps, s);
   };
-  // out = epilogue(quantized s_q @ weight wi); bi: its bias
-  auto mm = [&](int epi, int wi, int bi, const bf16* res, bf16* out, int N, int K) {
+  // out = epilogue(quantized s_q @ weight wi); bi: its bias. A residual
+  // epilogue writes TR, the others TC.
+  auto mm = [&](int epi, int wi, int bi, const TR* res, void* out, int N, int K) {
+    const bool to_res = epi == EPI_RES || epi == EPI_RES_HALF;
+    if (to_res ? kResF32 : kF32) epi |= EPI_F32;
+    if (to_res && kResF32 && !kF32) epi |= EPI_ROUND;
     return gemm_s8(epi, s_q, s_sx, static_cast<const int8_t*>(w[wi]),
                    static_cast<const float*>(ws[wi]), fw(bi), res, out, R, N, K, s);
   };
-  auto ffn = [&](const bf16* v, bf16* out, int ln_g, int ln_b, int w1, int b1, int w2,
+  auto ffn = [&](const TR* v, TR* out, int ln_g, int ln_b, int w1, int b1, int w2,
                  int b2) -> cudaError_t {
     EET_TRY(ln_q(v, ln_g, ln_b));
     EET_TRY(mm(EPI_SILU, w1, b1, nullptr, s_big, F, D));
@@ -1162,7 +1439,18 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
   // MHSA: one quantized LayerNorm output feeds q, k and v
   EET_TRY(ln_q(y, W_ATTN_LN_G, W_ATTN_LN_B));
   EET_TRY(mm(EPI_BIAS, W_QKV, W_BQKV, nullptr, s_big, 3 * Di, D));
-  if (sm_bf16) {
+  if constexpr (kF32) {
+    const float* qkv = s_big;
+    const long long in_bs = (long long)T * 3 * Di, out_bs = (long long)T * Di;
+    if (sm_bf16)
+      EET_TRY((attention_f32<float, true>(qkv, qkv + Di, qkv + 2 * Di, nullptr, lengths, f_rows,
+                                          B, H, T, DH, in_bs, DH, 3 * Di, out_bs, DH, Di, scale,
+                                          s)));
+    else
+      EET_TRY(attention_f32<float>(qkv, qkv + Di, qkv + 2 * Di, nullptr, lengths, f_rows, B, H,
+                                   T, DH, in_bs, DH, 3 * Di, out_bs, DH, Di, scale, s));
+    EET_TRY(quantize_rows(f_rows, s_q, s_sx, R, Di, s));
+  } else if (sm_bf16) {
     EET_TRY(attention(s_big, lengths, s_att, B, T, Di, H, scale, 1, s));
     EET_TRY(quantize_rows(s_att, s_q, s_sx, R, Di, s));
   } else {
@@ -1175,17 +1463,42 @@ extern "C" int eet_conformer_block_w8a8(const void* x_, void* y_, const void* le
   EET_TRY(ln_q(y, W_CONV_LN_G, W_CONV_LN_B));
   EET_TRY(mm(EPI_BIAS, W_PW1, W_BPW1, nullptr, s_big, 2 * D, D));
   if (conv_split) {
-    EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
-                        s_f, nullptr, B, T, D, ksize, s));
-    EET_TRY(quantize_rows(s_f, s_q, s_sx, R, D, s));
+    EET_TRY((conv_module<TC, float>(s_big, lengths, tw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
+                                    fw(W_BN_SHIFT), f_rows, nullptr, B, T, D, ksize, s)));
+    EET_TRY(quantize_rows(f_rows, s_q, s_sx, R, D, s));
   } else {
-    EET_TRY(conv_module(s_big, lengths, bw(W_DW), fw(W_DW_B), fw(W_BN_SCALE), fw(W_BN_SHIFT),
-                        s_q, s_sx, B, T, D, ksize, s));
+    EET_TRY((conv_module<TC, int8_t>(s_big, lengths, tw(W_DW), fw(W_DW_B), fw(W_BN_SCALE),
+                                     fw(W_BN_SHIFT), s_q, s_sx, B, T, D, ksize, s)));
   }
   EET_TRY(mm(EPI_RES, W_PW2, W_BPW2, y, y, D, D));
   EET_TRY(ffn(y, y, W_FFN2_LN_G, W_FFN2_LN_B, W_FFN2_W1, W_FFN2_B1, W_FFN2_W2, W_FFN2_B2));
   EET_TRY(layer_norm(y, y, fw(W_FINAL_LN_G), fw(W_FINAL_LN_B), R, D, Dt, eps, lengths, T, s));
-  return 0;
+  return cudaSuccess;
+}
+
+// compute_f32, res_f32: the W8A8 entry's types (0 bf16, 1 float32); the
+// weights' dw_w is in the compute type
+extern "C" int eet_conformer_block_w8a8(const void* x, void* y, const void* lengths_, int B,
+                                        int T, int D, int Dt, int H, int DH, int F, int ksize,
+                                        int sm_bf16, float scale, float eps,
+                                        const void* const* w, const void* const* ws,
+                                        void* s_f_, void* s_q_, void* s_sx_, void* s_big,
+                                        void* s_att, void* stream_, int compute_f32,
+                                        int res_f32) {
+  const int* len = static_cast<const int*>(lengths_);
+  float* s_f = static_cast<float*>(s_f_);
+  int8_t* s_q = static_cast<int8_t*>(s_q_);
+  float* s_sx = static_cast<float*>(s_sx_);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+#define EET_W8A8(TC, TR)                                                                        \
+  return block_w8a8<TC, TR>(static_cast<const TR*>(x), static_cast<TR*>(y), len, B, T, D, Dt, H, \
+                            DH, F, ksize, sm_bf16, scale, eps, w, ws, s_f, s_q, s_sx,            \
+                            static_cast<TC*>(s_big), static_cast<TC*>(s_att), s)
+  if (!compute_f32 && !res_f32) EET_W8A8(bf16, bf16);
+  if (!compute_f32) EET_W8A8(bf16, float);
+  if (res_f32) EET_W8A8(float, float);
+  EET_W8A8(float, bf16);
+#undef EET_W8A8
 }
 
 extern "C" int eet_conformer_block_param_count() { return W_COUNT; }
@@ -1200,17 +1513,19 @@ extern "C" int eet_gemm_bf16(const void* a, const void* w, const void* bias, con
               static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
 }
 
-// The W8A8 entry's product on its own, for checks and timing:
+// The W8A8 entries' product on its own, for checks and timing:
 // out (M, N) = epilogue(bf16(float(aq (M, K) @ wt (N, K)^T) * (sx (M) *
 // sw (N)) + bias (N))), aq and wt int8, sx, sw and bias float32, epi as
-// above; res may be out.
+// above; res may be out. epi | 4 (EPI_F32): res and out float32, y not
+// rounded; | 8 as well (EPI_ROUND): y rounded to bf16 before the residual
+// add.
 extern "C" int eet_gemm_s8(const void* aq, const void* sx, const void* wt, const void* sw,
                            const void* bias, const void* res, void* out, int M, int N, int K,
                            int epi, void* stream_) {
   return gemm_s8(epi, static_cast<const int8_t*>(aq), static_cast<const float*>(sx),
                  static_cast<const int8_t*>(wt), static_cast<const float*>(sw),
-                 static_cast<const float*>(bias), static_cast<const bf16*>(res),
-                 static_cast<bf16*>(out), M, N, K, static_cast<cudaStream_t>(stream_));
+                 static_cast<const float*>(bias), res, out, M, N, K,
+                 static_cast<cudaStream_t>(stream_));
 }
 
 // The bf16 entries' LayerNorm on its own, for checks: x (rows, D) bf16,
@@ -1230,29 +1545,48 @@ extern "C" int eet_layer_norm_bf16(const void* x, const void* g, const void* b, 
                     eps, nullptr, 1, s);
 }
 
-// The bf16 entries' attention on its own, for checks: qkv (B*T, 3 Di)
-// bf16, the q|k|v rows the QKV product writes, heads of Di / H -> out
-// (B*T, Di), bf16 or, out_f32 (the W8A8 entry with the float32 softmax),
-// float32.
+// The entries' attention on its own, for checks: qkv (B*T, 3 Di) bf16,
+// the q|k|v rows the QKV product writes, heads of Di / H -> out (B*T, Di),
+// bf16 or, out_f32 (the W8A8 entry with the float32 softmax), float32: the
+// bf16-compute entries' attention. in_f32: qkv and out float32, the
+// float32-compute entries' attention (attention_f32.cuh, its three-pass
+// variant with sm_bf16).
 extern "C" int eet_block_attention(const void* qkv, const void* lengths, void* out, int B,
                                    int T, int Di, int H, float scale, int sm_bf16, int out_f32,
-                                   void* stream_) {
+                                   int in_f32, void* stream_) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  if (in_f32) {
+    if (H <= 0 || Di % H) return cudaErrorInvalidValue;
+    const float* qf = static_cast<const float*>(qkv);
+    float* o = static_cast<float*>(out);
+    const int DH = Di / H;
+    const long long in_bs = (long long)T * 3 * Di, out_bs = (long long)T * Di;
+    if (sm_bf16)
+      return attention_f32<float, true>(qf, qf + Di, qf + 2 * Di, nullptr, len, o, B, H, T, DH,
+                                        in_bs, DH, 3 * Di, out_bs, DH, Di, scale, s);
+    return attention_f32<float>(qf, qf + Di, qf + 2 * Di, nullptr, len, o, B, H, T, DH, in_bs,
+                                DH, 3 * Di, out_bs, DH, Di, scale, s);
+  }
   if (out_f32)
     return attention(q, len, static_cast<float*>(out), B, T, Di, H, scale, sm_bf16, s);
   return attention(q, len, static_cast<bf16*>(out), B, T, Di, H, scale, sm_bf16, s);
 }
 
-// The W8A8 entry's LayerNorm + quantize on its own, for checks: x (rows,
-// D) bf16 -> q (rows, D) int8 and sx (rows) float32, statistics over the
-// first Dt of the D values.
+// The W8A8 entries' LayerNorm + quantize on its own, for checks: x (rows,
+// D) bf16, or float32 (in_f32: a float32 residual stream) -> q (rows, D)
+// int8 and sx (rows) float32, statistics over the first Dt of the D
+// values.
 extern "C" int eet_layer_norm_quantize(const void* x, const void* g, const void* b, void* q,
-                                       void* sx, int rows, int D, int Dt, float eps,
+                                       void* sx, int rows, int D, int Dt, float eps, int in_f32,
                                        void* stream_) {
-  return layer_norm_quantize(static_cast<const bf16*>(x), static_cast<const float*>(g),
-                             static_cast<const float*>(b), static_cast<int8_t*>(q),
-                             static_cast<float*>(sx), rows, D, Dt, eps,
-                             static_cast<cudaStream_t>(stream_));
+  const float* gf = static_cast<const float*>(g);
+  const float* bf = static_cast<const float*>(b);
+  int8_t* q8 = static_cast<int8_t*>(q);
+  float* sxf = static_cast<float*>(sx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  if (in_f32)
+    return layer_norm_quantize(static_cast<const float*>(x), gf, bf, q8, sxf, rows, D, Dt, eps, s);
+  return layer_norm_quantize(static_cast<const bf16*>(x), gf, bf, q8, sxf, rows, D, Dt, eps, s);
 }

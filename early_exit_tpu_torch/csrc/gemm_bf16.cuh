@@ -68,6 +68,11 @@
 #include "common.cuh"
 
 enum { EPI_BIAS = 0, EPI_SILU = 1, EPI_RES = 2, EPI_RES_HALF = 3 };
+// Flags beside an epilogue, for the int8 product only (gemm_s8.cuh):
+// EPI_F32, the output (and the residual) float32, y not rounded (float32
+// compute); with EPI_ROUND as well, y rounded once to bf16 before a
+// float32 residual add (bf16 compute with a float32 residual).
+enum { EPI_F32 = 4, EPI_ROUND = 8 };
 
 constexpr int WG_BM = 128, WG_BN = 256, WG_BK = 64, WG_STAGES = 4;
 constexpr int WG_CONSUMERS = 2;                     // warpgroups, 64 rows each
@@ -200,14 +205,16 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 
 // What a product's epilogue reads beside the sums, by value in the kernel's
 // parameters: bias is bf16 for a bf16 product, float32 for an int8 one,
-// whose sums are rescaled by sx[row] * sw[column] first.
+// whose sums are rescaled by sx[row] * sw[column] first; res and out are
+// bf16, or float32 under EPI_F32.
 struct GemmArgs {
   const void* bias;
   const float* sx;
   const float* sw;
-  const bf16* res;
-  bf16* out;
+  const void* res;
+  void* out;
   int M, N, K;
+  int epi;  // the float32 epilogue's op and flags (EPI_F32 instantiation only)
 };
 
 // The operand type of a product: how a stage of W is loaded, which wgmma
@@ -216,6 +223,7 @@ struct GemmArgs {
 // alike, so the rings and strips below serve both types.
 struct OpBf16 {
   typedef float Acc;
+  static constexpr bool kF32Out = false;  // bf16 outputs only
   static constexpr int BK = WG_BK;  // k per stage
   // W (K, N) row-major, the MN-major operand: four [64 k][64 n] boxes
   __device__ static void load_w(uint32_t dst, const CUtensorMap* map, uint32_t bar, int n0,
@@ -244,9 +252,56 @@ struct OpBf16 {
 // The epilogue of one warp's 16 x 256 sums: d[4j + 2h + e] is row lane/4
 // + 8h, column 8j + 2*(lane%4) + e. row0: the warp's first row in the
 // matrix; n0: the tile's first column.
+// The float32 epilogue (EPI_F32, the int8 product only): no strip, each
+// lane's pairs of sums straight to their float2 (the four lanes of a row
+// write 32 contiguous bytes, a whole sector), the residual read likewise.
+// y = Op::pair_f32 (the rescaled sum plus the float32 bias, unrounded);
+// SiLU in float32 (silu_t<float>); res + w y one rounding of the float32
+// sum (w y exact), after y's one rounding to bf16 under EPI_ROUND. One
+// instantiation serves the four ops and the flag: g.epi says which, a
+// branch uniform over the grid (each instantiation of the product is a
+// large kernel to compile).
+template <class Op>
+__device__ __forceinline__ void epilogue_f32(typename Op::Acc (&d)[128], int row0, int n0,
+                                             const GemmArgs& g, int lane) {
+  const int OP = g.epi & 3;
+  const bool round_y = (g.epi & EPI_ROUND) != 0;
+  const int fr = lane >> 2, fc = 2 * (lane & 3);
+  const float* res = static_cast<const float*>(g.res);
+  float* out = static_cast<float*>(g.out);
+  float rs[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rs[h] = Op::row_scale(g, row0 + fr + 8 * h);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int gn = n0 + 8 * j + fc;
+    if (gn >= g.N) continue;  // N a multiple of 8: a pair is in or out
+    const typename Op::Col c = Op::col(g, gn);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = row0 + fr + 8 * h;
+      if (gm >= g.M) continue;
+      float2 v = Op::pair_f32(d[4 * j + 2 * h], d[4 * j + 2 * h + 1], c, rs[h]);
+      if (OP == EPI_SILU) v = make_float2(silu_t<float>(v.x), silu_t<float>(v.y));
+      const size_t at = (size_t)gm * g.N + gn;
+      if (OP == EPI_RES || OP == EPI_RES_HALF) {
+        if (round_y) v = make_float2(bf16r(v.x), bf16r(v.y));
+        const float w = OP == EPI_RES ? 1.f : 0.5f;
+        const float2 r = *reinterpret_cast<const float2*>(res + at);
+        v = make_float2(__fmaf_rn(w, v.x, r.x), __fmaf_rn(w, v.y, r.y));
+      }
+      *reinterpret_cast<float2*>(out + at) = v;
+    }
+  }
+}
+
 template <class Op, int EPI>
 __device__ __forceinline__ void epilogue(typename Op::Acc (&d)[128], bf16* strip, int row0, int n0,
                                          const GemmArgs& g, int lane) {
+  if constexpr (EPI == EPI_F32) {
+    epilogue_f32<Op>(d, row0, n0, g, lane);
+    return;
+  }
   const int M = g.M, N = g.N;
   const int fr = lane >> 2, fc = 2 * (lane & 3);
   const int chunk = lane & 15, rsub = lane >> 4;  // on the way out: 16 bytes of row 2i + rsub
@@ -263,7 +318,8 @@ __device__ __forceinline__ void epilogue(typename Op::Acc (&d)[128], bf16* strip
       for (int i = 0; i < 8; ++i) {
         const int gm = row0 + 2 * i + rsub;
         rv[i] = gm < M && gn_out < N
-                    ? *reinterpret_cast<const uint4*>(g.res + (size_t)gm * N + gn_out)
+                    ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.res) +
+                                                      (size_t)gm * N + gn_out)
                     : make_uint4(0u, 0u, 0u, 0u);
       }
     }
@@ -296,7 +352,7 @@ __device__ __forceinline__ void epilogue(typename Op::Acc (&d)[128], bf16* strip
 #pragma unroll
         for (int e = 0; e < 4; ++e) y2[e] = __hfma2(y2[e], w, r2[e]);
       }
-      *reinterpret_cast<uint4*>(g.out + (size_t)gm * N + gn_out) = yv;
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(g.out) + (size_t)gm * N + gn_out) = yv;
     }
     __syncwarp();  // the strip is free again
   }
@@ -488,6 +544,7 @@ static cudaError_t launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, con
   return cudaGetLastError();
 }
 
+// epi: one of the four, with the float32 flags where Op::kF32Out
 template <class Op>
 static cudaError_t launch_gemm_epi(int epi, const CUtensorMap& ma, const CUtensorMap& mw,
                                    const GemmArgs& g, cudaStream_t s) {
@@ -496,8 +553,19 @@ static cudaError_t launch_gemm_epi(int epi, const CUtensorMap& ma, const CUtenso
     case EPI_SILU: return launch_gemm<Op, EPI_SILU>(ma, mw, g, s);
     case EPI_RES: return launch_gemm<Op, EPI_RES>(ma, mw, g, s);
     case EPI_RES_HALF: return launch_gemm<Op, EPI_RES_HALF>(ma, mw, g, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (Op::kF32Out) {
+    // one instantiation, the op and flags in g.epi; EPI_ROUND with a residual only
+    const bool res_op = (epi & 3) == EPI_RES || (epi & 3) == EPI_RES_HALF;
+    if ((epi & ~(EPI_F32 | EPI_ROUND | 3)) == 0 && (epi & EPI_F32) &&
+        (res_op || !(epi & EPI_ROUND))) {
+      GemmArgs gf = g;
+      gf.epi = epi;
+      return launch_gemm<Op, EPI_F32>(ma, mw, gf, s);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 // A: (M, K), W: (K, N), res and out: (M, N), all row-major and 16-byte
@@ -512,5 +580,6 @@ static cudaError_t gemm(int epi, const bf16* A, const bf16* W, const bf16* bias,
   CUtensorMap ma, mw;
   EET_TRY(tensor_map(A, 2, K, M, WG_BK, 64, &ma));
   EET_TRY(tensor_map(W, 2, N, K, 64, WG_BK, &mw));
-  return launch_gemm_epi<OpBf16>(epi, ma, mw, GemmArgs{bias, nullptr, nullptr, res, out, M, N, K}, s);
+  return launch_gemm_epi<OpBf16>(epi, ma, mw,
+                                 GemmArgs{bias, nullptr, nullptr, res, out, M, N, K, epi}, s);
 }

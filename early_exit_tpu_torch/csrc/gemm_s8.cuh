@@ -4,7 +4,9 @@
 // A: the int8 rows of an activation, one float32 scale each (sx); Wt: the
 // per-output-channel int8 weight stored transposed, (N, K), the `<name>_t`
 // twin that fold_block_params builds, with its float32 scale row sw; bias
-// float32; res and out bf16. All ten products of the W8A8 block go through
+// float32; res and out bf16, or float32 in the float32 epilogues (EPI_F32:
+// float32 compute, whose product outputs are not rounded, and bf16 compute
+// with a float32 residual, whose y is rounded before the add). All ten products of the W8A8 block go through
 // it (W1 256->2048 +SiLU, W2 2048->256 x+0.5y, QKV 256->768, Wo, PW1
 // 256->512, PW2, each at M = B*T' rows).
 //
@@ -75,6 +77,7 @@ __device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t desc
 template <bool kSmallK>
 struct OpS8 {
   typedef int Acc;
+  static constexpr bool kF32Out = true;  // the float32 epilogues too (EPI_F32)
   static constexpr int BK = 128;  // k per stage: 128 bytes of int8
   // Wt (N, K) row-major, K-major like A: one [256 n][128 k] box
   __device__ static void load_w(uint32_t dst, const CUtensorMap* map, uint32_t bar, int n0,
@@ -105,20 +108,25 @@ struct OpS8 {
   __device__ static float to_float(int v) {
     return kSmallK ? __fsub_rn(__int_as_float(v + 0x4B400000), 12582912.f) : (float)v;
   }
+  // float(acc) * (sx * sw) + bias, each operation rounded on its own
+  __device__ static float2 pair_f32(int a, int b, Col c, float sx) {
+    return make_float2(__fadd_rn(__fmul_rn(to_float(a), __fmul_rn(sx, c.sw.x)), c.bias.x),
+                       __fadd_rn(__fmul_rn(to_float(b), __fmul_rn(sx, c.sw.y)), c.bias.y));
+  }
   __device__ static __nv_bfloat162 pair(int a, int b, Col c, float sx, const GemmArgs&) {
-    return __floats2bfloat162_rn(
-        __fadd_rn(__fmul_rn(to_float(a), __fmul_rn(sx, c.sw.x)), c.bias.x),
-        __fadd_rn(__fmul_rn(to_float(b), __fmul_rn(sx, c.sw.y)), c.bias.y));
+    const float2 v = pair_f32(a, b, c, sx);
+    return __floats2bfloat162_rn(v.x, v.y);
   }
 };
 
-// A: (M, K) int8, Wt: (N, K) int8, res and out: (M, N) bf16, all row-major
-// and 16-byte aligned; sx (M), sw (N) and bias (N) float32, sw and bias
-// 8-byte aligned; K a multiple of 16, N of 8; res may be out.
+// A: (M, K) int8, Wt: (N, K) int8, res and out: (M, N) bf16 (float32 with
+// EPI_F32), all row-major and 16-byte aligned; sx (M), sw (N) and bias (N)
+// float32, sw and bias 8-byte aligned; K a multiple of 16, N of 8; res may
+// be out.
 static cudaError_t gemm_s8(int epi, const int8_t* A, const float* sx, const int8_t* Wt,
-                           const float* sw, const float* bias, const bf16* res, bf16* out, int M,
+                           const float* sw, const float* bias, const void* res, void* out, int M,
                            int N, int K, cudaStream_t s) {
-  const bool wants_res = epi == EPI_RES || epi == EPI_RES_HALF;
+  const bool wants_res = (epi & 3) == EPI_RES || (epi & 3) == EPI_RES_HALF;
   if (M <= 0 || N % 8 || K % 16 || (wants_res && res == nullptr) ||
       ((uintptr_t)A | (uintptr_t)Wt | (uintptr_t)out | (uintptr_t)res) % 16 ||
       ((uintptr_t)sw | (uintptr_t)bias) % 8 || (uintptr_t)sx % 4)
@@ -126,7 +134,7 @@ static cudaError_t gemm_s8(int epi, const int8_t* A, const float* sx, const int8
   CUtensorMap ma, mw;
   EET_TRY(tensor_map(A, 1, K, M, OpS8<true>::BK, 64, &ma));
   EET_TRY(tensor_map(Wt, 1, K, N, OpS8<true>::BK, WG_BN, &mw));
-  const GemmArgs g{bias, sx, sw, res, out, M, N, K};
+  const GemmArgs g{bias, sx, sw, res, out, M, N, K, epi};
   return K <= 256 ? launch_gemm_epi<OpS8<true>>(epi, ma, mw, g, s)
                   : launch_gemm_epi<OpS8<false>>(epi, ma, mw, g, s);
 }

@@ -27,8 +27,20 @@ from early_exit_tpu_torch.ops.kernels import _build
 
 NEG = -1e9
 # the head widths the kernel is instantiated for (attention_f32.cuh); a
-# head of another width up to 128 is padded with zero columns to the next
+# head of another width up to 128 is padded with zero columns to the next,
+# a head past 128 to the next multiple of 128 (`WIDE_CHUNK`: the chunked
+# kernel takes such a head 128 columns at a time)
 HEAD_WIDTHS = (16, 32, 48, 64, 128)
+WIDE_CHUNK = 128
+
+
+def padded_head(dh: int) -> int:
+    """The width a head of dh is padded to on the card: the next of
+    `HEAD_WIDTHS`, or past 128 the next multiple of `WIDE_CHUNK`. Both
+    attentions and the block's layout take it."""
+    if dh > HEAD_WIDTHS[-1]:
+        return -(-dh // WIDE_CHUNK) * WIDE_CHUNK
+    return next(w for w in HEAD_WIDTHS if w >= dh)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,11 +64,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid. Returns (B, H, T, dh) float32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes any dh up to 128 and any T > 0 (K and V are streamed) and
-    raises on anything else. A dh other than 16, 32, 48, 64 or 128 is padded
-    with zero columns to the next of them (copies of q, k and v; zeros
-    add nothing to the scores, which keep 1/sqrt of the true dh, and make
-    zero output columns, which are cut off)."""
+    which takes any dh and any T > 0 (K and V are streamed) and raises on
+    anything else. A dh other than 16, 32, 48, 64 or 128 is padded with
+    zero columns to the next of them, or past 128 to the next multiple of
+    128 (`padded_head`; copies of q, k and v; zeros add nothing to the
+    scores, which keep 1/sqrt of the true dh, and make zero output
+    columns, which are cut off)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_attention: unsupported device {q.device}")
     return torch.ops.eet.fused_attention(q, k, v, mask.to(torch.bool))
@@ -71,10 +84,7 @@ def _fused_attention_cuda(q, k, v, mask):
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_attention kernel takes bf16 or float32 "
                          f"q/k/v, got {q.dtype}")
-    dhp = next((w for w in HEAD_WIDTHS if w >= dh), None)
-    if dhp is None:
-        raise NotImplementedError(f"fused_attention kernel: heads of {dh} are not "
-                                  f"ported; it takes heads up to {HEAD_WIDTHS[-1]} wide")
+    dhp = padded_head(dh)
     if T <= 0:
         raise ValueError(f"fused_attention kernel needs T > 0, got {T}")
     lib = _lib()

@@ -6,17 +6,19 @@ Replaces `early_exit_tpu/ops/pallas/conformer_block.py::fused_block_apply`
 plain version repeats the TPU kernel's arithmetic op for op -- including
 its one-pass LayerNorm variance, max(E[x^2] - mu^2, 0) -- on any device,
 in any compute dtype and with or without W8A8 quantization; the CPU path
-and the tests use it. The CUDA source has four entries for five
-profiles (`_entry`): bf16 (bf16 compute and residual, bf16 or float32
-softmax), W8A8 (`quantize="int8"` in the bf16 profile), float32
-(everything float32, or with the bf16 softmax) and bf16 compute with a
-float32 residual. The mixes none takes raise by name on the card.
+and the tests use it. The CUDA source's four C entries take all 16 mixes
+of {bf16, float32} compute, residual and softmax dtype, with or without
+`quantize="int8"`, as the profiles of `ENTRIES` (`_entry`): the bf16
+profile; bf16 compute with a float32 residual; float32 compute with a
+float32 residual (either softmax, two profiles) or a bf16 one; and W8A8
+in each of the four (compute, residual) pairs.
 
-The card takes every width the TPU kernel takes but heads wider than
-128, through a padded layout (`block_plan`, `fold_block_params(...,
-n_heads=H)`): d_model and d_ff round up to multiples of 16 (`PITCH`) and
-each head to the next width the attentions are instantiated at
-(`HEAD_WIDTHS`), with zero weights, biases, LayerNorm
+The card takes every width the TPU kernel takes, through a padded layout
+(`block_plan`, `fold_block_params(..., n_heads=H)`): d_model and d_ff
+round up to multiples of 16 (`PITCH`) and each head to the next width
+the attentions are instantiated at (`HEAD_WIDTHS`; past 128, the next
+multiple of 128, which the attentions take in chunks of 128), with zero
+weights, biases, LayerNorm
 vectors and BatchNorm rows in the padding, so the padded columns of
 every intermediate are exact zeros; the LayerNorms count the true
 d_model and the scores take 1/sqrt of the true head width. A residual
@@ -50,10 +52,10 @@ import torch.nn.functional as F
 from early_exit_tpu_torch.nn.core import int8_matmul, quantize_int8
 from early_exit_tpu_torch.ops.kernels import _build
 # the head widths both attentions are instantiated at (the mma.sync one of
-# bf16 q, k, v in the bf16, W8A8 and float32-residual entries; the float32
-# one of attention_f32.cuh, shared with row 3, in the float32 entry). A
-# head of another width up to 128 is padded with zero columns to the next
-from early_exit_tpu_torch.ops.kernels.attention import HEAD_WIDTHS
+# bf16 q, k, v in the bf16-compute entries; the float32 one of
+# attention_f32.cuh, shared with row 3, in the float32-compute entries),
+# and how any head is padded with zero columns to one of them
+from early_exit_tpu_torch.ops.kernels.attention import HEAD_WIDTHS, padded_head
 
 # the C entries' weight order
 PARAM_ORDER = (
@@ -94,9 +96,10 @@ PITCH = 16
 # (CONV_TT and SMEM_LIMIT in the source), for `conv_channels`
 CONV_TT = 32
 SMEM_LIMIT = 232448
-# the entries' names, by (compute, residual, softmax) dtype name and
-# whether quantized: the C entry each launches is in `_ENTRY_FN`
-ENTRIES = ("bf16", "w8a8", "f32", "f32_sm_bf16", "bf16_res_f32")
+# the entries' names, by (compute, residual, softmax) dtype and whether
+# quantized (`_entry`): the C entry each launches is in `_ENTRY_FN`
+ENTRIES = ("bf16", "w8a8", "f32", "f32_sm_bf16", "bf16_res_f32", "f32_res_bf16",
+           "w8a8_res_f32", "w8a8_f32", "w8a8_f32_res_bf16")
 
 
 def _round_up(n: int, m: int) -> int:
@@ -106,12 +109,6 @@ def _round_up(n: int, m: int) -> int:
 def pitch(d_model: int) -> int:
     """The residual's row in the kernel layout: d_model padded to PITCH."""
     return _round_up(d_model, PITCH)
-
-
-def padded_head(dh: int) -> int:
-    """The instantiated width a head of dh is padded to; dh itself past 128 (the card refuses it by name,
-    `block_plan`; the plain version takes it)."""
-    return next((w for w in HEAD_WIDTHS if w >= dh), dh)
 
 
 def conv_channels(d: int, kernel_size: int, elem_bytes: int, quant: bool) -> int:
@@ -138,7 +135,7 @@ class BlockPlan:
     pitch: int            # the residual's row
     n_heads: int
     head_dim: int         # the scores' scale is 1/sqrt(head_dim)
-    head_pad: int         # the instantiated width of the attention
+    head_pad: int         # the attention's instantiated width (past 128, chunks of 128)
     d_ff: int
     ff_pad: int
     kernel_size: int
@@ -157,9 +154,8 @@ def block_plan(d_model: int, n_heads: int, d_ff: int, kernel_size: int, *,
                residual_dtype: torch.dtype = torch.bfloat16,
                attn_softmax_dtype: torch.dtype = torch.float32,
                quantize: Optional[str] = None) -> BlockPlan:
-    """How the card runs a block of these widths in this profile; raises
-    by name for what it does not take (ROADMAP Queue B'): a profile no
-    entry takes (`_entry`) and heads wider than 128."""
+    """How the card runs a block of these widths in this profile: every
+    mix of bf16 and float32 (`_entry`) and every head width."""
     entry = _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize)
     if n_heads <= 0 or d_model % n_heads:
         raise ValueError(f"conformer_block: d_model {d_model} is not a multiple of "
@@ -167,12 +163,8 @@ def block_plan(d_model: int, n_heads: int, d_ff: int, kernel_size: int, *,
     dh = d_model // n_heads
     f32 = compute_dtype == torch.float32
     head_pad = padded_head(dh)
-    if head_pad > HEAD_WIDTHS[-1]:
-        raise NotImplementedError(
-            f"conformer_block kernel: heads of {dh} (d_model {d_model} / {n_heads}) are "
-            f"not ported; the card's attentions take heads up to 128 wide")
     p = pitch(d_model)
-    quant = entry == "w8a8"
+    quant = entry.startswith("w8a8")
     elem = 4 if f32 else 2
     ct = conv_channels(p, kernel_size, elem, quant)
     split = quant and ct == 0
@@ -354,15 +346,17 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
     valid = (torch.arange(T, device=x.device)[None, :]
              < lengths.to(x.device)[:, None])                   # (B, T)
 
-    def mm(v, w, b):
+    def mm(v, w, b, rows=None):
+        # rows: the weight's rows that v's columns meet (None: all)
+        wt = f[w] if rows is None else f[w][rows]
         if int8:
             # the unrounded float input is quantized; float32 bias before
             # the one rounding to the compute dtype
             xq, sx = quantize_int8(v)
-            y = int8_matmul(xq, f[w]) * (sx * f[w + "_s"]) + f[b]
+            y = int8_matmul(xq, wt) * (sx * f[w + "_s"]) + f[b]
             return y.to(cd)
         # compute-dtype operands, float32 accumulation, one rounding
-        return torch.matmul(v.to(cd).float(), f[w].float()).to(cd) + f[b]
+        return torch.matmul(v.to(cd).float(), wt.float()).to(cd) + f[b]
 
     def silu(v):
         return v if "silu" in ablate else v / (1 + torch.exp(-v))
@@ -377,7 +371,8 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
         x = x + 0.5 * ffn(x, "ffn1").to(rd)
     if "attn" not in ablate:
         x = _mhsa(x, ln(x, f["attn_ln_g"], f["attn_ln_b"]), mm, valid, n_heads,
-                  d_true // n_heads, cd, rd, attn_softmax_dtype, "softmax" in ablate)
+                  d_true // n_heads, cd, rd, attn_softmax_dtype, "softmax" in ablate,
+                  true_heads=cd == torch.float32 and not int8)
     if "conv" not in ablate:
         x = _conv_module(x, ln(x, f["conv_ln_g"], f["conv_ln_b"]), f, mm, silu, valid,
                          kernel_size, cd, rd, ablate)
@@ -388,15 +383,24 @@ def conformer_block_plain(f: Mapping[str, torch.Tensor], x: torch.Tensor,
                        torch.zeros((), dtype=rd, device=x.device))
 
 
-def _mhsa(x, y, mm, valid, n_heads, dh, cd, rd, attn_softmax_dtype, no_softmax):
+def _mhsa(x, y, mm, valid, n_heads, dh, cd, rd, attn_softmax_dtype, no_softmax,
+          true_heads=False):
     """x + the MHSA module on its LayerNormed input y, per-item key mask;
-    heads of dh, in the layout's width (padded past dh with zeros)."""
+    heads of dh, in the layout's width (padded past dh with zeros).
+    true_heads (the float32 products): the Wo product sums over the heads'
+    true columns only, as the scores do (`_attention`)."""
     B, T, _ = x.shape
     qkv = mm(y, "wqkv", "bqkv")
     inner = qkv.shape[-1] // 3
-    q, k, v = (t.reshape(B, T, n_heads, inner // n_heads).transpose(1, 2)
+    dhp = inner // n_heads
+    q, k, v = (t.reshape(B, T, n_heads, dhp).transpose(1, 2)
                for t in qkv.split(inner, dim=-1))
     oh = _attention(q, k, v, valid, dh, cd, attn_softmax_dtype, no_softmax)
+    if true_heads and dhp != dh:
+        rows = (torch.arange(n_heads, device=x.device)[:, None] * dhp
+                + torch.arange(dh, device=x.device)).reshape(-1)
+        att = oh[..., :dh].transpose(1, 2).reshape(B, T, n_heads * dh)
+        return x + mm(att, "wo", "bo", rows).to(rd)
     att = oh.transpose(1, 2).reshape(B, T, inner)
     return x + mm(att, "wo", "bo").to(rd)
 
@@ -404,8 +408,10 @@ def _mhsa(x, y, mm, valid, n_heads, dh, cd, rd, attn_softmax_dtype, no_softmax):
 def _attention(q, k, v, valid, dh, cd, attn_softmax_dtype, no_softmax):
     """The block's attention: q, k, v (B, H, T, heads padded past dh) ->
     P V (B, H, T, the same width); a bf16 softmax gives it in the compute
-    dtype, a float32 one unrounded."""
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2))     # (B,H,T,T)
+    dtype, a float32 one unrounded. The scores sum over the true dh only:
+    the padding's zeros add nothing, and the CPU's float32 product may
+    order its sums by the padded width."""
+    s = torch.matmul(q[..., :dh].float(), k[..., :dh].float().transpose(-1, -2))  # (B,H,T,T)
     col_valid = valid[:, None, None, :]
     if attn_softmax_dtype == torch.bfloat16:
         s = s.to(torch.bfloat16) * torch.tensor(1.0 / math.sqrt(dh),
@@ -469,29 +475,25 @@ def _check_epilogue(name: str, epilogue: str, res: Optional[torch.Tensor]) -> No
 
 
 def _entry(compute_dtype, residual_dtype, attn_softmax_dtype, quantize) -> str:
-    """Which of `ENTRIES` takes this profile on the card; raises by name
-    for a mix none takes (ROADMAP Queue B')."""
+    """Which of `ENTRIES` takes this profile on the card: every mix of
+    bf16 and float32 compute, residual and softmax, with or without
+    quantize="int8"; raises for another dtype."""
     cd, rd, sm = compute_dtype, residual_dtype, attn_softmax_dtype
     bf, f32 = torch.bfloat16, torch.float32
     if quantize not in (None, "none", "int8"):
         raise ValueError(f"quantize must be None or 'int8': {quantize!r}")
-    if sm not in (bf, f32):
-        raise ValueError(f"unsupported softmax dtype {sm}")
+    for what, dt in (("compute", cd), ("residual", rd), ("softmax", sm)):
+        if dt not in (bf, f32):
+            raise ValueError(f"unsupported {what} dtype {dt}: the block takes bfloat16 "
+                             "and float32")
     if quantize == "int8":
-        if cd == rd == bf:
-            return "w8a8"
-    elif cd == rd == bf:
-        return "bf16"
-    elif cd == bf and rd == f32:
-        return "bf16_res_f32"
-    elif cd == rd == f32:
-        return "f32" if sm == f32 else "f32_sm_bf16"
-    raise NotImplementedError(
-        f"conformer_block kernel: compute {cd}, residual {rd}, softmax {sm}, "
-        f"quantize {quantize!r} is not ported; the card takes bf16 compute with a "
-        "bf16 or float32 residual (either softmax dtype; quantize='int8' with the "
-        "bf16 residual only) and float32 compute and residual (either softmax "
-        "dtype) without quantization")
+        return {(bf, bf): "w8a8", (bf, f32): "w8a8_res_f32", (f32, f32): "w8a8_f32",
+                (f32, bf): "w8a8_f32_res_bf16"}[cd, rd]
+    if cd == bf:
+        return "bf16" if rd == bf else "bf16_res_f32"
+    if rd == bf:
+        return "f32_res_bf16"
+    return "f32" if sm == f32 else "f32_sm_bf16"
 
 
 def op_params(f: Mapping[str, torch.Tensor],
@@ -562,11 +564,12 @@ def _conformer_block_fake(x, lengths, params, n_heads, kernel_size, compute_dtyp
     return x.new_empty(x.shape, dtype=getattr(torch, residual_dtype))
 
 
-# the C entry of each of `ENTRIES` (bf16 compute with a float32 residual
-# has one of its own; float32 with either softmax shares one)
-_ENTRY_FN = {"bf16": "eet_conformer_block_bf16", "w8a8": "eet_conformer_block_w8a8",
-             "f32": "eet_conformer_block_f32", "f32_sm_bf16": "eet_conformer_block_f32",
-             "bf16_res_f32": "eet_conformer_block_bf16_f32res"}
+# the C entry of each of `ENTRIES`: float32 compute (block_f32, either
+# residual) and W8A8 (block_w8a8, either compute and residual) are one C
+# entry each, whose flags `_conformer_block_cuda` sets from the dtypes
+_ENTRY_FN = {"bf16": "eet_conformer_block_bf16", "bf16_res_f32": "eet_conformer_block_bf16_f32res",
+             **{e: "eet_conformer_block_f32" for e in ("f32", "f32_sm_bf16", "f32_res_bf16")},
+             **{e: "eet_conformer_block_w8a8" for e in ENTRIES if e.startswith("w8a8")}}
 
 
 def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtype,
@@ -585,6 +588,7 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
                       compute_dtype=compute_dtype, residual_dtype=residual_dtype,
                       attn_softmax_dtype=attn_softmax_dtype, quantize=quantize)
     entry = plan.entry
+    quant = entry.startswith("w8a8")
     if ablate is not None and entry != "bf16":
         raise NotImplementedError(f"conformer_block_ablate: the ablation library "
                                   f"has the bf16 entry only, not {entry}")
@@ -606,11 +610,11 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
               "wqkv": (P, 3 * Di), "bqkv": (3 * Di,), "wo": (Di, P),
               "pw1_w": (P, 2 * P), "pw1_b": (2 * P,), "pw2_w": (P, P),
               "dw_w": (kernel_size, P)}
-    f32_names = _FLOAT32_INT8 if entry == "w8a8" else _FLOAT32
+    f32_names = _FLOAT32_INT8 if quant else _FLOAT32
     ptrs, scale_ptrs = [], []
     for name in PARAM_ORDER:
         shape = shapes.get(name, (P,))
-        if entry == "w8a8" and name in _MATMULS:
+        if quant and name in _MATMULS:
             _check(f[name + "_t"], name + "_t", torch.int8, shape[::-1], dev)
             _check(f[name + "_s"], name + "_s", torch.float32, shape[1:], dev)
             ptrs.append(f[name + "_t"].data_ptr())
@@ -640,19 +644,23 @@ def _conformer_block_cuda(x, lengths, params, n_heads, kernel_size, compute_dtyp
         _build.check(lib, err, "conformer_block_ablate kernel")
         conformer_block_ablate.launches += 1
         return y
-    if entry != "w8a8":
-        err = getattr(lib, _ENTRY_FN[entry])(*head, *scratch)
+    c_f32, r_f32 = compute_dtype == torch.float32, residual_dtype == torch.float32
+    if not quant:
+        flags = (int(not r_f32),) if c_f32 else ()   # block_f32's: a bf16 residual
+        err = getattr(lib, _ENTRY_FN[entry])(*head, *scratch, *flags)
     else:
-        # float32 scratch for the float32-softmax attention output and for
-        # conv rows quantized in a pass of their own
+        # float32 scratch, bf16 compute only: the float32-softmax attention
+        # output and conv rows quantized in a pass of their own (float32
+        # compute's wait in s_att)
         s_f = (torch.empty(R, max(P, Di), dtype=torch.float32, device=dev)
-               if not sm_bf16 or plan.conv_split else None)
+               if not c_f32 and (not sm_bf16 or plan.conv_split) else None)
         s_q = torch.empty(R, max(Fd, P, Di), dtype=torch.int8, device=dev)
         s_sx = torch.empty(R, dtype=torch.float32, device=dev)
         err = lib.eet_conformer_block_w8a8(
             *head, (ctypes.c_void_p * len(PARAM_ORDER))(*scale_ptrs),
             None if s_f is None else _build.ptr(s_f), _build.ptr(s_q), _build.ptr(s_sx),
-            _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev))
+            _build.ptr(s_big), _build.ptr(s_att), _build.stream_ptr(dev), int(c_f32),
+            int(r_f32))
     _build.check(lib, err, f"conformer_block kernel ({entry})")
     conformer_block.launches += 1
     conformer_block.entry_launches[entry] += 1
@@ -870,8 +878,9 @@ def layer_norm_quantize_plain(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 def layer_norm_quantize(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
                         eps: float = 1e-5, d_model: int = 0):
-    """The W8A8 entry's LayerNorm + quantize on its own: x (R, D) bf16, g
-    and b (D,) float32 -> (q int8 (R, D), sx float32 (R,)), the int8 rows
+    """The W8A8 entries' LayerNorm + quantize on its own: x (R, D) bf16
+    (or float32, a float32 residual stream), g and b (D,) float32 -> (q
+    int8 (R, D), sx float32 (R,)), the int8 rows
     of the float32 LayerNorm and their scales; d_model: the true width of
     a padded row (0: D). For checks: the block never calls it. Calls the
     op `eet::layer_norm_quantize`: a CPU tensor takes the plain version; a
@@ -891,7 +900,8 @@ def _layer_norm_quantize_cuda(x, g, b, eps, d_model=0):
     if R <= 0 or D % 8 or not 0 <= d_model <= D:
         raise ValueError(f"layer_norm_quantize kernel needs rows > 0, D a multiple "
                          f"of 8 and d_model <= D; got {R} x {D}, d_model {d_model}")
-    _check(x, "x", torch.bfloat16, (R, D), x.device)
+    in_f32 = x.dtype == torch.float32
+    _check(x, "x", torch.float32 if in_f32 else torch.bfloat16, (R, D), x.device)
     _check(g, "g", torch.float32, (D,), x.device)
     _check(b, "b", torch.float32, (D,), x.device)
     q = torch.empty(R, D, dtype=torch.int8, device=x.device)
@@ -899,7 +909,7 @@ def _layer_norm_quantize_cuda(x, g, b, eps, d_model=0):
     lib = _lib()
     err = lib.eet_layer_norm_quantize(
         _build.ptr(x), _build.ptr(g), _build.ptr(b), _build.ptr(q), _build.ptr(sx),
-        R, D, d_model or D, eps, _build.stream_ptr(x.device))
+        R, D, d_model or D, eps, int(in_f32), _build.stream_ptr(x.device))
     _build.check(lib, err, "layer_norm_quantize kernel")
     layer_norm_quantize.launches += 1
     return q, sx
@@ -950,22 +960,25 @@ block_layer_norm.launches = 0
 def block_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           valid: torch.Tensor, head_dim: int,
                           attn_softmax_dtype: torch.dtype) -> torch.Tensor:
-    """The bf16 entries' attention as the plain version computes it: q, k,
-    v (B, H, T, padded heads) bf16, valid (B, T) bool -> P V (B, H, T,
-    padded heads), bf16 with the bf16 softmax, float32 with the float32
-    one."""
-    return _attention(q, k, v, valid, head_dim, torch.bfloat16, attn_softmax_dtype, False)
+    """The entries' attention as the plain version computes it: q, k, v
+    (B, H, T, padded heads), valid (B, T) bool -> P V (B, H, T, padded
+    heads). bf16 q, k, v (bf16 compute): bf16 with the bf16 softmax,
+    float32 with the float32 one; float32 q, k, v (float32 compute):
+    float32."""
+    return _attention(q, k, v, valid, head_dim, q.dtype, attn_softmax_dtype, False)
 
 
 def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
                     head_dim: int, attn_softmax_dtype: torch.dtype) -> torch.Tensor:
-    """The bf16 entries' attention kernel on its own (the mma.sync kernel
-    the bf16, W8A8 and float32-residual entries launch between their QKV
-    and Wo products), on q, k, v as `block_attention_plain` takes them;
-    head_dim: the true width (the scale). For checks: the block never
-    calls it. A CPU tensor takes the plain version; a CUDA tensor packs
-    q|k|v into the block's rows, launches the kernel (valid must be a
-    prefix of each row: lengths) or raises."""
+    """The entries' attention kernel on its own, on q, k, v as
+    `block_attention_plain` takes them: bf16 q, k, v take the mma.sync
+    kernel that the bf16-compute entries launch between their QKV and Wo
+    products, float32 ones the float32-compute entries' (attention_f32.cuh,
+    its three-pass variant with the bf16 softmax); head_dim: the true
+    width (the scale). For checks: the block never calls it. A CPU tensor
+    takes the plain version; a CUDA tensor packs q|k|v into the block's
+    rows, launches the kernel (valid must be a prefix of each row:
+    lengths) or raises."""
     _device_ok("block_attention", q)
     if q.device.type == "cpu":
         return block_attention_plain(q, k, v, valid, head_dim, attn_softmax_dtype)
@@ -973,17 +986,18 @@ def block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, valid: to
     lengths = torch.count_nonzero(valid, dim=1).to(torch.int32)
     if not torch.equal(valid, torch.arange(T, device=q.device)[None, :] < lengths[:, None]):
         raise ValueError("block_attention kernel takes a key mask that is a prefix of each row")
-    qkv = torch.stack([q, k, v]).to(torch.bfloat16).permute(1, 3, 0, 2, 4).reshape(
-        B * T, 3 * H * dhp).contiguous()
+    f32 = q.dtype == torch.float32
+    qkv = torch.stack([q, k, v]).to(q.dtype if f32 else torch.bfloat16).permute(
+        1, 3, 0, 2, 4).reshape(B * T, 3 * H * dhp).contiguous()
     sm_bf16 = attn_softmax_dtype == torch.bfloat16
     out = torch.empty(B * T, H * dhp, device=q.device,
-                      dtype=torch.bfloat16 if sm_bf16 else torch.float32)
+                      dtype=torch.bfloat16 if sm_bf16 and not f32 else torch.float32)
     scale = 1.0 / math.sqrt(head_dim)
     if sm_bf16:
         scale = torch.tensor(scale, dtype=torch.bfloat16).item()
     lib = _lib()
     err = lib.eet_block_attention(_build.ptr(qkv), _build.ptr(lengths), _build.ptr(out), B, T,
-                                  H * dhp, H, scale, int(sm_bf16), int(not sm_bf16),
+                                  H * dhp, H, scale, int(sm_bf16), int(not sm_bf16), int(f32),
                                   _build.stream_ptr(q.device))
     _build.check(lib, err, "block_attention kernel")
     block_attention.launches += 1
@@ -1016,15 +1030,16 @@ def _lib():
     if lib.eet_conformer_block_bf16.argtypes is None:
         vp, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         pp = ctypes.POINTER(vp)
-        for fn in ("eet_conformer_block_bf16", "eet_conformer_block_f32",
-                   "eet_conformer_block_bf16_f32res"):
+        for fn in ("eet_conformer_block_bf16", "eet_conformer_block_bf16_f32res"):
             getattr(lib, fn).argtypes = _head_args() + [vp, vp, vp, vp]
-        lib.eet_conformer_block_w8a8.argtypes = _head_args() + [pp, vp, vp, vp, vp, vp, vp]
+        lib.eet_conformer_block_f32.argtypes = _head_args() + [vp, vp, vp, vp, i]
+        lib.eet_conformer_block_w8a8.argtypes = _head_args() + [pp, vp, vp, vp, vp, vp, vp,
+                                                                i, i]
         lib.eet_gemm_bf16.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, vp]
         lib.eet_gemm_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, vp]
-        lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, i, fl, vp]
+        lib.eet_layer_norm_quantize.argtypes = [vp, vp, vp, vp, vp, i, i, i, fl, i, vp]
         lib.eet_layer_norm_bf16.argtypes = [vp, vp, vp, vp, i, i, i, fl, i, vp]
-        lib.eet_block_attention.argtypes = [vp, vp, vp, i, i, i, i, fl, i, i, vp]
+        lib.eet_block_attention.argtypes = [vp, vp, vp, i, i, i, i, fl, i, i, i, vp]
         for entry in (lib.eet_conformer_block_bf16, lib.eet_conformer_block_f32,
                       lib.eet_conformer_block_bf16_f32res,
                       lib.eet_conformer_block_w8a8, lib.eet_gemm_bf16,

@@ -199,27 +199,28 @@ def test_head_tie_across_tiles_goes_to_the_lower_index():
 
 
 def test_cuda_wrappers_refuse_the_widths_still_not_taken_by_name():
-    """The launches check widths before they touch a library or a card,
-    so the refusals run here: heads wider than 128 in the block and the
-    attention, W8A8 with a float32 residual, a layout not padded for the
-    card (the flagship's fold without n_heads at d 144), a head of no
-    columns."""
+    """The launches check widths and types before they touch a library or
+    a card, so the refusals run here: float16 in the attention and in the
+    block (every width and every mix of bf16 and float32 is taken since
+    the heads past 128 and the last four dtype mixes were ported), a block
+    of no frames, a layout not padded for the card (the flagship's fold
+    without n_heads at d 144), a head of no columns."""
     cpu = torch.device("cpu")
-    q = torch.zeros(1, 2, 8, 160)
-    with pytest.raises(NotImplementedError, match="heads of 160"):
+    q = torch.zeros(1, 2, 8, 160, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16 or float32"):
         katt._fused_attention_cuda(q, q, q, torch.ones(1, 8, dtype=torch.bool))
     hid = torch.zeros(1, 1, 4, 96, dtype=torch.bfloat16)
     w = torch.zeros(1, 96, 0, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="V >= 1"):
         kha._head_argmax_cuda(hid, w, torch.zeros(1, 0, dtype=torch.bfloat16))
-    for D, H, FF, quantize, rd, n_heads, match in (
-            (640, 4, 1280, None, "bfloat16", 4, "heads of 160"),
-            (256, 2, 512, "int8", "float32", 2, "not ported"),
-            (144, 4, 576, None, "bfloat16", None, "not padded for the card")):
+    for D, H, FF, quantize, rd, n_heads, match, T in (
+            (640, 4, 1280, None, "float16", 4, "unsupported residual dtype", 4),
+            (256, 2, 512, "int8", "float32", 2, "T > 0", 0),
+            (144, 4, 576, None, "bfloat16", None, "not padded for the card", 4)):
         cfg = ConformerConfig(d_model=D, n_heads=H, d_ff=FF, kernel_size=K)
         block = ConformerStack(cfg, 1).blocks[0]
         f = kcb.fold_block_params(block.state_dict(), quantize=quantize, n_heads=n_heads)
-        x = torch.zeros(1, 4, D, dtype=getattr(torch, rd), device=cpu)
+        x = torch.zeros(1, T, D, dtype=getattr(torch, rd), device=cpu)
         args = (x, torch.ones(1, dtype=torch.int32), kcb.op_params(f, quantize), H, K,
                 "bfloat16", rd, "float32", quantize or "none")
         with pytest.raises((ValueError, NotImplementedError), match=match):

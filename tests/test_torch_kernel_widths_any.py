@@ -23,8 +23,9 @@ inputs; the padded layout against the unpadded one; the launch plan.
 - The plain version on the padded layout against the plain version on
   the unpadded one, in every profile, value for value (the padding is
   exact zeros and the LayerNorms count the true width).
-- `block_plan` of each width in each profile, and the refusals by name of
-  what is still queued (ROADMAP Queue B').
+- `block_plan` of each width in each profile, of heads past 128 and of
+  the 16 dtype mixes (each was refused by name until the last of them
+  was ported).
 - A 2-block Conformer-S early conformer, fused, float32: the port's exit
   ids against the JAX package's, equal.
 """
@@ -233,6 +234,7 @@ def test_launch_plan_of_every_width_and_the_refusals_by_name():
             assert plan.pitch % 16 == 0 and plan.pitch - D < 16
             assert plan.head_pad >= plan.head_dim and plan.ff_pad % 16 == 0
             assert plan.head_pad in kcb.HEAD_WIDTHS
+            assert plan.head_pad == kcb.padded_head(plan.head_dim)
             assert plan.conv_channels % 8 == 0 and plan.conv_channels >= 8
     s = kcb.block_plan(144, 4, 576, 32)
     assert (s.entry, s.pitch, s.head_pad, s.ff_pad) == ("bf16", 144, 48, 576)
@@ -246,12 +248,27 @@ def test_launch_plan_of_every_width_and_the_refusals_by_name():
     flagship = kcb.block_plan(256, 8, 2048, 31)
     assert (flagship.pitch, flagship.head_pad, flagship.ff_pad, flagship.conv_channels) == (
         256, 32, 2048, 256)
-    # what is still queued raises by name
-    with pytest.raises(NotImplementedError, match="heads of 160"):
-        kcb.block_plan(640, 4, 2560, 31)
-    for cd, rd, q in ((f32, f32, "int8"), (bf, f32, "int8"), (f32, bf, None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            kcb.block_plan(144, 4, 576, 32, compute_dtype=cd, residual_dtype=rd, quantize=q)
+    # what was queued last (ROADMAP Queue B') is planned: heads past 128
+    # pad to a multiple of 128, and every one of the 16 mixes has its entry
+    for D, H, dhp in ((640, 4, 256), (1024, 4, 256), (768, 2, 384)):
+        wide = kcb.block_plan(D, H, 4 * D, 31)
+        assert (wide.entry, wide.head_dim, wide.head_pad, wide.inner) == (
+            "bf16", D // H, dhp, H * dhp)
+    entries = set()
+    for cd in (bf, f32):
+        for rd in (bf, f32):
+            for sm in (bf, f32):
+                for q in (None, "int8"):
+                    plan = kcb.block_plan(144, 4, 576, 32, compute_dtype=cd, residual_dtype=rd,
+                                          attn_softmax_dtype=sm, quantize=q)
+                    assert plan.entry in kcb.ENTRIES and plan.head_pad == 48
+                    assert plan.entry.startswith("w8a8") == (q == "int8")
+                    entries.add(plan.entry)
+    assert entries == set(kcb.ENTRIES)
+    for cd, rd, q, entry in ((f32, f32, "int8", "w8a8_f32"), (bf, f32, "int8", "w8a8_res_f32"),
+                             (f32, bf, None, "f32_res_bf16")):
+        assert kcb.block_plan(144, 4, 576, 32, compute_dtype=cd, residual_dtype=rd,
+                              quantize=q).entry == entry
 
 
 def test_conformer_s_two_blocks_exit_ids_match_jax():

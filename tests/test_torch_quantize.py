@@ -167,9 +167,15 @@ def test_kernel_entries_and_the_mixes_that_raise():
     assert kcb._entry(f32, f32, bf, None) == "f32_sm_bf16"
     assert kcb._entry(bf, f32, f32, None) == "bf16_res_f32"
     assert kcb._entry(bf, f32, bf, "none") == "bf16_res_f32"
-    for mix in ((f32, f32, f32, "int8"), (bf, f32, bf, "int8"),
-                (f32, bf, f32, None), (f32, bf, bf, None)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            kcb._entry(*mix)
+    # the four mixes raised by name until they were ported; what raises now
+    # is a dtype that is neither bf16 nor float32, or another quantization
+    for mix, entry in (((f32, f32, f32, "int8"), "w8a8_f32"),
+                       ((bf, f32, bf, "int8"), "w8a8_res_f32"),
+                       ((f32, bf, f32, "int8"), "w8a8_f32_res_bf16"),
+                       ((f32, bf, f32, None), "f32_res_bf16"),
+                       ((f32, bf, bf, None), "f32_res_bf16")):
+        assert kcb._entry(*mix) == entry
+    with pytest.raises(ValueError, match="unsupported compute dtype"):
+        kcb._entry(torch.float16, bf, bf, None)
     with pytest.raises(ValueError, match="quantize"):
         kcb._entry(bf, bf, bf, "int4")
